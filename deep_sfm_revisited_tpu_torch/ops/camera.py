@@ -1,0 +1,153 @@
+"""Camera / warping ops (port of `deep_sfm_revisited_tpu/ops/camera.py`).
+
+Layouts as in the JAX package: images/features (B, H, W, C), flow
+(B, H, W, 2) as (dx, dy), depth (B, H, W), intrinsics (B, 3, 3), pose
+(B, 3, 4) ref->target.
+
+`bilinear_sample` is the one op here with a hand-written kernel: on a CUDA
+tensor it launches kernel B1 (`ops/cuda/sweep_warp.py`, source
+`csrc/sweep_warp.cu`); on a CPU tensor it runs `bilinear_sample_plain`, the
+kernel's plain PyTorch version. There is no fallback from one to the other.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from deep_sfm_revisited_tpu_torch.ops.cuda import sweep_warp
+
+
+def pixel_grid(h: int, w: int, dtype=torch.float32, device=None) -> torch.Tensor:
+    """Homogeneous pixel grid (3, H, W) of (u, v, 1) = (x/col, y/row, 1)."""
+    v, u = torch.meshgrid(
+        torch.arange(h, dtype=dtype, device=device),
+        torch.arange(w, dtype=dtype, device=device),
+        indexing="ij",
+    )
+    return torch.stack([u, v, torch.ones_like(u)], dim=0)
+
+
+def pixel2cam(depth: torch.Tensor, K_inv: torch.Tensor) -> torch.Tensor:
+    """Back-project pixels: depth (B, H, W), K_inv (B, 3, 3) -> (B, 3, H, W)."""
+    b, h, w = depth.shape
+    grid = pixel_grid(h, w, depth.dtype, depth.device).reshape(3, -1)
+    cam = torch.einsum("bij,jn->bin", K_inv, grid).reshape(b, 3, h, w)
+    return cam * depth[:, None]
+
+
+def _project(p: torch.Tensor, h: int, w: int):
+    """Perspective divide of (..., 3, N) points with the out-of-frustum trick.
+
+    Z is clamped to 1e-3; a point at or behind that plane is sent to
+    (2w, 2h), far outside the image, so `bilinear_sample` zeroes it
+    (the reference's coordinate-2 trick, `models/inverse_warp.py:68-72`).
+    """
+    z = torch.clamp(p[..., 2, :], min=1e-3)
+    invalid = p[..., 2, :] <= 1e-3
+    x = torch.where(invalid, torch.full_like(z, 2.0 * w), p[..., 0, :] / z)
+    y = torch.where(invalid, torch.full_like(z, 2.0 * h), p[..., 1, :] / z)
+    return x, y
+
+
+def cam2pixel(cam: torch.Tensor, proj_rot: torch.Tensor,
+              proj_tr: torch.Tensor) -> torch.Tensor:
+    """cam (B, 3, H, W), proj_rot (B, 3, 3), proj_tr (B, 3, 1) -> (B, H, W, 2)
+    pixel coordinates (JAX `cam2pixel`, `camera.py:52-72`)."""
+    b, _, h, w = cam.shape
+    flat = cam.reshape(b, 3, -1)
+    p = torch.einsum("bij,bjn->bin", proj_rot, flat) + proj_tr
+    x, y = _project(p, h, w)
+    return torch.stack([x, y], dim=-1).reshape(b, h, w, 2)
+
+
+def bilinear_sample_plain(img: torch.Tensor, coords: torch.Tensor) -> torch.Tensor:
+    """Kernel B1's plain PyTorch version (JAX `bilinear_sample`, `:75-126`).
+
+    img (B, H, W, C); coords (B, ..., 2) as (x, y) pixels -> (B, ..., C) in
+    img's dtype. align_corners=True; a sample whose PRE-clip (x, y) lies
+    outside [0, W-1] x [0, H-1] is exactly zero. Taps and weights are read
+    and blended in float32 (bf16 images included), then cast back.
+    """
+    B, H, W, C = img.shape
+    out_shape = coords.shape[:-1] + (C,)
+    xy = coords.reshape(B, -1, 2).to(torch.float32)
+    x, y = xy[..., 0], xy[..., 1]
+    valid = (x >= 0) & (x <= W - 1) & (y >= 0) & (y <= H - 1)
+    x = torch.clamp(x, 0.0, W - 1)
+    y = torch.clamp(y, 0.0, H - 1)
+    x0 = torch.floor(x)
+    y0 = torch.floor(y)
+    wx = (x - x0)[..., None]
+    wy = (y - y0)[..., None]
+    # the +1 taps clamp at the last row/column, where their weight is 0
+    xi = x0.long().clamp(0, W - 1)
+    yi = y0.long().clamp(0, H - 1)
+    xi1 = (xi + 1).clamp(max=W - 1)
+    yi1 = (yi + 1).clamp(max=H - 1)
+    flat = img.reshape(B, H * W, C).to(torch.float32)
+
+    def tap(yy, xx):
+        idx = (yy * W + xx)[..., None].expand(-1, -1, C)
+        return torch.gather(flat, 1, idx)
+
+    top = tap(yi, xi) * (1 - wx) + tap(yi, xi1) * wx
+    bot = tap(yi1, xi) * (1 - wx) + tap(yi1, xi1) * wx
+    out = (top * (1 - wy) + bot * wy) * valid[..., None].to(torch.float32)
+    return out.reshape(out_shape).to(img.dtype)
+
+
+def bilinear_sample(img: torch.Tensor, coords: torch.Tensor) -> torch.Tensor:
+    """Bilinear sampling with zero padding, align_corners=True.
+
+    img (B, H, W, C) f32 or bf16; coords (B, ..., 2) pixel (x, y), always
+    cast to float32 (half-precision coordinates lose whole pixels, as the
+    JAX docstring explains). A CUDA image goes through kernel B1, a CPU
+    image through `bilinear_sample_plain`.
+    """
+    coords = coords.to(torch.float32)
+    if img.device.type == "cuda":
+        return sweep_warp.bilinear_sample_cuda(img.contiguous(), coords.contiguous())
+    if img.device.type == "cpu":
+        return bilinear_sample_plain(img, coords)
+    raise NotImplementedError(f"bilinear_sample on {img.device.type}")
+
+
+def inverse_warp(feat, depth, pose, K, K_inv):
+    """Warp target features (B,H,W,C) into the ref view given ref depth."""
+    cam = pixel2cam(depth, K_inv)
+    proj = torch.einsum("bij,bjk->bik", K, pose)
+    coords = cam2pixel(cam, proj[:, :, :3], proj[:, :, 3:])
+    return bilinear_sample(feat, coords)
+
+
+def pose2flow(depth, pose, K, K_inv) -> torch.Tensor:
+    """Rigid flow (B, H, W, 2) induced by ref depth (B, H, W) and pose."""
+    b, h, w = depth.shape
+    cam = pixel2cam(depth, K_inv)
+    proj = torch.einsum("bij,bjk->bik", K, pose)
+    coords = cam2pixel(cam, proj[:, :, :3], proj[:, :, 3:])
+    grid = pixel_grid(h, w, depth.dtype, depth.device)[:2]
+    return coords - torch.movedim(grid, 0, -1)[None]
+
+
+def plane_sweep_coords(depths, pose, K, K_inv, h: int, w: int) -> torch.Tensor:
+    """Sampling coords (B, D, H, W, 2) for D fronto-parallel planes at once.
+
+    The projected point is (K R K^-1 [u,v,1]) * d + K t (JAX
+    `plane_sweep_coords`, `camera.py:165-195`).
+    """
+    grid = pixel_grid(h, w, depths.dtype, depths.device).reshape(3, -1)
+    KRKinv = torch.einsum("bij,bjk,bkl->bil", K, pose[:, :, :3], K_inv)
+    ray = torch.einsum("bij,jn->bin", KRKinv, grid)              # (B,3,HW)
+    trans = torch.einsum("bij,bj->bi", K, pose[:, :, 3])[..., None]
+    p = ray[:, None] * depths[None, :, None, None] + trans[:, None]  # (B,D,3,HW)
+    x, y = _project(p, h, w)
+    D = depths.shape[0]
+    return torch.stack([x, y], dim=-1).reshape(p.shape[0], D, h, w, 2)
+
+
+def plane_sweep_warp(feat, depths, pose, K, K_inv) -> torch.Tensor:
+    """Warp target features over all D planes: (B,H,W,C) -> (B,D,H,W,C)."""
+    B, H, W, C = feat.shape
+    coords = plane_sweep_coords(depths, pose, K, K_inv, H, W)
+    return bilinear_sample(feat, coords)

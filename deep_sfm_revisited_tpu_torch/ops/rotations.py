@@ -1,0 +1,63 @@
+"""Rotation helpers (port of `deep_sfm_revisited_tpu/ops/rotations.py`).
+
+Only what the eval slice uses: the cross-product matrix, the SO(3)
+exponential map of the essential-matrix polish, the 'sxyz' Euler
+conversion and the geodesic rotation error. Shape-polymorphic over leading
+batch dims, like the JAX functions.
+"""
+
+from __future__ import annotations
+
+import torch
+
+
+def skew(v: torch.Tensor) -> torch.Tensor:
+    """Cross-product matrix. v: (..., 3) -> (..., 3, 3)."""
+    x, y, z = v[..., 0], v[..., 1], v[..., 2]
+    zero = torch.zeros_like(x)
+    return torch.stack(
+        [
+            torch.stack([zero, -z, y], dim=-1),
+            torch.stack([z, zero, -x], dim=-1),
+            torch.stack([-y, x, zero], dim=-1),
+        ],
+        dim=-2,
+    )
+
+
+def exp_so3(omega: torch.Tensor) -> torch.Tensor:
+    """SO(3) exponential map (Rodrigues). omega: (..., 3) -> (..., 3, 3).
+
+    Series fallback near zero, as the JAX version (`rotations.py:57-75`).
+    """
+    theta2 = torch.sum(omega * omega, dim=-1)
+    small = theta2 < 1e-12
+    safe2 = torch.where(small, torch.ones_like(theta2), theta2)
+    theta = torch.sqrt(safe2)
+    a = torch.where(small, 1.0 - theta2 / 6.0, torch.sin(theta) / theta)
+    b = torch.where(small, 0.5 - theta2 / 24.0, (1.0 - torch.cos(theta)) / safe2)
+    K = skew(omega)
+    eye = torch.eye(3, dtype=omega.dtype, device=omega.device).expand(K.shape)
+    return eye + a[..., None, None] * K + b[..., None, None] * (K @ K)
+
+
+def angle_to_matrix(angle: torch.Tensor) -> torch.Tensor:
+    """Euler angles (ax, ay, az), 'sxyz': R = Rz(az) @ Ry(ay) @ Rx(ax).
+
+    angle: (..., 3) -> (..., 3, 3).
+    """
+    ai, aj, ak = angle[..., 0], angle[..., 1], angle[..., 2]
+    si, sj, sk = torch.sin(ai), torch.sin(aj), torch.sin(ak)
+    ci, cj, ck = torch.cos(ai), torch.cos(aj), torch.cos(ak)
+    cc, cs = ci * ck, ci * sk
+    sc, ss = si * ck, si * sk
+    row0 = torch.stack([cj * ck, sj * sc - cs, sj * cc + ss], dim=-1)
+    row1 = torch.stack([cj * sk, sj * ss + cc, sj * cs - sc], dim=-1)
+    row2 = torch.stack([-sj, cj * si, cj * ci], dim=-1)
+    return torch.stack([row0, row1, row2], dim=-2)
+
+
+def rotation_angular_error(R1: torch.Tensor, R2: torch.Tensor) -> torch.Tensor:
+    """Geodesic angle (radians) between rotations, (...,3,3)x2 -> (...)."""
+    cos = (torch.einsum("...ij,...ij->...", R1, R2) - 1.0) / 2.0
+    return torch.arccos(torch.clamp(cos, -1.0, 1.0))

@@ -1,0 +1,217 @@
+"""Weight bridge: JAX package variables -> the port's torch state dict.
+
+The port's modules carry the reference's names (`flow_estimator.*`,
+`depth_estimator.*`), so a reference `kitti.pth.tar` loads with a plain
+`load_state_dict`, and the JAX package's own converter
+(`deep_sfm_revisited_tpu/utils/torch_port.py`) maps reference tensors onto
+flax variables through explicit entry tables. This module keeps a COPY of
+those tables (the port imports nothing of the JAX package) and runs each
+transform in reverse:
+
+  conv2d                 flax (kh, kw, I, O)        -> torch (O, I, kh, kw)
+  conv3d                 flax (kd, kh, kw, I, O)    -> torch (O, I, kd, kh, kw)
+  conv2d_to_3d           flax (1, kh, kw, I, O)     -> torch Conv2d (O, I, kh, kw)
+  deconv2d               flax ConvTranspose (kh, kw, I, O), spatially
+                         flipped                    -> torch (I, O, kh, kw)
+  conv2d_disp_transpose  DICL cost smoothing: the displacement axes are
+                         permuted from the JAX order (dv outer, du inner)
+                         to the reference's (du outer, dv inner)
+  bn                     scale/bias/mean/var        -> weight/bias/running_*
+                         (plus num_batches_tracked = 0)
+
+Input: the flax variables as nested dicts of arrays (numpy or anything
+`np.asarray` takes), {"params": ..., "batch_stats": ...}.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, List, Sequence, Tuple
+
+import numpy as np
+import torch
+
+Entry = Tuple[str, str, str]  # (kind, torch module prefix, flax path)
+
+
+# ---- entry tables (copied from deep_sfm_revisited_tpu/utils/torch_port.py) --
+
+def _convbn2d(t: str, f: str) -> List[Entry]:
+    return [("conv2d", f"{t}.0", f"{f}/Conv_0"), ("bn", f"{t}.1", f"{f}/BatchNorm_0")]
+
+
+def _convbn3d(t: str, f: str) -> List[Entry]:
+    return [("conv3d", f"{t}.0", f"{f}/Conv3DMXU_0"), ("bn", f"{t}.1", f"{f}/BatchNorm_0")]
+
+
+def spp_entries(t: str, f: str) -> List[Entry]:
+    """`feature_extraction` SPP encoder (torch_port.py:206)."""
+    e: List[Entry] = []
+    for i, j in enumerate((0, 2, 4)):
+        e += _convbn2d(f"{t}.firstconv.{j}", f"{f}/ConvBN_{i}")
+    blk = 0
+    for layer, blocks, down in (("layer1", 3, False), ("layer2", 16, True),
+                                ("layer3", 3, True), ("layer4", 3, False)):
+        for b in range(blocks):
+            tb = f"{t}.{layer}.{b}"
+            fb = f"{f}/BasicBlock_{blk}"
+            e += _convbn2d(f"{tb}.conv1.0", f"{fb}/ConvBN_0")
+            e += _convbn2d(f"{tb}.conv2", f"{fb}/ConvBN_1")
+            if b == 0 and down:
+                e += [("conv2d", f"{tb}.downsample.0", f"{fb}/Conv_0"),
+                      ("bn", f"{tb}.downsample.1", f"{fb}/BatchNorm_0")]
+            blk += 1
+    for i in range(4):
+        e += _convbn2d(f"{t}.branch{i + 1}.1", f"{f}/ConvBN_{3 + i}")
+    e += _convbn2d(f"{t}.lastconv.0", f"{f}/ConvBN_7")
+    e += [("conv2d", f"{t}.lastconv.2", f"{f}/Conv_0")]
+    return e
+
+
+def psnet_entries(t: str = "depth_estimator", f: str = "depth_net",
+                  context_bn: bool = False, dep_context: bool = True) -> List[Entry]:
+    """PSNet (torch_port.py:232)."""
+    e = spp_entries(f"{t}.feature_extraction", f"{f}/SPPFeatureExtractor_0")
+    hg = f"{f}/Hourglass3D_0"
+    e += _convbn3d(f"{t}.dres0.0", f"{hg}/ConvBN3D_0")
+    e += _convbn3d(f"{t}.dres0.2", f"{hg}/ConvBN3D_1")
+    idx = 2
+    for dres in ("dres1", "dres2", "dres3", "dres4"):
+        e += _convbn3d(f"{t}.{dres}.0", f"{hg}/ConvBN3D_{idx}")
+        e += _convbn3d(f"{t}.{dres}.2", f"{hg}/ConvBN3D_{idx + 1}")
+        idx += 2
+    e += _convbn3d(f"{t}.classify.0", f"{hg}/ConvBN3D_10")
+    e += [("conv3d", f"{t}.classify.2", f"{hg}/Conv3DMXU_0")]
+    for i in range(7):
+        e += [("conv2d_to_3d", f"{t}.convs.{i}.0", f"{f}/ContextNet_0/Conv3DMXU_{i}")]
+        if context_bn:
+            e += [("bn", f"{t}.convs.{i}.1", f"{f}/ContextNet_0/BatchNorm_{i}")]
+    if dep_context:
+        for i in range(7):
+            e += [("conv2d", f"{t}.dep_convs.{i}.0", f"{f}/DepthContextNet_0/Conv_{i}")]
+            if context_bn:
+                e += [("bn", f"{t}.dep_convs.{i}.1",
+                       f"{f}/DepthContextNet_0/BatchNorm_{i}")]
+    return e
+
+
+def _basicconv(t: str, f: str, bn: bool = True, deconv: bool = False) -> List[Entry]:
+    conv_name = "ConvTranspose_0" if deconv else "Conv_0"
+    e: List[Entry] = [("deconv2d" if deconv else "conv2d", f"{t}.conv", f"{f}/{conv_name}")]
+    if bn:
+        e.append(("bn", f"{t}.bn", f"{f}/BatchNorm_0"))
+    return e
+
+
+def _conv2x(t: str, f: str, deconv: bool = False) -> List[Entry]:
+    return (_basicconv(f"{t}.conv1", f"{f}/BasicConv_0", bn=False, deconv=deconv)
+            + _basicconv(f"{t}.conv2", f"{f}/BasicConv_1", bn=True))
+
+
+def featurega_entries(t: str, f: str) -> List[Entry]:
+    """`FeatureGA` U-net (torch_port.py:454)."""
+    e: List[Entry] = []
+    for i in range(3):
+        e += _basicconv(f"{t}.conv_start.{i}", f"{f}/BasicConv_{i}")
+    for i, name in enumerate(("conv1a", "conv2a", "conv3a", "conv4a", "conv5a", "conv6a")):
+        e += _basicconv(f"{t}.{name}", f"{f}/BasicConv_{3 + i}")
+    for i, name in enumerate(("deconv6a", "deconv5a", "deconv4a", "deconv3a",
+                              "deconv2a", "deconv1a")):
+        e += _conv2x(f"{t}.{name}", f"{f}/Conv2x_{i}", deconv=True)
+    for i, name in enumerate(("conv1b", "conv2b", "conv3b", "conv4b", "conv5b")):
+        e += _conv2x(f"{t}.{name}", f"{f}/Conv2x_{6 + i}")
+    e += _conv2x(f"{t}.conv6b", f"{f}/Conv2x_11")
+    for i, (dec, out) in enumerate((("deconv6b", "outconv_6"), ("deconv5b", "outconv_5"),
+                                    ("deconv4b", "outconv_4"), ("deconv3b", "outconv_3"),
+                                    ("deconv2b", "outconv_2"))):
+        e += _conv2x(f"{t}.{dec}", f"{f}/Conv2x_{12 + i}", deconv=True)
+        e += _basicconv(f"{t}.{out}", f"{f}/BasicConv_{9 + i}")
+    return e
+
+
+def dicl_entries(t: str = "flow_estimator", f: str = "flow_net") -> List[Entry]:
+    """`DICL_shallow` at the KITTI recipe (torch_port.py:486)."""
+    e = featurega_entries(f"{t}.feature", f"{f}/FeatureGA_0")
+    for li, lvl in enumerate((6, 5, 4, 3, 2)):
+        m_t, m_f = f"{t}.matching{lvl}.match", f"{f}/matching{lvl}"
+        for i in range(4):
+            e += _basicconv(f"{m_t}.{i}", f"{m_f}/BasicConv_{i}")
+        e += _basicconv(f"{m_t}.4", f"{m_f}/BasicConv_4", deconv=True)
+        e += [("conv2d", f"{m_t}.5", f"{m_f}/Conv_0")]
+        e += [("conv2d_disp_transpose", f"{t}.cost_smooth{lvl}.smooth_layer.conv",
+               f"{f}/Conv_{2 * li}")]
+        for i in range(6):
+            e += _basicconv(f"{t}.context{lvl}.{i}", f"{f}/BasicConv_{6 * li + i}")
+        e += [("conv2d", f"{t}.context{lvl}.6", f"{f}/Conv_{2 * li + 1}")]
+    return e
+
+
+# ---- the reverse transforms ------------------------------------------------
+
+def disp_transpose_perm(s2: int) -> np.ndarray:
+    """The (u, v) <-> (v, u) displacement permutation (an involution)."""
+    S = int(round(s2 ** 0.5))
+    return np.arange(s2).reshape(S, S).T.ravel()
+
+
+def _get(tree, path: Sequence[str]):
+    for p in path:
+        tree = tree[p]
+    return np.asarray(tree)
+
+
+def _has(tree, path: Sequence[str]) -> bool:
+    for p in path:
+        if not hasattr(tree, "keys") or p not in tree:
+            return False
+        tree = tree[p]
+    return True
+
+
+def _torch_weight(kind: str, w: np.ndarray) -> np.ndarray:
+    if kind == "conv2d":
+        return np.transpose(w, (3, 2, 0, 1))
+    if kind == "conv3d":
+        return np.transpose(w, (4, 3, 0, 1, 2))
+    if kind == "conv2d_to_3d":
+        return np.transpose(w[0], (3, 2, 0, 1))
+    if kind == "deconv2d":
+        return np.transpose(w[::-1, ::-1], (2, 3, 0, 1))
+    if kind == "conv2d_disp_transpose":
+        perm = disp_transpose_perm(w.shape[-1])
+        return np.transpose(w[:, :, perm][:, :, :, perm], (3, 2, 0, 1))
+    raise KeyError(kind)
+
+
+def convert(variables: Dict[str, Any], entries: Sequence[Entry]) -> Dict[str, torch.Tensor]:
+    """Run `entries` in reverse over flax `variables` -> {torch key: tensor}.
+
+    Raises KeyError on a flax path the table names but `variables` lacks.
+    """
+    params = variables["params"]
+    stats = variables.get("batch_stats", {})
+    sd: Dict[str, torch.Tensor] = {}
+
+    def put(key, arr):
+        sd[key.lstrip(".")] = torch.from_numpy(np.ascontiguousarray(arr, dtype=np.float32))
+
+    for kind, tkey, fpath in entries:
+        parts = tuple(p for p in fpath.split("/") if p)
+        if kind == "bn":
+            put(f"{tkey}.weight", _get(params, parts + ("scale",)))
+            put(f"{tkey}.bias", _get(params, parts + ("bias",)))
+            put(f"{tkey}.running_mean", _get(stats, parts + ("mean",)))
+            put(f"{tkey}.running_var", _get(stats, parts + ("var",)))
+            sd[f"{tkey}.num_batches_tracked".lstrip(".")] = torch.tensor(0)
+            continue
+        put(f"{tkey}.weight", _torch_weight(kind, _get(params, parts + ("kernel",))))
+        if _has(params, parts + ("bias",)):
+            put(f"{tkey}.bias", _get(params, parts + ("bias",)))
+    return sd
+
+
+def jax_params_to_torch(variables: Dict[str, Any], context_bn: bool = False,
+                        dep_context: bool = True) -> Dict[str, torch.Tensor]:
+    """State dict of the port's `SFMNet` (DICL + PSNet) from the JAX
+    `SFMNet` variables, under the reference's module names."""
+    return convert(variables, dicl_entries() + psnet_entries(
+        context_bn=context_bn, dep_context=dep_context))

@@ -1,0 +1,127 @@
+#!/usr/bin/env python3
+"""Where one frame pair's time goes on the GPU: the port's main path under torch.profiler.
+
+    python3 profile_torch.py [--out profile_torch_out]   # needs one CUDA device
+
+Builds the main path exactly as `chip_smoke.py` does (SFMNet eval under the
+KITTI recipe with bench.py's overrides, 384x1280, b=1, nlabel 128, bf16
+autocast, random weights from a seed), runs two warm-up pairs, then
+profiles one more pair with CPU and CUDA activities, stage by stage: DICL
+flow, the pose (sampler + RANSAC) and PSNet depth, as `SFMNet.forward`
+runs them, with a synchronize closing each stage so that every kernel of a
+stage ends inside the stage's host span. For each stage it prints the host
+span, the device's busy time (the summed device time of the kernels, copies
+and fills in the span; one stream, so they do not overlap), the idle share
+and the number of kernels; then the kernels that take most device time.
+Writes one JSON summary and the Chrome trace into --out.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import sys
+import time
+from collections import defaultdict
+from pathlib import Path
+
+import torch
+
+import chip_smoke as smoke
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--out", default="profile_torch_out")
+    ap.add_argument("--top", type=int, default=15)
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        print("profile_torch: no CUDA device", file=sys.stderr)
+        return 2
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from deep_sfm_revisited_tpu_torch.config import SfMConfig
+    from deep_sfm_revisited_tpu_torch.models.sfmnet import SFMNet
+    from deep_sfm_revisited_tpu_torch.ops.cuda import sweep_warp
+
+    card = smoke.phase_setup(sweep_warp)   # card line, TF32 off, B1 built
+    dev = torch.device("cuda", 0)
+    cfg = SfMConfig.kitti(nlabel=128).override(**smoke.BENCH_OVERRIDES)
+    model = SFMNet(cfg, dtype=torch.bfloat16, device=dev, seed=0)
+    g = torch.Generator(device=dev).manual_seed(4)
+    refs = torch.rand((3, smoke.B, smoke.H, smoke.W, 3), generator=g, device=dev) * 2 - 1
+    tgts = torch.roll(refs, 3, dims=3)
+    K = torch.tensor(smoke.K_KITTI, device=dev).expand(smoke.B, 3, 3)
+
+    def pair(ref, tgt, seed):
+        """SFMNet.forward's online route, one stage at a time."""
+        spans = {}
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        for name in ("flow", "pose", "depth"):
+            with record_function(f"stage:{name}"):
+                t0 = time.perf_counter()
+                if name == "flow":
+                    K_inv = torch.linalg.inv(K)
+                    with model._autocast():
+                        flow, conf = model.flow_estimator(torch.cat([ref, tgt], dim=-1))
+                elif name == "pose":
+                    pose = model._pose_by_ransac(flow.float(), K_inv, conf, gen, {})[0]
+                else:
+                    with model._autocast():
+                        depth = model.depth_estimator(ref, tgt[:, None], pose[:, None], K, K_inv)[1]
+                torch.cuda.synchronize()
+                spans[name] = 1e3 * (time.perf_counter() - t0)
+        smoke._check_pair({"depth": depth, "pose": pose}, seed)
+        return spans
+
+    with torch.no_grad():
+        for i in range(2):
+            pair(refs[i], tgts[i], 100 + i)
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            host = pair(refs[2], tgts[2], 102)
+
+    events = prof.events()
+    cuda = torch.autograd.DeviceType.CUDA
+    # the stage ranges as the host saw them; on the device timeline they
+    # reappear as annotations, which are not device work
+    stages = {e.name[len("stage:"):]: e.time_range for e in events
+              if e.name.startswith("stage:") and e.device_type != cuda}
+    device = [e for e in events if e.device_type == cuda and not e.name.startswith("stage:")]
+    if not device:
+        raise RuntimeError("the profiler recorded no device activity")
+    per_stage = {}
+    for name, span in stages.items():
+        inside = [e for e in device if span.start <= e.time_range.start < span.end]
+        busy_us = sum(e.time_range.elapsed_us() for e in inside)
+        per_stage[name] = dict(host_ms=host[name], span_ms=span.elapsed_us() / 1e3,
+                               busy_ms=busy_us / 1e3,
+                               idle_share=1.0 - busy_us / span.elapsed_us(),
+                               kernels=len(inside))
+    by_name = defaultdict(lambda: [0.0, 0])
+    for e in device:
+        by_name[e.name][0] += e.time_range.elapsed_us() / 1e3
+        by_name[e.name][1] += 1
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:args.top]
+    total_busy = sum(s["busy_ms"] for s in per_stage.values())
+    total_span = sum(s["span_ms"] for s in per_stage.values())
+
+    for name, s in per_stage.items():
+        print(f"{name}: span {s['span_ms']:.2f} ms, device busy {s['busy_ms']:.2f} ms, "
+              f"idle {100 * s['idle_share']:.1f}%, {s['kernels']} kernels", flush=True)
+    print(f"pair: span {total_span:.2f} ms, device busy {total_busy:.2f} ms, idle "
+          f"{100 * (1 - total_busy / total_span):.1f}%, {len(device)} kernels")
+    for name, (ms, n) in top:
+        print(f"  {ms:9.3f} ms  {n:5d}x  {name[:110]}")
+    out = Path(args.out)
+    out.mkdir(parents=True, exist_ok=True)
+    summary = {"card": card, "stages": per_stage, "pair_span_ms": total_span,
+               "pair_busy_ms": total_busy, "kernels": len(device),
+               "top": [{"name": n, "ms": ms, "count": c} for n, (ms, c) in top]}
+    (out / "summary.json").write_text(json.dumps(summary, indent=1))
+    prof.export_chrome_trace(str(out / "trace.json"))
+    print(json.dumps(summary["stages"]))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,83 @@
+"""Tests that need an NVIDIA GPU: the port's kernels against their plain
+versions, and the pose engine on the card against itself on the CPU.
+
+They skip where no card is present. This file imports no jax, so it also
+runs on a machine without JAX, from the repository root:
+
+    python -m pytest --noconftest -o addopts="" -m cuda tests/test_torch_cuda.py
+"""
+
+import pytest
+import torch
+
+from deep_sfm_revisited_tpu_torch.ops import camera as tcam
+from deep_sfm_revisited_tpu_torch.ops.cuda import sweep_warp
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_b1_kernel_matches_plain_on_card(dtype):
+    """B1 against its plain version on the card: f32 and bf16 bit-exact
+    (both round op by op without FMA contraction)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    td = torch.float32 if dtype == "float32" else torch.bfloat16
+    g = torch.Generator(device="cuda").manual_seed(0)
+    for (b, h, w, c, q) in ((1, 96, 320, 32, (7, 96, 320)),
+                            (2, 12, 20, 32, (5, 7, 9)),
+                            (1, 9, 11, 3, (13,))):   # scalar (non-vector) path
+        img = torch.randn(b, h, w, c, device="cuda", generator=g).to(td)
+        coords = torch.rand(b, *q, 2, device="cuda", generator=g) * 1.4 - 0.2
+        coords = coords * torch.tensor([w - 1.0, h - 1.0], device="cuda")
+        coords[:, 0] = torch.tensor([2.0 * w, 2.0 * h], device="cuda")
+        before = sweep_warp.KERNEL.launches
+        got = sweep_warp.bilinear_sample_cuda(img, coords)
+        torch.cuda.synchronize()
+        assert sweep_warp.KERNEL.launches == before + 1
+        ref = tcam.bilinear_sample_plain(img, coords)
+        torch.testing.assert_close(got, ref, rtol=0, atol=0)
+
+
+def _rigid_correspondences(seed):
+    """Normalized correspondences of a rigid scene (f64, on the CPU) with
+    1e-5 noise and 20% outliers, and 128 minimal samples."""
+    from deep_sfm_revisited_tpu_torch.ops import flow_ops, rotations
+
+    g = torch.Generator().manual_seed(seed)
+    f64 = torch.float64
+    K = torch.tensor([[80.0, 0, 64.0], [0, 80.0, 48.0], [0, 0, 1]], dtype=f64)[None]
+    K_inv = torch.linalg.inv(K)
+    R = rotations.angle_to_matrix((torch.rand(3, generator=g, dtype=f64) - 0.5) * 0.1)
+    t = torch.rand(3, generator=g, dtype=f64) - 0.5
+    t[2] = t[2].abs() + 0.3
+    pose = torch.cat([R, (t / t.norm())[:, None]], dim=1)[None]
+    depth = 5.0 + 3.0 * torch.rand((1, 96, 128), generator=g, dtype=f64)
+    x1, x2 = flow_ops.sample_correspondences(tcam.pose2flow(depth, pose, K, K_inv), K_inv,
+                                             512, margin=10)
+    x2 = x2 + 1e-5 * torch.randn(x2.shape, generator=g, dtype=f64)
+    bad = torch.rand(x2.shape[:2], generator=g) < 0.2
+    x2 = torch.where(bad[..., None], (torch.rand(x2.shape, generator=g, dtype=f64) - 0.5) * 1.2, x2)
+    return x1, x2, torch.randint(0, 512, (1, 128, 5), generator=g)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("solve", ["float64", "float32"])
+def test_ransac_on_card_matches_cpu(solve):
+    """The pose engine on the card against the same engine on the CPU, same
+    correspondences and minimal samples, two-stage vote on, well-posed
+    scenes: equal inlier counts and P to 1e-5 (f32 candidates; f64 ones
+    agree to ~1e-11). On a degenerate flow the vote is not stable across
+    devices, which is why the scenes are well posed."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from deep_sfm_revisited_tpu_torch.ops import essential
+
+    kw = dict(num_hypotheses=128, ransac_iter=1, threshold=1e-4, polish=True,
+              polish_iters=5, solve_dtype=getattr(torch, solve), score_subset=128,
+              score_topk=512)
+    for seed in range(4):
+        x1, x2, idx = _rigid_correspondences(seed)
+        on_cpu = essential.ransac_pose(x1, x2, sample_idx=idx, **kw)
+        on_card = essential.ransac_pose(x1.cuda(), x2.cuda(), sample_idx=idx.cuda(), **kw)
+        assert int(on_card["inliers"][0]) == int(on_cpu["inliers"][0])
+        torch.testing.assert_close(on_card["P"].cpu(), on_cpu["P"], rtol=0, atol=1e-5)

@@ -1,0 +1,127 @@
+"""The weight bridge (JAX variables -> the port's state dict) and the port's
+independence from JAX.
+
+The model-level parity tests (test_torch_psnet/dicl/sfmnet) already run
+every converted tensor; these check the bridge's structure and its two
+hazards on their own, and that the port imports no JAX.
+"""
+
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import flax.linen as fnn
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from torch_parity import load_strict, random_variables, t2n
+
+from deep_sfm_revisited_tpu.config import SfMConfig as JConfig
+from deep_sfm_revisited_tpu.models.sfmnet import SFMNet as JSFMNet
+from deep_sfm_revisited_tpu.utils import torch_port
+from deep_sfm_revisited_tpu_torch.config import SfMConfig as TConfig
+from deep_sfm_revisited_tpu_torch.models import dicl as tdicl
+from deep_sfm_revisited_tpu_torch.models.sfmnet import SFMNet as TSFMNet
+from deep_sfm_revisited_tpu_torch.utils import weights
+
+torch.set_num_threads(1)
+REPO = Path(__file__).resolve().parents[1]
+OVER = {"depth.nlabel": 8, "pose.num_hypotheses": 16, "pose.ransac_iter": 1,
+        "pose.num_correspondences": 128}
+
+
+@pytest.fixture(scope="module")
+def sfm_variables():
+    cfg = JConfig.kitti().override(**OVER)
+    net = JSFMNet(cfg)
+    x = jnp.zeros((1, 128, 128, 3), jnp.float32)
+    K = jnp.asarray([[[100.0, 0, 64], [0, 100.0, 64], [0, 0, 1]]], jnp.float32)
+    return random_variables(lambda r, t, k: net.init(
+        jax.random.PRNGKey(0), r, t, k, key=jax.random.PRNGKey(1)), x, x, K, seed=2)
+
+
+def test_state_dict_loads_strictly(sfm_variables):
+    """JAX init -> bridge -> load_state_dict(strict=True): no missing, no
+    unexpected key, under the reference's module names."""
+    sd = weights.jax_params_to_torch(sfm_variables)
+    net = TSFMNet(TConfig.kitti().override(**OVER), device="cpu")
+    load_strict(net, sd)
+    assert all(k.startswith(("flow_estimator.", "depth_estimator.")) for k in sd)
+    assert "flow_estimator.cost_smooth2.smooth_layer.conv.weight" in sd
+    assert "depth_estimator.feature_extraction.firstconv.0.0.weight" in sd
+
+
+def test_every_jax_leaf_is_converted(sfm_variables):
+    """Each flax leaf feeds exactly one torch tensor: the bridge's tables
+    cover the whole DICL + PSNet tree."""
+    sd = weights.jax_params_to_torch(sfm_variables)
+    n_leaves = len(jax.tree_util.tree_leaves(sfm_variables))
+    n_bn = sum(k.endswith("num_batches_tracked") for k in sd)
+    assert len(sd) - n_bn == n_leaves
+
+
+def test_bridge_inverts_the_jax_converter(sfm_variables):
+    """Round trip: the port's state dict, fed to the JAX package's own
+    reference-checkpoint converter, rebuilds the same flax variables."""
+    sd = {k: v.numpy() for k, v in weights.jax_params_to_torch(sfm_variables).items()}
+    back, report = torch_port.convert_reference_checkpoint(sd, sfm_variables)
+    assert not report["missing"]
+    for a, b in zip(jax.tree_util.tree_leaves(back), jax.tree_util.tree_leaves(sfm_variables)):
+        np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
+
+
+def test_deconv_flip_matches_flax():
+    """Flax ConvTranspose(k4, s2, SAME) == torch ConvTranspose2d(k4, s2, p1)
+    with the bridge's channel swap and spatial flip."""
+    x = np.random.RandomState(3).randn(1, 5, 6, 8).astype(np.float32)
+    m = fnn.ConvTranspose(4, (4, 4), strides=(2, 2), padding="SAME", use_bias=False)
+    v = m.init(jax.random.PRNGKey(4), jnp.asarray(x))
+    ref = np.asarray(m.apply(v, jnp.asarray(x)))
+    conv = tdicl.BasicConv(8, 4, 4, 2, deconv=True, bn=False, relu=False)
+    w = weights._torch_weight("deconv2d", np.asarray(v["params"]["kernel"]))
+    conv.conv.weight.data = torch.from_numpy(np.ascontiguousarray(w))
+    got = t2n(conv(torch.from_numpy(x).permute(0, 3, 1, 2)).permute(0, 2, 3, 1))
+    np.testing.assert_allclose(got, ref, rtol=1e-5, atol=1e-5)
+
+
+def test_smooth_cost_applies_the_jax_displacement_order():
+    """A JAX smoothing kernel that moves displacement (dv=1, du=0) onto
+    (dv=0, du=1), through the bridge, does the same in the port."""
+    S, s2 = 3, 9
+    k = np.zeros((1, 1, s2, s2), np.float32)
+    src, dst = (1 + 1) * S + (0 + 1), (0 + 1) * S + (1 + 1)   # dv outer, du inner
+    k[0, 0, src, dst] = 1.0
+    sm = tdicl.SmoothCost(s2)
+    sm.smooth_layer.conv.weight.data = torch.from_numpy(
+        np.ascontiguousarray(weights._torch_weight("conv2d_disp_transpose", k)))
+    cost = torch.zeros(1, s2, 2, 2)
+    cost[0, src] = 1.0
+    out = sm(cost).detach()
+    assert float(out[0, dst].min()) == 1.0 and float(out.sum()) == 4.0
+
+
+def test_port_imports_no_jax():
+    """Import every module of the port and chip_smoke in a fresh process:
+    neither jax nor the JAX package may be loaded."""
+    code = (
+        "import importlib, pathlib, sys\n"
+        "import deep_sfm_revisited_tpu_torch as p\n"
+        "root = pathlib.Path(p.__file__).parent\n"
+        "for f in sorted(root.rglob('*.py')):\n"
+        "    parts = f.relative_to(root).with_suffix('').parts\n"
+        "    parts = parts[:-1] if parts[-1] == '__init__' else parts\n"
+        "    importlib.import_module('.'.join((p.__name__,) + parts))\n"
+        "import chip_smoke\n"
+        "bad = [m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'flax',"
+        " 'deep_sfm_revisited_tpu.')) or m == 'deep_sfm_revisited_tpu']\n"
+        "assert not bad, bad\n"
+        "print('ok', len([m for m in sys.modules if m.startswith(p.__name__)]))\n"
+    )
+    env = dict(os.environ, PYTHONPATH=str(REPO) + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr[-2000:]
+    assert out.stdout.startswith("ok")
