@@ -5,26 +5,40 @@
 
 Phases, each of which raises on failure:
 
-1. setup: the card's name and power limit, TF32 off, kernel B1 built with
-   nvcc from `deep_sfm_revisited_tpu_torch/csrc/sweep_warp.cu`;
+1. setup: the card's name and power limit, TF32 off, kernels B1 and B2
+   built with nvcc (in parallel) from `deep_sfm_revisited_tpu_torch/csrc/
+   sweep_warp.cu` and `csrc/local_corr.cu`;
 2. pose on the card: rigid flow of a known (R, t) -> correspondence
    sampler -> five-point RANSAC in float64 recovers the pose, the
    zero-parallax probe gives a finite pose, and with noise and outliers
    added the card's RANSAC equals the CPU's on the same samples;
 3. small-input reference: a 128x128 SFMNet in float32 on the card against
    the same weights and random draws on the CPU, where the port runs its
-   plain versions (the CPU tests hold those against the JAX package);
-4. the main path: SFMNet eval under the KITTI recipe (DICL flow -> entropy
-   sampler -> 512x5-hypothesis five-point RANSAC in float64 -> PSNet with
-   128 planes) at 384x1280, b=1, bf16 autocast, random weights from a
-   seed, as `bench.py` runs the JAX package. One warm-up pair records B1's
-   inputs; then the launch counts go to 0, three distinct pairs run, and
-   each must have launched B1 five times (PSNet's plane sweep and DICL's
-   flow warps at levels 5..2);
-5. B1 against its plain PyTorch version on the inputs the main path gave
+   plain versions (the CPU tests hold those against the JAX package), once
+   with DICL flow and once with PWC-DC flow;
+4. slice 1's main path: SFMNet eval under the KITTI recipe (DICL flow ->
+   entropy sampler -> 512x5-hypothesis five-point RANSAC in float64 ->
+   PSNet with 128 planes) at 384x1280, b=1, bf16 autocast, random weights
+   from a seed, as `bench.py` runs the JAX package. One warm-up pair
+   records B1's inputs; then the launch counts go to 0, three distinct
+   pairs run, and each must have launched B1 five times (PSNet's plane
+   sweep and DICL's flow warps at levels 5..2);
+5. slice 2's main path, through the entry point a user calls: a golden
+   KITTI raw tree rendered at 370x1224 (`data/synthetic.py`) evaluated by
+   `cli.main([... "-v", "--override", "flow.estimator=PWC", ...])` (PWC-DC
+   flow -> uniform sampler -> the same RANSAC -> PSNet, padded to 384x1280,
+   bf16) on the card. The launch counts go to 0 before it; the warm-up
+   pair records B1's and B2's inputs, the counts go to 0 again, and each of
+   the three test pairs after it must launch B2 five times (PWC-DC's
+   correlation at levels 6..2) and B1 five times (its warps at levels 5..2
+   and the plane sweep); the result must be the 9 Eigen metrics, finite;
+6. B1 against its plain PyTorch version on the inputs both main paths gave
    it, with out-of-range and behind-the-camera coordinates added, in bf16
    and float32; its time beside the plain version's, `F.grid_sample`'s
-   and the bound.
+   and the bound;
+7. B2 against its plain PyTorch version on the inputs slice 2 gave it, on
+   a copy whose frame border holds large values, and on an odd shape; its
+   time beside the plain version's and the bound.
 
 The line before the last is the kernel table as one JSON object; the last
 is {"ok": true, "device": {...}}. Without a CUDA device, or without the
@@ -37,7 +51,9 @@ import json
 import math
 import subprocess
 import sys
+import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import torch
@@ -52,7 +68,9 @@ PAIRS = 3
 K_KITTI = [[718.856, 0.0, 607.19], [0.0, 718.856, 185.2], [0.0, 0.0, 1.0]]
 BENCH_OVERRIDES = {"pose.num_hypotheses": 512, "pose.ransac_iter": 5,
                    "pose.num_correspondences": 1024, "pose.polish_iters": 5}
-B1_PER_PAIR = 5  # PSNet's plane sweep + DICL's warp_flow at levels 5, 4, 3, 2
+B1_PER_PAIR = 5  # PSNet's plane sweep + DICL's (or PWC-DC's) warps at levels 5..2
+B2_PER_PAIR = 5  # PWC-DC's correlation at levels 6..2
+EIGEN_KEYS = {"abs_rel", "sq_rel", "rmse", "rmse_log", "a1", "a2", "a3", "l1_inv", "sc_inv"}
 
 # the small-input reference: two-stage vote on, float64 candidates so the
 # vote is reproducible across devices
@@ -68,6 +86,9 @@ B1_FLOPS_PER_OUTPUT = 10  # 6 tap products, 3 sums, the validity product
 
 B1_SOURCE = f"{PKG}/csrc/sweep_warp.cu"
 B1_REPLACES = "deep_sfm_revisited_tpu/ops/pallas/sweep_warp.py:145"
+B2_SOURCE = f"{PKG}/csrc/local_corr.cu"
+B2_REPLACES = "deep_sfm_revisited_tpu/ops/pallas/local_corr.py:80"
+B2_MD = 4
 
 
 def log(msg: str) -> None:
@@ -94,7 +115,8 @@ def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / reps
 
 
-def phase_setup(sweep_warp) -> str:
+def phase_setup(*kernels) -> str:
+    """Card line, TF32 off, and each given kernel module's source built."""
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True).stdout.strip()
@@ -105,11 +127,15 @@ def phase_setup(sweep_warp) -> str:
         f"tf32 matmul={torch.backends.cuda.matmul.allow_tf32} "
         f"cudnn={torch.backends.cudnn.allow_tf32}")
     t0 = time.perf_counter()
-    sweep_warp.KERNEL.build()
-    log(f"setup: B1 built in {time.perf_counter() - t0:.2f} s")
-    for line in sweep_warp.KERNEL.build_log.splitlines():
-        if "registers" in line or "spill" in line:
-            log(f"  ptxas: {line.strip()}")
+    with ThreadPoolExecutor(len(kernels)) as pool:   # one nvcc per source, together
+        for f in [pool.submit(k.KERNEL.build) for k in kernels]:
+            f.result()
+    names = [k.KERNEL.source for k in kernels]
+    log(f"setup: {', '.join(names)} built in {time.perf_counter() - t0:.2f} s")
+    for name, k in zip(names, kernels):
+        for line in k.KERNEL.build_log.splitlines():
+            if "registers" in line or "spill" in line:
+                log(f"  ptxas {name}: {line.strip()}")
     return card
 
 
@@ -168,7 +194,7 @@ def phase_pose(dev) -> None:
         check(p_err <= 1e-5, f"pose card vs CPU ({solve}): P differs by {p_err}")
 
 
-def phase_small_reference(dev) -> None:
+def phase_small_reference(dev, flow: str) -> None:
     """The port on the card against the port on the CPU: same weights, inputs and draws.
 
     Flow to 1e-3 px and depth to 1e-3 relative: float32 convolutions sum in
@@ -183,7 +209,7 @@ def phase_small_reference(dev) -> None:
     from deep_sfm_revisited_tpu_torch.config import SfMConfig
     from deep_sfm_revisited_tpu_torch.models.sfmnet import SFMNet
 
-    cfg = SfMConfig.kitti().override(**SMALL)
+    cfg = SfMConfig.kitti().override(**SMALL, **{"flow.estimator": flow})
     gpu = SFMNet(cfg, device=dev, seed=1)
     cpu = SFMNet(cfg, device="cpu", seed=1)
     g = torch.Generator().manual_seed(7)
@@ -194,7 +220,9 @@ def phase_small_reference(dev) -> None:
     a = 0.03
     pose_gt = torch.tensor([[[math.cos(a), 0, math.sin(a), 0.2], [0, 1, 0, 0.0],
                              [-math.sin(a), 0, math.cos(a), 0.95]]])
-    n_cand = cfg.pose.num_correspondences * 4
+    # the entropy sampler's 4x candidate grid; PWC-DC gives no confidence,
+    # so its sampler takes the uniform path over a 1x grid
+    n_cand = cfg.pose.num_correspondences * (4 if flow == "DICL" else 1)
     draws = {"jitter": torch.rand((1, n_cand, 2), generator=g) - 0.5,
              "gumbel_u": torch.rand((1, n_cand), generator=g) * (1 - 1e-12) + 1e-12,
              "sample_idx": torch.randint(0, cfg.pose.num_correspondences,
@@ -220,16 +248,21 @@ def phase_small_reference(dev) -> None:
     d_on = max(rel(g_on[k], c_at[k]) for k in ("depth_init", "depth"))
     d_gt = max(rel(g_gt[k], c_gt[k]) for k in ("depth_init", "depth"))
     n_in = (int(g_on["inliers"][0]), int(c_on["inliers"][0]))
-    log(f"small reference: flow max |card - cpu| {flow_err:.3e} px; confident "
-        f"candidates {int(g_on['num_matches'][0])} vs {int(c_on['num_matches'][0])}; "
+    what = f"small reference {flow}"
+    counts = (f"confident candidates {int(g_on['num_matches'][0])} vs "
+              f"{int(c_on['num_matches'][0])}; " if "num_matches" in g_on else "")
+    log(f"{what}: flow max |card - cpu| {flow_err:.3e} px; {counts}"
         f"inliers {n_in[0]} vs {n_in[1]}; pose max |card - cpu| {pose_err:.3e}; depth "
         f"relative {d_on:.3e} (card's pose), {d_gt:.3e} (given pose)")
-    check(flow_err <= 1e-3, f"small reference: flow differs by {flow_err} px")
-    check(torch.equal(g_on["num_matches"], c_on["num_matches"]),
-          "small reference: confident-candidate counts differ")
-    _check_pose(g_on["pose"], "small reference")
-    check(d_on <= 1e-3, f"small reference: depth at the card's pose differs by {d_on}")
-    check(d_gt <= 1e-3, f"small reference: depth at the given pose differs by {d_gt}")
+    check(flow_err <= 1e-3, f"{what}: flow differs by {flow_err} px")
+    c_keys = {k for k, v in c_on.items() if v is not None}
+    check(g_on.keys() == c_keys, f"{what}: outputs {sorted(g_on)} vs {sorted(c_keys)}")
+    if "num_matches" in g_on:
+        check(torch.equal(g_on["num_matches"], c_on["num_matches"]),
+              f"{what}: confident-candidate counts differ")
+    _check_pose(g_on["pose"], what)
+    check(d_on <= 1e-3, f"{what}: depth at the card's pose differs by {d_on}")
+    check(d_gt <= 1e-3, f"{what}: depth at the given pose differs by {d_gt}")
 
 
 class StageTimer:
@@ -350,7 +383,198 @@ def _with_edges(coords, h, w):
     return c, zero
 
 
-def phase_kernel(captured, sweep_warp, camera):
+def phase_cli_pwc(dev, sweep_warp, local_corr):
+    """Slice 2 through `cli.main -v` on a rendered golden KITTI raw tree.
+
+    `SFMNet.forward` is wrapped for the run: it times each pair (host clock
+    around the forward and a synchronize; stage times by CUDA events),
+    counts each kernel's launches per pair, and on the warm-up pair records
+    B1's and B2's inputs. Returns (B1 launches, B2 launches, B1 inputs, B2
+    inputs), the launch counts over the three pairs after the warm-up.
+    """
+    from deep_sfm_revisited_tpu_torch import cli
+    from deep_sfm_revisited_tpu_torch.data.synthetic import write_kitti_raw_tree
+    from deep_sfm_revisited_tpu_torch.models.sfmnet import SFMNet
+
+    rows, cap1, cap2, timer = [], [], [], []
+    real_forward, launch1, launch2 = (SFMNet.forward, sweep_warp.bilinear_sample_cuda,
+                                      local_corr.local_correlation_cuda)
+
+    def record1(img, coords):
+        cap1.append((img.clone(), coords.clone()))
+        return launch1(img, coords)
+
+    def record2(f0, f1, md):
+        cap2.append((f0.clone(), f1.clone()))
+        return launch2(f0, f1, md)
+
+    def timed_forward(model, *args, **kw):
+        warm = not timer
+        if warm:
+            timer.append(StageTimer(model))
+            sweep_warp.bilinear_sample_cuda, local_corr.local_correlation_cuda = record1, record2
+        before = (sweep_warp.KERNEL.launches, local_corr.KERNEL.launches)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        try:
+            out = real_forward(model, *args, **kw)
+            torch.cuda.synchronize()
+        finally:
+            sweep_warp.bilinear_sample_cuda, local_corr.local_correlation_cuda = launch1, launch2
+        ms = 1e3 * (time.perf_counter() - t0)
+        n1 = sweep_warp.KERNEL.launches - before[0]
+        n2 = local_corr.KERNEL.launches - before[1]
+        i = len(rows) + (0 if warm else 1)
+        _check_pair(out, i)
+        check(out["num_matches"] is None, f"PWC pair {i}: the sampler reported confidences")
+        check((n1, n2) == (B1_PER_PAIR, B2_PER_PAIR),
+              f"PWC pair {i}: B1 launched {n1}, B2 {n2} times, expected "
+              f"{B1_PER_PAIR} and {B2_PER_PAIR}")
+        if warm:
+            sweep_warp.KERNEL.launches = local_corr.KERNEL.launches = 0
+            log(f"cli PWC: warm-up pair {ms:.1f} ms; B1 inputs {[tuple(c.shape) for _, c in cap1]}"
+                f", B2 inputs {[tuple(f.shape) for f, _ in cap2]}")
+        else:
+            rows.append(dict(ms=ms, **timer[0].stages_ms(), inliers=int(out["inliers"][0])))
+            log(f"cli PWC: pair {i}: {ms:.1f} ms (flow {rows[-1]['flow']:.1f}, pose "
+                f"{rows[-1]['pose']:.1f}, depth {rows[-1]['depth']:.1f} ms device); inliers "
+                f"{rows[-1]['inliers']}/{BENCH_OVERRIDES['pose.num_correspondences']}; "
+                f"B1 launches {n1}, B2 launches {n2}")
+        return out
+
+    with tempfile.TemporaryDirectory() as tmp:
+        root = f"{tmp}/kitti_raw"
+        t0 = time.perf_counter()
+        write_kitti_raw_tree(root, n_frames=PAIRS + 2, hw=(370, 1224),
+                             focal=K_KITTI[0][0], n_test=PAIRS + 1)
+        log(f"cli PWC: golden tree of {PAIRS + 2} 370x1224 frames rendered in "
+            f"{time.perf_counter() - t0:.2f} s")
+        argv = ["--data", root, "--cfg", "kitti", "-v", "--gt-depth-dir", f"{root}/gt_depth",
+                "--out", f"{tmp}/out", "--workers", "4", "--override", "flow.estimator=PWC",
+                *[f"{k}={v}" for k, v in BENCH_OVERRIDES.items()]]
+        log("cli PWC: cli.main(" + json.dumps(argv).replace(tmp, "<tmp>") + ")")
+        torch.cuda.reset_peak_memory_stats()
+        sweep_warp.KERNEL.launches = local_corr.KERNEL.launches = 0
+        SFMNet.forward = timed_forward
+        try:
+            t0 = time.perf_counter()
+            results = cli.main(argv)
+            wall = time.perf_counter() - t0
+        finally:
+            SFMNet.forward = real_forward
+        launches = (sweep_warp.KERNEL.launches, local_corr.KERNEL.launches)
+    check(len(rows) == PAIRS, f"cli PWC: {len(rows)} test pairs after the warm-up, expected {PAIRS}")
+    check(launches == (B1_PER_PAIR * PAIRS, B2_PER_PAIR * PAIRS),
+          f"cli PWC: B1, B2 launched {launches} times in the main path")
+    check(set(results) == EIGEN_KEYS, f"cli PWC: metrics {sorted(results)}")
+    check(all(math.isfinite(v) for v in results.values()), f"cli PWC: metrics {results}")
+    mean = {k: sum(r[k] for r in rows) / PAIRS for k in ("ms", "flow", "pose", "depth")}
+    log(f"cli PWC: metrics {json.dumps(results)}")
+    log(f"cli PWC: mean over {PAIRS} pairs: {mean['ms']:.2f} ms/pair ({1e3 / mean['ms']:.3f} "
+        f"pairs/s); stages flow {mean['flow']:.2f}, pose {mean['pose']:.2f}, depth "
+        f"{mean['depth']:.2f} ms; cli.main {wall:.2f} s for {PAIRS + 1} pairs; peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    log("cli PWC rows: " + json.dumps(rows))
+    return launches[0], launches[1], cap1, cap2
+
+
+def device_ms(fn, kernel_name: str, reps: int = 20) -> float | None:
+    """Mean device time in ms of the kernels named `kernel_name` that `reps`
+    calls of `fn` launch, from a torch.profiler trace (no host launch cost);
+    None if the trace shows none."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    hits = [e for e in prof.key_averages() if kernel_name in e.key]
+    total = sum(getattr(e, "device_time_total", 0.0) for e in hits)
+    count = sum(e.count for e in hits)
+    return total / count / 1e3 if count and total else None
+
+
+def _edged_features(f1):
+    """A copy of f1 whose frame border (first and last row and column)
+    holds values far above the rest, so a read across the border would
+    show."""
+    e = f1.clone()
+    e[:, [0, -1]] = 100.0
+    e[:, :, [0, -1]] = 100.0
+    return e
+
+
+def _outside_mask(h, w, md, device):
+    """(H, W, (2md+1)^2) True where (y+dy, x+dx) leaves the frame."""
+    d = torch.arange(-md, md + 1, device=device)
+    dy, dx = d.repeat_interleave(2 * md + 1), d.repeat(2 * md + 1)
+    ys = torch.arange(h, device=device)[:, None, None] + dy
+    xs = torch.arange(w, device=device)[None, :, None] + dx
+    return (ys < 0) | (ys >= h) | (xs < 0) | (xs >= w)
+
+
+def phase_b2(captured, local_corr, correlation):
+    """B2 vs its plain version at slice 2's inputs, on a border-edged copy
+    and on an odd shape; times and bounds per call.
+
+    Tolerance: float32 sums of <= 196 products in another order (the
+    kernel's fmaf chain against torch's reduction), |kernel - plain| <=
+    1e-5 max|plain| + 1e-6; displacements that leave the frame give
+    exactly zero."""
+    g = torch.Generator(device="cuda").manual_seed(11)
+    odd = (torch.randn((2, 13, 27, 40), device="cuda", generator=g),
+           torch.randn((2, 13, 27, 40), device="cuda", generator=g))
+    calls, max_err = [], 0.0
+    for idx, (f0, f1) in enumerate(list(captured) + [odd]):
+        _, h, w, c = f0.shape
+        name = f"pwc_corr_level{6 - idx}" if idx < len(captured) else "odd_shape"
+        for what, a, b in (("main path", f0, f1), ("edged", f0, _edged_features(f1))):
+            got = local_corr.local_correlation_cuda(a, b, B2_MD)
+            ref = correlation.local_correlation_plain(a, b, B2_MD)
+            err = float((got - ref).abs().max())
+            tol = 1e-5 * float(ref.abs().max()) + 1e-6
+            max_err = max(max_err, err)
+            check(err <= tol, f"B2 {name} {what}: max |kernel - plain| = {err} > {tol}")
+            outside = _outside_mask(h, w, B2_MD, got.device).expand_as(got)
+            check((got[outside] == 0).all(), f"B2 {name} {what}: nonzero outside the frame")
+        if idx == len(captured):
+            log(f"B2 odd shape {tuple(f0.shape)}: max |kernel - plain| {err:.3e}")
+            continue
+        ms = cuda_ms(lambda: local_corr.local_correlation_cuda(f0, f1, B2_MD), reps=50)
+        dev_ms = device_ms(lambda: local_corr.local_correlation_cuda(f0, f1, B2_MD),
+                           "local_corr_kernel")
+        plain_ms = cuda_ms(lambda: correlation.local_correlation_plain(f0, f1, B2_MD), reps=5,
+                           warmup=1)
+        s2 = (2 * B2_MD + 1) ** 2
+        nbytes = 4 * (f0.numel() + f1.numel() + f0.numel() // c * s2)
+        flops = (2 * c + 1) * s2 * (f0.numel() // c)     # c products + c sums, one division
+        t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / F32_FLOPS * 1e3
+        calls.append(dict(name=name, f0=list(f0.shape), md=B2_MD, ms=ms, device_ms=dev_ms,
+                          plain_ms=plain_ms, library_ms=None, bound_ms=max(t_bytes, t_ops),
+                          bound_by="bytes" if t_bytes >= t_ops else "operations",
+                          bytes=nbytes, flops=flops))
+        log(f"B2 {name}: f0/f1 {tuple(f0.shape)} float32: kernel {ms:.4f} ms (device "
+            f"{'not measured' if dev_ms is None else f'{dev_ms:.4f} ms'}), plain "
+            f"{plain_ms:.4f} ms, bound {calls[-1]['bound_ms']:.4f} ms "
+            f"({calls[-1]['bound_by']}, {nbytes / 1e6:.2f} MB, {flops / 1e6:.1f} MFLOP)")
+    return calls, max_err
+
+
+def _pair_sums(calls):
+    t_bytes = sum(c["bytes"] for c in calls) / HBM_BYTES_PER_S * 1e3
+    t_ops = sum(c["flops"] for c in calls) / F32_FLOPS * 1e3
+    out = {k: sum(c[k] for c in calls) for k in ("ms", "plain_ms")}
+    out.update(bound_ms=max(t_bytes, t_ops), bound_by="bytes" if t_bytes >= t_ops else "operations")
+    if all(c.get("library_ms") is not None for c in calls):
+        out["library_ms"] = sum(c["library_ms"] for c in calls)
+    else:
+        out["library_ms"] = None
+    return out
+
+
+def phase_kernel(captured, sweep_warp, camera, path: str = "dicl"):
     """B1 vs its plain version at the main path's inputs; times and bounds.
 
     Tolerance: exact in bf16 and float32 -- the kernel rounds op by op with
@@ -359,7 +583,7 @@ def phase_kernel(captured, sweep_warp, camera):
     calls, max_err = [], 0.0
     for img, coords in captured:
         _, h, w, _ = img.shape
-        name = "psnet_sweep" if coords.dim() == 5 else f"dicl_warp_{h}x{w}"
+        name = "psnet_sweep" if coords.dim() == 5 else f"{path}_warp_{h}x{w}"
         edged, zero = _with_edges(coords, h, w)
         invalid = ((coords[..., 0] < 0) | (coords[..., 0] > w - 1)
                    | (coords[..., 1] < 0) | (coords[..., 1] > h - 1)).float().mean()
@@ -409,31 +633,47 @@ def main() -> int:
         print(f"chip_smoke: the package {PKG} is not beside this script", file=sys.stderr)
         return 2
     sys.path.insert(0, str(REPO))
-    from deep_sfm_revisited_tpu_torch.ops import camera
-    from deep_sfm_revisited_tpu_torch.ops.cuda import sweep_warp
+    from deep_sfm_revisited_tpu_torch.ops import camera, correlation
+    from deep_sfm_revisited_tpu_torch.ops.cuda import local_corr, sweep_warp
 
     dev = torch.device("cuda", 0)
     t_start = time.perf_counter()
-    phase_setup(sweep_warp)
+    phase_setup(sweep_warp, local_corr)
     with torch.no_grad():
         phase_pose(dev)
-        phase_small_reference(dev)
-        launches, captured = phase_main_path(dev, sweep_warp)
-        calls, max_err = phase_kernel(captured, sweep_warp, camera)
+        phase_small_reference(dev, "DICL")
+        phase_small_reference(dev, "PWC")
+        b1_dicl, captured = phase_main_path(dev, sweep_warp)
+        b1_pwc, b2_pwc, cap1, cap2 = phase_cli_pwc(dev, sweep_warp, local_corr)
+        calls1, err1 = phase_kernel(captured, sweep_warp, camera)
+        pwc_calls1, pwc_err1 = phase_kernel([c for c in cap1 if c[1].dim() == 4],
+                                            sweep_warp, camera, path="pwc")
+        calls2, err2 = phase_b2(cap2, local_corr, correlation)
 
-    t_bytes = sum(c["bytes"] for c in calls) / HBM_BYTES_PER_S * 1e3
-    t_ops = sum(c["flops"] for c in calls) / F32_FLOPS * 1e3
+    # per frame pair: slice 1's five B1 calls head the row (PR 1's row);
+    # slice 2's pair makes its four warps and the same plane sweep
+    sweep = [c for c in calls1 if c["name"] == "psnet_sweep"]
     b1 = {"name": "bilinear_sample", "route": "cuda", "source": B1_SOURCE,
-          "replaces": B1_REPLACES, "launches": launches, "max_abs_err": max_err,
-          # times and bound per frame pair: the five calls the main path makes
-          "ms": sum(c["ms"] for c in calls),
-          "plain_ms": sum(c["plain_ms"] for c in calls),
-          "bound_ms": max(t_bytes, t_ops),
-          "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-          "library_ms": sum(c["library_ms"] for c in calls),
-          "calls": calls}
+          "replaces": B1_REPLACES, "launches": b1_dicl + b1_pwc,
+          "launches_by_path": {"dicl_main_path": b1_dicl, "pwc_cli_eval": b1_pwc},
+          "max_abs_err": max(err1, pwc_err1), **_pair_sums(calls1),
+          "pwc_pair": _pair_sums(pwc_calls1 + sweep), "calls": calls1 + pwc_calls1}
+    b2 = {"name": "local_correlation", "route": "cuda", "source": B2_SOURCE,
+          "replaces": B2_REPLACES, "launches": b2_pwc,
+          "launches_by_path": {"pwc_cli_eval": b2_pwc}, "max_abs_err": err2,
+          # per frame pair: PWC-DC's five levels; no single PyTorch call
+          # computes a windowed correlation, so there is no library time
+          **_pair_sums(calls2),
+          "device_ms": (None if any(c["device_ms"] is None for c in calls2)
+                        else sum(c["device_ms"] for c in calls2)),
+          "calls": calls2}
+    for k in (b1, b2):
+        lib = "none" if k["library_ms"] is None else f"{k['library_ms']:.4f} ms"
+        log(f"{k['name']} per pair: kernel {k['ms']:.4f} ms, plain {k['plain_ms']:.4f} ms, "
+            f"bound {k['bound_ms']:.4f} ms ({k['bound_by']}), library {lib}, "
+            f"launches {k['launches']}")
     log(f"chip_smoke: all phases passed in {time.perf_counter() - t_start:.1f} s")
-    log(json.dumps({"kernels": [b1]}))
+    log(json.dumps({"kernels": [b1, b2]}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",
                                            "kind": torch.cuda.get_device_name(0),
                                            "count": torch.cuda.device_count()}}))

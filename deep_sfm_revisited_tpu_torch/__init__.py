@@ -2,8 +2,9 @@
 
 The JAX package beside this one is the reference; this package computes the
 same functions with PyTorch on an NVIDIA GPU (Hopper, `sm_90a`), with the
-JAX package's one main-path Pallas kernel (the bilinear gather of
-`ops/pallas/sweep_warp.py`) rewritten by hand in CUDA C++ (`csrc/`).
+JAX package's two Pallas kernels rewritten by hand in CUDA C++ (`csrc/`):
+B1, the bilinear gather of `ops/pallas/sweep_warp.py`, and B2, the windowed
+correlation of `ops/pallas/local_corr.py`.
 
 It imports torch, numpy and the standard library only — never jax, flax or
 `deep_sfm_revisited_tpu`. Public functions keep the JAX package's layouts
@@ -11,9 +12,14 @@ It imports torch, numpy and the standard library only — never jax, flax or
 module can be held against its counterpart.
 
 Layout mirrors the JAX package:
-  ops/      geometry, the essential-matrix engine, the CUDA kernel wrapper
-  models/   DICL flow, PSNet depth, the SFMNet composite
-  utils/    device selection, the JAX -> torch weight bridge
+  cli.py    the `-v` entry point (Eigen evaluation of a KITTI split)
+  ops/      geometry, correlation, the essential-matrix engine, the CUDA
+            kernels' wrappers and their builder
+  models/   DICL and PWC-DC flow, PSNet depth, the SFMNet composite
+  data/     KITTI datasets, transforms, batch loader, PNG decoder, the
+            synthetic golden scenes
+  train/    Eigen metrics and the evaluation loop
+  utils/    device selection, the JAX -> torch weight bridge, logging
 """
 
 __version__ = "0.1.0"

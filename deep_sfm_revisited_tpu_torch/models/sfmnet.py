@@ -1,7 +1,8 @@
 """SFMNet, the two-view SfM composite (port of `models/sfmnet.py`), eval.
 
-DICL flow with entropy confidence -> entropy-weighted correspondence
-sampling -> five-point RANSAC in float64 -> PSNet plane-sweep depth. Like
+DICL flow with entropy confidence, or PWC-DC flow (no confidence, so the
+sampler takes its uniform path) -> correspondence sampling -> five-point
+RANSAC in float64 -> PSNet plane-sweep depth. Like
 `SFMNet(cfg, dtype=jnp.bfloat16)` of the JAX package, `dtype=torch.bfloat16`
 runs flow and depth under `torch.autocast(..., torch.bfloat16)`; the pose
 runs outside autocast in float64 (the reference's `autocast(enabled=False)`
@@ -24,14 +25,18 @@ from torch import nn
 from deep_sfm_revisited_tpu_torch.config import SfMConfig
 from deep_sfm_revisited_tpu_torch.models.dicl import DICLFlow, SmoothCost
 from deep_sfm_revisited_tpu_torch.models.psnet import PSNet
+from deep_sfm_revisited_tpu_torch.models.pwcnet import PWCDCNet
 from deep_sfm_revisited_tpu_torch.ops.essential import ransac_pose
 from deep_sfm_revisited_tpu_torch.ops.flow_ops import sample_correspondences
 from deep_sfm_revisited_tpu_torch.utils.device import resolve_device
 
 
+FLOW_NETS = {"DICL": DICLFlow, "PWC": PWCDCNet}
+
+
 def _check_supported(cfg: SfMConfig) -> None:
     unsupported = {
-        "flow.estimator": cfg.flow.estimator != "DICL",
+        "flow.estimator": cfg.flow.estimator not in FLOW_NETS,
         "depth.estimator": cfg.depth.estimator != "PSNET",
         "pose.estimator": cfg.pose.estimator != "RANSAC",
         "pose.sampler": cfg.pose.sampler not in ("entropy", "uniform"),
@@ -49,9 +54,10 @@ def _get(cfg, dotted):
 
 
 def init_weights(module: nn.Module, generator: torch.Generator) -> None:
-    """Seeded random init: convolutions ~ N(0, 1/fan_in) (flax's lecun
-    scale), zero biases, BatchNorm at identity with running stats at their
-    defaults, and the DICL cost smoothing at identity (SMOOTH_INIT_BY_ID)."""
+    """Seeded random init: convolutions and deconvolutions (DICL, PWC-DC,
+    PSNet) ~ N(0, 1/fan_in) (flax's lecun scale), zero biases, BatchNorm at
+    identity with running stats at their defaults, and the DICL cost
+    smoothing at identity (SMOOTH_INIT_BY_ID)."""
     keep = {id(m.smooth_layer.conv) for m in module.modules() if isinstance(m, SmoothCost)}
     with torch.no_grad():
         for m in module.modules():
@@ -86,7 +92,7 @@ class SFMNet(nn.Module):
         self.dtype = dtype
         self.device = resolve_device(device)
         norm_target = cfg.train.norm_target if cfg.train.rescale_depth else 0.0
-        self.flow_estimator = DICLFlow(cfg.flow)
+        self.flow_estimator = FLOW_NETS[cfg.flow.estimator](cfg.flow)
         self.depth_estimator = PSNet(cfg.depth, norm_target=norm_target)
         init_weights(self, torch.Generator().manual_seed(seed))
         self.to(self.device)

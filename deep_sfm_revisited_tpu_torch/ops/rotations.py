@@ -1,8 +1,9 @@
 """Rotation helpers (port of `deep_sfm_revisited_tpu/ops/rotations.py`).
 
-Only what the eval slice uses: the cross-product matrix, the SO(3)
+Only what the eval slices use: the cross-product matrix, the SO(3)
 exponential map of the essential-matrix polish, the 'sxyz' Euler
-conversion and the geodesic rotation error. Shape-polymorphic over leading
+conversion, the geodesic rotation error and the quaternion of the motion
+metrics. Shape-polymorphic over leading
 batch dims, like the JAX functions.
 """
 
@@ -61,3 +62,24 @@ def rotation_angular_error(R1: torch.Tensor, R2: torch.Tensor) -> torch.Tensor:
     """Geodesic angle (radians) between rotations, (...,3,3)x2 -> (...)."""
     cos = (torch.einsum("...ij,...ij->...", R1, R2) - 1.0) / 2.0
     return torch.arccos(torch.clamp(cos, -1.0, 1.0))
+
+
+def matrix_to_quat(M: torch.Tensor) -> torch.Tensor:
+    """Rotation matrix (..., 3, 3) -> unit quaternion (w, x, y, z), by the
+    branch-free max-component construction of the JAX function (`:108-131`)."""
+    m00, m11, m22 = M[..., 0, 0], M[..., 1, 1], M[..., 2, 2]
+    tr = m00 + m11 + m22
+    zero = torch.zeros_like(tr)
+    qw = torch.sqrt(torch.maximum(zero, 1.0 + tr)) / 2
+    qx = torch.sqrt(torch.maximum(zero, 1.0 + m00 - m11 - m22)) / 2
+    qy = torch.sqrt(torch.maximum(zero, 1.0 - m00 + m11 - m22)) / 2
+    qz = torch.sqrt(torch.maximum(zero, 1.0 - m00 - m11 + m22)) / 2
+
+    def sign_of(ref):
+        return torch.where(ref >= 0, 1.0, -1.0).to(ref.dtype)
+
+    qx = qx * sign_of(M[..., 2, 1] - M[..., 1, 2])
+    qy = qy * sign_of(M[..., 0, 2] - M[..., 2, 0])
+    qz = qz * sign_of(M[..., 1, 0] - M[..., 0, 1])
+    q = torch.stack([qw, qx, qy, qz], dim=-1)
+    return q / torch.linalg.vector_norm(q, dim=-1, keepdim=True)

@@ -5,8 +5,9 @@ The port's modules carry the reference's names (`flow_estimator.*`,
 `load_state_dict`, and the JAX package's own converter
 (`deep_sfm_revisited_tpu/utils/torch_port.py`) maps reference tensors onto
 flax variables through explicit entry tables. This module keeps a COPY of
-those tables (the port imports nothing of the JAX package) and runs each
-transform in reverse:
+those tables (the port imports nothing of the JAX package), adds one for
+PWC-DC (which `torch_port.py` lacks; upstream PWC-Net's names), and runs
+each transform in reverse:
 
   conv2d                 flax (kh, kw, I, O)        -> torch (O, I, kh, kw)
   conv3d                 flax (kd, kh, kw, I, O)    -> torch (O, I, kd, kh, kw)
@@ -145,6 +146,40 @@ def dicl_entries(t: str = "flow_estimator", f: str = "flow_net") -> List[Entry]:
     return e
 
 
+def pwc_encoder_names(lvl: int) -> Tuple[str, str, str]:
+    """Upstream PWC-Net's three encoder convs of pyramid level 1..6 (the
+    stride-2 one first; level 6 names them in another order)."""
+    if lvl == 6:
+        return ("conv6aa", "conv6a", "conv6b")
+    return (f"conv{lvl}a", f"conv{lvl}aa", f"conv{lvl}b")
+
+
+def pwc_entries(t: str = "flow_estimator", f: str = "flow_net") -> List[Entry]:
+    """`PWCDCNet` (JAX `models/pwcnet.py`) under upstream PWC-Net's names:
+    126 flax leaves. Flax names its submodules by creation order: the
+    shared `_Encoder_0` (18 convs), `_DenseDecoder_{0..4}` for levels 6..2,
+    `_Deconv_{2i}`/`_Deconv_{2i+1}` for the up-flow/up-feature of level 6-i,
+    and the context net's `_Conv_{0..5}` and `Conv_0`."""
+    e: List[Entry] = []
+    for lvl in range(1, 7):
+        for j, name in enumerate(pwc_encoder_names(lvl)):
+            e.append(("conv2d", f"{t}.{name}.0",
+                      f"{f}/_Encoder_0/_Conv_{3 * (lvl - 1) + j}/Conv_0"))
+    for i, lvl in enumerate((6, 5, 4, 3, 2)):
+        dec = f"{f}/_DenseDecoder_{i}"
+        for k in range(5):
+            e.append(("conv2d", f"{t}.conv{lvl}_{k}.0", f"{dec}/_Conv_{k}/Conv_0"))
+        e.append(("conv2d", f"{t}.predict_flow{lvl}", f"{dec}/Conv_0"))
+        if lvl > 2:
+            e.append(("deconv2d", f"{t}.deconv{lvl}", f"{f}/_Deconv_{2 * i}/ConvTranspose_0"))
+            e.append(("deconv2d", f"{t}.upfeat{lvl}",
+                      f"{f}/_Deconv_{2 * i + 1}/ConvTranspose_0"))
+    for k in range(6):
+        e.append(("conv2d", f"{t}.dc_conv{k + 1}.0", f"{f}/_Conv_{k}/Conv_0"))
+    e.append(("conv2d", f"{t}.dc_conv7", f"{f}/Conv_0"))
+    return e
+
+
 # ---- the reverse transforms ------------------------------------------------
 
 def disp_transpose_perm(s2: int) -> np.ndarray:
@@ -209,9 +244,23 @@ def convert(variables: Dict[str, Any], entries: Sequence[Entry]) -> Dict[str, to
     return sd
 
 
+FLOW_ENTRIES = {"DICL": dicl_entries, "PWC": pwc_entries}
+
+
 def jax_params_to_torch(variables: Dict[str, Any], context_bn: bool = False,
-                        dep_context: bool = True) -> Dict[str, torch.Tensor]:
-    """State dict of the port's `SFMNet` (DICL + PSNet) from the JAX
-    `SFMNet` variables, under the reference's module names."""
-    return convert(variables, dicl_entries() + psnet_entries(
+                        dep_context: bool = True,
+                        flow_estimator: str = "DICL") -> Dict[str, torch.Tensor]:
+    """State dict of the port's `SFMNet` (DICL or PWC-DC flow + PSNet) from
+    the JAX `SFMNet` variables, under the reference's module names."""
+    return convert(variables, FLOW_ENTRIES[flow_estimator]() + psnet_entries(
         context_bn=context_bn, dep_context=dep_context))
+
+
+def load_reference_checkpoint(path: str) -> Dict[str, torch.Tensor]:
+    """A state dict under the reference's module names from `path`: the
+    reference's {'epoch', 'state_dict'} wrapper is unwrapped and
+    DataParallel `module.` prefixes are stripped (as the JAX package's
+    `torch_port.load_torch_checkpoint`)."""
+    blob = torch.load(path, map_location="cpu", weights_only=True)
+    sd = blob.get("state_dict", blob) if isinstance(blob, dict) else blob
+    return {k[len("module."):] if k.startswith("module.") else k: v for k, v in sd.items()}

@@ -1,5 +1,5 @@
-"""Tests that need an NVIDIA GPU: the port's kernels against their plain
-versions, and the pose engine on the card against itself on the CPU.
+"""Tests that need an NVIDIA GPU: the port's kernels (B1, B2) against their
+plain versions, and the pose engine on the card against itself on the CPU.
 
 They skip where no card is present. This file imports no jax, so it also
 runs on a machine without JAX, from the repository root:
@@ -11,7 +11,8 @@ import pytest
 import torch
 
 from deep_sfm_revisited_tpu_torch.ops import camera as tcam
-from deep_sfm_revisited_tpu_torch.ops.cuda import sweep_warp
+from deep_sfm_revisited_tpu_torch.ops import correlation as tcorr
+from deep_sfm_revisited_tpu_torch.ops.cuda import local_corr, sweep_warp
 
 
 @pytest.mark.cuda
@@ -36,6 +37,39 @@ def test_b1_kernel_matches_plain_on_card(dtype):
         assert sweep_warp.KERNEL.launches == before + 1
         ref = tcam.bilinear_sample_plain(img, coords)
         torch.testing.assert_close(got, ref, rtol=0, atol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,md", [((1, 6, 20, 196), 4), ((1, 96, 320, 32), 4),
+                                      ((2, 13, 27, 40), 4), ((2, 13, 27, 40), 2),
+                                      ((1, 5, 7, 3), 1)])
+def test_b2_kernel_matches_plain_on_card(shape, md):
+    """B2 against its plain version on the card, PWC-DC's coarsest and
+    finest level shapes and odd ones. Tolerance: float32 sums of <= 196
+    products in another order, |kernel - plain| <= 1e-5 max|plain| + 1e-6."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    g = torch.Generator(device="cuda").manual_seed(1)
+    f0 = torch.randn(shape, device="cuda", generator=g)
+    f1 = torch.randn(shape, device="cuda", generator=g)
+    before = local_corr.KERNEL.launches
+    got = tcorr.local_correlation(f0, f1, md)
+    torch.cuda.synchronize()
+    assert local_corr.KERNEL.launches == before + 1
+    ref = tcorr.local_correlation_plain(f0, f1, md)
+    assert got.shape == ref.shape == shape[:3] + ((2 * md + 1) ** 2,)
+    assert float((got - ref).abs().max()) <= 1e-5 * float(ref.abs().max()) + 1e-6
+
+
+@pytest.mark.cuda
+def test_b2_wrapper_refuses_what_the_kernel_does_not_take():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    f = torch.zeros(1, 8, 8, 4, device="cuda")
+    for args in ((f.bfloat16(), f.bfloat16(), 4), (f, f[:, :4], 4), (f, f, 5),
+                 (f.permute(0, 2, 1, 3), f, 4), (f, f.cpu(), 4)):
+        with pytest.raises((ValueError, TypeError)):
+            local_corr.local_correlation_cuda(*args)
 
 
 def _rigid_correspondences(seed):

@@ -43,10 +43,11 @@ def _inputs(seed=0):
     return ref, tgt, K, pose_gt
 
 
-def _draws(key, cfg):
-    """The JAX composite's internal draws, reproduced for injection."""
+def _draws(key, cfg, oversample=4):
+    """The JAX composite's internal draws, reproduced for injection
+    (`oversample` 1 for the uniform sampler's candidate grid)."""
     pc = cfg.pose
-    n_cand = pc.num_correspondences * 4
+    n_cand = pc.num_correspondences * oversample
     k_sample, k_ransac = jax.random.split(key)
     k_grid, k_gumbel = jax.random.split(k_sample)
     return {
@@ -151,6 +152,44 @@ def test_pred_pose_route_uses_the_given_pose():
     ref_out = net(*args, pose_gt=torch.from_numpy(pose_gt), use_gt_pose=True)
     torch.testing.assert_close(out["pose"], torch.from_numpy(pose_gt))
     torch.testing.assert_close(out["depth"], ref_out["depth"], rtol=0, atol=0)
+
+
+@pytest.fixture(scope="module")
+def pwc_run():
+    """The PWC-DC route (no confidence: the uniform sampler), float64
+    candidates, injected draws: (JAX outputs, port outputs)."""
+    ref, tgt, K, _ = _inputs(1)
+    over = dict(OVER, **{"pose.solve_dtype": "float64", "flow.estimator": "PWC"})
+    jcfg, tcfg = JConfig.kitti().override(**over), TConfig.kitti().override(**over)
+    jnet = JSFMNet(jcfg)
+    args = [jnp.asarray(a) for a in (ref, tgt, K)]
+    variables = random_variables(lambda r, t, k: jnet.init(
+        jax.random.PRNGKey(1), r, t, k, key=jax.random.PRNGKey(2)), *args, seed=6)
+    key = jax.random.PRNGKey(7)
+    jout = jax.jit(lambda v, r, t, k, kk: jnet.apply(v, r, t, k, key=kk))(variables, *args, key)
+    tnet = TSFMNet(tcfg, device="cpu")
+    load_strict(tnet, jax_params_to_torch(variables, flow_estimator="PWC"))
+    tout = tnet(*(torch.from_numpy(a) for a in (ref, tgt, K)), draws=_draws(key, tcfg, 1))
+    return ({k: np.asarray(v) for k, v in jout.items() if v is not None},
+            {k: t2n(v) for k, v in tout.items() if v is not None})
+
+
+def test_pwc_route_matches_jax(pwc_run):
+    """Flow to 1e-3 px, the same inlier count, pose to 1e-5, depth to 1e-4
+    relative (the DICL route's tolerances above); no confidence counts."""
+    jout, tout = pwc_run
+    assert set(tout) == set(jout) and "num_matches" not in tout
+    np.testing.assert_allclose(tout["flow"], jout["flow"], rtol=0, atol=1e-3)
+    np.testing.assert_array_equal(tout["inliers"], jout["inliers"])
+    np.testing.assert_allclose(tout["pose"], jout["pose"], rtol=0, atol=1e-5)
+    for which in ("depth_init", "depth"):
+        np.testing.assert_allclose(tout[which], jout[which], rtol=1e-4, atol=1e-4)
+
+
+def test_pwc_route_is_supported():
+    net = TSFMNet(TConfig.kitti().override(**dict(OVER, **{"flow.estimator": "PWC"})),
+                  device="cpu")
+    assert type(net.flow_estimator).__name__ == "PWCDCNet"
 
 
 @pytest.mark.parametrize("over", [{"flow.estimator": "RAFT"}, {"depth.estimator": "PANET"},

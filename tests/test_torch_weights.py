@@ -63,6 +63,22 @@ def test_every_jax_leaf_is_converted(sfm_variables):
     assert len(sd) - n_bn == n_leaves
 
 
+def test_pwc_state_dict_loads_strictly():
+    """The PWC-DC route: every flax leaf of the JAX SFMNet (PWC-DC + PSNet)
+    feeds one tensor of the port's state dict, which loads strictly."""
+    over = dict(OVER, **{"flow.estimator": "PWC"})
+    net = JSFMNet(JConfig.kitti().override(**over))
+    x = jnp.zeros((1, 64, 128, 3), jnp.float32)
+    K = jnp.asarray([[[100.0, 0, 64], [0, 100.0, 32], [0, 0, 1]]], jnp.float32)
+    variables = random_variables(lambda r, t, k: net.init(
+        jax.random.PRNGKey(0), r, t, k, key=jax.random.PRNGKey(1)), x, x, K, seed=5)
+    sd = weights.jax_params_to_torch(variables, flow_estimator="PWC")
+    load_strict(TSFMNet(TConfig.kitti().override(**over), device="cpu"), sd)
+    n_bn = sum(k.endswith("num_batches_tracked") for k in sd)
+    assert len(sd) - n_bn == len(jax.tree_util.tree_leaves(variables))
+    assert sum(k.startswith("flow_estimator.") for k in sd) == 126
+
+
 def test_bridge_inverts_the_jax_converter(sfm_variables):
     """Round trip: the port's state dict, fed to the JAX package's own
     reference-checkpoint converter, rebuilds the same flax variables."""
@@ -115,6 +131,10 @@ def test_port_imports_no_jax():
         "    parts = parts[:-1] if parts[-1] == '__init__' else parts\n"
         "    importlib.import_module('.'.join((p.__name__,) + parts))\n"
         "import chip_smoke\n"
+        "need = ['cli', 'models.pwcnet', 'ops.correlation', 'ops.cuda.local_corr',\n"
+        "        'data.png', 'data.kitti', 'train.evaluate', 'train.metrics']\n"
+        "missing = [m for m in need if p.__name__ + '.' + m not in sys.modules]\n"
+        "assert not missing, missing\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'flax',"
         " 'deep_sfm_revisited_tpu.')) or m == 'deep_sfm_revisited_tpu']\n"
         "assert not bad, bad\n"
