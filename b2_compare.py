@@ -1,0 +1,191 @@
+#!/usr/bin/env python3
+"""Kernel B2 against an earlier source of itself, in turns, on one card; and
+every work mapping of the current source, to check `plan`'s choice.
+
+    git show <commit>:deep_sfm_revisited_tpu_torch/csrc/local_corr.cu > local/local_corr_old.cu
+    python3 b2_compare.py --old local/local_corr_old.cu   # needs one CUDA device
+    python3 b2_compare.py --sweep [--variant other.cu ...]
+
+Builds the older source (its C entry point without the mapping arguments:
+`dsfm_local_correlation(f0, f1, out, B, H, W, C, md, stream)`) beside the
+current one, and at PWC-DC's five level shapes (f0, f1 float32 of a
+384x1280 pair, md = 4, unit-normal inputs from a seed) times both in the
+order old, new, new, old: device ms from torch.profiler and ms per call by
+CUDA events over back-to-back calls. Checks that the two agree within
+1e-5 max|old| + 1e-6. With --sweep it times, at each level, the device
+ms (torch.profiler, and per launch of a CUDA graph of 50 launches) of
+every mapping the source takes (pixels per thread 1, 2, 4 x cluster
+1, 2, 4, 8), for the current source and for each --variant (a source with
+the current C entry point). Prints the card line, one line per level and,
+as the last line, one JSON object; writes the same object to --out.
+"""
+
+from __future__ import annotations
+
+import argparse
+import ctypes
+import json
+import sys
+from pathlib import Path
+
+import torch
+
+import chip_smoke as smoke
+
+LEVELS = [(1, 6, 20, 196), (1, 12, 40, 128), (1, 24, 80, 96), (1, 48, 160, 64),
+          (1, 96, 320, 32)]
+
+
+def old_kernel(path: Path):
+    """The older source, built by `ops/cuda/build.py`, behind a call like B2's."""
+    from deep_sfm_revisited_tpu_torch.ops.cuda.build import CudaKernel
+
+    class OldKernel(CudaKernel):
+        source = str(path.resolve())   # an absolute path replaces csrc/
+
+        def _bind(self, lib):
+            fn = lib.dsfm_local_correlation
+            fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+            fn.restype = ctypes.c_int
+
+        def __call__(self, f0, f1, md):
+            B, H, W, C = f0.shape
+            out = torch.empty((B, H, W, (2 * md + 1) ** 2), dtype=torch.float32,
+                              device=f0.device)
+            err = self.build().dsfm_local_correlation(
+                f0.data_ptr(), f1.data_ptr(), out.data_ptr(), B, H, W, C, md,
+                torch.cuda.current_stream().cuda_stream)
+            if err != 0:
+                raise RuntimeError(f"old B2 launch failed: cudaError {err}")
+            return out
+
+    return OldKernel()
+
+
+def graph_ms(call, reps: int = 50) -> float:
+    """ms per launch of `reps` launches captured in one CUDA graph, replayed
+    with CUDA events around it (no host cost per launch; the graph's gaps
+    between kernels included). Median of 5 replays."""
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        call()
+    torch.cuda.current_stream().wait_stream(stream)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            call()
+    graph.replay()
+    times = []
+    for _ in range(5):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / reps)
+    return sorted(times)[2]
+
+
+def sweep(lib, md: int, generator) -> list[dict]:
+    """Device ms of every (px, cluster) mapping of `lib` at each level."""
+    from deep_sfm_revisited_tpu_torch.ops.cuda import local_corr
+
+    rows = []
+    for shape in LEVELS:
+        f0, f1 = (torch.randn(shape, device="cuda", generator=generator) for _ in range(2))
+        out = torch.empty(shape[:3] + ((2 * md + 1) ** 2,), device="cuda")
+        times, graph = {}, {}
+        for px in local_corr.PIXELS_PER_THREAD:
+            for cluster in (1, 2, 4, 8):
+                if cluster > -(-shape[-1] // 4):
+                    continue
+
+                def call(px=px, cluster=cluster):
+                    err = lib.dsfm_local_correlation(
+                        f0.data_ptr(), f1.data_ptr(), out.data_ptr(), *shape, md, px, cluster,
+                        torch.cuda.current_stream().cuda_stream)
+                    smoke.check(err == 0, f"{shape} px {px} cluster {cluster}: cudaError {err}")
+
+                key = f"px{px}_cluster{cluster}"
+                times[key] = smoke.device_ms(call, "local_corr_kernel", reps=50)
+                graph[key] = graph_ms(call)
+        p = local_corr.plan(*shape, md)
+        best = min(times, key=lambda k: float("inf") if times[k] is None else times[k])
+        rows.append({"f0": list(shape), "device_ms": times, "graph_ms": graph, "best": best,
+                     "plan": f"px{p.px}_cluster{p.cluster}"})
+        smoke.log(f"b2_compare sweep {tuple(shape)}: best {best} {times[best]} ms (graph "
+                  f"{graph[best]:.5f}), plan {rows[-1]['plan']} {times[rows[-1]['plan']]} ms "
+                  f"(graph {graph[rows[-1]['plan']]:.5f})")
+    return rows
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--old", help="the earlier local_corr.cu, timed in turns with the current")
+    ap.add_argument("--sweep", action="store_true", help="time every mapping at each level")
+    ap.add_argument("--variant", action="append", default=[],
+                    help="another source with the current C entry point, swept too")
+    ap.add_argument("--out", default="b2_compare_out/b2_compare.json")
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        print("b2_compare: no CUDA device", file=sys.stderr)
+        return 2
+    from deep_sfm_revisited_tpu_torch.ops.cuda import local_corr
+
+    card = smoke.phase_setup(local_corr)
+    md = smoke.B2_MD
+    g = torch.Generator(device="cuda").manual_seed(0)
+    summary = {"card": card}
+    if args.sweep:
+        summary["sweep"] = {"current": sweep(local_corr.KERNEL.build(), md, g)}
+        for path in args.variant:
+            k = local_corr.LocalCorrKernel()
+            k.source = str(Path(path).resolve())   # an absolute path replaces csrc/
+            smoke.log(f"b2_compare: variant {path}")
+            summary["sweep"][path] = sweep(k.build(), md, g)
+    if args.old:
+        summary.update(compare(Path(args.old), local_corr, md, g))
+    out = Path(args.out)
+    out.parent.mkdir(parents=True, exist_ok=True)
+    out.write_text(json.dumps(summary, indent=1))
+    print(json.dumps(summary))
+    return 0
+
+
+def compare(path: Path, local_corr, md: int, g) -> dict:
+    """The older source and the current one in turns at each level."""
+    old = old_kernel(path)
+    old.build()
+    new = local_corr.local_correlation_cuda
+    rows = []
+    for shape in LEVELS:
+        f0 = torch.randn(shape, device="cuda", generator=g)
+        f1 = torch.randn(shape, device="cuda", generator=g)
+        a, b = old(f0, f1, md), new(f0, f1, md)
+        err = float((a - b).abs().max())
+        smoke.check(err <= 1e-5 * float(a.abs().max()) + 1e-6, f"{shape}: old vs new {err}")
+        t = {"old": [], "new": []}
+        for who in ("old", "new", "new", "old"):
+            fn = (lambda: old(f0, f1, md)) if who == "old" else (lambda: new(f0, f1, md))
+            t[who].append((smoke.device_ms(fn, "local_corr_kernel", reps=50),
+                           smoke.cuda_ms(fn, reps=200)))
+        p = local_corr.plan(*shape, md)
+        row = {"f0": list(shape), "px": p.px, "cluster": p.cluster, "warps": p.warps,
+               "max_abs_diff": err,
+               "old_device_ms": [d for d, _ in t["old"]], "new_device_ms": [d for d, _ in t["new"]],
+               "old_events_ms": [e for _, e in t["old"]], "new_events_ms": [e for _, e in t["new"]]}
+        rows.append(row)
+        smoke.log(f"b2_compare {tuple(shape)}: device ms old {row['old_device_ms']} new "
+                  f"{row['new_device_ms']}; events ms old {row['old_events_ms']} new "
+                  f"{row['new_events_ms']}; px {p.px} cluster {p.cluster} warps {p.warps}")
+    summary = {"levels": rows}
+    for who in ("old", "new"):
+        for kind in ("device", "events"):
+            key = f"{who}_{kind}_ms"
+            summary[f"{key}_per_pair"] = [sum(r[key][i] for r in rows) for i in range(2)]
+    return summary
+
+
+if __name__ == "__main__":
+    sys.exit(main())

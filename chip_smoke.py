@@ -34,11 +34,15 @@ Phases, each of which raises on failure:
    and the plane sweep); the result must be the 9 Eigen metrics, finite;
 6. B1 against its plain PyTorch version on the inputs both main paths gave
    it, with out-of-range and behind-the-camera coordinates added, in bf16
-   and float32; its time beside the plain version's, `F.grid_sample`'s
-   and the bound;
+   and float32; its time (CUDA events, and on the device from
+   torch.profiler) beside the plain version's, `F.grid_sample`'s and the
+   bound;
 7. B2 against its plain PyTorch version on the inputs slice 2 gave it, on
-   a copy whose frame border holds large values, and on an odd shape; its
-   time beside the plain version's and the bound.
+   a copy whose frame border holds large values, and on two odd shapes
+   (C = 40 split across a cluster, C = 3 on the scalar staging path);
+   two launches on the same inputs bit-identical; per level the work
+   mapping, the device and events times, the plain version's time, the
+   bound and the share of the bound reached.
 
 The line before the last is the kernel table as one JSON object; the last
 is {"ok": true, "device": {...}}. Without a CUDA device, or without the
@@ -517,30 +521,37 @@ def _outside_mask(h, w, md, device):
 
 def phase_b2(captured, local_corr, correlation):
     """B2 vs its plain version at slice 2's inputs, on a border-edged copy
-    and on an odd shape; times and bounds per call.
+    and on two odd shapes; bit-identical relaunches; mapping, times and
+    bounds per call.
 
     Tolerance: float32 sums of <= 196 products in another order (the
-    kernel's fmaf chain against torch's reduction), |kernel - plain| <=
-    1e-5 max|plain| + 1e-6; displacements that leave the frame give
-    exactly zero."""
+    kernel's fmaf chains, split across a cluster's blocks, against torch's
+    reduction), |kernel - plain| <= 1e-5 max|plain| + 1e-6; displacements
+    that leave the frame give exactly zero."""
     g = torch.Generator(device="cuda").manual_seed(11)
-    odd = (torch.randn((2, 13, 27, 40), device="cuda", generator=g),
-           torch.randn((2, 13, 27, 40), device="cuda", generator=g))
+    odd = [tuple(torch.randn(shape, device="cuda", generator=g) for _ in range(2))
+           for shape in ((2, 13, 27, 40), (1, 5, 7, 3))]
     calls, max_err = [], 0.0
-    for idx, (f0, f1) in enumerate(list(captured) + [odd]):
+    for idx, (f0, f1) in enumerate(list(captured) + odd):
         _, h, w, c = f0.shape
         name = f"pwc_corr_level{6 - idx}" if idx < len(captured) else "odd_shape"
+        p = local_corr.plan(*f0.shape, B2_MD)
         for what, a, b in (("main path", f0, f1), ("edged", f0, _edged_features(f1))):
             got = local_corr.local_correlation_cuda(a, b, B2_MD)
+            again = local_corr.local_correlation_cuda(a, b, B2_MD)
             ref = correlation.local_correlation_plain(a, b, B2_MD)
+            check(torch.equal(got, again), f"B2 {name} {what}: two launches differ")
             err = float((got - ref).abs().max())
             tol = 1e-5 * float(ref.abs().max()) + 1e-6
             max_err = max(max_err, err)
             check(err <= tol, f"B2 {name} {what}: max |kernel - plain| = {err} > {tol}")
             outside = _outside_mask(h, w, B2_MD, got.device).expand_as(got)
             check((got[outside] == 0).all(), f"B2 {name} {what}: nonzero outside the frame")
-        if idx == len(captured):
-            log(f"B2 odd shape {tuple(f0.shape)}: max |kernel - plain| {err:.3e}")
+        mapping = (f"px {p.px}, cluster {p.cluster}, grid {p.grid}, block {p.block}, "
+                   f"{p.warps} warps")
+        if idx >= len(captured):
+            log(f"B2 odd shape {tuple(f0.shape)}: max |kernel - plain| {err:.3e}, two "
+                f"launches bit-identical; mapping {mapping}")
             continue
         ms = cuda_ms(lambda: local_corr.local_correlation_cuda(f0, f1, B2_MD), reps=50)
         dev_ms = device_ms(lambda: local_corr.local_correlation_cuda(f0, f1, B2_MD),
@@ -551,14 +562,20 @@ def phase_b2(captured, local_corr, correlation):
         nbytes = 4 * (f0.numel() + f1.numel() + f0.numel() // c * s2)
         flops = (2 * c + 1) * s2 * (f0.numel() // c)     # c products + c sums, one division
         t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / F32_FLOPS * 1e3
+        bound = max(t_bytes, t_ops)
         calls.append(dict(name=name, f0=list(f0.shape), md=B2_MD, ms=ms, device_ms=dev_ms,
-                          plain_ms=plain_ms, library_ms=None, bound_ms=max(t_bytes, t_ops),
+                          plain_ms=plain_ms, library_ms=None, bound_ms=bound,
                           bound_by="bytes" if t_bytes >= t_ops else "operations",
-                          bytes=nbytes, flops=flops))
-        log(f"B2 {name}: f0/f1 {tuple(f0.shape)} float32: kernel {ms:.4f} ms (device "
-            f"{'not measured' if dev_ms is None else f'{dev_ms:.4f} ms'}), plain "
-            f"{plain_ms:.4f} ms, bound {calls[-1]['bound_ms']:.4f} ms "
-            f"({calls[-1]['bound_by']}, {nbytes / 1e6:.2f} MB, {flops / 1e6:.1f} MFLOP)")
+                          bound_share=None if dev_ms is None else bound / dev_ms,
+                          bytes=nbytes, flops=flops,
+                          mapping=dict(px=p.px, cluster=p.cluster, grid=list(p.grid),
+                                       block=list(p.block), warps=p.warps)))
+        share = "not measured" if dev_ms is None else f"{100 * bound / dev_ms:.1f}%"
+        log(f"B2 {name}: f0/f1 {tuple(f0.shape)} float32: device "
+            f"{'not measured' if dev_ms is None else f'{dev_ms:.4f} ms'}, events {ms:.4f} ms, "
+            f"plain {plain_ms:.4f} ms, bound {bound:.5f} ms ({calls[-1]['bound_by']}, "
+            f"{nbytes / 1e6:.2f} MB, {flops / 1e6:.1f} MFLOP), share of bound {share}; "
+            f"mapping {mapping}")
     return calls, max_err
 
 
@@ -566,6 +583,8 @@ def _pair_sums(calls):
     t_bytes = sum(c["bytes"] for c in calls) / HBM_BYTES_PER_S * 1e3
     t_ops = sum(c["flops"] for c in calls) / F32_FLOPS * 1e3
     out = {k: sum(c[k] for c in calls) for k in ("ms", "plain_ms")}
+    out["device_ms"] = (None if any(c["device_ms"] is None for c in calls)
+                        else sum(c["device_ms"] for c in calls))
     out.update(bound_ms=max(t_bytes, t_ops), bound_by="bytes" if t_bytes >= t_ops else "operations")
     if all(c.get("library_ms") is not None for c in calls):
         out["library_ms"] = sum(c["library_ms"] for c in calls)
@@ -603,6 +622,8 @@ def phase_kernel(captured, sweep_warp, camera, path: str = "dicl"):
         grid = grid.to(img.dtype)
         img_nchw = img.permute(0, 3, 1, 2)
         ms = cuda_ms(lambda: sweep_warp.bilinear_sample_cuda(img, coords), reps=20)
+        dev_ms = device_ms(lambda: sweep_warp.bilinear_sample_cuda(img, coords),
+                           "bilinear_sample_kernel")
         plain_ms = cuda_ms(lambda: camera.bilinear_sample_plain(img, coords), reps=3, warmup=1)
         library_ms = cuda_ms(lambda: F.grid_sample(img_nchw, grid, mode="bilinear",
                                                     padding_mode="zeros",
@@ -613,12 +634,14 @@ def phase_kernel(captured, sweep_warp, camera, path: str = "dicl"):
         t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / F32_FLOPS * 1e3
         calls.append(dict(name=name, img=list(img.shape), coords=list(coords.shape),
                           dtype=str(img.dtype).replace("torch.", ""),
-                          out_of_range=float(invalid), ms=ms, plain_ms=plain_ms,
+                          out_of_range=float(invalid), ms=ms, device_ms=dev_ms,
+                          plain_ms=plain_ms,
                           library_ms=library_ms, bound_ms=max(t_bytes, t_ops),
                           bound_by="bytes" if t_bytes >= t_ops else "operations",
                           bytes=nbytes, flops=flops))
         log(f"B1 {name}: img {tuple(img.shape)} coords {tuple(coords.shape)} "
-            f"{calls[-1]['dtype']}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+            f"{calls[-1]['dtype']}: kernel {ms:.4f} ms (device "
+            f"{'not measured' if dev_ms is None else f'{dev_ms:.4f} ms'}), plain {plain_ms:.4f} ms, "
             f"grid_sample {library_ms:.4f} ms, bound {calls[-1]['bound_ms']:.4f} ms "
             f"({calls[-1]['bound_by']}, {nbytes / 1e6:.1f} MB); "
             f"{100 * float(invalid):.1f}% of queries out of range")
@@ -663,13 +686,12 @@ def main() -> int:
           "launches_by_path": {"pwc_cli_eval": b2_pwc}, "max_abs_err": err2,
           # per frame pair: PWC-DC's five levels; no single PyTorch call
           # computes a windowed correlation, so there is no library time
-          **_pair_sums(calls2),
-          "device_ms": (None if any(c["device_ms"] is None for c in calls2)
-                        else sum(c["device_ms"] for c in calls2)),
-          "calls": calls2}
+          **_pair_sums(calls2), "calls": calls2}
     for k in (b1, b2):
         lib = "none" if k["library_ms"] is None else f"{k['library_ms']:.4f} ms"
-        log(f"{k['name']} per pair: kernel {k['ms']:.4f} ms, plain {k['plain_ms']:.4f} ms, "
+        dev = "not measured" if k["device_ms"] is None else f"{k['device_ms']:.4f} ms"
+        log(f"{k['name']} per pair: kernel {k['ms']:.4f} ms (device {dev}), plain "
+            f"{k['plain_ms']:.4f} ms, "
             f"bound {k['bound_ms']:.4f} ms ({k['bound_by']}), library {lib}, "
             f"launches {k['launches']}")
     log(f"chip_smoke: all phases passed in {time.perf_counter() - t_start:.1f} s")

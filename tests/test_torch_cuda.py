@@ -39,19 +39,38 @@ def test_b1_kernel_matches_plain_on_card(dtype):
         torch.testing.assert_close(got, ref, rtol=0, atol=0)
 
 
+# PWC-DC's five level shapes (f0, f1 at levels 6..2 of a 384x1280 pair), a
+# batch of 2, and odd shapes: C = 40 splits unevenly across a cluster, C = 3
+# takes the scalar staging path
+B2_SHAPES = [((1, 6, 20, 196), 4), ((1, 12, 40, 128), 4), ((1, 24, 80, 96), 4),
+             ((1, 48, 160, 64), 4), ((1, 96, 320, 32), 4), ((2, 24, 80, 96), 4),
+             ((2, 13, 27, 40), 4), ((2, 13, 27, 40), 2), ((1, 5, 7, 3), 1)]
+
+
+def _b2_inputs(shape, seed):
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    return (torch.randn(shape, device="cuda", generator=g),
+            torch.randn(shape, device="cuda", generator=g))
+
+
+def _outside(h, w, md):
+    """(H, W, (2md+1)^2) True where (y+dy, x+dx) leaves the frame."""
+    d = torch.arange(-md, md + 1, device="cuda")
+    dy, dx = d.repeat_interleave(2 * md + 1), d.repeat(2 * md + 1)
+    ys = torch.arange(h, device="cuda")[:, None, None] + dy
+    xs = torch.arange(w, device="cuda")[None, :, None] + dx
+    return (ys < 0) | (ys >= h) | (xs < 0) | (xs >= w)
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("shape,md", [((1, 6, 20, 196), 4), ((1, 96, 320, 32), 4),
-                                      ((2, 13, 27, 40), 4), ((2, 13, 27, 40), 2),
-                                      ((1, 5, 7, 3), 1)])
+@pytest.mark.parametrize("shape,md", B2_SHAPES)
 def test_b2_kernel_matches_plain_on_card(shape, md):
-    """B2 against its plain version on the card, PWC-DC's coarsest and
-    finest level shapes and odd ones. Tolerance: float32 sums of <= 196
+    """B2 against its plain version on the card, at PWC-DC's five level
+    shapes, a batch of 2 and odd shapes. Tolerance: float32 sums of <= 196
     products in another order, |kernel - plain| <= 1e-5 max|plain| + 1e-6."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
-    g = torch.Generator(device="cuda").manual_seed(1)
-    f0 = torch.randn(shape, device="cuda", generator=g)
-    f1 = torch.randn(shape, device="cuda", generator=g)
+    f0, f1 = _b2_inputs(shape, seed=1)
     before = local_corr.KERNEL.launches
     got = tcorr.local_correlation(f0, f1, md)
     torch.cuda.synchronize()
@@ -59,6 +78,40 @@ def test_b2_kernel_matches_plain_on_card(shape, md):
     ref = tcorr.local_correlation_plain(f0, f1, md)
     assert got.shape == ref.shape == shape[:3] + ((2 * md + 1) ** 2,)
     assert float((got - ref).abs().max()) <= 1e-5 * float(ref.abs().max()) + 1e-6
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,md", B2_SHAPES)
+def test_b2_kernel_is_deterministic(shape, md):
+    """Two launches on the same inputs give the same bits: the channel split
+    is reduced in a fixed rank order, with no atomics."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    f0, f1 = _b2_inputs(shape, seed=2)
+    first = local_corr.local_correlation_cuda(f0, f1, md)
+    second = local_corr.local_correlation_cuda(f0, f1, md)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(1, 5, 7, 3), (1, 6, 20, 196)])
+def test_b2_exact_zero_off_the_frame(shape):
+    """Displacements that leave the frame give exactly 0, on the scalar
+    staging path (C = 3) and across an 8-block channel split (C = 196),
+    even where the frame's border holds large values."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    md = 4
+    assert (local_corr.plan(*shape, md).cluster > 1) == (shape[-1] == 196)
+    f0, f1 = _b2_inputs(shape, seed=3)
+    f1[:, [0, -1]] = 100.0
+    f1[:, :, [0, -1]] = 100.0
+    got = local_corr.local_correlation_cuda(f0, f1, md)
+    torch.cuda.synchronize()
+    outside = _outside(shape[1], shape[2], md).expand_as(got)
+    assert bool((got[outside] == 0).all())
+    assert bool((got[~outside] != 0).any())
 
 
 @pytest.mark.cuda
