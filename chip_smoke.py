@@ -5,7 +5,8 @@
 
 Phases, each of which raises on failure:
 
-1. setup: the card's name and power limit, TF32 off, kernels B1 and B2
+1. setup: the card's name and power limit, TF32 off, kernels B1 (the
+   generic gather and the plane-sweep cost volume, one source) and B2
    built with nvcc (in parallel) from `deep_sfm_revisited_tpu_torch/csrc/
    sweep_warp.cu` and `csrc/local_corr.cu`;
 2. pose on the card: rigid flow of a known (R, t) -> correspondence
@@ -21,8 +22,9 @@ Phases, each of which raises on failure:
    PSNet with 128 planes) at 384x1280, b=1, bf16 autocast, random weights
    from a seed, as `bench.py` runs the JAX package. One warm-up pair
    records B1's inputs; then the launch counts go to 0, three distinct
-   pairs run, and each must have launched B1 five times (PSNet's plane
-   sweep and DICL's flow warps at levels 5..2);
+   pairs run, and each must have launched the sweep kernel once (PSNet's
+   cost volume) and the generic gather four times (DICL's flow warps at
+   levels 5..2);
 5. slice 2's main path, through the entry point a user calls: a golden
    KITTI raw tree rendered at 370x1224 (`data/synthetic.py`) evaluated by
    `cli.main([... "-v", "--override", "flow.estimator=PWC", ...])` (PWC-DC
@@ -30,13 +32,21 @@ Phases, each of which raises on failure:
    bf16) on the card. The launch counts go to 0 before it; the warm-up
    pair records B1's and B2's inputs, the counts go to 0 again, and each of
    the three test pairs after it must launch B2 five times (PWC-DC's
-   correlation at levels 6..2) and B1 five times (its warps at levels 5..2
-   and the plane sweep); the result must be the 9 Eigen metrics, finite;
-6. B1 against its plain PyTorch version on the inputs both main paths gave
-   it, with out-of-range and behind-the-camera coordinates added, in bf16
-   and float32; its time (CUDA events, and on the device from
-   torch.profiler) beside the plain version's, `F.grid_sample`'s and the
-   bound;
+   correlation at levels 6..2), the generic gather four times (its warps at
+   levels 5..2) and the sweep kernel once; the result must be the 9 Eigen
+   metrics, finite;
+6. B1 against its plain PyTorch versions on the inputs both main paths
+   gave it, in bf16 and float32, bit for bit: the generic gather on the
+   flow warps, with out-of-range and behind-the-camera coordinates added,
+   its time (CUDA events, and on the device from torch.profiler) beside the
+   plain version's, `F.grid_sample`'s and the bound; the sweep kernel on
+   PSNet's inputs and on copies with a bordered target map, a pose that
+   puts the near planes behind the camera and one that pushes most samples
+   out of the frame, with exact zeros where the sample is invalid; its
+   device and events times, bound and share of it, the plain version's
+   time, and the device time of the composition it replaced
+   (coordinates, the generic gather, the concat and the channels-last-3d
+   copy that stands in for cuDNN's input transpose);
 7. B2 against its plain PyTorch version on the inputs slice 2 gave it, on
    a copy whose frame border holds large values, and on two odd shapes
    (C = 40 split across a cluster, C = 3 on the scalar staging path);
@@ -72,7 +82,8 @@ PAIRS = 3
 K_KITTI = [[718.856, 0.0, 607.19], [0.0, 718.856, 185.2], [0.0, 0.0, 1.0]]
 BENCH_OVERRIDES = {"pose.num_hypotheses": 512, "pose.ransac_iter": 5,
                    "pose.num_correspondences": 1024, "pose.polish_iters": 5}
-B1_PER_PAIR = 5  # PSNet's plane sweep + DICL's (or PWC-DC's) warps at levels 5..2
+B1_PER_PAIR = 4  # the generic gather: DICL's (or PWC-DC's) warps at levels 5..2
+SWEEP_PER_PAIR = 1  # the sweep kernel: PSNet's cost volume (one target)
 B2_PER_PAIR = 5  # PWC-DC's correlation at levels 6..2
 EIGEN_KEYS = {"abs_rel", "sq_rel", "rmse", "rmse_log", "a1", "a2", "a3", "l1_inv", "sc_inv"}
 
@@ -87,6 +98,7 @@ SMALL = {"depth.nlabel": 8, "pose.num_hypotheses": 16, "pose.ransac_iter": 1,
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS = 67e12
 B1_FLOPS_PER_OUTPUT = 10  # 6 tap products, 3 sums, the validity product
+SWEEP_FLOPS_PER_SAMPLE = 8  # ray d + K t (3 products, 3 sums) and the 2 divisions
 
 B1_SOURCE = f"{PKG}/csrc/sweep_warp.cu"
 B1_REPLACES = "deep_sfm_revisited_tpu/ops/pallas/sweep_warp.py:145"
@@ -309,8 +321,14 @@ def _check_pair(out, i):
     _check_pose(out["pose"], f"pair {i}")
 
 
+def _launches(*kernels):
+    return tuple(k.launches for k in kernels)
+
+
 def phase_main_path(dev, sweep_warp):
-    """Warm-up pair (records B1's inputs), then PAIRS counted, timed pairs."""
+    """Warm-up pair (records the inputs of B1's two kernels), then PAIRS
+    counted, timed pairs. Returns (gather launches, sweep launches, gather
+    inputs, sweep inputs)."""
     from deep_sfm_revisited_tpu_torch.config import SfMConfig
     from deep_sfm_revisited_tpu_torch.models.sfmnet import SFMNet
 
@@ -322,54 +340,65 @@ def phase_main_path(dev, sweep_warp):
     K = torch.tensor(K_KITTI, device=dev).expand(B, 3, 3)
     timer = StageTimer(model)
 
-    captured = []
-    launch = sweep_warp.bilinear_sample_cuda
+    captured, cap_sweep = [], []
+    gather, sweep = sweep_warp.bilinear_sample_cuda, sweep_warp.plane_sweep_volume_cuda
 
     def recording(img, coords):
         captured.append((img.clone(), coords.clone()))
-        return launch(img, coords)
+        return gather(img, coords)
+
+    def recording_sweep(*args):
+        cap_sweep.append(tuple(a.clone() for a in args))
+        return sweep(*args)
 
     sweep_warp.bilinear_sample_cuda = recording
+    sweep_warp.plane_sweep_volume_cuda = recording_sweep
     try:
         t0 = time.perf_counter()
         _check_pair(model(refs[0], tgts[0], K,
                           generator=torch.Generator(device=dev).manual_seed(100)), 0)
         torch.cuda.synchronize()
     finally:
-        sweep_warp.bilinear_sample_cuda = launch
+        sweep_warp.bilinear_sample_cuda, sweep_warp.plane_sweep_volume_cuda = gather, sweep
     log(f"main path: warm-up pair {1e3 * (time.perf_counter() - t0):.1f} ms, "
-        f"B1 inputs recorded: {[tuple(c.shape) for _, c in captured]}")
-    check(len(captured) == B1_PER_PAIR, f"warm-up launched B1 {len(captured)} times")
+        f"gather inputs recorded: {[tuple(c.shape) for _, c in captured]}, sweep inputs: "
+        f"{[tuple(a[0].shape) + (len(a[2]),) for a in cap_sweep]}")
+    check((len(captured), len(cap_sweep)) == (B1_PER_PAIR, SWEEP_PER_PAIR),
+          f"warm-up launched the gather {len(captured)}, the sweep {len(cap_sweep)} times")
 
     torch.cuda.reset_peak_memory_stats()
-    sweep_warp.KERNEL.launches = 0
+    counters = (sweep_warp.KERNEL, sweep_warp.VOLUME)
+    sweep_warp.KERNEL.launches = sweep_warp.VOLUME.launches = 0
     rows = []
     for i in range(1, PAIRS + 1):
-        before = sweep_warp.KERNEL.launches
+        before = _launches(*counters)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         out = model(refs[i], tgts[i], K,
                     generator=torch.Generator(device=dev).manual_seed(100 + i))
         torch.cuda.synchronize()
         ms = 1e3 * (time.perf_counter() - t0)
-        n = sweep_warp.KERNEL.launches - before
+        n = tuple(a - b for a, b in zip(_launches(*counters), before))
         _check_pair(out, i)
-        check(n == B1_PER_PAIR, f"pair {i}: B1 launched {n} times, expected {B1_PER_PAIR}")
+        check(n == (B1_PER_PAIR, SWEEP_PER_PAIR),
+              f"pair {i}: gather, sweep launched {n} times, expected "
+              f"{(B1_PER_PAIR, SWEEP_PER_PAIR)}")
         rows.append(dict(ms=ms, **timer.stages_ms(), inliers=int(out["inliers"][0]),
                          num_matches=int(out["num_matches"][0])))
         log(f"main path: pair {i}: {ms:.1f} ms (flow {rows[-1]['flow']:.1f}, pose "
             f"{rows[-1]['pose']:.1f}, depth {rows[-1]['depth']:.1f} ms device); "
             f"inliers {rows[-1]['inliers']}/{cfg.pose.num_correspondences}, confident candidates "
-            f"{rows[-1]['num_matches']}, B1 launches {n}")
-    launches = sweep_warp.KERNEL.launches
-    check(launches == B1_PER_PAIR * PAIRS, f"B1 launched {launches} times in the main path")
+            f"{rows[-1]['num_matches']}, gather launches {n[0]}, sweep launches {n[1]}")
+    launches = _launches(*counters)
+    check(launches == (B1_PER_PAIR * PAIRS, SWEEP_PER_PAIR * PAIRS),
+          f"gather, sweep launched {launches} times in the main path")
     mean = {k: sum(r[k] for r in rows) / PAIRS for k in ("ms", "flow", "pose", "depth")}
     log(f"main path: mean over {PAIRS} pairs: {mean['ms']:.2f} ms/pair "
         f"({1e3 / mean['ms']:.3f} pairs/s); stages flow {mean['flow']:.2f}, pose "
         f"{mean['pose']:.2f}, depth {mean['depth']:.2f} ms; peak memory "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     log("main path rows: " + json.dumps(rows))
-    return launches, captured
+    return launches[0], launches[1], captured, cap_sweep
 
 
 def _with_edges(coords, h, w):
@@ -393,20 +422,28 @@ def phase_cli_pwc(dev, sweep_warp, local_corr):
     `SFMNet.forward` is wrapped for the run: it times each pair (host clock
     around the forward and a synchronize; stage times by CUDA events),
     counts each kernel's launches per pair, and on the warm-up pair records
-    B1's and B2's inputs. Returns (B1 launches, B2 launches, B1 inputs, B2
-    inputs), the launch counts over the three pairs after the warm-up.
+    the inputs of B1's gather and sweep kernels and of B2. Returns the launch
+    counts over the three pairs after the warm-up (gather, sweep, B2) and
+    the inputs (gather, sweep, B2).
     """
     from deep_sfm_revisited_tpu_torch import cli
     from deep_sfm_revisited_tpu_torch.data.synthetic import write_kitti_raw_tree
     from deep_sfm_revisited_tpu_torch.models.sfmnet import SFMNet
 
-    rows, cap1, cap2, timer = [], [], [], []
+    rows, cap1, cap_sweep, cap2, timer = [], [], [], [], []
     real_forward, launch1, launch2 = (SFMNet.forward, sweep_warp.bilinear_sample_cuda,
                                       local_corr.local_correlation_cuda)
+    sweep = sweep_warp.plane_sweep_volume_cuda
+    counters = (sweep_warp.KERNEL, sweep_warp.VOLUME, local_corr.KERNEL)
+    per_pair = (B1_PER_PAIR, SWEEP_PER_PAIR, B2_PER_PAIR)
 
     def record1(img, coords):
         cap1.append((img.clone(), coords.clone()))
         return launch1(img, coords)
+
+    def record_sweep(*args):
+        cap_sweep.append(tuple(a.clone() for a in args))
+        return sweep(*args)
 
     def record2(f0, f1, md):
         cap2.append((f0.clone(), f1.clone()))
@@ -417,7 +454,8 @@ def phase_cli_pwc(dev, sweep_warp, local_corr):
         if warm:
             timer.append(StageTimer(model))
             sweep_warp.bilinear_sample_cuda, local_corr.local_correlation_cuda = record1, record2
-        before = (sweep_warp.KERNEL.launches, local_corr.KERNEL.launches)
+            sweep_warp.plane_sweep_volume_cuda = record_sweep
+        before = _launches(*counters)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         try:
@@ -425,25 +463,27 @@ def phase_cli_pwc(dev, sweep_warp, local_corr):
             torch.cuda.synchronize()
         finally:
             sweep_warp.bilinear_sample_cuda, local_corr.local_correlation_cuda = launch1, launch2
+            sweep_warp.plane_sweep_volume_cuda = sweep
         ms = 1e3 * (time.perf_counter() - t0)
-        n1 = sweep_warp.KERNEL.launches - before[0]
-        n2 = local_corr.KERNEL.launches - before[1]
+        n = tuple(a - b for a, b in zip(_launches(*counters), before))
         i = len(rows) + (0 if warm else 1)
         _check_pair(out, i)
         check(out["num_matches"] is None, f"PWC pair {i}: the sampler reported confidences")
-        check((n1, n2) == (B1_PER_PAIR, B2_PER_PAIR),
-              f"PWC pair {i}: B1 launched {n1}, B2 {n2} times, expected "
-              f"{B1_PER_PAIR} and {B2_PER_PAIR}")
+        check(n == per_pair, f"PWC pair {i}: gather, sweep, B2 launched {n} times, "
+              f"expected {per_pair}")
         if warm:
-            sweep_warp.KERNEL.launches = local_corr.KERNEL.launches = 0
-            log(f"cli PWC: warm-up pair {ms:.1f} ms; B1 inputs {[tuple(c.shape) for _, c in cap1]}"
-                f", B2 inputs {[tuple(f.shape) for f, _ in cap2]}")
+            for k in counters:
+                k.launches = 0
+            log(f"cli PWC: warm-up pair {ms:.1f} ms; gather inputs "
+                f"{[tuple(c.shape) for _, c in cap1]}, sweep inputs "
+                f"{[tuple(a[0].shape) + (len(a[2]),) for a in cap_sweep]}, B2 inputs "
+                f"{[tuple(f.shape) for f, _ in cap2]}")
         else:
             rows.append(dict(ms=ms, **timer[0].stages_ms(), inliers=int(out["inliers"][0])))
             log(f"cli PWC: pair {i}: {ms:.1f} ms (flow {rows[-1]['flow']:.1f}, pose "
                 f"{rows[-1]['pose']:.1f}, depth {rows[-1]['depth']:.1f} ms device); inliers "
                 f"{rows[-1]['inliers']}/{BENCH_OVERRIDES['pose.num_correspondences']}; "
-                f"B1 launches {n1}, B2 launches {n2}")
+                f"gather, sweep, B2 launches {n}")
         return out
 
     with tempfile.TemporaryDirectory() as tmp:
@@ -458,7 +498,8 @@ def phase_cli_pwc(dev, sweep_warp, local_corr):
                 *[f"{k}={v}" for k, v in BENCH_OVERRIDES.items()]]
         log("cli PWC: cli.main(" + json.dumps(argv).replace(tmp, "<tmp>") + ")")
         torch.cuda.reset_peak_memory_stats()
-        sweep_warp.KERNEL.launches = local_corr.KERNEL.launches = 0
+        for k in counters:
+            k.launches = 0
         SFMNet.forward = timed_forward
         try:
             t0 = time.perf_counter()
@@ -466,10 +507,10 @@ def phase_cli_pwc(dev, sweep_warp, local_corr):
             wall = time.perf_counter() - t0
         finally:
             SFMNet.forward = real_forward
-        launches = (sweep_warp.KERNEL.launches, local_corr.KERNEL.launches)
+        launches = _launches(*counters)
     check(len(rows) == PAIRS, f"cli PWC: {len(rows)} test pairs after the warm-up, expected {PAIRS}")
-    check(launches == (B1_PER_PAIR * PAIRS, B2_PER_PAIR * PAIRS),
-          f"cli PWC: B1, B2 launched {launches} times in the main path")
+    check(launches == tuple(PAIRS * n for n in per_pair),
+          f"cli PWC: gather, sweep, B2 launched {launches} times in the main path")
     check(set(results) == EIGEN_KEYS, f"cli PWC: metrics {sorted(results)}")
     check(all(math.isfinite(v) for v in results.values()), f"cli PWC: metrics {results}")
     mean = {k: sum(r[k] for r in rows) / PAIRS for k in ("ms", "flow", "pose", "depth")}
@@ -479,13 +520,13 @@ def phase_cli_pwc(dev, sweep_warp, local_corr):
         f"{mean['depth']:.2f} ms; cli.main {wall:.2f} s for {PAIRS + 1} pairs; peak memory "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     log("cli PWC rows: " + json.dumps(rows))
-    return launches[0], launches[1], cap1, cap2
+    return launches, (cap1, cap_sweep, cap2)
 
 
-def device_ms(fn, kernel_name: str, reps: int = 20) -> float | None:
-    """Mean device time in ms of the kernels named `kernel_name` that `reps`
-    calls of `fn` launch, from a torch.profiler trace (no host launch cost);
-    None if the trace shows none."""
+def device_profile(fn, reps: int = 20) -> dict:
+    """{name: [ms, count]} per call of `fn` of every kernel, copy and fill
+    that `reps` calls put on the card, from a torch.profiler trace (no host
+    launch cost)."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -494,10 +535,20 @@ def device_ms(fn, kernel_name: str, reps: int = 20) -> float | None:
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    hits = [e for e in prof.key_averages() if kernel_name in e.key]
-    total = sum(getattr(e, "device_time_total", 0.0) for e in hits)
-    count = sum(e.count for e in hits)
-    return total / count / 1e3 if count and total else None
+    by_name = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            row = by_name.setdefault(e.name, [0.0, 0.0])
+            row[0] += e.time_range.elapsed_us() / reps / 1e3
+            row[1] += 1 / reps
+    return by_name
+
+
+def device_ms(fn, kernel_name: str, reps: int = 20) -> float | None:
+    """Device time in ms per call of `fn` of the kernels whose names contain
+    `kernel_name`; None if the trace shows none."""
+    ms = sum(v[0] for n, v in device_profile(fn, reps).items() if kernel_name in n)
+    return ms or None
 
 
 def _edged_features(f1):
@@ -594,7 +645,8 @@ def _pair_sums(calls):
 
 
 def phase_kernel(captured, sweep_warp, camera, path: str = "dicl"):
-    """B1 vs its plain version at the main path's inputs; times and bounds.
+    """B1's generic gather vs its plain version at the flow warps' inputs;
+    times and bounds.
 
     Tolerance: exact in bf16 and float32 -- the kernel rounds op by op with
     __fmul_rn/__fadd_rn in the plain version's order (the card's own bound
@@ -602,7 +654,7 @@ def phase_kernel(captured, sweep_warp, camera, path: str = "dicl"):
     calls, max_err = [], 0.0
     for img, coords in captured:
         _, h, w, _ = img.shape
-        name = "psnet_sweep" if coords.dim() == 5 else f"{path}_warp_{h}x{w}"
+        name = f"{path}_warp_{h}x{w}"
         edged, zero = _with_edges(coords, h, w)
         invalid = ((coords[..., 0] < 0) | (coords[..., 0] > w - 1)
                    | (coords[..., 1] < 0) | (coords[..., 1] > h - 1)).float().mean()
@@ -648,6 +700,113 @@ def phase_kernel(captured, sweep_warp, camera, path: str = "dicl"):
     return calls, max_err
 
 
+def _sweep_variants(ref, tgt, depths, M, Kt):
+    """PSNet's sweep inputs and the edge cases built from them: the target
+    map's frame border at 100 (a read across the border would show), K t
+    moved back so the nearer half of the planes lies behind the camera, and
+    K t moved sideways by 2 W depths[D // 4], so every sample on a plane
+    nearer than about twice that depth leaves the frame (most planes)."""
+    W = ref.shape[2]
+    D = depths.shape[0]
+    behind, outward = Kt.clone(), Kt.clone()
+    behind[:, 2] = -depths[D // 2]
+    outward[:, 0] += 2 * W * depths[D // 4]
+    return {"main path": (ref, tgt, depths, M, Kt),
+            "edged": (ref, _edged_features(tgt), depths, M, Kt),
+            "behind the camera": (ref, tgt, depths, M, behind),
+            "out of frame": (ref, tgt, depths, M, outward)}
+
+
+def phase_sweep(captured, sweep_warp, camera):
+    """B1's sweep kernel vs its plain version on PSNet's inputs from both
+    main paths and on their edge cases (`_sweep_variants`), bf16 and
+    float32; times, bound, and the composition it replaced.
+
+    Tolerance: exact -- the kernel computes the coordinates and the blend
+    op by op in the plain version's order with __fmul_rn/__fadd_rn/
+    __fdiv_rn. Where the sample is invalid (out of the frame, or behind the
+    camera) the warped half must be exactly zero; the ref half is the ref
+    features on every plane; the (B, 2C, D, H, W) view has channels-last-3d
+    strides."""
+    max_err, zero_share = 0.0, {}
+    for idx, inputs in enumerate(captured):
+        for what, (ref, tgt, depths, M, Kt) in _sweep_variants(*inputs).items():
+            B, H, W, C = ref.shape
+            D = depths.shape[0]
+            x, y = camera.sweep_pixel_coords(depths, M, Kt, H, W)
+            invalid = (x < 0) | (x > W - 1) | (y < 0) | (y > H - 1)
+            zero_share[what] = float(invalid.float().mean())
+            for dtype in (torch.bfloat16, torch.float32):
+                r, t = ref.to(dtype), tgt.to(dtype)
+                got = sweep_warp.plane_sweep_volume_cuda(r, t, depths, M, Kt)
+                plain = camera.plane_sweep_volume_plain(r, t, depths, M, Kt)
+                err = float((got.float() - plain.float()).abs().max())
+                max_err = max(max_err, err)
+                name = f"sweep input {idx} {what} {str(dtype)[6:]}"
+                check(err == 0.0, f"{name}: max |kernel - plain| = {err}")
+                check(got.shape == (B, D, H, W, 2 * C), f"{name}: shape {tuple(got.shape)}")
+                check(torch.equal(got[..., :C], r[:, None].expand(B, D, H, W, C)),
+                      f"{name}: the ref half is not the ref features")
+                check((got[..., C:][invalid] == 0).all(), f"{name}: invalid samples not zero")
+                check(got.permute(0, 4, 1, 2, 3).is_contiguous(
+                    memory_format=torch.channels_last_3d), f"{name}: not channels-last-3d")
+                del got, plain
+        log(f"sweep input {idx} {tuple(inputs[0].shape)} x {inputs[2].shape[0]} planes: "
+            f"kernel == plain in bf16 and float32 on all variants; invalid share "
+            + ", ".join(f"{k} {100 * v:.2f}%" for k, v in zero_share.items()))
+
+    ref, tgt, depths, M, Kt = captured[0]
+    B, H, W, C = ref.shape
+    D = depths.shape[0]
+    out = sweep_warp.plane_sweep_volume_cuda(ref, tgt, depths, M, Kt)
+
+    def run():
+        sweep_warp.plane_sweep_volume_cuda(ref, tgt, depths, M, Kt)
+
+    def old_composition():
+        """The earlier path: coordinates in device memory, the generic gather, the
+        NCDHW concat, then the channels-last-3d copy cuDNN made of it."""
+        coords = torch.stack(camera.sweep_pixel_coords(depths, M, Kt, H, W), dim=-1)
+        warped = sweep_warp.bilinear_sample_cuda(tgt, coords)
+        cost = torch.cat([ref.permute(0, 3, 1, 2)[:, :, None].expand(B, C, D, H, W),
+                          warped.permute(0, 4, 1, 2, 3)], dim=1)
+        return cost.contiguous(memory_format=torch.channels_last_3d)
+
+    check(torch.equal(old_composition(), out.permute(0, 4, 1, 2, 3)),
+          "the old composition and the sweep kernel build different volumes")
+    ms = cuda_ms(run, reps=20)
+    dev_ms = device_ms(run, "plane_sweep_volume_kernel")
+    plain_ms = cuda_ms(lambda: camera.plane_sweep_volume_plain(ref, tgt, depths, M, Kt),
+                       reps=3, warmup=1)
+    old_ms = cuda_ms(old_composition, reps=10)
+    old_profile = device_profile(old_composition, reps=10)
+    old_dev_ms = sum(ms for ms, _ in old_profile.values()) or None
+    old_kernels = sum(n for _, n in old_profile.values())
+    nbytes = sum(t.numel() * t.element_size() for t in (ref, tgt, depths, M, Kt, out))
+    flops = (B1_FLOPS_PER_OUTPUT * out.numel() // 2
+             + SWEEP_FLOPS_PER_SAMPLE * out.numel() // (2 * C))
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / F32_FLOPS * 1e3
+    bound = max(t_bytes, t_ops)
+    call = dict(name="psnet_cost_volume", ref=list(ref.shape), planes=D,
+                out=list(out.shape), dtype=str(ref.dtype).replace("torch.", ""), ms=ms,
+                device_ms=dev_ms, plain_ms=plain_ms, library_ms=None, bound_ms=bound,
+                bound_by="bytes" if t_bytes >= t_ops else "operations",
+                bound_share=None if dev_ms is None else bound / dev_ms, bytes=nbytes,
+                flops=flops, old_composition_ms=old_ms, old_composition_device_ms=old_dev_ms,
+                old_composition_kernels=old_kernels,
+                old_composition_top={n: v[0] for n, v in sorted(
+                    old_profile.items(), key=lambda kv: -kv[1][0])[:6]})
+    share = "not measured" if dev_ms is None else f"{100 * bound / dev_ms:.1f}%"
+    fmt = lambda v: "not measured" if v is None else f"{v:.4f} ms"   # noqa: E731
+    log(f"sweep kernel: ref/tgt {tuple(ref.shape)} {call['dtype']}, {D} planes -> "
+        f"{tuple(out.shape)}: device {fmt(dev_ms)}, events {ms:.4f} ms, plain "
+        f"{plain_ms:.4f} ms, bound {bound:.4f} ms ({call['bound_by']}, {nbytes / 1e6:.1f} MB), "
+        f"share of bound {share}; old composition device {fmt(old_dev_ms)} in "
+        f"{old_kernels:.0f} kernels, events {old_ms:.4f} ms; its largest: "
+        + "; ".join(f"{ms:.4f} ms {n[:70]}" for n, ms in call["old_composition_top"].items()))
+    return call, max_err
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's smoke run needs one", file=sys.stderr)
@@ -666,28 +825,36 @@ def main() -> int:
         phase_pose(dev)
         phase_small_reference(dev, "DICL")
         phase_small_reference(dev, "PWC")
-        b1_dicl, captured = phase_main_path(dev, sweep_warp)
-        b1_pwc, b2_pwc, cap1, cap2 = phase_cli_pwc(dev, sweep_warp, local_corr)
+        b1_dicl, sweep_dicl, captured, cap_sweep = phase_main_path(dev, sweep_warp)
+        (b1_pwc, sweep_pwc, b2_pwc), (cap1, cap_sweep_pwc, cap2) = phase_cli_pwc(
+            dev, sweep_warp, local_corr)
         calls1, err1 = phase_kernel(captured, sweep_warp, camera)
-        pwc_calls1, pwc_err1 = phase_kernel([c for c in cap1 if c[1].dim() == 4],
-                                            sweep_warp, camera, path="pwc")
+        pwc_calls1, pwc_err1 = phase_kernel(cap1, sweep_warp, camera, path="pwc")
+        sweep_call, sweep_err = phase_sweep(cap_sweep + cap_sweep_pwc, sweep_warp, camera)
         calls2, err2 = phase_b2(cap2, local_corr, correlation)
 
-    # per frame pair: slice 1's five B1 calls head the row (PR 1's row);
-    # slice 2's pair makes its four warps and the same plane sweep
-    sweep = [c for c in calls1 if c["name"] == "psnet_sweep"]
+    # per frame pair: slice 1's four flow warps head the gather's row;
+    # slice 2's pair makes its own four
     b1 = {"name": "bilinear_sample", "route": "cuda", "source": B1_SOURCE,
           "replaces": B1_REPLACES, "launches": b1_dicl + b1_pwc,
           "launches_by_path": {"dicl_main_path": b1_dicl, "pwc_cli_eval": b1_pwc},
           "max_abs_err": max(err1, pwc_err1), **_pair_sums(calls1),
-          "pwc_pair": _pair_sums(pwc_calls1 + sweep), "calls": calls1 + pwc_calls1}
+          "pwc_pair": _pair_sums(pwc_calls1), "calls": calls1 + pwc_calls1}
+    # one launch per pair on either slice; no single PyTorch call builds the
+    # volume, so there is no library time (the composition it replaced is
+    # timed beside it)
+    sweep = {"name": "plane_sweep_volume", "route": "cuda", "source": B1_SOURCE,
+             "replaces": B1_REPLACES, "launches": sweep_dicl + sweep_pwc,
+             "launches_by_path": {"dicl_main_path": sweep_dicl, "pwc_cli_eval": sweep_pwc},
+             "max_abs_err": sweep_err,
+             **{k: v for k, v in sweep_call.items() if k != "name"}}
     b2 = {"name": "local_correlation", "route": "cuda", "source": B2_SOURCE,
           "replaces": B2_REPLACES, "launches": b2_pwc,
           "launches_by_path": {"pwc_cli_eval": b2_pwc}, "max_abs_err": err2,
           # per frame pair: PWC-DC's five levels; no single PyTorch call
           # computes a windowed correlation, so there is no library time
           **_pair_sums(calls2), "calls": calls2}
-    for k in (b1, b2):
+    for k in (b1, sweep, b2):
         lib = "none" if k["library_ms"] is None else f"{k['library_ms']:.4f} ms"
         dev = "not measured" if k["device_ms"] is None else f"{k['device_ms']:.4f} ms"
         log(f"{k['name']} per pair: kernel {k['ms']:.4f} ms (device {dev}), plain "
@@ -695,7 +862,7 @@ def main() -> int:
             f"bound {k['bound_ms']:.4f} ms ({k['bound_by']}), library {lib}, "
             f"launches {k['launches']}")
     log(f"chip_smoke: all phases passed in {time.perf_counter() - t_start:.1f} s")
-    log(json.dumps({"kernels": [b1, b2]}))
+    log(json.dumps({"kernels": [b1, sweep, b2]}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",
                                            "kind": torch.cuda.get_device_name(0),
                                            "count": torch.cuda.device_count()}}))

@@ -1,5 +1,5 @@
-// Kernel B1: bilinear gather for the plane-sweep cost volume and DICL's
-// flow warp, written for Hopper (sm_90a).
+// Kernel B1: bilinear gather for DICL's and PWC-DC's flow warps, and the
+// fused plane-sweep cost volume of PSNet, written for Hopper (sm_90a).
 //
 // Replaces deep_sfm_revisited_tpu/ops/pallas/sweep_warp.py::
 // bilinear_sample_pallas (the Pallas TPU kernel; its semantics are
@@ -7,27 +7,47 @@
 // at (x, y) pixel coordinates, align_corners=True, and give exactly zero
 // where the PRE-clip (x, y) lies outside [0, W-1] x [0, H-1]. Taps,
 // weights and the blend are float32; the result is stored in the image's
-// dtype (float32 or bfloat16).
+// dtype (float32 or bfloat16). The blend uses __fmul_rn/__fadd_rn, which
+// forbid FMA contraction, so every result is bit-identical to the plain
+// PyTorch versions of the port (ops/camera.py::bilinear_sample_plain and
+// ops/camera.py::plane_sweep_volume_plain).
 //
-// What bounds it: device-memory bytes. At the PSNet shape (one 96x320x32
-// bf16 feature map, 128 planes -> 3,932,160 queries) it writes ~252 MB of
-// warped features and reads ~31 MB of f32 coordinates: ~283 MB, about
-// 85 us at the H100's 3.35 TB/s. The feature map itself is ~2 MB and stays
-// in the 50 MB L2, so the four taps of a query cost L2 hits, not HBM
-// traffic.
+// Two entry points share that rule (`Taps` and `blend` below):
 //
-// Design: one thread per (query, 16-byte channel chunk) -- for C = 32 that
-// is 4 threads per query in bf16 and 8 in f32 -- so neighbouring threads
-// read and write neighbouring 16-byte chunks and every store is a full,
-// coalesced 16-byte vector. All four taps are read straight from the NHWC
-// image (no TPU quad layout). The blend uses __fmul_rn/__fadd_rn, which
-// forbid FMA contraction, so the result is bit-identical to the plain
-// PyTorch version (ops/camera.py::bilinear_sample_plain of the port).
+// dsfm_bilinear_sample -- the generic gather at given coordinates, used by
+// the flow warps. One thread per (query, 16-byte channel chunk), so
+// neighbouring threads read and write neighbouring 16-byte chunks and every
+// store is a full, coalesced 16-byte vector. The warps are small (at most
+// 96x320 queries) and launch-bound.
 //
-// A later change fuses the coordinate computation (K R K^-1, K t, plane
-// depth) and the [ref | warped] concat into the layout the 3D
-// convolution reads, so the coordinates and the separate concat pass
-// leave device memory altogether.
+// dsfm_plane_sweep_volume -- PSNet's whole cost volume in one pass, the
+// JAX package's (B, D, H, W, 2C) layout with [ref | warped] on the last
+// axis (deep_sfm_revisited_tpu/models/psnet.py:253-260), which is also
+// cuDNN's NDHWC: the (B, 2C, D, H, W) view of it has channels-last-3d
+// strides. The sampling coordinates are computed inline: per ref pixel
+// (u, v) the ray M [u, v, 1] (M = K R K^-1) once, per plane depth d the
+// point p = ray d + K t and the perspective divide, with the reference's
+// rule that z <= 1e-3 sends the sample to (2W, 2H), i.e. to zero.
+//
+// What bounds it: device-memory bytes. At the PSNet shape (96x320, C = 32
+// bf16, 128 planes) it reads two 1.97 MB feature maps and writes the 503 MB
+// volume once: ~507 MB, 0.151 ms at the H100's 3.35 TB/s, at about one
+// floating-point operation per output byte. So every choice serves the
+// store stream:
+// - a work item is a tile of pixels of one row and a chunk of planes; its
+//   threads load the tile's ref features and compute its rays once, and the
+//   ref half of every plane's output is a register copy;
+// - thread k of a pixel owns channel chunk k (16 bytes) of both halves, so
+//   each warp store covers whole 32-byte sectors and a row tile is one
+//   contiguous stretch of the volume;
+// - stores are streaming (st.global.cs, evict-first), so the 503 MB stream
+//   does not push the 2 MB target map out of the 50 MB L2 and the four
+//   taps of a sample stay cache hits (neighbouring pixels share taps in L1);
+// - the grid is persistent, a few blocks per SM as the occupancy allows,
+//   each walking work items in a stride, so one item's stores overlap
+//   another's tap loads without a tail of tiny blocks.
+// The coordinate arithmetic is rounded op by op in the plain version's
+// order (__fmul_rn, __fadd_rn, __fdiv_rn), so the volume is bit-identical.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -43,11 +63,11 @@ struct F32 {
     v[0] = __uint_as_float(r.x); v[1] = __uint_as_float(r.y);
     v[2] = __uint_as_float(r.z); v[3] = __uint_as_float(r.w);
   }
-  __device__ __forceinline__ static void store16(void* p, const float* v) {
+  __device__ __forceinline__ static uint4 pack16(const float* v) {
     uint4 r;
     r.x = __float_as_uint(v[0]); r.y = __float_as_uint(v[1]);
     r.z = __float_as_uint(v[2]); r.w = __float_as_uint(v[3]);
-    *reinterpret_cast<uint4*>(p) = r;
+    return r;
   }
   __device__ __forceinline__ static float load1(const void* p, int64_t i) {
     return __ldg(reinterpret_cast<const float*>(p) + i);
@@ -69,11 +89,11 @@ struct BF16 {
     v[0] = lo(r.x); v[1] = hi(r.x); v[2] = lo(r.y); v[3] = hi(r.y);
     v[4] = lo(r.z); v[5] = hi(r.z); v[6] = lo(r.w); v[7] = hi(r.w);
   }
-  __device__ __forceinline__ static void store16(void* p, const float* v) {
+  __device__ __forceinline__ static uint4 pack16(const float* v) {
     uint4 r;
     r.x = bits(v[0]) | (bits(v[1]) << 16); r.y = bits(v[2]) | (bits(v[3]) << 16);
     r.z = bits(v[4]) | (bits(v[5]) << 16); r.w = bits(v[6]) | (bits(v[7]) << 16);
-    *reinterpret_cast<uint4*>(p) = r;
+    return r;
   }
   __device__ __forceinline__ static float load1(const void* p, int64_t i) {
     unsigned short u = __ldg(reinterpret_cast<const unsigned short*>(p) + i);
@@ -94,6 +114,48 @@ __device__ __forceinline__ float blend(float v00, float v01, float v10, float v1
   return __fmul_rn(__fadd_rn(__fmul_rn(top, ay), __fmul_rn(bot, wy)), valid);
 }
 
+// Taps and weights of one sample, by B1's rule: zero (valid = 0) where the
+// pre-clip (x, y) lies outside the frame, the clamped +1 taps where their
+// weight is 0. Offsets are in pixels from the image's origin.
+struct Taps {
+  int64_t i00, i01, i10, i11;
+  float wx, ax, wy, ay, valid;
+  __device__ __forceinline__ Taps(float x, float y, int H, int W) {
+    const float wm1 = (float)(W - 1), hm1 = (float)(H - 1);
+    valid = (x >= 0.f && x <= wm1 && y >= 0.f && y <= hm1) ? 1.f : 0.f;
+    x = fminf(fmaxf(x, 0.f), wm1);
+    y = fminf(fmaxf(y, 0.f), hm1);
+    const float x0 = floorf(x), y0 = floorf(y);
+    wx = __fsub_rn(x, x0);
+    wy = __fsub_rn(y, y0);
+    ax = __fsub_rn(1.f, wx);
+    ay = __fsub_rn(1.f, wy);
+    const int xi = min(max((int)x0, 0), W - 1);
+    const int yi = min(max((int)y0, 0), H - 1);
+    const int xi1 = min(xi + 1, W - 1), yi1 = min(yi + 1, H - 1);
+    i00 = (int64_t)yi * W + xi;
+    i01 = (int64_t)yi * W + xi1;
+    i10 = (int64_t)yi1 * W + xi;
+    i11 = (int64_t)yi1 * W + xi1;
+  }
+};
+
+// One 16-byte chunk (T::kVec channels from channel c0) of a sample of the
+// NHWC image `img` (one batch item), blended into r.
+template <typename T>
+__device__ __forceinline__ void sample16(const char* img, const Taps& t, int C, int c0,
+                                         float* r) {
+  constexpr int kVec = T::kVec, kBytes = 16 / kVec;
+  float v00[kVec], v01[kVec], v10[kVec], v11[kVec];
+  T::load16(img + (t.i00 * C + c0) * kBytes, v00);
+  T::load16(img + (t.i01 * C + c0) * kBytes, v01);
+  T::load16(img + (t.i10 * C + c0) * kBytes, v10);
+  T::load16(img + (t.i11 * C + c0) * kBytes, v11);
+#pragma unroll
+  for (int k = 0; k < kVec; ++k)
+    r[k] = blend(v00[k], v01[k], v10[k], v11[k], t.wx, t.ax, t.wy, t.ay, t.valid);
+}
+
 // VECTOR: each thread moves one 16-byte chunk (T::kVec channels) per tap;
 // otherwise one channel. img (B,H,W,C), coords (B,Q,2), out (B,Q,C).
 template <typename T, bool VECTOR>
@@ -112,41 +174,20 @@ bilinear_sample_kernel(const void* __restrict__ img,
   const int b = (int)(q / Q);
 
   const float2 xy = __ldg(coords + q);
-  float x = xy.x, y = xy.y;
-  const float wm1 = (float)(W - 1), hm1 = (float)(H - 1);
-  const float valid = (x >= 0.f && x <= wm1 && y >= 0.f && y <= hm1) ? 1.f : 0.f;
-  x = fminf(fmaxf(x, 0.f), wm1);
-  y = fminf(fmaxf(y, 0.f), hm1);
-  const float x0 = floorf(x), y0 = floorf(y);
-  const float wx = __fsub_rn(x, x0), wy = __fsub_rn(y, y0);
-  const float ax = __fsub_rn(1.f, wx), ay = __fsub_rn(1.f, wy);
-  const int xi = min(max((int)x0, 0), W - 1);
-  const int yi = min(max((int)y0, 0), H - 1);
-  const int xi1 = min(xi + 1, W - 1), yi1 = min(yi + 1, H - 1);
-
+  const Taps t(xy.x, xy.y, H, W);
   const int64_t base = (int64_t)b * H * W;
-  const int64_t i00 = (base + (int64_t)yi * W + xi) * C + c0;
-  const int64_t i01 = (base + (int64_t)yi * W + xi1) * C + c0;
-  const int64_t i10 = (base + (int64_t)yi1 * W + xi) * C + c0;
-  const int64_t i11 = (base + (int64_t)yi1 * W + xi1) * C + c0;
   const int64_t io = q * C + c0;
-  constexpr int kBytes = VECTOR ? 16 / T::kVec : 0;  // bytes per element
 
   if constexpr (VECTOR) {
-    const char* src = reinterpret_cast<const char*>(img);
-    float v00[kVec], v01[kVec], v10[kVec], v11[kVec], r[kVec];
-    T::load16(src + i00 * kBytes, v00);
-    T::load16(src + i01 * kBytes, v01);
-    T::load16(src + i10 * kBytes, v10);
-    T::load16(src + i11 * kBytes, v11);
-#pragma unroll
-    for (int k = 0; k < kVec; ++k)
-      r[k] = blend(v00[k], v01[k], v10[k], v11[k], wx, ax, wy, ay, valid);
-    T::store16(reinterpret_cast<char*>(out) + io * kBytes, r);
+    constexpr int kBytes = 16 / T::kVec;  // bytes per element
+    float r[kVec];
+    sample16<T>(reinterpret_cast<const char*>(img) + base * C * kBytes, t, C, c0, r);
+    *reinterpret_cast<uint4*>(reinterpret_cast<char*>(out) + io * kBytes) = T::pack16(r);
   } else {
-    const float v = blend(T::load1(img, i00), T::load1(img, i01),
-                          T::load1(img, i10), T::load1(img, i11),
-                          wx, ax, wy, ay, valid);
+    const int64_t o = base * C + c0;
+    const float v = blend(T::load1(img, o + t.i00 * C), T::load1(img, o + t.i01 * C),
+                          T::load1(img, o + t.i10 * C), T::load1(img, o + t.i11 * C),
+                          t.wx, t.ax, t.wy, t.ay, t.valid);
     T::store1(out, io, v);
   }
 }
@@ -161,6 +202,108 @@ cudaError_t launch(const void* img, const void* coords, void* out, int B,
   if (blocks > 0x7fffffffLL) return cudaErrorInvalidConfiguration;
   bilinear_sample_kernel<T, VECTOR><<<(unsigned)blocks, threads, 0, stream>>>(
       img, reinterpret_cast<const float2*>(coords), out, B, H, W, C, Q);
+  return cudaGetLastError();
+}
+
+
+// ---------------------------------------------------------------------------
+// The fused plane-sweep cost volume.
+
+constexpr int kSweepThreads = 256;
+constexpr int kPlanesPerItem = 8;   // planes a work item walks
+constexpr int kMaxDevices = 64;
+
+// ref, tgt (B, H, W, C) NHWC; depths (D,); M (B, 3, 3) = K R K^-1 and
+// Kt (B, 3) = K t, row-major float32; out (B, D, H, W, 2C) = [ref | warped].
+// A work item is (plane chunk, b, y, x tile); item = ((dc B + b) H + y)
+// tiles + tile. Thread t of the block serves pixel t / tpp of the tile and
+// channel chunk t % tpp of both halves (tpp = C / kVec threads per pixel).
+template <typename T>
+__global__ void __launch_bounds__(kSweepThreads)
+plane_sweep_volume_kernel(const void* __restrict__ ref, const void* __restrict__ tgt,
+                          const float* __restrict__ depths, const float* __restrict__ M,
+                          const float* __restrict__ Kt, void* __restrict__ out,
+                          int B, int D, int H, int W, int C, int tiles, int64_t items) {
+  constexpr int kVec = T::kVec, kBytes = 16 / kVec;
+  const int tpp = C / kVec;
+  const int ppt = kSweepThreads / tpp;          // pixels per tile
+  const int pix = threadIdx.x / tpp;
+  const int c0 = (threadIdx.x - pix * tpp) * kVec;
+  if (pix >= ppt) return;                       // only when tpp does not divide the block
+  const int64_t plane_bytes = (int64_t)H * W * 2 * C * kBytes;
+
+  for (int64_t item = blockIdx.x; item < items; item += gridDim.x) {
+    int64_t r = item;
+    const int tile = (int)(r % tiles); r /= tiles;
+    const int y = (int)(r % H); r /= H;
+    const int b = (int)(r % B);
+    const int d0 = (int)(r / B) * kPlanesPerItem;
+    const int x = tile * ppt + pix;
+    if (x >= W) continue;
+
+    // once per item: the ray M [u, v, 1], K t and the ref chunk
+    const float u = (float)x, v = (float)y;
+    const float* m = M + 9 * b;
+    float ray[3], kt[3];
+#pragma unroll
+    for (int i = 0; i < 3; ++i) {
+      const float mu = __fmul_rn(__ldg(m + 3 * i), u), mv = __fmul_rn(__ldg(m + 3 * i + 1), v);
+      ray[i] = __fadd_rn(__fadd_rn(mu, mv), __ldg(m + 3 * i + 2));
+      kt[i] = __ldg(Kt + 3 * b + i);
+    }
+    const int64_t pixel = ((int64_t)b * H + y) * W + x;
+    const uint4 ref16 = __ldg(reinterpret_cast<const uint4*>(
+        reinterpret_cast<const char*>(ref) + (pixel * C + c0) * kBytes));
+    const char* img = reinterpret_cast<const char*>(tgt) + (int64_t)b * H * W * C * kBytes;
+    char* dst = reinterpret_cast<char*>(out)
+                + ((((int64_t)b * D + d0) * H + y) * W + x) * 2 * C * kBytes + c0 * kBytes;
+    const int d_end = min(D, d0 + kPlanesPerItem);
+
+#pragma unroll 2
+    for (int d = d0; d < d_end; ++d, dst += plane_bytes) {
+      const float dep = __ldg(depths + d);
+      const float p0 = __fadd_rn(__fmul_rn(ray[0], dep), kt[0]);
+      const float p1 = __fadd_rn(__fmul_rn(ray[1], dep), kt[1]);
+      const float p2 = __fadd_rn(__fmul_rn(ray[2], dep), kt[2]);
+      // z <= 1e-3: behind the camera; the sample goes to (2W, 2H), i.e. zero
+      const bool behind = p2 <= 1e-3f;
+      const float z = fmaxf(p2, 1e-3f);
+      const float xs = behind ? (float)(2 * W) : __fdiv_rn(p0, z);
+      const float ys = behind ? (float)(2 * H) : __fdiv_rn(p1, z);
+      float w16[kVec];
+      sample16<T>(img, Taps(xs, ys, H, W), C, c0, w16);
+      __stcs(reinterpret_cast<uint4*>(dst), ref16);
+      __stcs(reinterpret_cast<uint4*>(dst + C * kBytes), T::pack16(w16));
+    }
+  }
+}
+
+template <typename T>
+cudaError_t launch_sweep(const void* ref, const void* tgt, const float* depths,
+                         const float* M, const float* Kt, void* out, int B, int D,
+                         int H, int W, int C, cudaStream_t stream) {
+  // the persistent grid: as many blocks as fit on the card at once, looked
+  // up once per device
+  static int blocks_on_card[kMaxDevices];
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev >= kMaxDevices) return cudaErrorInvalidDevice;
+  if (blocks_on_card[dev] == 0) {
+    int sms = 0, per_sm = 0;
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err != cudaSuccess) return err;
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, plane_sweep_volume_kernel<T>, kSweepThreads, 0);
+    if (err != cudaSuccess) return err;
+    blocks_on_card[dev] = sms * (per_sm > 0 ? per_sm : 1);
+  }
+  const int ppt = kSweepThreads / (C / T::kVec);
+  const int tiles = (W + ppt - 1) / ppt;
+  const int64_t items = (int64_t)((D + kPlanesPerItem - 1) / kPlanesPerItem) * B * H * tiles;
+  const int64_t grid = items < blocks_on_card[dev] ? items : blocks_on_card[dev];
+  plane_sweep_volume_kernel<T><<<(unsigned)grid, kSweepThreads, 0, stream>>>(
+      ref, tgt, depths, M, Kt, out, B, D, H, W, C, tiles, items);
   return cudaGetLastError();
 }
 
@@ -180,5 +323,22 @@ extern "C" int dsfm_bilinear_sample(const void* img, const void* coords,
   if (dtype == 1)
     return vector ? launch<BF16, true>(img, coords, out, B, H, W, C, Q, s)
                   : launch<BF16, false>(img, coords, out, B, H, W, C, Q, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+// The cost volume out (B, D, H, W, 2C) of ref and tgt (B, H, W, C), both of
+// `dtype` (0 = float32, 1 = bfloat16), at plane depths (D,), with M (B, 3, 3)
+// and Kt (B, 3) float32 on the device. The wrapper checks that ref, tgt and
+// out are 16-byte aligned, C * itemsize is a multiple of 16 and at most
+// 16 * 256 bytes, and that B, D, H, W are positive.
+extern "C" int dsfm_plane_sweep_volume(const void* ref, const void* tgt, const void* depths,
+                                       const void* M, const void* Kt, void* out, int B,
+                                       int D, int H, int W, int C, int dtype, void* stream) {
+  cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
+  const float* dp = reinterpret_cast<const float*>(depths);
+  const float* mp = reinterpret_cast<const float*>(M);
+  const float* kp = reinterpret_cast<const float*>(Kt);
+  if (dtype == 0) return launch_sweep<F32>(ref, tgt, dp, mp, kp, out, B, D, H, W, C, s);
+  if (dtype == 1) return launch_sweep<BF16>(ref, tgt, dp, mp, kp, out, B, D, H, W, C, s);
   return (int)cudaErrorInvalidValue;
 }

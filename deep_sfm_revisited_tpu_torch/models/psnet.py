@@ -5,9 +5,11 @@ SPP features at 1/4 resolution -> a (B, 64, D, H/4, W/4) cost volume of
 hourglass `dres0-4` + `classify` -> per-plane 2D context refinement ->
 bilinear upsample, softmax, soft-argmax -> the depth-domain context head.
 
-The warp goes through `ops/camera.py::plane_sweep_warp`, so on the GPU the
-cost volume is built by kernel B1. Module names follow the reference
-(`models/PSNet.py`), so its checkpoints load with `load_state_dict`.
+The cost volume comes whole from `ops/camera.py::plane_sweep_volume`, so on
+the GPU one launch of kernel B1's sweep entry builds it per target, in the
+(B, D, h4, w4, 2C) layout whose NCDHW view has channels-last-3d strides (the
+layout cuDNN's 3D convolutions read natively). Module names follow the
+reference (`models/PSNet.py`), so its checkpoints load with `load_state_dict`.
 """
 
 from __future__ import annotations
@@ -24,7 +26,7 @@ from deep_sfm_revisited_tpu_torch.models.submodules import (
     soft_argmax_depth,
     soft_argmax_disparity,
 )
-from deep_sfm_revisited_tpu_torch.ops.camera import plane_sweep_warp
+from deep_sfm_revisited_tpu_torch.ops.camera import plane_sweep_volume
 
 # (out channels, dilation) of the reference's `convtext` stacks: every
 # layer is a bias-free 3x3 conv ending in ReLU, the last one included
@@ -113,16 +115,15 @@ class PSNet(nn.Module):
         feats = self.feature_extraction(imgs.permute(0, 3, 1, 2))
         ref_feat = feats[:B]                                  # (B, 32, h4, w4)
         C, h4, w4 = ref_feat.shape[1:]
+        ref_nhwc = ref_feat.permute(0, 2, 3, 1).contiguous()
 
         costs = None
         for j in range(T):
             tgt = feats[B * (1 + j):B * (2 + j)].permute(0, 2, 3, 1).contiguous()
             with no_autocast(dev):
-                warped = plane_sweep_warp(tgt, plane_depths, pose[:, j], K4, K4_inv)
-            # (B, D, h4, w4, C) -> NCDHW, next to the broadcast ref features
-            cost = torch.cat([ref_feat[:, :, None].expand(B, C, nlabel, h4, w4),
-                              warped.permute(0, 4, 1, 2, 3)], dim=1)
-            c = self._hourglass(cost)                         # (B, D, h4, w4)
+                vol = plane_sweep_volume(ref_nhwc, tgt, plane_depths, pose[:, j], K4, K4_inv)
+            # (B, D, h4, w4, 2C) [ref | warped] -> its (B, 2C, D, h4, w4) view
+            c = self._hourglass(vol.permute(0, 4, 1, 2, 3))   # (B, D, h4, w4)
             costs = c if costs is None else costs + c
         costs = costs / T
 

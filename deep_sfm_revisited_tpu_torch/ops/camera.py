@@ -4,10 +4,12 @@ Layouts as in the JAX package: images/features (B, H, W, C), flow
 (B, H, W, 2) as (dx, dy), depth (B, H, W), intrinsics (B, 3, 3), pose
 (B, 3, 4) ref->target.
 
-`bilinear_sample` is the one op here with a hand-written kernel: on a CUDA
-tensor it launches kernel B1 (`ops/cuda/sweep_warp.py`, source
-`csrc/sweep_warp.cu`); on a CPU tensor it runs `bilinear_sample_plain`, the
-kernel's plain PyTorch version. There is no fallback from one to the other.
+Two ops here have hand-written kernels, both in kernel B1's source
+(`csrc/sweep_warp.cu`, wrapper `ops/cuda/sweep_warp.py`): `bilinear_sample`
+(the generic gather) and `plane_sweep_volume` (PSNet's fused cost volume).
+On CUDA tensors each launches its kernel; on CPU tensors each runs its plain
+PyTorch version (`bilinear_sample_plain`, `plane_sweep_volume_plain`). There
+is no fallback from one to the other.
 """
 
 from __future__ import annotations
@@ -35,18 +37,23 @@ def pixel2cam(depth: torch.Tensor, K_inv: torch.Tensor) -> torch.Tensor:
     return cam * depth[:, None]
 
 
-def _project(p: torch.Tensor, h: int, w: int):
-    """Perspective divide of (..., 3, N) points with the out-of-frustum trick.
+def _divide(p0, p1, p2, h: int, w: int):
+    """Perspective divide of points (p0, p1, p2) with the out-of-frustum trick.
 
     Z is clamped to 1e-3; a point at or behind that plane is sent to
     (2w, 2h), far outside the image, so `bilinear_sample` zeroes it
     (the reference's coordinate-2 trick, `models/inverse_warp.py:68-72`).
     """
-    z = torch.clamp(p[..., 2, :], min=1e-3)
-    invalid = p[..., 2, :] <= 1e-3
-    x = torch.where(invalid, torch.full_like(z, 2.0 * w), p[..., 0, :] / z)
-    y = torch.where(invalid, torch.full_like(z, 2.0 * h), p[..., 1, :] / z)
+    z = torch.clamp(p2, min=1e-3)
+    invalid = p2 <= 1e-3
+    x = torch.where(invalid, torch.full_like(z, 2.0 * w), p0 / z)
+    y = torch.where(invalid, torch.full_like(z, 2.0 * h), p1 / z)
     return x, y
+
+
+def _project(p: torch.Tensor, h: int, w: int):
+    """`_divide` of (..., 3, N) points."""
+    return _divide(p[..., 0, :], p[..., 1, :], p[..., 2, :], h, w)
 
 
 def cam2pixel(cam: torch.Tensor, proj_rot: torch.Tensor,
@@ -130,20 +137,42 @@ def pose2flow(depth, pose, K, K_inv) -> torch.Tensor:
     return coords - torch.movedim(grid, 0, -1)[None]
 
 
-def plane_sweep_coords(depths, pose, K, K_inv, h: int, w: int) -> torch.Tensor:
-    """Sampling coords (B, D, H, W, 2) for D fronto-parallel planes at once.
+def sweep_matrices(pose, K, K_inv):
+    """M = K R K^-1 (B, 3, 3) and K t (B, 3) of ref->target poses (B, 3, 4).
 
-    The projected point is (K R K^-1 [u,v,1]) * d + K t (JAX
-    `plane_sweep_coords`, `camera.py:165-195`).
+    Computed on the inputs' device, so the sweep kernel reads them there
+    (no host round trip).
     """
-    grid = pixel_grid(h, w, depths.dtype, depths.device).reshape(3, -1)
-    KRKinv = torch.einsum("bij,bjk,bkl->bil", K, pose[:, :, :3], K_inv)
-    ray = torch.einsum("bij,jn->bin", KRKinv, grid)              # (B,3,HW)
-    trans = torch.einsum("bij,bj->bi", K, pose[:, :, 3])[..., None]
-    p = ray[:, None] * depths[None, :, None, None] + trans[:, None]  # (B,D,3,HW)
-    x, y = _project(p, h, w)
-    D = depths.shape[0]
-    return torch.stack([x, y], dim=-1).reshape(p.shape[0], D, h, w, 2)
+    M = torch.einsum("bij,bjk,bkl->bil", K, pose[:, :, :3], K_inv)
+    Kt = torch.einsum("bij,bj->bi", K, pose[:, :, 3])
+    return M.contiguous(), Kt.contiguous()
+
+
+def sweep_pixel_coords(depths, M, Kt, h: int, w: int):
+    """Target-view pixel (x, y), each (B, D, H, W), of ref pixel (u, v) on the
+    fronto-parallel plane at each depth d: p = (M [u, v, 1]) d + K t, then
+    `_divide` (JAX `plane_sweep_coords`, `camera.py:165-195`).
+
+    Written in the sweep kernel's op order, one rounding per op: the ray
+    ray_i = (M_i0 u + M_i1 v) + M_i2 once per pixel, p_i = ray_i d + (K t)_i
+    per plane (no einsum over the pixel grid, whose sums may fuse or reorder).
+    """
+    dev = depths.device
+    u = torch.arange(w, dtype=torch.float32, device=dev)[None, None, :]
+    v = torch.arange(h, dtype=torch.float32, device=dev)[None, :, None]
+    d = depths.to(torch.float32)[None, :, None, None]
+    p = []
+    for i in range(3):
+        m = M[:, i, :, None, None]                                    # (B, 3, 1, 1)
+        ray = (m[:, 0] * u + m[:, 1] * v) + m[:, 2]                   # (B, H, W)
+        p.append(ray[:, None] * d + Kt[:, i, None, None, None])      # (B, D, H, W)
+    return _divide(*p, h, w)
+
+
+def plane_sweep_coords(depths, pose, K, K_inv, h: int, w: int) -> torch.Tensor:
+    """Sampling coords (B, D, H, W, 2) for D fronto-parallel planes at once."""
+    M, Kt = sweep_matrices(pose, K, K_inv)
+    return torch.stack(sweep_pixel_coords(depths, M, Kt, h, w), dim=-1)
 
 
 def plane_sweep_warp(feat, depths, pose, K, K_inv) -> torch.Tensor:
@@ -151,3 +180,38 @@ def plane_sweep_warp(feat, depths, pose, K, K_inv) -> torch.Tensor:
     B, H, W, C = feat.shape
     coords = plane_sweep_coords(depths, pose, K, K_inv, H, W)
     return bilinear_sample(feat, coords)
+
+
+def plane_sweep_volume_plain(ref, tgt, depths, M, Kt) -> torch.Tensor:
+    """The sweep kernel's plain PyTorch version: the cost volume
+    (B, D, H, W, 2C) of [ref | tgt warped onto each plane], in the
+    features' dtype (JAX `models/psnet.py:253-260`).
+
+    ref, tgt (B, H, W, C); depths (D,); M (B, 3, 3), Kt (B, 3) float32, the
+    tensors the kernel gets. Coordinates by `sweep_pixel_coords`, samples by
+    `bilinear_sample_plain`.
+    """
+    H, W = tgt.shape[1:3]
+    coords = torch.stack(sweep_pixel_coords(depths, M, Kt, H, W), dim=-1)
+    warped = bilinear_sample_plain(tgt, coords)                      # (B, D, H, W, C)
+    return torch.cat([ref[:, None].expand_as(warped), warped], dim=-1)
+
+
+def plane_sweep_volume(ref, tgt, depths, pose, K, K_inv) -> torch.Tensor:
+    """PSNet's cost volume (B, D, H, W, 2C): [ref | tgt warped by `pose` onto
+    each of the D fronto-parallel planes at `depths`], in the features' dtype.
+
+    ref, tgt (B, H, W, C) f32 or bf16; depths (D,); pose (B, 3, 4) ref->target;
+    K, K_inv (B, 3, 3); geometry in float32. CUDA features go through the sweep
+    kernel, CPU features through `plane_sweep_volume_plain`. The
+    (B, 2C, D, H, W) view `.permute(0, 4, 1, 2, 3)` has channels-last-3d strides.
+    """
+    f32 = torch.float32
+    M, Kt = sweep_matrices(pose.to(f32), K.to(f32), K_inv.to(f32))
+    depths = depths.to(f32)
+    if tgt.device.type == "cuda":
+        return sweep_warp.plane_sweep_volume_cuda(ref.contiguous(), tgt.contiguous(),
+                                                  depths.contiguous(), M, Kt)
+    if tgt.device.type == "cpu":
+        return plane_sweep_volume_plain(ref, tgt, depths, M, Kt)
+    raise NotImplementedError(f"plane_sweep_volume on {tgt.device.type}")

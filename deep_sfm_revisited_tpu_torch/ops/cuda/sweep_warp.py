@@ -1,13 +1,21 @@
-"""Kernel B1: the bilinear gather, as a CUDA kernel for Hopper.
+"""Kernel B1: the bilinear gather and the fused plane-sweep cost volume, in CUDA for Hopper.
 
-Replaces `deep_sfm_revisited_tpu/ops/pallas/sweep_warp.py::
-bilinear_sample_pallas` (`pallas_call` at `:145`). Its plain PyTorch version
-is `ops/camera.py::bilinear_sample_plain`; `ops/camera.py::bilinear_sample`
-sends CUDA tensors here and CPU tensors there.
+Both replace `deep_sfm_revisited_tpu/ops/pallas/sweep_warp.py::
+bilinear_sample_pallas` (`pallas_call` at `:145`); the JAX package's PSNet
+reaches it through `plane_sweep_warp_pallas` (`:169`). One source,
+`csrc/sweep_warp.cu`, built at first use by `ops/cuda/build.py`, exports two
+kernels, each with its own launch count:
 
-Source `csrc/sweep_warp.cu`, built at first use by `ops/cuda/build.py`. The
-source's header says what bounds the kernel and how its design answers that.
-`KERNEL.launches` counts launches.
+- `bilinear_sample_cuda` (`KERNEL.launches`): the generic gather, for the
+  flow warps. Plain version `ops/camera.py::bilinear_sample_plain`;
+  `ops/camera.py::bilinear_sample` sends CUDA tensors here.
+- `plane_sweep_volume_cuda` (`VOLUME.launches`): PSNet's whole
+  (B, D, H, W, 2C) [ref | warped] volume, coordinates computed inline. Plain
+  version `ops/camera.py::plane_sweep_volume_plain`;
+  `ops/camera.py::plane_sweep_volume` sends CUDA tensors here.
+
+The source's header says what bounds each kernel and how its design answers
+that.
 """
 
 from __future__ import annotations
@@ -19,10 +27,11 @@ import torch
 from deep_sfm_revisited_tpu_torch.ops.cuda.build import CudaKernel
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+_MAX_ROW_BYTES = 16 * 256   # the sweep kernel: one 16-byte chunk per thread of a block
 
 
 class SweepWarpKernel(CudaKernel):
-    """Builds, loads and launches B1; owns its launch count."""
+    """Builds, loads and launches the generic gather; owns its launch count."""
 
     source = "sweep_warp.cu"
 
@@ -32,6 +41,9 @@ class SweepWarpKernel(CudaKernel):
                        ctypes.c_int, ctypes.c_int, ctypes.c_int,
                        ctypes.c_int, ctypes.c_longlong, ctypes.c_int,
                        ctypes.c_int, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        fn = lib.dsfm_plane_sweep_volume
+        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
 
     def __call__(self, img: torch.Tensor, coords: torch.Tensor) -> torch.Tensor:
@@ -75,9 +87,67 @@ class SweepWarpKernel(CudaKernel):
         return out
 
 
+class PlaneSweepVolume:
+    """Launches the sweep kernel from `KERNEL`'s library; owns its launch count."""
+
+    def __init__(self):
+        self.launches = 0
+
+    def __call__(self, ref: torch.Tensor, tgt: torch.Tensor, depths: torch.Tensor,
+                 M: torch.Tensor, Kt: torch.Tensor) -> torch.Tensor:
+        """ref, tgt (B, H, W, C) f32/bf16; depths (D,), M (B, 3, 3), Kt (B, 3)
+        f32 -> (B, D, H, W, 2C) [ref | warped] in the features' dtype."""
+        args = (ref, tgt, depths, M, Kt)
+        if not all(t.is_cuda for t in args):
+            raise ValueError("the sweep kernel takes CUDA tensors only")
+        if any(t.device != ref.device for t in args):
+            raise ValueError(f"sweep inputs on {[str(t.device) for t in args]}")
+        if ref.dtype not in _DTYPE_CODE or tgt.dtype != ref.dtype:
+            raise TypeError(f"sweep features {ref.dtype}, {tgt.dtype}; takes one of "
+                            "float32 or bfloat16 for both")
+        if any(t.dtype != torch.float32 for t in (depths, M, Kt)):
+            raise TypeError("sweep depths, M and Kt must be float32")
+        if ref.dim() != 4 or tgt.shape != ref.shape or depths.dim() != 1:
+            raise ValueError(f"sweep shapes ref {tuple(ref.shape)}, tgt {tuple(tgt.shape)}, "
+                             f"depths {tuple(depths.shape)}")
+        B, H, W, C = ref.shape
+        if M.shape != (B, 3, 3) or Kt.shape != (B, 3):
+            raise ValueError(f"sweep M {tuple(M.shape)}, Kt {tuple(Kt.shape)} for B = {B}")
+        if not all(t.is_contiguous() for t in args):
+            raise ValueError("the sweep kernel takes contiguous inputs")
+        row = C * ref.element_size()
+        if row % 16 or row > _MAX_ROW_BYTES:
+            raise ValueError(f"sweep feature rows of {row} bytes; takes a multiple of 16 "
+                             f"up to {_MAX_ROW_BYTES}")
+        if any(t.data_ptr() % 16 for t in (ref, tgt)) or any(t.data_ptr() % 4 for t in
+                                                             (depths, M, Kt)):
+            raise ValueError("sweep features must be 16-byte aligned, depths, M, Kt 4-byte")
+        D = depths.shape[0]
+        out = torch.empty((B, D, H, W, 2 * C), dtype=ref.dtype, device=ref.device)
+        if out.numel() == 0:
+            return out
+        lib = KERNEL.build()
+        with torch.cuda.device(ref.device):
+            stream = torch.cuda.current_stream(ref.device).cuda_stream
+            err = lib.dsfm_plane_sweep_volume(
+                ref.data_ptr(), tgt.data_ptr(), depths.data_ptr(), M.data_ptr(),
+                Kt.data_ptr(), out.data_ptr(), B, D, H, W, C, _DTYPE_CODE[ref.dtype], stream)
+        if err != 0:
+            raise RuntimeError(f"sweep kernel launch failed: cudaError {err}")
+        self.launches += 1
+        return out
+
+
 KERNEL = SweepWarpKernel()
+VOLUME = PlaneSweepVolume()
 
 
 def bilinear_sample_cuda(img: torch.Tensor, coords: torch.Tensor) -> torch.Tensor:
-    """Launch B1 on the current stream (see `SweepWarpKernel.__call__`)."""
+    """Launch the generic gather on the current stream (see `SweepWarpKernel.__call__`)."""
     return KERNEL(img, coords)
+
+
+def plane_sweep_volume_cuda(ref: torch.Tensor, tgt: torch.Tensor, depths: torch.Tensor,
+                            M: torch.Tensor, Kt: torch.Tensor) -> torch.Tensor:
+    """Launch the sweep kernel on the current stream (see `PlaneSweepVolume.__call__`)."""
+    return VOLUME(ref, tgt, depths, M, Kt)

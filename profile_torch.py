@@ -12,8 +12,15 @@ runs them, with a synchronize closing each stage so that every kernel of a
 stage ends inside the stage's host span. For each stage it prints the host
 span, the device's busy time (the summed device time of the kernels, copies
 and fills in the span; one stream, so they do not overlap), the idle share
-and the number of kernels; then the kernels that take most device time.
-Writes one JSON summary and the Chrome trace into --out.
+and the number of kernels; per stage, the device time and count of the
+kernel groups that the cost volume's layout moves (cuDNN's NCHW<->NHWC
+layout transposes, BatchNorm, B1's sweep and gather kernels); the peak
+device memory of the profiled pair; then the kernels that take most device
+time, over the pair and in the depth stage. Writes one JSON summary and the
+Chrome trace into --out.
+
+It runs against whatever package sits beside it, so a copy of this script
+placed in an earlier tree of the repository profiles that tree the same way.
 """
 
 from __future__ import annotations
@@ -28,6 +35,29 @@ from pathlib import Path
 import torch
 
 import chip_smoke as smoke
+
+# kernel groups by (lower-case) name fragment
+GROUPS = {"layout_transpose": ("nchwtonhwc", "nhwctonchw"),
+          "batch_norm": ("batch_norm", "bn_fw", "bn_bw"),
+          "sweep_kernel": ("plane_sweep_volume_kernel",),
+          "gather_kernel": ("bilinear_sample_kernel",)}
+
+
+def _groups(events):
+    out = {}
+    for group, keys in GROUPS.items():
+        hits = [e for e in events if any(k in e.name.lower() for k in keys)]
+        out[group] = dict(ms=sum(e.time_range.elapsed_us() for e in hits) / 1e3,
+                          count=len(hits))
+    return out
+
+
+def _top(events, n):
+    by_name = defaultdict(lambda: [0.0, 0])
+    for e in events:
+        by_name[e.name][0] += e.time_range.elapsed_us() / 1e3
+        by_name[e.name][1] += 1
+    return sorted(by_name.items(), key=lambda kv: -kv[1][0])[:n]
 
 
 def main() -> int:
@@ -77,8 +107,10 @@ def main() -> int:
     with torch.no_grad():
         for i in range(2):
             pair(refs[i], tgts[i], 100 + i)
+        torch.cuda.reset_peak_memory_stats()
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             host = pair(refs[2], tgts[2], 102)
+        peak_gib = torch.cuda.max_memory_allocated() / 2**30
 
     events = prof.events()
     cuda = torch.autograd.DeviceType.CUDA
@@ -96,27 +128,31 @@ def main() -> int:
         per_stage[name] = dict(host_ms=host[name], span_ms=span.elapsed_us() / 1e3,
                                busy_ms=busy_us / 1e3,
                                idle_share=1.0 - busy_us / span.elapsed_us(),
-                               kernels=len(inside))
-    by_name = defaultdict(lambda: [0.0, 0])
-    for e in device:
-        by_name[e.name][0] += e.time_range.elapsed_us() / 1e3
-        by_name[e.name][1] += 1
-    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:args.top]
+                               kernels=len(inside), groups=_groups(inside))
+        if name == "depth":
+            depth_top = _top(inside, args.top)
+    top = _top(device, args.top)
     total_busy = sum(s["busy_ms"] for s in per_stage.values())
     total_span = sum(s["span_ms"] for s in per_stage.values())
 
     for name, s in per_stage.items():
+        groups = ", ".join(f"{g} {v['ms']:.3f} ms in {v['count']}"
+                           for g, v in s["groups"].items() if v["count"])
         print(f"{name}: span {s['span_ms']:.2f} ms, device busy {s['busy_ms']:.2f} ms, "
-              f"idle {100 * s['idle_share']:.1f}%, {s['kernels']} kernels", flush=True)
+              f"idle {100 * s['idle_share']:.1f}%, {s['kernels']} kernels; {groups}", flush=True)
     print(f"pair: span {total_span:.2f} ms, device busy {total_busy:.2f} ms, idle "
-          f"{100 * (1 - total_busy / total_span):.1f}%, {len(device)} kernels")
-    for name, (ms, n) in top:
-        print(f"  {ms:9.3f} ms  {n:5d}x  {name[:110]}")
+          f"{100 * (1 - total_busy / total_span):.1f}%, {len(device)} kernels; peak device "
+          f"memory {peak_gib:.3f} GiB")
+    for title, rows in (("pair", top), ("depth stage", depth_top)):
+        print(f"top kernels, {title}:")
+        for name, (ms, n) in rows:
+            print(f"  {ms:9.3f} ms  {n:5d}x  {name[:110]}")
     out = Path(args.out)
     out.mkdir(parents=True, exist_ok=True)
     summary = {"card": card, "stages": per_stage, "pair_span_ms": total_span,
-               "pair_busy_ms": total_busy, "kernels": len(device),
-               "top": [{"name": n, "ms": ms, "count": c} for n, (ms, c) in top]}
+               "pair_busy_ms": total_busy, "kernels": len(device), "peak_gib": peak_gib,
+               "top": [{"name": n, "ms": ms, "count": c} for n, (ms, c) in top],
+               "depth_top": [{"name": n, "ms": ms, "count": c} for n, (ms, c) in depth_top]}
     (out / "summary.json").write_text(json.dumps(summary, indent=1))
     prof.export_chrome_trace(str(out / "trace.json"))
     print(json.dumps(summary["stages"]))

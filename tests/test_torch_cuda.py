@@ -1,5 +1,6 @@
-"""Tests that need an NVIDIA GPU: the port's kernels (B1, B2) against their
-plain versions, and the pose engine on the card against itself on the CPU.
+"""Tests that need an NVIDIA GPU: the port's kernels (B1's gather and plane
+sweep, B2) against their plain versions, and the pose engine on the card
+against itself on the CPU.
 
 They skip where no card is present. This file imports no jax, so it also
 runs on a machine without JAX, from the repository root:
@@ -37,6 +38,94 @@ def test_b1_kernel_matches_plain_on_card(dtype):
         assert sweep_warp.KERNEL.launches == before + 1
         ref = tcam.bilinear_sample_plain(img, coords)
         torch.testing.assert_close(got, ref, rtol=0, atol=0)
+
+
+# (B, D, H, W, C) and pose: PSNet's shape (KITTI's 384x1280 at 1/4, 128
+# planes), batch 2 with odd H and W and C = 8 (one thread per pixel in bf16),
+# C = 24 (a block size that is no multiple of the threads per pixel), a pose
+# that puts the near planes behind the camera, and one that pushes most
+# samples out of the frame
+SWEEP_CASES = [((1, 128, 96, 320, 32), "forward"), ((2, 7, 13, 27, 8), "forward"),
+               ((1, 5, 9, 50, 24), "forward"), ((1, 16, 24, 40, 32), "behind"),
+               ((1, 16, 24, 40, 32), "outward")]
+SWEEP_T = {"forward": (0.2, 0.05, 0.9), "behind": (0.1, -0.1, -2.5), "outward": (4.0, 0.5, 0.3)}
+
+
+def _sweep_inputs(shape, pose_kind, dtype, seed=0):
+    """ref, tgt, depths, M, Kt on the card: KITTI's K at 1/4 resolution scaled
+    to W, a small rotation, PSNet's plane depths (min_depth nlabel / label)."""
+    from deep_sfm_revisited_tpu_torch.ops import rotations
+
+    B, D, H, W, C = shape
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    ref = torch.randn(B, H, W, C, device="cuda", generator=g).to(dtype)
+    tgt = torch.randn(B, H, W, C, device="cuda", generator=g).to(dtype)
+    f = 718.856 / 4 * W / 320
+    K = torch.tensor([[f, 0, W / 2 - 0.4], [0, f, H / 2 + 0.3], [0, 0, 1]], device="cuda")
+    R = rotations.angle_to_matrix(torch.tensor([0.01, -0.02, 0.005], device="cuda"))
+    t = torch.tensor(SWEEP_T[pose_kind], device="cuda")[:, None]
+    pose = torch.cat([R, t], dim=1).expand(B, 3, 4)
+    M, Kt = tcam.sweep_matrices(pose, K.expand(B, 3, 3), torch.linalg.inv(K).expand(B, 3, 3))
+    depths = D / torch.arange(1, D + 1, dtype=torch.float32, device="cuda")
+    return ref, tgt, depths, M, Kt
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape,pose_kind", SWEEP_CASES)
+def test_sweep_kernel_matches_plain_on_card(shape, pose_kind, dtype):
+    """The sweep kernel against its plain version on the card, bit for bit
+    in f32 and bf16 (both round op by op in the same order, no FMA
+    contraction); exact zeros where the sample is invalid, the ref half on
+    every plane, and channels-last-3d strides for the NCDHW view."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    B, D, H, W, C = shape
+    ref, tgt, depths, M, Kt = _sweep_inputs(shape, pose_kind, getattr(torch, dtype))
+    before = sweep_warp.VOLUME.launches
+    got = sweep_warp.plane_sweep_volume_cuda(ref, tgt, depths, M, Kt)
+    torch.cuda.synchronize()
+    assert sweep_warp.VOLUME.launches == before + 1
+    assert got.shape == (B, D, H, W, 2 * C) and got.dtype == ref.dtype
+    torch.testing.assert_close(got, tcam.plane_sweep_volume_plain(ref, tgt, depths, M, Kt),
+                               rtol=0, atol=0)
+    assert torch.equal(got[..., :C], ref[:, None].expand(B, D, H, W, C))
+    x, y = tcam.sweep_pixel_coords(depths, M, Kt, H, W)
+    invalid = (x < 0) | (x > W - 1) | (y < 0) | (y > H - 1)
+    assert bool((got[..., C:][invalid] == 0).all())
+    assert bool((got[..., C:][~invalid] != 0).any())
+    if pose_kind == "behind":
+        assert bool(invalid[:, -1].all()) and not bool(invalid[:, 0].all())
+    if pose_kind == "outward":
+        assert float(invalid.float().mean()) > 0.5
+    assert got.permute(0, 4, 1, 2, 3).is_contiguous(memory_format=torch.channels_last_3d)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_sweep_kernel_is_deterministic(dtype):
+    """Two launches on PSNet's shape give the same bits."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    args = _sweep_inputs((1, 128, 96, 320, 32), "forward", getattr(torch, dtype), seed=1)
+    first = sweep_warp.plane_sweep_volume_cuda(*args)
+    second = sweep_warp.plane_sweep_volume_cuda(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+
+
+@pytest.mark.cuda
+def test_sweep_wrapper_refuses_what_the_kernel_does_not_take():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    ref, tgt, depths, M, Kt = _sweep_inputs((1, 4, 8, 8, 8), "forward", torch.float32)
+    odd = torch.zeros(1, 8, 8, 3, device="cuda")       # 12-byte rows
+    for args in ((ref, tgt.bfloat16(), depths, M, Kt), (odd, odd, depths, M, Kt),
+                 (ref, tgt.transpose(1, 2), depths, M, Kt), (ref, tgt, depths.cpu(), M, Kt),
+                 (ref, tgt, depths, M.double(), Kt), (ref, tgt, depths, M[:, :2], Kt),
+                 (ref, tgt[:, :4], depths, M, Kt)):
+        with pytest.raises((ValueError, TypeError)):
+            sweep_warp.plane_sweep_volume_cuda(*args)
 
 
 # PWC-DC's five level shapes (f0, f1 at levels 6..2 of a 384x1280 pair), a
