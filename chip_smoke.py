@@ -39,7 +39,7 @@ Phases, each of which raises on failure:
    gave it, in bf16 and float32, bit for bit: the generic gather on the
    flow warps, with out-of-range and behind-the-camera coordinates added,
    its time (CUDA events, and on the device from torch.profiler) beside the
-   plain version's, `F.grid_sample`'s and the bound; the sweep kernel on
+   plain version's, `F.grid_sample`'s (both ways) and the bound; the sweep kernel on
    PSNet's inputs and on copies with a bordered target map, a pose that
    puts the near planes behind the camera and one that pushes most samples
    out of the frame, with exact zeros where the sample is invalid; its
@@ -52,7 +52,26 @@ Phases, each of which raises on failure:
    (C = 40 split across a cluster, C = 3 on the scalar staging path);
    two launches on the same inputs bit-identical; per level the work
    mapping, the device and events times, the plain version's time, the
-   bound and the share of the bound reached.
+   bound and the share of the bound reached;
+8. a small-input training reference: one train step at 128x128 (nlabel 8,
+   float32, TF32 off) on the card against the same step on the CPU (plain
+   versions) with the same weights, batch, noise and RANSAC draws, at the
+   card's pose: the loss, and PSNet's gradients with the float32
+   conditioning the phase measures on the CPU alone;
+9. slice 5's main path, through the entry point a user calls:
+   `cli.main` in training mode on a golden KITTI raw tree rendered at
+   370x1224, cropped to the recipe's 256x768, b = 4, nlabel 128, bf16, the
+   slices' pose overrides; one warm-up step (which records the sweep
+   backward's inputs), the launch counts reset, five timed steps, each of
+   which must launch the gather 4 times and the sweep and the sweep
+   backward once, give a finite loss, leave DICL's parameters bit-identical
+   while its BN statistics move, and move PSNet's parameters; ms/step, the
+   stage split and peak memory; then the epoch's validation and checkpoint;
+10. the sweep backward against its plain version on the inputs slice 5
+   gave it, in bf16 and float32, and on behind-camera and out-of-frame
+   variants (exact zeros where no sample lands, dref bit-identical across
+   launches); device and events times, bound and share, the plain
+   version's time and `grid_sampler_2d_backward`'s.
 
 The line before the last is the kernel table as one JSON object; the last
 is {"ok": true, "device": {...}}. Without a CUDA device, or without the
@@ -63,6 +82,7 @@ from __future__ import annotations
 
 import json
 import math
+import os
 import subprocess
 import sys
 import tempfile
@@ -637,10 +657,11 @@ def _pair_sums(calls):
     out["device_ms"] = (None if any(c["device_ms"] is None for c in calls)
                         else sum(c["device_ms"] for c in calls))
     out.update(bound_ms=max(t_bytes, t_ops), bound_by="bytes" if t_bytes >= t_ops else "operations")
-    if all(c.get("library_ms") is not None for c in calls):
-        out["library_ms"] = sum(c["library_ms"] for c in calls)
-    else:
-        out["library_ms"] = None
+    for key in ("library_ms", "library_device_ms"):
+        if all(c.get(key) is not None for c in calls):
+            out[key] = sum(c[key] for c in calls)
+        elif key == "library_ms":
+            out[key] = None
     return out
 
 
@@ -677,9 +698,12 @@ def phase_kernel(captured, sweep_warp, camera, path: str = "dicl"):
         dev_ms = device_ms(lambda: sweep_warp.bilinear_sample_cuda(img, coords),
                            "bilinear_sample_kernel")
         plain_ms = cuda_ms(lambda: camera.bilinear_sample_plain(img, coords), reps=3, warmup=1)
-        library_ms = cuda_ms(lambda: F.grid_sample(img_nchw, grid, mode="bilinear",
-                                                    padding_mode="zeros",
-                                                    align_corners=True), reps=20)
+        def library():
+            F.grid_sample(img_nchw, grid, mode="bilinear", padding_mode="zeros",
+                          align_corners=True)
+
+        library_ms = cuda_ms(library, reps=20)
+        library_dev_ms = sum(v[0] for v in device_profile(library).values()) or None
         nbytes = (img.numel() * img.element_size() + coords.numel() * coords.element_size()
                   + out.numel() * out.element_size())
         flops = B1_FLOPS_PER_OUTPUT * out.numel()
@@ -687,14 +711,16 @@ def phase_kernel(captured, sweep_warp, camera, path: str = "dicl"):
         calls.append(dict(name=name, img=list(img.shape), coords=list(coords.shape),
                           dtype=str(img.dtype).replace("torch.", ""),
                           out_of_range=float(invalid), ms=ms, device_ms=dev_ms,
-                          plain_ms=plain_ms,
-                          library_ms=library_ms, bound_ms=max(t_bytes, t_ops),
+                          plain_ms=plain_ms, library_ms=library_ms,
+                          library_device_ms=library_dev_ms, bound_ms=max(t_bytes, t_ops),
                           bound_by="bytes" if t_bytes >= t_ops else "operations",
                           bytes=nbytes, flops=flops))
         log(f"B1 {name}: img {tuple(img.shape)} coords {tuple(coords.shape)} "
             f"{calls[-1]['dtype']}: kernel {ms:.4f} ms (device "
             f"{'not measured' if dev_ms is None else f'{dev_ms:.4f} ms'}), plain {plain_ms:.4f} ms, "
-            f"grid_sample {library_ms:.4f} ms, bound {calls[-1]['bound_ms']:.4f} ms "
+            f"grid_sample {library_ms:.4f} ms (device "
+            f"{'not measured' if library_dev_ms is None else f'{library_dev_ms:.4f} ms'}), "
+            f"bound {calls[-1]['bound_ms']:.4f} ms "
             f"({calls[-1]['bound_by']}, {nbytes / 1e6:.1f} MB); "
             f"{100 * float(invalid):.1f}% of queries out of range")
     return calls, max_err
@@ -807,6 +833,350 @@ def phase_sweep(captured, sweep_warp, camera):
     return call, max_err
 
 
+# slice 5: the recipe's frozen-flow depth-training step at its crop, b = 4
+TRAIN_B, TRAIN_HW, TRAIN_STEPS = 4, (256, 768), 5
+TRAIN_PER_STEP = (B1_PER_PAIR, SWEEP_PER_PAIR, 1)   # gather, sweep, sweep backward
+# the sweep backward: per (b, d, y, x) the coordinates (8) and the 4 tap
+# weights; per channel the ref sum and the 4 weighted taps (product, sum)
+BWD_FLOPS_PER_SAMPLE, BWD_FLOPS_PER_CHANNEL = 12, 9
+BWD_REPLACES = "deep_sfm_revisited_tpu/models/psnet.py:253"
+
+
+def _grad_report(got: dict, want: dict):
+    """Per tensor max |got - want| / max |want| (0 where both are all zero),
+    and 1 - cosine of the concatenated gradients."""
+    errs = {}
+    for k, w in want.items():
+        scale = float(w.abs().max())
+        diff = float((got[k] - w).abs().max())
+        errs[k] = diff / scale if scale > 0 else diff
+    g = torch.cat([got[k].double().flatten() for k in want])
+    w = torch.cat([want[k].double().flatten() for k in want])
+    return errs, float(1 - (g @ w) / (g.norm() * w.norm()))
+
+
+def phase_small_train_reference(dev) -> None:
+    """One train step of the port at 128x128 (nlabel 8, the SMALL pose
+    overrides), float32, TF32 off, on the card, against the same step on the
+    CPU (plain versions) with the same weights, batch, noise and RANSAC
+    draws. The CPU runs at the card's RANSAC pose (`pred_pose_online=False`
+    with that pose): with random weights the vote is degenerate across
+    devices (phase 3).
+
+    Tolerances: the loss to 1e-4 relative. PSNet's gradients: the two
+    devices sum in other orders (the sweep backward's atomics, cuDNN's
+    backward), and at random weights a float32 ReLU whose input lies within
+    rounding of zero switches between them; one such unit moves a weight's
+    gradient by ~1/sqrt(positions) of its largest element. The phase
+    measures that on the CPU alone (the same step at an input scaled by
+    1 + 1e-6, which moves some tensor by ~5e-2 of its largest element) and
+    holds the card, tensor by tensor, to twice the largest such move (at
+    least 1e-3 of the tensor's largest element), and to 1 - cosine <= 1e-4
+    over all of PSNet's gradients."""
+    from deep_sfm_revisited_tpu_torch.config import SfMConfig
+    from deep_sfm_revisited_tpu_torch.models.sfmnet import SFMNet
+    from deep_sfm_revisited_tpu_torch.ops.cuda import sweep_warp
+    from deep_sfm_revisited_tpu_torch.train.trainer import Trainer, add_image_noise
+
+    cfg = SfMConfig.kitti().override(**SMALL, **{"train.mixed_prec": False})
+    h = w = 128
+    g = torch.Generator().manual_seed(8)
+    ref = torch.rand((1, h, w, 3), generator=g) * 2 - 1
+    a = 0.03
+    batch = {"ref": ref, "target": torch.roll(ref, (1, 3), dims=(1, 2))
+             + 0.05 * torch.randn((1, h, w, 3), generator=g),
+             "intrinsics": torch.tensor([[[100.0, 0, w / 2], [0, 100.0, h / 2], [0, 0, 1]]]),
+             "pose_gt": torch.tensor([[[math.cos(a), 0, math.sin(a), 0.2], [0, 1, 0, 0.0],
+                                       [-math.sin(a), 0, math.cos(a), 0.7]]]),
+             "depth_gt": torch.where(torch.rand((1, h, w), generator=g) < 0.3,
+                                     1.5 + 6 * torch.rand((1, h, w), generator=g), 0.0)}
+    batch = add_image_noise(batch, torch.Generator().manual_seed(9))
+    n_cand = 4 * cfg.pose.num_correspondences
+    draws = {"jitter": torch.rand((1, n_cand, 2), generator=g) - 0.5,
+             "gumbel_u": torch.rand((1, n_cand), generator=g) * (1 - 1e-12) + 1e-12,
+             "sample_idx": torch.randint(0, cfg.pose.num_correspondences,
+                                         (1, cfg.pose.num_hypotheses, 5), generator=g)}
+
+    card = Trainer(SFMNet(cfg, device=dev, seed=1), cfg, steps_per_epoch=1)
+    poses = []
+    card.model.depth_estimator.register_forward_pre_hook(
+        lambda m, args: poses.append(args[2][:, 0].detach().clone()))
+    before = sweep_warp.VOLUME_BACKWARD.launches
+    m_card = card.train_step({k: v.to(dev) for k, v in batch.items()}, noise=False,
+                             draws={k: v.to(dev) for k, v in draws.items()})
+    torch.cuda.synchronize()
+    check(sweep_warp.VOLUME_BACKWARD.launches == before + 1,
+          "small train reference: the sweep backward kernel did not launch once")
+    g_card = {k: p.grad.cpu() for k, p in card.model.depth_estimator.named_parameters()}
+
+    cpu_cfg = cfg.override(pred_pose_online=False)
+
+    def cpu_step(scale):
+        t = Trainer(SFMNet(cpu_cfg, device="cpu", seed=1), cpu_cfg, steps_per_epoch=1)
+        b = dict(batch, ref=batch["ref"] * scale, pred_pose=poses[0].cpu())
+        m = t.train_step(b, noise=False)
+        return m, {k: p.grad for k, p in t.model.depth_estimator.named_parameters()}
+
+    m_cpu, g_cpu = cpu_step(1.0)
+    _, g_cpu2 = cpu_step(1.0 + 1e-6)
+    loss_err = abs(float(m_card["loss"]) - float(m_cpu["loss"])) / abs(float(m_cpu["loss"]))
+    errs, cos_err = _grad_report(g_card, g_cpu)
+    self_errs, self_cos = _grad_report(g_cpu2, g_cpu)
+    worst = max(errs, key=errs.get)
+    log(f"small train reference: loss card {float(m_card['loss']):.7f} vs cpu "
+        f"{float(m_cpu['loss']):.7f} (relative {loss_err:.2e}); PSNet gradients: "
+        f"{sum(e <= 1e-3 for e in errs.values())}/{len(errs)} tensors within 1e-3 of their "
+        f"max, worst {errs[worst]:.2e} ({worst}), 1 - cosine {cos_err:.2e}; the CPU against "
+        f"itself at 1 + 1e-6 input: worst {max(self_errs.values()):.2e}, "
+        f"{sum(e > 1e-3 for e in self_errs.values())} tensors beyond 1e-3, 1 - cosine "
+        f"{self_cos:.2e}")
+    check(math.isfinite(float(m_card["loss"])), "small train reference: non-finite loss")
+    check(loss_err <= 1e-4, f"small train reference: loss differs by {loss_err}")
+    bound = max(1e-3, 2 * max(self_errs.values()))
+    check(errs[worst] <= bound, f"small train reference: gradient {worst} differs by "
+          f"{errs[worst]} of its max, beyond {bound}")
+    check(cos_err <= 1e-4, f"small train reference: 1 - cosine of the gradients {cos_err}")
+
+
+class TrainStageTimer(StageTimer):
+    """StageTimer's flow, pose and depth-forward events plus the step's
+    start and end and the Adam update's; the loss and backward are the time
+    between the depth network's exit and Adam's start."""
+
+    def __init__(self, trainer):
+        super().__init__(trainer.model)
+        trainer.optimizer.register_step_pre_hook(lambda o, a, k: self._mark("adam_start"))
+        trainer.optimizer.register_step_post_hook(lambda o, a, k: self._mark("adam_end"))
+
+    def stages_ms(self):
+        e = self.events
+        out = super().stages_ms()
+        out.update(prep=e["step_start"].elapsed_time(e["flow_start"]),
+                   backward=e["depth_end"].elapsed_time(e["adam_start"]),
+                   adam=e["adam_start"].elapsed_time(e["adam_end"]),
+                   step=e["step_start"].elapsed_time(e["step_end"]))
+        return out
+
+
+def phase_cli_train(dev, sweep_warp):
+    """Slice 5 through `cli.main` in training mode on a rendered golden KITTI
+    raw tree (370x1224, cropped to the recipe's 256x768, b = 4, nlabel 128,
+    bf16, the slices' pose overrides): one warm-up step, which records the
+    sweep backward's inputs, then TRAIN_STEPS timed steps with the launch
+    counts reset after the warm-up, then the epoch's validation and
+    checkpoint. Each step must launch the gather 4 times, the sweep and the
+    sweep backward once, give a finite loss, leave DICL's parameters
+    bit-identical, move every DICL BN running mean and every PSNet parameter
+    that got a gradient. Returns (launches over the run after the warm-up
+    (gather, sweep, sweep backward), the sweep backward's inputs)."""
+    from deep_sfm_revisited_tpu_torch import cli
+    from deep_sfm_revisited_tpu_torch.data.synthetic import write_kitti_raw_tree
+    from deep_sfm_revisited_tpu_torch.train.trainer import Trainer
+
+    counters = (sweep_warp.KERNEL, sweep_warp.VOLUME, sweep_warp.VOLUME_BACKWARD)
+    real_step, backward = Trainer.train_step, sweep_warp.plane_sweep_volume_backward_cuda
+    rows, captured, timer = [], [], []
+
+    def record_backward(*args):
+        captured.append(tuple(a.clone() for a in args))
+        return backward(*args)
+
+    def timed_step(trainer, *args, **kw):
+        warm = not timer
+        if warm:
+            timer.append(TrainStageTimer(trainer))
+            sweep_warp.plane_sweep_volume_backward_cuda = record_backward
+        model = trainer.model
+        dicl = {k: v.clone() for k, v in model.flow_estimator.state_dict().items()}
+        psnet = {k: p.detach().clone() for k, p in model.depth_estimator.named_parameters()}
+        before = _launches(*counters)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        timer[0]._mark("step_start")
+        try:
+            metrics = real_step(trainer, *args, **kw)
+        finally:
+            sweep_warp.plane_sweep_volume_backward_cuda = backward
+        timer[0]._mark("step_end")
+        torch.cuda.synchronize()
+        ms = 1e3 * (time.perf_counter() - t0)
+        n = tuple(a - b for a, b in zip(_launches(*counters), before))
+        i = len(rows) + (0 if warm else 1)
+        loss = float(metrics["loss"])
+        check(math.isfinite(loss), f"train step {i}: loss {loss}")
+        check(n == TRAIN_PER_STEP, f"train step {i}: gather, sweep, sweep backward launched "
+              f"{n} times, expected {TRAIN_PER_STEP}")
+        state = model.flow_estimator.state_dict()
+        for k, p in model.flow_estimator.named_parameters():
+            check(torch.equal(p, dicl[k]), f"train step {i}: DICL parameter {k} moved")
+        stale = [k for k in state if k.endswith("running_mean") and torch.equal(state[k], dicl[k])]
+        check(not stale, f"train step {i}: DICL BN statistics did not move: {stale[:3]}")
+        still = [k for k, p in model.depth_estimator.named_parameters()
+                 if p.grad is not None and p.grad.any() and torch.equal(p, psnet[k])]
+        check(not still, f"train step {i}: PSNet parameters with a gradient did not move: "
+              f"{still[:3]}")
+        if warm:
+            for k in counters:
+                k.launches = 0
+            torch.cuda.reset_peak_memory_stats()
+            log(f"cli train: warm-up step {ms:.1f} ms, loss {loss:.4f}; sweep backward "
+                f"inputs {[tuple(a[0].shape) for a in captured]} {captured[0][0].dtype}")
+        else:
+            rows.append(dict(ms=ms, loss=loss, **timer[0].stages_ms()))
+            log(f"cli train: step {i}: {ms:.1f} ms (prep {rows[-1]['prep']:.1f}, flow "
+                f"{rows[-1]['flow']:.1f}, pose {rows[-1]['pose']:.1f}, depth forward "
+                f"{rows[-1]['depth']:.1f}, loss + backward {rows[-1]['backward']:.1f}, Adam "
+                f"{rows[-1]['adam']:.1f} ms device); loss {loss:.4f}; gather, sweep, sweep "
+                f"backward launches {n}")
+            if len(rows) == TRAIN_STEPS:
+                rows.append(dict(peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+                                 launches=_launches(*counters)))
+        return metrics
+
+    with tempfile.TemporaryDirectory() as tmp:
+        root = f"{tmp}/kitti_raw"
+        n_test = 2
+        t0 = time.perf_counter()
+        write_kitti_raw_tree(root, n_frames=n_test + TRAIN_B * (TRAIN_STEPS + 1),
+                             hw=(370, 1224), focal=K_KITTI[0][0], n_test=n_test)
+        log(f"cli train: golden tree of {n_test + TRAIN_B * (TRAIN_STEPS + 1)} 370x1224 frames "
+            f"rendered in {time.perf_counter() - t0:.2f} s")
+        argv = ["--data", root, "--cfg", "kitti", "--gt-depth-dir", f"{root}/gt_depth",
+                "--out", f"{tmp}/out", "--workers", "4", "-b", str(TRAIN_B), "--epochs", "1",
+                "--override", f"data.train_size={TRAIN_HW}",
+                *[f"{k}={v}" for k, v in BENCH_OVERRIDES.items()]]
+        log("cli train: cli.main(" + json.dumps(argv).replace(tmp, "<tmp>") + ")")
+        for k in counters:
+            k.launches = 0
+        Trainer.train_step = timed_step
+        try:
+            t0 = time.perf_counter()
+            history = cli.main(argv)
+            wall = time.perf_counter() - t0
+        finally:
+            Trainer.train_step = real_step
+        launches = _launches(*counters)
+        check(os.path.exists(f"{tmp}/out/kitti/ckpt/0.pt"), "cli train: no checkpoint written")
+    check(len(rows) == TRAIN_STEPS + 1, f"cli train: {len(rows) - 1} timed steps, expected "
+          f"{TRAIN_STEPS}")
+    tail = rows.pop()
+    check(tail["launches"] == tuple(TRAIN_STEPS * n for n in TRAIN_PER_STEP),
+          f"cli train: the timed steps launched {tail['launches']}")
+    check(len(history) == 1 and all(math.isfinite(history[0][k]) for k in EIGEN_KEYS),
+          f"cli train: validation {history}")
+    mean = {k: sum(r[k] for r in rows) / TRAIN_STEPS for k in rows[0]}
+    log(f"cli train: mean over {TRAIN_STEPS} steps at b = {TRAIN_B}, {TRAIN_HW[0]}x"
+        f"{TRAIN_HW[1]}: {mean['ms']:.2f} ms/step ({1e3 * TRAIN_B / mean['ms']:.3f} pairs/s); "
+        f"device stages prep {mean['prep']:.2f}, flow {mean['flow']:.2f}, pose "
+        f"{mean['pose']:.2f}, depth forward {mean['depth']:.2f}, loss + backward "
+        f"{mean['backward']:.2f}, Adam {mean['adam']:.2f} ms (step {mean['step']:.2f}); peak "
+        f"memory {tail['peak_gib']:.2f} GiB; cli.main {wall:.2f} s; validation "
+        f"{json.dumps({k: history[0][k] for k in sorted(EIGEN_KEYS)})}; launches after the "
+        f"warm-up, validation included: {launches}")
+    log("cli train rows: " + json.dumps(rows))
+    return launches, captured
+
+
+def _bf16_ulp(x):
+    """One bf16 ulp at |x| (8 significant bits), per element."""
+    _, e = torch.frexp(x.float().abs())
+    return torch.ldexp(torch.ones_like(x, dtype=torch.float32), e - 8)
+
+
+def phase_sweep_backward(captured, sweep_warp, camera):
+    """The sweep backward kernel against its plain version on the inputs
+    slice 5 gave it (the volume's bf16 gradient at b = 4, 64x192, 128
+    planes), in bf16 and float32, and on a pose that puts the near planes
+    behind the camera and one that pushes most samples out of the frame.
+
+    Tolerance: the kernel sums dtgt with float32 atomics in another order
+    than the plain version's index_add_, and dref plane by plane where torch
+    sums pairwise: in float32 |kernel - plain| <= 1e-5 max|plain| + 1e-6; in
+    bf16 that plus one bf16 ulp of the element (both float32 sums are cast to
+    bf16 at the end). dtgt is exactly zero wherever no valid sample lands;
+    dref is bit-identical across two launches."""
+    dvol, depths, M, Kt = captured[0]
+    B, D, H, W, C2 = dvol.shape
+    C = C2 // 2
+    ones = torch.ones((B, D, H, W, C2), device=dvol.device)
+    variants = {"main path": Kt}
+    behind, outward = Kt.clone(), Kt.clone()
+    behind[:, 2] = -depths[D // 2]
+    outward[:, 0] += 2 * W * depths[D // 4]
+    variants.update({"behind the camera": behind, "out of frame": outward})
+    max_err = 0.0
+    for what, kt in variants.items():
+        _, landed = camera.plane_sweep_volume_backward_plain(ones, depths, M, kt)
+        empty = (landed == 0).all(dim=-1)
+        x, y = camera.sweep_pixel_coords(depths, M, kt, H, W)
+        invalid = float(((x < 0) | (x > W - 1) | (y < 0) | (y > H - 1)).float().mean())
+        for dtype in (torch.bfloat16, torch.float32):
+            dv = dvol.to(dtype)
+            dref, dtgt = sweep_warp.plane_sweep_volume_backward_cuda(dv, depths, M, kt)
+            dref2, _ = sweep_warp.plane_sweep_volume_backward_cuda(dv, depths, M, kt)
+            pref, ptgt = camera.plane_sweep_volume_backward_plain(dv, depths, M, kt)
+            name = f"sweep backward {what} {str(dtype)[6:]}"
+            check(torch.equal(dref, dref2), f"{name}: dref differs between two launches")
+            check((dtgt[empty] == 0).all(), f"{name}: dtgt nonzero where no sample lands")
+            for half, got, want in (("dref", dref, pref), ("dtgt", dtgt, ptgt)):
+                err = (got.float() - want.float()).abs()
+                max_err = max(max_err, float(err.max()))
+                tol = 1e-5 * float(want.float().abs().max()) + 1e-6
+                if dtype == torch.bfloat16:
+                    tol = tol + _bf16_ulp(torch.maximum(got.float().abs(), want.float().abs()))
+                check(bool((err <= tol).all()), f"{name} {half}: max |kernel - plain| "
+                      f"{float(err.max())} beyond tolerance")
+            del dv, dref, dref2, dtgt, pref, ptgt
+        log(f"sweep backward {what}: kernel within tolerance of plain in bf16 and float32, "
+            f"dref bit-identical across launches; invalid samples {100 * invalid:.2f}%, "
+            f"pixels no sample lands on {100 * float(empty.float().mean()):.2f}% (dtgt zero)")
+    del ones, landed
+
+    dref, dtgt = sweep_warp.plane_sweep_volume_backward_cuda(dvol, depths, M, Kt)
+
+    def run():
+        sweep_warp.plane_sweep_volume_backward_cuda(dvol, depths, M, Kt)
+
+    ms = cuda_ms(run, reps=10)
+    dev_ms = device_ms(run, "plane_sweep_volume_backward_kernel", reps=10)
+    plain_ms = cuda_ms(lambda: camera.plane_sweep_volume_backward_plain(dvol, depths, M, Kt),
+                       reps=2, warmup=1)
+    # the yardstick: torch's grid-sampler backward for the tgt half alone, on
+    # the same samples (NCHW input, the (B, D H, W, 2) grid normalized for
+    # align_corners, zeros padding); the port never calls it
+    x, y = camera.sweep_pixel_coords(depths, M, Kt, H, W)
+    grid = torch.stack([x / (W - 1) * 2 - 1, y / (H - 1) * 2 - 1], dim=-1)
+    grid = grid.reshape(B, D * H, W, 2).to(dvol.dtype)
+    tgt_nchw = torch.zeros((B, C, H, W), dtype=dvol.dtype, device=dvol.device)
+    gout = dvol[..., C:].permute(0, 4, 1, 2, 3).reshape(B, C, D * H, W).contiguous()
+    def library():
+        torch.ops.aten.grid_sampler_2d_backward(gout, tgt_nchw, grid, 0, 0, True,
+                                                [True, False])
+
+    library_ms = cuda_ms(library, reps=10)
+    library_dev_ms = sum(v[0] for v in device_profile(library, reps=10).values()) or None
+    nbytes = sum(t.numel() * t.element_size() for t in (dvol, depths, M, Kt, dref, dtgt))
+    samples = B * D * H * W
+    flops = samples * (BWD_FLOPS_PER_SAMPLE + BWD_FLOPS_PER_CHANNEL * C)
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / F32_FLOPS * 1e3
+    bound = max(t_bytes, t_ops)
+    call = dict(name="psnet_cost_volume_backward", dvol=list(dvol.shape),
+                dtype=str(dvol.dtype).replace("torch.", ""), ms=ms, device_ms=dev_ms,
+                plain_ms=plain_ms, library_ms=library_ms, library_device_ms=library_dev_ms,
+                bound_ms=bound, bound_by="bytes" if t_bytes >= t_ops else "operations",
+                bound_share=None if dev_ms is None else bound / dev_ms, bytes=nbytes,
+                flops=flops, atomic_adds=4 * samples * C)
+    fmt = lambda v: "not measured" if v is None else f"{v:.4f} ms"   # noqa: E731
+    share = "not measured" if dev_ms is None else f"{100 * bound / dev_ms:.1f}%"
+    log(f"sweep backward kernel: dvol {tuple(dvol.shape)} {call['dtype']}: device "
+        f"{fmt(dev_ms)}, events {ms:.4f} ms, plain {plain_ms:.4f} ms, grid_sampler_2d_backward "
+        f"{library_ms:.4f} ms (device {fmt(library_dev_ms)}), bound {bound:.4f} ms "
+        f"({call['bound_by']}, {nbytes / 1e6:.1f} MB, "
+        f"{flops / 1e9:.2f} GFLOP), share of bound {share}; {4 * samples * C / 1e6:.0f} M "
+        f"float32 atomic adds")
+    return call, max_err
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's smoke run needs one", file=sys.stderr)
@@ -832,20 +1202,26 @@ def main() -> int:
         pwc_calls1, pwc_err1 = phase_kernel(cap1, sweep_warp, camera, path="pwc")
         sweep_call, sweep_err = phase_sweep(cap_sweep + cap_sweep_pwc, sweep_warp, camera)
         calls2, err2 = phase_b2(cap2, local_corr, correlation)
+    phase_small_train_reference(dev)
+    (b1_train, sweep_train, bwd_train), cap_bwd = phase_cli_train(dev, sweep_warp)
+    with torch.no_grad():
+        bwd_call, bwd_err = phase_sweep_backward(cap_bwd, sweep_warp, camera)
 
     # per frame pair: slice 1's four flow warps head the gather's row;
     # slice 2's pair makes its own four
     b1 = {"name": "bilinear_sample", "route": "cuda", "source": B1_SOURCE,
-          "replaces": B1_REPLACES, "launches": b1_dicl + b1_pwc,
-          "launches_by_path": {"dicl_main_path": b1_dicl, "pwc_cli_eval": b1_pwc},
+          "replaces": B1_REPLACES, "launches": b1_dicl + b1_pwc + b1_train,
+          "launches_by_path": {"dicl_main_path": b1_dicl, "pwc_cli_eval": b1_pwc,
+                               "cli_train": b1_train},
           "max_abs_err": max(err1, pwc_err1), **_pair_sums(calls1),
           "pwc_pair": _pair_sums(pwc_calls1), "calls": calls1 + pwc_calls1}
     # one launch per pair on either slice; no single PyTorch call builds the
     # volume, so there is no library time (the composition it replaced is
     # timed beside it)
     sweep = {"name": "plane_sweep_volume", "route": "cuda", "source": B1_SOURCE,
-             "replaces": B1_REPLACES, "launches": sweep_dicl + sweep_pwc,
-             "launches_by_path": {"dicl_main_path": sweep_dicl, "pwc_cli_eval": sweep_pwc},
+             "replaces": B1_REPLACES, "launches": sweep_dicl + sweep_pwc + sweep_train,
+             "launches_by_path": {"dicl_main_path": sweep_dicl, "pwc_cli_eval": sweep_pwc,
+                                  "cli_train": sweep_train},
              "max_abs_err": sweep_err,
              **{k: v for k, v in sweep_call.items() if k != "name"}}
     b2 = {"name": "local_correlation", "route": "cuda", "source": B2_SOURCE,
@@ -854,15 +1230,21 @@ def main() -> int:
           # per frame pair: PWC-DC's five levels; no single PyTorch call
           # computes a windowed correlation, so there is no library time
           **_pair_sums(calls2), "calls": calls2}
-    for k in (b1, sweep, b2):
+    # one launch per training step; it replaces the gradient XLA derives for
+    # the JAX cost volume (the TPU had no kernel of its own for it)
+    bwd = {"name": "plane_sweep_volume_backward", "route": "cuda", "source": B1_SOURCE,
+           "replaces": BWD_REPLACES, "launches": bwd_train,
+           "launches_by_path": {"cli_train": bwd_train}, "max_abs_err": bwd_err,
+           **{k: v for k, v in bwd_call.items() if k != "name"}}
+    for k in (b1, sweep, b2, bwd):
         lib = "none" if k["library_ms"] is None else f"{k['library_ms']:.4f} ms"
         dev = "not measured" if k["device_ms"] is None else f"{k['device_ms']:.4f} ms"
-        log(f"{k['name']} per pair: kernel {k['ms']:.4f} ms (device {dev}), plain "
+        log(f"{k['name']} per pair or step: kernel {k['ms']:.4f} ms (device {dev}), plain "
             f"{k['plain_ms']:.4f} ms, "
             f"bound {k['bound_ms']:.4f} ms ({k['bound_by']}), library {lib}, "
             f"launches {k['launches']}")
     log(f"chip_smoke: all phases passed in {time.perf_counter() - t_start:.1f} s")
-    log(json.dumps({"kernels": [b1, sweep, b2]}))
+    log(json.dumps({"kernels": [b1, sweep, b2, bwd]}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",
                                            "kind": torch.cuda.get_device_name(0),
                                            "count": torch.cuda.device_count()}}))

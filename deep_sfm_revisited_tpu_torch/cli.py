@@ -1,19 +1,29 @@
 """Command-line entry point of the port (port of `deep_sfm_revisited_tpu/cli.py`).
 
-The JAX CLI's flags for evaluation (the reference's `main.py:66-115`
-surface plus `--override k=v`). Ported: `-v`, the Eigen-protocol
-evaluation of SFMNet over the KITTI raw (or VO) test split, with random
-weights from `train.seed` or a reference-named state dict
-(`--pretrained-torch`, loaded strictly). The JAX CLI's other modes
-(training, `--train-flow`, `--record-pose`, `--save-pose`, the
-`--pretrained*` checkpoint restores) are accepted and raise
-NotImplementedError; the flags only they read are not taken.
+The JAX CLI's flags (the reference's `main.py:66-115` surface plus
+`--override k=v`). Ported:
+
+- `-v`: the Eigen-protocol evaluation of SFMNet over the KITTI raw (or VO)
+  test split;
+- without `-v`: training, the recipe's frozen-flow depth step (`train/
+  loop.py::fit`): the KITTI train split with the recipe's augmentation,
+  `train.epochs` epochs, a validation and a checkpoint after each, resumed
+  from `--start-epoch` with `--pretrained`.
+
+Weights are random from `train.seed`, or restored: `--pretrained` (the
+port's checkpoint: model, optimizer and step in training, the model alone
+with `-v`), `--pretrained-flow` / `--pretrained-depth` (one network of a
+port checkpoint) and `--pretrained-torch` (a reference-named state dict,
+loaded strictly). `--train-flow`, `--record-pose` and `--save-pose` are
+accepted and raise NotImplementedError.
 
     python -m deep_sfm_revisited_tpu_torch.cli --data /path/KITTI --cfg kitti -v \\
         [--override flow.estimator=PWC] [--pretrained-torch kitti.pth.tar]
+    python -m deep_sfm_revisited_tpu_torch.cli --data /path/KITTI --cfg kitti -b 4 \\
+        --gt-depth-dir /path/gt_depth [--epochs 12] [--pretrained out/kitti/ckpt --start-epoch 3]
 
-The evaluation runs on the GPU; `main(argv, device="cpu")` asks for the CPU
-(the tests do). Without a GPU and without that argument it raises.
+Both run on the GPU; `main(argv, device="cpu")` asks for the CPU (the tests
+do). Without a GPU and without that argument it raises.
 """
 
 from __future__ import annotations
@@ -36,8 +46,11 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--dataset", default=None, choices=[None, "kitti_raw", "kitti_vo"])
     p.add_argument("-b", "--batch-size", type=int, default=None)
     p.add_argument("--nlabel", type=int, default=None)
+    p.add_argument("--epochs", type=int, default=None)
+    p.add_argument("--start-epoch", type=int, default=0)
     p.add_argument("-v", "--validate", action="store_true")
-    p.add_argument("--pretrained", default=None, help="checkpoint dir to restore")
+    p.add_argument("--pretrained", default=None,
+                   help="the port's checkpoint directory (or file) to restore")
     p.add_argument("--pretrained-flow", default=None)
     p.add_argument("--pretrained-depth", default=None)
     p.add_argument("--pretrained-torch", default=None,
@@ -55,7 +68,7 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def config_from_args(args):
-    """The JAX CLI's config assembly (`cli.py:70-103`), eval flags."""
+    """The JAX CLI's config assembly (`cli.py:70-103`)."""
     from deep_sfm_revisited_tpu_torch.config import SfMConfig, config_from_yaml
 
     if args.cfg == "kitti":
@@ -69,6 +82,8 @@ def config_from_args(args):
         over["train.batch_size"] = args.batch_size
     if args.nlabel is not None:
         over["depth.nlabel"] = args.nlabel
+    if args.epochs is not None:
+        over["train.epochs"] = args.epochs
     if args.dataset is not None:
         over["data.dataset"] = args.dataset
     if args.workers:
@@ -84,10 +99,7 @@ def config_from_args(args):
 
 def _check_ported(args) -> None:
     unported = [("--train-flow", args.train_flow), ("--record-pose", args.record_pose),
-                ("--save-pose", args.save_pose), ("--pretrained", args.pretrained),
-                ("--pretrained-flow", args.pretrained_flow),
-                ("--pretrained-depth", args.pretrained_depth),
-                ("training (no -v)", not args.validate)]
+                ("--save-pose", args.save_pose)]
     for flag, given in unported:
         if given:
             raise NotImplementedError(f"{flag} is not ported yet")
@@ -110,18 +122,69 @@ def build_val_loader(cfg, args):
                        pad_multiple=cfg.data.pad_multiple, drop_last=False)
 
 
+def build_train_loader(cfg, args):
+    """The train half of the JAX CLI's `build_loaders` (`cli.py:106-164`):
+    random zoom, crop to `data.train_size`, horizontal flip, color jitter,
+    and the raw split's random pair offset and direction."""
+    from deep_sfm_revisited_tpu_torch.data import (BatchLoader, Compose, KittiRawDataset,
+                                                   KittiVODataset, Normalize, RandomCrop,
+                                                   RandomZoom)
+    from deep_sfm_revisited_tpu_torch.data.transforms import ColorJitter, RandomHorizontalFlip
+
+    d = cfg.data
+    tf = Compose(([RandomZoom()] if d.zoom_input else []) + [RandomCrop(d.train_size)]
+                 + ([RandomHorizontalFlip()] if d.flip_aug else []) + [ColorJitter(), Normalize()])
+    if d.dataset == "kitti_vo":
+        ds = KittiVODataset(args.data, train=True, skip=d.skip, transform=tf)
+    else:
+        ds = KittiRawDataset(args.data, train=True, gt_depth_dir=args.gt_depth_dir, transform=tf,
+                             random_offset=d.random_offset, random_fw_bw=d.random_fw_bw)
+    return BatchLoader(ds, cfg.train.batch_size, workers=d.workers,
+                       pad_multiple=d.pad_multiple, seed=cfg.train.seed)
+
+
+def apply_pretrained(args, model, trainer=None) -> None:
+    """The `--pretrained*` restores (JAX `apply_pretrained`, `cli.py:167-221`)
+    onto a fresh model: `--pretrained` restores the whole trainer (model,
+    optimizer, step) when one is given and the model alone otherwise;
+    `--pretrained-flow` / `--pretrained-depth` merge one network;
+    `--pretrained-torch` loads a reference-named state dict strictly."""
+    from deep_sfm_revisited_tpu_torch.train import checkpoint as ckpt
+    from deep_sfm_revisited_tpu_torch.utils.weights import load_reference_checkpoint
+
+    if args.pretrained:
+        if trainer is not None:
+            ckpt.restore_checkpoint(args.pretrained, trainer)
+        else:
+            ckpt.restore_model(args.pretrained, model)
+    if args.pretrained_flow:
+        ckpt.restore_subtree(args.pretrained_flow, model, "flow_net")
+    if args.pretrained_depth:
+        ckpt.restore_subtree(args.pretrained_depth, model, "depth_net")
+    if args.pretrained_torch:
+        model.load_state_dict(load_reference_checkpoint(args.pretrained_torch), strict=True)
+
+
 def main(argv=None, device: str | torch.device = "cuda"):
-    """Run the CLI; `-v` returns the mean Eigen metrics {name: float}."""
+    """Run the CLI. `-v` returns the mean Eigen metrics {name: float};
+    training returns `fit`'s record of each epoch it ran."""
     from deep_sfm_revisited_tpu_torch.config import save_config
     from deep_sfm_revisited_tpu_torch.models.sfmnet import SFMNet
     from deep_sfm_revisited_tpu_torch.train.evaluate import validate
     from deep_sfm_revisited_tpu_torch.utils.logging import MetricLogger
-    from deep_sfm_revisited_tpu_torch.utils.weights import load_reference_checkpoint
 
     args = build_parser().parse_args(argv)
     _check_ported(args)
     cfg = config_from_args(args)
     dev = resolve_device(device)
+
+    if not args.validate:
+        from deep_sfm_revisited_tpu_torch.train.loop import fit
+
+        return fit(cfg, build_train_loader(cfg, args), build_val_loader(cfg, args),
+                   out_dir=args.out, device=dev,
+                   restore_fn=lambda trainer: apply_pretrained(args, trainer.model, trainer),
+                   start_epoch=args.start_epoch)
 
     out = os.path.join(args.out, cfg.tag)
     os.makedirs(out, exist_ok=True)
@@ -129,8 +192,7 @@ def main(argv=None, device: str | torch.device = "cuda"):
     loader = build_val_loader(cfg, args)
     dtype = torch.bfloat16 if cfg.train.mixed_prec else torch.float32
     model = SFMNet(cfg, dtype=dtype, device=dev, seed=cfg.train.seed)
-    if args.pretrained_torch:
-        model.load_state_dict(load_reference_checkpoint(args.pretrained_torch), strict=True)
+    apply_pretrained(args, model)
     results = validate(loader, model, cfg, generator=torch.Generator(device=dev).manual_seed(0))
     mlog = MetricLogger(out, "test")
     mlog.scalars(results, 0)

@@ -3,8 +3,9 @@
 A verbatim copy of `deep_sfm_revisited_tpu/config.py`, kept here so the
 port never imports the JAX package (whose `__init__` imports jax). The
 two files must stay field-for-field identical; `tests/test_torch_camera.py`
-checks that. Knobs that only shape the TPU program (`depth.remat`,
-`depth.warp_kernel`, `mesh.*`) are accepted and ignored by the port.
+checks that. Knobs that only shape the TPU program (`depth.warp_kernel`,
+`mesh.*`, and the train loop's `chain_steps`) are accepted and ignored by
+the port; `depth.remat` becomes `torch.utils.checkpoint` in training.
 
 Original notes: TPU-native replacement for the reference's module-global EasyDict config
 (`lib/config.py:5-6` with ~200 flags at `lib/config.py:15-370`, YAML merge

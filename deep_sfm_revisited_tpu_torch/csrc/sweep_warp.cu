@@ -12,7 +12,7 @@
 // PyTorch versions of the port (ops/camera.py::bilinear_sample_plain and
 // ops/camera.py::plane_sweep_volume_plain).
 //
-// Two entry points share that rule (`Taps` and `blend` below):
+// Three entry points share that rule (`Taps`, `SweepRay` and `blend` below):
 //
 // dsfm_bilinear_sample -- the generic gather at given coordinates, used by
 // the flow warps. One thread per (query, 16-byte channel chunk), so
@@ -48,6 +48,27 @@
 //   another's tap loads without a tail of tiny blocks.
 // The coordinate arithmetic is rounded op by op in the plain version's
 // order (__fmul_rn, __fadd_rn, __fdiv_rn), so the volume is bit-identical.
+//
+// dsfm_plane_sweep_volume_backward -- the volume's gradient with respect to
+// the two feature maps, for training PSNet's feature extractor through the
+// volume. It replaces the gradient XLA derives for the JAX package's cost
+// volume (deep_sfm_revisited_tpu/models/psnet.py:253-260: the broadcast
+// ref half and the gather of plane_sweep_warp, concatenated). dref is the
+// sum of dvol's ref half over the D planes; dtgt is dvol's warped half
+// scattered back onto the four taps of each sample with its bilinear
+// weights. The sample's taps, weights and validity come from the forward's
+// own code (`SweepRay`), so they equal the forward's bit for bit; pose and
+// intrinsics get no gradient (the RANSAC pose is stop-gradient).
+// What bounds it: at the training shape (b = 4, 64x192 at 1/4 resolution,
+// C = 32 bf16, 128 planes) it reads the 805 MB gradient once and writes
+// two 3.1 MB maps, a 0.24 ms byte bound; but its warped half costs up to
+// 4 x 201 M float32 atomic adds into a 6.3 MB accumulator, and those, not
+// the bytes, set its pace. The design is the simplest that is right: one
+// thread per (pixel, 16-byte chunk) walks all planes, sums the ref half in
+// registers (no atomics, a fixed order, so dref is deterministic) and
+// scatters the warped half with scalar atomics; the gradient is read with
+// streaming loads so the accumulator stays in L2. Shared-memory tiles of
+// the accumulator or Hopper's vector atomics are left for later.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -58,10 +79,12 @@ namespace {
 // 16-byte chunk <-> floats, by bits, for each storage type.
 struct F32 {
   static constexpr int kVec = 4;
-  __device__ __forceinline__ static void load16(const void* p, float* v) {
-    uint4 r = __ldg(reinterpret_cast<const uint4*>(p));
+  __device__ __forceinline__ static void unpack16(uint4 r, float* v) {
     v[0] = __uint_as_float(r.x); v[1] = __uint_as_float(r.y);
     v[2] = __uint_as_float(r.z); v[3] = __uint_as_float(r.w);
+  }
+  __device__ __forceinline__ static void load16(const void* p, float* v) {
+    unpack16(__ldg(reinterpret_cast<const uint4*>(p)), v);
   }
   __device__ __forceinline__ static uint4 pack16(const float* v) {
     uint4 r;
@@ -84,10 +107,12 @@ struct BF16 {
   __device__ __forceinline__ static uint32_t bits(float f) {
     return (uint32_t)__bfloat16_as_ushort(__float2bfloat16_rn(f));
   }
-  __device__ __forceinline__ static void load16(const void* p, float* v) {
-    uint4 r = __ldg(reinterpret_cast<const uint4*>(p));
+  __device__ __forceinline__ static void unpack16(uint4 r, float* v) {
     v[0] = lo(r.x); v[1] = hi(r.x); v[2] = lo(r.y); v[3] = hi(r.y);
     v[4] = lo(r.z); v[5] = hi(r.z); v[6] = lo(r.w); v[7] = hi(r.w);
+  }
+  __device__ __forceinline__ static void load16(const void* p, float* v) {
+    unpack16(__ldg(reinterpret_cast<const uint4*>(p)), v);
   }
   __device__ __forceinline__ static uint4 pack16(const float* v) {
     uint4 r;
@@ -137,6 +162,37 @@ struct Taps {
     i01 = (int64_t)yi * W + xi1;
     i10 = (int64_t)yi1 * W + xi;
     i11 = (int64_t)yi1 * W + xi1;
+  }
+};
+
+// The sweep's sample of ref pixel (x, y) of batch item b: the ray
+// M [u, v, 1] once per pixel, then per plane depth d the point
+// p = ray d + K t and the perspective divide, rounded op by op in the plain
+// version's order (ops/camera.py::sweep_pixel_coords). The forward and the
+// backward kernel both take their taps from here, so the backward scatters
+// to the very taps, with the very weights, that the forward read.
+struct SweepRay {
+  float ray[3], kt[3];
+  __device__ __forceinline__ SweepRay(const float* M, const float* Kt, int b, int x, int y) {
+    const float u = (float)x, v = (float)y;
+    const float* m = M + 9 * b;
+#pragma unroll
+    for (int i = 0; i < 3; ++i) {
+      const float mu = __fmul_rn(__ldg(m + 3 * i), u), mv = __fmul_rn(__ldg(m + 3 * i + 1), v);
+      ray[i] = __fadd_rn(__fadd_rn(mu, mv), __ldg(m + 3 * i + 2));
+      kt[i] = __ldg(Kt + 3 * b + i);
+    }
+  }
+  __device__ __forceinline__ Taps taps(float dep, int H, int W) const {
+    const float p0 = __fadd_rn(__fmul_rn(ray[0], dep), kt[0]);
+    const float p1 = __fadd_rn(__fmul_rn(ray[1], dep), kt[1]);
+    const float p2 = __fadd_rn(__fmul_rn(ray[2], dep), kt[2]);
+    // z <= 1e-3: behind the camera; the sample goes to (2W, 2H), i.e. zero
+    const bool behind = p2 <= 1e-3f;
+    const float z = fmaxf(p2, 1e-3f);
+    const float xs = behind ? (float)(2 * W) : __fdiv_rn(p0, z);
+    const float ys = behind ? (float)(2 * H) : __fdiv_rn(p1, z);
+    return Taps(xs, ys, H, W);
   }
 };
 
@@ -242,15 +298,7 @@ plane_sweep_volume_kernel(const void* __restrict__ ref, const void* __restrict__
     if (x >= W) continue;
 
     // once per item: the ray M [u, v, 1], K t and the ref chunk
-    const float u = (float)x, v = (float)y;
-    const float* m = M + 9 * b;
-    float ray[3], kt[3];
-#pragma unroll
-    for (int i = 0; i < 3; ++i) {
-      const float mu = __fmul_rn(__ldg(m + 3 * i), u), mv = __fmul_rn(__ldg(m + 3 * i + 1), v);
-      ray[i] = __fadd_rn(__fadd_rn(mu, mv), __ldg(m + 3 * i + 2));
-      kt[i] = __ldg(Kt + 3 * b + i);
-    }
+    const SweepRay ray(M, Kt, b, x, y);
     const int64_t pixel = ((int64_t)b * H + y) * W + x;
     const uint4 ref16 = __ldg(reinterpret_cast<const uint4*>(
         reinterpret_cast<const char*>(ref) + (pixel * C + c0) * kBytes));
@@ -261,17 +309,8 @@ plane_sweep_volume_kernel(const void* __restrict__ ref, const void* __restrict__
 
 #pragma unroll 2
     for (int d = d0; d < d_end; ++d, dst += plane_bytes) {
-      const float dep = __ldg(depths + d);
-      const float p0 = __fadd_rn(__fmul_rn(ray[0], dep), kt[0]);
-      const float p1 = __fadd_rn(__fmul_rn(ray[1], dep), kt[1]);
-      const float p2 = __fadd_rn(__fmul_rn(ray[2], dep), kt[2]);
-      // z <= 1e-3: behind the camera; the sample goes to (2W, 2H), i.e. zero
-      const bool behind = p2 <= 1e-3f;
-      const float z = fmaxf(p2, 1e-3f);
-      const float xs = behind ? (float)(2 * W) : __fdiv_rn(p0, z);
-      const float ys = behind ? (float)(2 * H) : __fdiv_rn(p1, z);
       float w16[kVec];
-      sample16<T>(img, Taps(xs, ys, H, W), C, c0, w16);
+      sample16<T>(img, ray.taps(__ldg(depths + d), H, W), C, c0, w16);
       __stcs(reinterpret_cast<uint4*>(dst), ref16);
       __stcs(reinterpret_cast<uint4*>(dst + C * kBytes), T::pack16(w16));
     }
@@ -304,6 +343,79 @@ cudaError_t launch_sweep(const void* ref, const void* tgt, const float* depths,
   const int64_t grid = items < blocks_on_card[dev] ? items : blocks_on_card[dev];
   plane_sweep_volume_kernel<T><<<(unsigned)grid, kSweepThreads, 0, stream>>>(
       ref, tgt, depths, M, Kt, out, B, D, H, W, C, tiles, items);
+  return cudaGetLastError();
+}
+
+
+// ---------------------------------------------------------------------------
+// The plane sweep's backward.
+
+// dvol (B, D, H, W, 2C) = the volume's gradient, in T; dref (B, H, W, C) in
+// T; dtgt (B, H, W, C) float32, zeroed by the caller. One thread per (b, y,
+// x, 16-byte channel chunk) walks all D planes: it sums the ref half of its
+// chunk in registers, plane by plane in order (dref is deterministic), and
+// scatters the warped half, times each tap's bilinear weight, onto the four
+// taps its sample read in the forward (float32 atomics: their order, and so
+// dtgt's last bits, vary from launch to launch). An invalid sample (out of
+// the frame before the clip, or behind the camera) scatters nothing.
+template <typename T>
+__global__ void __launch_bounds__(kSweepThreads)
+plane_sweep_volume_backward_kernel(const void* __restrict__ dvol,
+                                   const float* __restrict__ depths,
+                                   const float* __restrict__ M, const float* __restrict__ Kt,
+                                   void* __restrict__ dref, float* __restrict__ dtgt,
+                                   int B, int D, int H, int W, int C) {
+  constexpr int kVec = T::kVec, kBytes = 16 / kVec;
+  const int tpp = C / kVec;
+  const int64_t tid = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (tid >= (int64_t)B * H * W * tpp) return;
+  const int64_t pixel = tid / tpp;                 // ((b H) + y) W + x
+  const int c0 = (int)(tid - pixel * tpp) * kVec;
+  const int x = (int)(pixel % W);
+  const int y = (int)((pixel / W) % H);
+  const int b = (int)(pixel / ((int64_t)H * W));
+
+  const SweepRay ray(M, Kt, b, x, y);
+  const int64_t plane_bytes = (int64_t)H * W * 2 * C * kBytes;
+  const char* src = reinterpret_cast<const char*>(dvol)
+                    + ((((int64_t)b * D * H) + y) * W + x) * 2 * C * kBytes + c0 * kBytes;
+  float* acc = dtgt + (int64_t)b * H * W * C + c0;
+  float rsum[kVec];
+#pragma unroll
+  for (int k = 0; k < kVec; ++k) rsum[k] = 0.f;
+
+  for (int d = 0; d < D; ++d, src += plane_bytes) {
+    float g[kVec];
+    // streaming loads: the 805 MB gradient must not evict the accumulator from L2
+    T::unpack16(__ldcs(reinterpret_cast<const uint4*>(src)), g);
+#pragma unroll
+    for (int k = 0; k < kVec; ++k) rsum[k] = __fadd_rn(rsum[k], g[k]);
+    const Taps t = ray.taps(__ldg(depths + d), H, W);
+    if (t.valid == 0.f) continue;
+    T::unpack16(__ldcs(reinterpret_cast<const uint4*>(src + C * kBytes)), g);
+    const float w00 = __fmul_rn(t.ay, t.ax), w01 = __fmul_rn(t.ay, t.wx);
+    const float w10 = __fmul_rn(t.wy, t.ax), w11 = __fmul_rn(t.wy, t.wx);
+#pragma unroll
+    for (int k = 0; k < kVec; ++k) {
+      atomicAdd(acc + t.i00 * C + k, __fmul_rn(g[k], w00));
+      atomicAdd(acc + t.i01 * C + k, __fmul_rn(g[k], w01));
+      atomicAdd(acc + t.i10 * C + k, __fmul_rn(g[k], w10));
+      atomicAdd(acc + t.i11 * C + k, __fmul_rn(g[k], w11));
+    }
+  }
+  *reinterpret_cast<uint4*>(reinterpret_cast<char*>(dref) + (pixel * C + c0) * kBytes) =
+      T::pack16(rsum);
+}
+
+template <typename T>
+cudaError_t launch_sweep_backward(const void* dvol, const float* depths, const float* M,
+                                  const float* Kt, void* dref, float* dtgt, int B, int D,
+                                  int H, int W, int C, cudaStream_t stream) {
+  const int64_t threads = (int64_t)B * H * W * (C / T::kVec);
+  const int64_t blocks = (threads + kSweepThreads - 1) / kSweepThreads;
+  if (blocks > 0x7fffffffLL) return cudaErrorInvalidConfiguration;
+  plane_sweep_volume_backward_kernel<T><<<(unsigned)blocks, kSweepThreads, 0, stream>>>(
+      dvol, depths, M, Kt, dref, dtgt, B, D, H, W, C);
   return cudaGetLastError();
 }
 
@@ -340,5 +452,25 @@ extern "C" int dsfm_plane_sweep_volume(const void* ref, const void* tgt, const v
   const float* kp = reinterpret_cast<const float*>(Kt);
   if (dtype == 0) return launch_sweep<F32>(ref, tgt, dp, mp, kp, out, B, D, H, W, C, s);
   if (dtype == 1) return launch_sweep<BF16>(ref, tgt, dp, mp, kp, out, B, D, H, W, C, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+// The sweep's backward: given dvol (B, D, H, W, 2C) of `dtype`, dref
+// (B, H, W, C) of `dtype` = the sum of dvol's ref half over D, and dtgt
+// (B, H, W, C) float32, zeroed by the caller, += the warped half scattered
+// onto the taps. The same alignment and size rules as the forward.
+extern "C" int dsfm_plane_sweep_volume_backward(const void* dvol, const void* depths,
+                                                const void* M, const void* Kt, void* dref,
+                                                void* dtgt, int B, int D, int H, int W, int C,
+                                                int dtype, void* stream) {
+  cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
+  const float* dp = reinterpret_cast<const float*>(depths);
+  const float* mp = reinterpret_cast<const float*>(M);
+  const float* kp = reinterpret_cast<const float*>(Kt);
+  float* acc = reinterpret_cast<float*>(dtgt);
+  if (dtype == 0)
+    return launch_sweep_backward<F32>(dvol, dp, mp, kp, dref, acc, B, D, H, W, C, s);
+  if (dtype == 1)
+    return launch_sweep_backward<BF16>(dvol, dp, mp, kp, dref, acc, B, D, H, W, C, s);
   return (int)cudaErrorInvalidValue;
 }

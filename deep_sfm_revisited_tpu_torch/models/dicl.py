@@ -1,4 +1,4 @@
-"""DICL coarse-to-fine optical flow (port of `models/dicl.py`), eval forward.
+"""DICL coarse-to-fine optical flow (port of `models/dicl.py`), eval and frozen-train forward.
 
 `FeatureGA` U-net features at strides 4..64 -> per level 6..2: the
 (2md+1)^2-displacement stack of [x | shifted y] pairs with warp-hole
@@ -12,6 +12,14 @@ checkpoints load with `load_state_dict`. Displacements are stacked in the
 JAX package's order (dv outer, du inner); the reference flattens (du
 outer, dv inner), so `SmoothCost` keeps its weight in the reference's
 order and permutes it to the JAX order when it runs.
+
+In train mode the U-net runs once per frame (BN batch statistics per call,
+JAX `dicl.py:264-272`) and `all_iters=True` returns the per-level flow stack
+(`:356-361`). The port trains the recipe's depth network with DICL frozen
+(`train.fix_flownet`): DICL then runs in train mode under `torch.no_grad()`,
+so its BN running statistics update as JAX's `mutable=["batch_stats"]` step
+updates them. A gradient through DICL (the generic gather's backward) is not
+ported: train mode with autograd on raises.
 
 Layouts: `DICLFlow.forward` takes and returns NHWC like the JAX module;
 the helpers below work on the internal NCHW tensors (features (B, C, H,
@@ -28,7 +36,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from deep_sfm_revisited_tpu_torch.config import FlowConfig
-from deep_sfm_revisited_tpu_torch.models.submodules import _resize_nchw, no_autocast
+from deep_sfm_revisited_tpu_torch.models.submodules import BatchNorm2d, _resize_nchw, no_autocast
 from deep_sfm_revisited_tpu_torch.ops.camera import bilinear_sample, pixel_grid
 from deep_sfm_revisited_tpu_torch.utils.weights import disp_transpose_perm
 
@@ -46,7 +54,7 @@ class BasicConv(nn.Module):
             pad = dilation if dilation > 1 else kernel // 2
             self.conv = nn.Conv2d(cin, cout, kernel, stride, pad, dilation=dilation,
                                   bias=False)
-        self.bn = nn.BatchNorm2d(cout) if bn else None
+        self.bn = BatchNorm2d(cout) if bn else None
         self.relu = relu
 
     def forward(self, x):
@@ -244,16 +252,25 @@ class DICLFlow(nn.Module):
             cost = getattr(self, f"cost_smooth{lvl}")(cost)
         return cost.float()
 
-    def forward(self, pair: torch.Tensor):
-        """Returns (flow (B, H, W, 2), entropy (B, H, W, 1)), both float32."""
-        if self.training:
-            raise NotImplementedError("DICL train mode is not ported")
+    def forward(self, pair: torch.Tensor, all_iters: bool = False):
+        """Returns (flow (B, H, W, 2), entropy (B, H, W, 1)), both float32;
+        with `all_iters`, (the (L, B, H, W, 2) stack of every level's flow at
+        full resolution, coarse to fine, with the pre-context flows when
+        `dicl_sup_raw_flow`, entropy)."""
+        if self.training and torch.is_grad_enabled() and any(
+                p.requires_grad for p in self.parameters()):
+            raise NotImplementedError("DICL training with gradients is not ported yet; "
+                                      "run it frozen, under torch.no_grad()")
         cfg = self.cfg
         B, H, W, _ = pair.shape
         x_img = pair[..., :3].permute(0, 3, 1, 2)
-        both = self.feature(torch.cat([x_img, pair[..., 3:].permute(0, 3, 1, 2)], dim=0))
-        xs = [f[:B] for f in both]
-        ys = [f[B:] for f in both]
+        y_img = pair[..., 3:].permute(0, 3, 1, 2)
+        if self.training:
+            xs, ys = self.feature(x_img), self.feature(y_img)
+        else:
+            both = self.feature(torch.cat([x_img, y_img], dim=0))
+            xs = [f[:B] for f in both]
+            ys = [f[B:] for f in both]
         mds = list(cfg.dicl_search_range)
         scale_ctx = list(cfg.dicl_scale_context)
         flows_out: List[torch.Tensor] = []
@@ -268,15 +285,20 @@ class DICLFlow(nn.Module):
                                    if cfg.dicl_truncated else None)
             if up_flow is not None:
                 flow = flow + up_flow
+            if cfg.dicl_sup_raw_flow and all_iters:
+                flows_out.append(flow * (4 * 2 ** idx))
             if cfg.dicl_ctf_context:
                 entro = flow_entropy(cost)
                 g = _resize_nchw(x_img.to(xf.dtype), xf.shape[-2:])
-                fin = torch.cat([flow.to(xf.dtype), entro.to(xf.dtype), xf, g], dim=1)
+                fin = torch.cat([flow.detach().to(xf.dtype), entro.detach().to(xf.dtype), xf, g],
+                                dim=1)
                 ctx = getattr(self, f"context{lvl}")(fin).float()
                 flow = flow + ctx * scale_ctx[idx]
             flows_out.append(flow * (4 * 2 ** idx))
             if lvl > 2:
-                up_flow = 2.0 * _resize_nchw(flow, xs[idx - 1].shape[-2:])
-        flow0 = _resize_nchw(flows_out[-1], (H, W)).permute(0, 2, 3, 1)
+                up_flow = 2.0 * _resize_nchw(flow.detach(), xs[idx - 1].shape[-2:])
         entro0 = _resize_nchw(entro, (H, W)).permute(0, 2, 3, 1) if entro is not None else None
-        return flow0, entro0
+        if all_iters:
+            return torch.stack([_resize_nchw(f, (H, W)).permute(0, 2, 3, 1)
+                                for f in flows_out]), entro0
+        return _resize_nchw(flows_out[-1], (H, W)).permute(0, 2, 3, 1), entro0

@@ -1,4 +1,4 @@
-"""PSNet plane-sweep depth (port of `models/psnet.py`), eval forward.
+"""PSNet plane-sweep depth (port of `models/psnet.py`), eval and train forward.
 
 SPP features at 1/4 resolution -> a (B, 64, D, H/4, W/4) cost volume of
 [ref | warped target] features over D fronto-parallel planes -> the 3D
@@ -8,8 +8,15 @@ bilinear upsample, softmax, soft-argmax -> the depth-domain context head.
 The cost volume comes whole from `ops/camera.py::plane_sweep_volume`, so on
 the GPU one launch of kernel B1's sweep entry builds it per target, in the
 (B, D, h4, w4, 2C) layout whose NCDHW view has channels-last-3d strides (the
-layout cuDNN's 3D convolutions read natively). Module names follow the
-reference (`models/PSNet.py`), so its checkpoints load with `load_state_dict`.
+layout cuDNN's 3D convolutions read natively). Where the features need a
+gradient (train mode), the volume's backward is the sweep backward kernel.
+Module names follow the reference (`models/PSNet.py`), so its checkpoints load
+with `load_state_dict`.
+
+In train mode, as in the JAX module, the SPP extractor runs once for the
+reference and once per target (BN batch statistics per call, JAX
+`psnet.py:187-200`), and with `depth.remat` the hourglass and the context net
+run under `torch.utils.checkpoint` (JAX `nn.remat`, `:207-215,280`).
 """
 
 from __future__ import annotations
@@ -19,8 +26,10 @@ from torch import nn
 
 from deep_sfm_revisited_tpu_torch.config import DepthConfig
 from deep_sfm_revisited_tpu_torch.models.submodules import (
+    BatchNorm2d,
     SPPFeatureExtractor,
     _resize_nchw,
+    checkpointed,
     convbn_3d,
     no_autocast,
     soft_argmax_depth,
@@ -39,7 +48,7 @@ def context_stack(cin: int, use_bn: bool) -> nn.Sequential:
     for cout, dil in _CONTEXT_PLAN:
         block = [nn.Conv2d(cin, cout, 3, 1, dil, dilation=dil, bias=False)]
         if use_bn:
-            block.append(nn.BatchNorm2d(cout))
+            block.append(BatchNorm2d(cout))
         block.append(nn.ReLU())
         layers.append(nn.Sequential(*block))
         cin = cout
@@ -92,9 +101,8 @@ class PSNet(nn.Module):
         """ref (B, H, W, 3); targets (B, T, H, W, 3); pose (B, T, 3, 4)
         ref->target; K (B, 3, 3). Returns (depth_init, depth), each (B, H, W)
         float32 -- (pre-context, refined) with the depth context head on,
-        as the JAX module returns. `K_inv` is unused (PSNet rescales K)."""
-        if self.training:
-            raise NotImplementedError("PSNet train mode is not ported")
+        as the JAX module returns, in train mode as in eval. `K_inv` is
+        unused (PSNet rescales K)."""
         cfg = self.cfg
         B, H, W, _ = ref.shape
         T = targets.shape[1]
@@ -102,7 +110,7 @@ class PSNet(nn.Module):
         dev = ref.device
         with no_autocast(dev):
             scale = torch.tensor([0.25, 0.25, 1.0], device=dev)
-            K4 = K.float() * scale[None, :, None]
+            K4 = K.to(torch.promote_types(ref.dtype, torch.float32)) * scale[None, :, None]
             K4_inv = torch.linalg.inv(K4)
             pose = pose.float()
             if self.norm_target > 0:
@@ -110,27 +118,39 @@ class PSNet(nn.Module):
             labels = torch.arange(1, nlabel + 1, dtype=torch.float32, device=dev)
             plane_depths = cfg.min_depth * nlabel / labels   # far -> near
 
-        # one extractor call for ref + targets (BN uses running stats)
-        imgs = torch.cat([ref] + [targets[:, j] for j in range(T)], dim=0)
-        feats = self.feature_extraction(imgs.permute(0, 3, 1, 2))
-        ref_feat = feats[:B]                                  # (B, 32, h4, w4)
+        if self.training:
+            # one extractor call per image: BN batch statistics per call
+            ref_feat = self.feature_extraction(ref.permute(0, 3, 1, 2))
+            tgt_feats = [self.feature_extraction(targets[:, j].permute(0, 3, 1, 2))
+                         for j in range(T)]
+        else:
+            # one extractor call for ref + targets (BN uses running stats)
+            imgs = torch.cat([ref] + [targets[:, j] for j in range(T)], dim=0)
+            feats = self.feature_extraction(imgs.permute(0, 3, 1, 2))
+            ref_feat = feats[:B]                              # (B, 32, h4, w4)
+            tgt_feats = [feats[B * (1 + j):B * (2 + j)] for j in range(T)]
         C, h4, w4 = ref_feat.shape[1:]
         ref_nhwc = ref_feat.permute(0, 2, 3, 1).contiguous()
 
+        remat = cfg.remat and torch.is_grad_enabled()
+
+        def run(fn, x):
+            return checkpointed(fn, x) if remat else fn(x)
+
         costs = None
         for j in range(T):
-            tgt = feats[B * (1 + j):B * (2 + j)].permute(0, 2, 3, 1).contiguous()
+            tgt = tgt_feats[j].permute(0, 2, 3, 1).contiguous()
             with no_autocast(dev):
                 vol = plane_sweep_volume(ref_nhwc, tgt, plane_depths, pose[:, j], K4, K4_inv)
             # (B, D, h4, w4, 2C) [ref | warped] -> its (B, 2C, D, h4, w4) view
-            c = self._hourglass(vol.permute(0, 4, 1, 2, 3))   # (B, D, h4, w4)
+            c = run(self._hourglass, vol.permute(0, 4, 1, 2, 3))   # (B, D, h4, w4)
             costs = c if costs is None else costs + c
         costs = costs / T
 
         if cfg.psnet_context:
             ctx_in = torch.cat([ref_feat[:, None].expand(B, nlabel, C, h4, w4),
                                 costs[:, :, None]], dim=2)   # (B, D, 33, h4, w4)
-            ctx = self.convs(ctx_in.reshape(B * nlabel, C + 1, h4, w4))
+            ctx = run(self.convs, ctx_in.reshape(B * nlabel, C + 1, h4, w4))
             costss = ctx.reshape(B, nlabel, h4, w4) + costs
         else:
             costss = costs
@@ -139,7 +159,8 @@ class PSNet(nn.Module):
         depth = self._regress(costss, H, W)
         if cfg.psnet_dep_context:
             up_feat = _resize_nchw(ref_feat, (H, W))
-            dep_in = torch.cat([depth[:, None].to(up_feat.dtype), up_feat,
+            # no gradient through the depth fed to the head (JAX stop_gradient)
+            dep_in = torch.cat([depth.detach()[:, None].to(up_feat.dtype), up_feat,
                                 ref.permute(0, 3, 1, 2).to(up_feat.dtype)], dim=1)
             depth_out = self.dep_convs(dep_in)[:, 0].float() + depth
             return depth, depth_out

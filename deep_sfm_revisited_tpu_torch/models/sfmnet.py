@@ -1,4 +1,4 @@
-"""SFMNet, the two-view SfM composite (port of `models/sfmnet.py`), eval.
+"""SFMNet, the two-view SfM composite (port of `models/sfmnet.py`), eval and train.
 
 DICL flow with entropy confidence, or PWC-DC flow (no confidence, so the
 sampler takes its uniform path) -> correspondence sampling -> five-point
@@ -12,6 +12,13 @@ Routes: online RANSAC with the entropy or uniform sampler, `use_gt_pose`,
 and pre-saved poses (`pred_pose_online=False`). Everything else the JAX
 composite offers raises NotImplementedError (ROADMAP.md lists what is
 still to port).
+
+Train mode (`model.train()`, JAX `train=True`, `sfmnet.py:163-170`) is the
+recipe's frozen-flow step: the flow net runs in train mode (BN batch
+statistics, its running statistics updated) without gradient, returns its
+per-level stack `flow_all` and `flow = flow_all[-1]`; RANSAC runs without
+gradient (JAX's stop_gradient); PSNet runs in train mode with autograd on.
+Training the flow net (`train.fix_flownet=False`) raises.
 """
 
 from __future__ import annotations
@@ -45,6 +52,15 @@ def _check_supported(cfg: SfMConfig) -> None:
     for key, bad in unsupported.items():
         if bad:
             raise NotImplementedError(f"{key} = {_get(cfg, key)!r} is not ported yet")
+
+
+def check_trainable(cfg: SfMConfig, use_gt_pose: bool = False) -> None:
+    """Raise unless the training step is the ported one: a route that runs
+    the flow net trains with it frozen (`train.fix_flownet`)."""
+    if cfg.pred_pose_online and not (use_gt_pose or cfg.use_gt_pose) \
+            and not cfg.train.fix_flownet:
+        raise NotImplementedError("training the flow net (train.fix_flownet=False) "
+                                  "is not ported yet")
 
 
 def _get(cfg, dotted):
@@ -115,13 +131,14 @@ class SFMNet(nn.Module):
         `draws` injects them instead: {"jitter": (B, 4N, 2) in [-0.5, 0.5),
         "gumbel_u": (B, 4N) in [1e-12, 1), "sample_idx": (B, H, 5)}.
         """
-        if self.training:
-            raise NotImplementedError("SFMNet train mode is not ported")
         cfg = self.cfg
+        train, grad = self.training, torch.is_grad_enabled()
+        if train:
+            check_trainable(cfg, use_gt_pose)
         with torch.no_grad():
             K = K.float()
             K_inv = torch.linalg.inv(K)
-            inliers = num_matches = None
+            inliers = num_matches = flow_all = None
             if use_gt_pose:
                 if pose_gt is None:
                     raise ValueError("use_gt_pose needs pose_gt")
@@ -137,20 +154,26 @@ class SFMNet(nn.Module):
                 flow = torch.zeros(ref.shape[:3] + (2,), device=ref.device)
             else:
                 with self._autocast():
-                    flow, conf = self.flow_estimator(torch.cat([ref, target], dim=-1))
+                    pair = torch.cat([ref, target], dim=-1)
+                    if train:
+                        flow_all, conf = self.flow_estimator(pair, all_iters=True)
+                        flow_all = flow_all.float()
+                        flow = flow_all[-1]
+                    else:
+                        flow, conf = self.flow_estimator(pair)
                 flow = flow.float()
                 conf_s = conf if cfg.pose.sampler == "entropy" else None
                 pose, inliers, num_matches = self._pose_by_ransac(
                     flow, K_inv, conf_s, generator, draws or {})
                 pose = self._gt_scaled(pose, pose_gt)
 
-            if cfg.record_pose or cfg.record_pose_eval:
+            if cfg.record_pose or (cfg.record_pose_eval and not train):
                 return {"pose": pose, "flow": flow, "num_matches": num_matches}
 
-            with self._autocast():
-                depth_init, depth = self.depth_estimator(
-                    ref, target[:, None], pose[:, None], K, K_inv)
-        return {"flow": flow, "flow_all": None, "pose": pose, "rt": None,
+        with torch.set_grad_enabled(train and grad), self._autocast():
+            depth_init, depth = self.depth_estimator(
+                ref, target[:, None], pose[:, None], K, K_inv)
+        return {"flow": flow, "flow_all": flow_all, "pose": pose, "rt": None,
                 "depth_init": depth_init, "depth": depth, "inliers": inliers,
                 "num_matches": num_matches}
 

@@ -9,6 +9,10 @@ the JAX package's NHWC. `resize_bilinear` keeps the JAX signature (NHWC).
 The JAX package's `Conv3DMXU` (a TPU formulation of a 3D convolution as
 depth-shifted 2D convolutions, optionally D-packed) is a plain `nn.Conv3d`
 here; `depth.dpack > 1` is not supported by the port.
+
+Batch normalization is `BatchNorm2d` / `BatchNorm3d` below: torch's modules
+with flax's running-statistics update in train mode, and `checkpointed`
+keeps a recomputed forward from updating them a second time.
 """
 
 from __future__ import annotations
@@ -18,6 +22,7 @@ from typing import Tuple
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 
 def no_autocast(device: torch.device):
@@ -25,18 +30,93 @@ def no_autocast(device: torch.device):
     return torch.autocast(device_type=device.type, enabled=False)
 
 
+# > 0 while `checkpointed` recomputes a forward: train-mode BN then
+# normalizes by its batch but leaves its running statistics alone
+_frozen_stats = 0
+
+
+class _FlaxStats:
+    """Train-mode running statistics as flax updates them (`nn.BatchNorm(
+    momentum=0.9)`, JAX `models/submodules.py:45-46`): running = 0.9 running
+    + 0.1 batch, with the BIASED batch variance. Torch moves a running
+    variance by the unbiased one, so the forward lets it move copies of the
+    statistics and stores the biased update from them.
+    Normalization and the eval forward are torch's own, but for a batch of
+    one value per channel (a 1x1 map at batch 1), which torch refuses in
+    train mode and flax normalizes to the bias (variance 0)."""
+
+    def forward(self, x):
+        if not (self.training and self.track_running_stats):
+            return super().forward(x)
+        n = x.numel() // x.shape[1]
+        if n == 1:
+            return self._single(x)
+        mean, var = self.running_mean.clone(), self.running_var.clone()
+        y = F.batch_norm(x, mean, var, self.weight, self.bias, True, self.momentum, self.eps)
+        if _frozen_stats:     # a recomputation saves what the first forward saved
+            return y
+        keep = 1.0 - self.momentum
+        with torch.no_grad():
+            # var = keep old + m var_unbiased, and var_biased = var_unbiased (n-1)/n
+            old = self.running_var
+            self.running_var.copy_((var - keep * old) * ((n - 1) / n) + keep * old)
+            self.running_mean.copy_(mean)
+            self.num_batches_tracked.add_(1)
+        return y
+
+    def _single(self, x):
+        shape = (1, -1) + (1,) * (x.dim() - 2)
+        mean = x.mean(dim=[0, *range(2, x.dim())], keepdim=True)        # = x
+        y = (x - mean) * (self.eps ** -0.5) * self.weight.view(shape) + self.bias.view(shape)
+        if not _frozen_stats:
+            with torch.no_grad():
+                self.running_mean.lerp_(mean.reshape(-1).to(self.running_mean.dtype), self.momentum)
+                self.running_var.mul_(1.0 - self.momentum)
+                self.num_batches_tracked.add_(1)
+        return y.to(x.dtype)
+
+
+class BatchNorm2d(_FlaxStats, nn.BatchNorm2d):
+    pass
+
+
+class BatchNorm3d(_FlaxStats, nn.BatchNorm3d):
+    pass
+
+
+def checkpointed(fn, *args):
+    """`fn(*args)` under `torch.utils.checkpoint` (the JAX package's
+    `nn.remat`): its activations are recomputed in the backward pass, and the
+    recomputation updates no BN running statistics (flax's remat is
+    functional, so JAX's run updates them once)."""
+    calls = []
+
+    def run(*a):
+        global _frozen_stats
+        calls.append(None)
+        if len(calls) == 1:
+            return fn(*a)
+        _frozen_stats += 1
+        try:
+            return fn(*a)
+        finally:
+            _frozen_stats -= 1
+
+    return checkpoint(run, *args, use_reentrant=False)
+
+
 def convbn(cin: int, cout: int, kernel: int, stride: int, dilation: int) -> nn.Sequential:
     """Conv2d (bias-free) + BatchNorm2d, no activation (ref `convbn`)."""
     pad = dilation if dilation > 1 else kernel // 2
     return nn.Sequential(
         nn.Conv2d(cin, cout, kernel, stride, pad, dilation=dilation, bias=False),
-        nn.BatchNorm2d(cout),
+        BatchNorm2d(cout),
     )
 
 
 def convbn_3d(cin: int, cout: int) -> nn.Sequential:
     """Conv3d 3x3x3 (bias-free, SAME) + BatchNorm3d (ref `convbn_3d`)."""
-    return nn.Sequential(nn.Conv3d(cin, cout, 3, 1, 1, bias=False), nn.BatchNorm3d(cout))
+    return nn.Sequential(nn.Conv3d(cin, cout, 3, 1, 1, bias=False), BatchNorm3d(cout))
 
 
 class BasicBlock(nn.Module):
@@ -48,7 +128,7 @@ class BasicBlock(nn.Module):
         self.conv1 = nn.Sequential(convbn(cin, cout, 3, stride, dilation), nn.ReLU())
         self.conv2 = convbn(cout, cout, 3, 1, dilation)
         self.downsample = (
-            nn.Sequential(nn.Conv2d(cin, cout, 1, stride, bias=False), nn.BatchNorm2d(cout))
+            nn.Sequential(nn.Conv2d(cin, cout, 1, stride, bias=False), BatchNorm2d(cout))
             if downsample else None
         )
 

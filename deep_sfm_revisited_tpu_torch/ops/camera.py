@@ -6,10 +6,12 @@ Layouts as in the JAX package: images/features (B, H, W, C), flow
 
 Two ops here have hand-written kernels, both in kernel B1's source
 (`csrc/sweep_warp.cu`, wrapper `ops/cuda/sweep_warp.py`): `bilinear_sample`
-(the generic gather) and `plane_sweep_volume` (PSNet's fused cost volume).
-On CUDA tensors each launches its kernel; on CPU tensors each runs its plain
-PyTorch version (`bilinear_sample_plain`, `plane_sweep_volume_plain`). There
-is no fallback from one to the other.
+(the generic gather) and `plane_sweep_volume` (PSNet's fused cost volume,
+whose gradient with respect to the features, `PlaneSweepVolumeFn`, is a
+third kernel of the same source). On CUDA tensors each launches its kernel;
+on CPU tensors each runs its plain PyTorch version (`bilinear_sample_plain`,
+`plane_sweep_volume_plain`, `plane_sweep_volume_backward_plain`). There is
+no fallback from one to the other.
 """
 
 from __future__ import annotations
@@ -67,31 +69,39 @@ def cam2pixel(cam: torch.Tensor, proj_rot: torch.Tensor,
     return torch.stack([x, y], dim=-1).reshape(b, h, w, 2)
 
 
+def _taps(x: torch.Tensor, y: torch.Tensor, H: int, W: int):
+    """B1's sampling rule at pixel coordinates (x, y): (valid, (yi, xi, yi1,
+    xi1), (wx, wy)). `valid` is False where the PRE-clip (x, y) lies outside
+    [0, W-1] x [0, H-1]; the taps are the clamped integer corners (the +1
+    taps clamp at the last row/column, where their weight is 0) and wx, wy
+    the float32 fractions."""
+    valid = (x >= 0) & (x <= W - 1) & (y >= 0) & (y <= H - 1)
+    x = torch.clamp(x, 0.0, W - 1)
+    y = torch.clamp(y, 0.0, H - 1)
+    x0 = torch.floor(x)
+    y0 = torch.floor(y)
+    xi = x0.long().clamp(0, W - 1)
+    yi = y0.long().clamp(0, H - 1)
+    xi1 = (xi + 1).clamp(max=W - 1)
+    yi1 = (yi + 1).clamp(max=H - 1)
+    return valid, (yi, xi, yi1, xi1), (x - x0, y - y0)
+
+
 def bilinear_sample_plain(img: torch.Tensor, coords: torch.Tensor) -> torch.Tensor:
     """Kernel B1's plain PyTorch version (JAX `bilinear_sample`, `:75-126`).
 
     img (B, H, W, C); coords (B, ..., 2) as (x, y) pixels -> (B, ..., C) in
     img's dtype. align_corners=True; a sample whose PRE-clip (x, y) lies
     outside [0, W-1] x [0, H-1] is exactly zero. Taps and weights are read
-    and blended in float32 (bf16 images included), then cast back.
+    and blended in float32 (bf16 images included; float64 images in
+    float64), then cast back.
     """
     B, H, W, C = img.shape
     out_shape = coords.shape[:-1] + (C,)
     xy = coords.reshape(B, -1, 2).to(torch.float32)
-    x, y = xy[..., 0], xy[..., 1]
-    valid = (x >= 0) & (x <= W - 1) & (y >= 0) & (y <= H - 1)
-    x = torch.clamp(x, 0.0, W - 1)
-    y = torch.clamp(y, 0.0, H - 1)
-    x0 = torch.floor(x)
-    y0 = torch.floor(y)
-    wx = (x - x0)[..., None]
-    wy = (y - y0)[..., None]
-    # the +1 taps clamp at the last row/column, where their weight is 0
-    xi = x0.long().clamp(0, W - 1)
-    yi = y0.long().clamp(0, H - 1)
-    xi1 = (xi + 1).clamp(max=W - 1)
-    yi1 = (yi + 1).clamp(max=H - 1)
-    flat = img.reshape(B, H * W, C).to(torch.float32)
+    valid, (yi, xi, yi1, xi1), (wx, wy) = _taps(xy[..., 0], xy[..., 1], H, W)
+    wx, wy = wx[..., None], wy[..., None]
+    flat = img.reshape(B, H * W, C).to(torch.promote_types(img.dtype, torch.float32))
 
     def tap(yy, xx):
         idx = (yy * W + xx)[..., None].expand(-1, -1, C)
@@ -99,7 +109,7 @@ def bilinear_sample_plain(img: torch.Tensor, coords: torch.Tensor) -> torch.Tens
 
     top = tap(yi, xi) * (1 - wx) + tap(yi, xi1) * wx
     bot = tap(yi1, xi) * (1 - wx) + tap(yi1, xi1) * wx
-    out = (top * (1 - wy) + bot * wy) * valid[..., None].to(torch.float32)
+    out = (top * (1 - wy) + bot * wy) * valid[..., None].to(flat.dtype)
     return out.reshape(out_shape).to(img.dtype)
 
 
@@ -158,9 +168,9 @@ def sweep_pixel_coords(depths, M, Kt, h: int, w: int):
     per plane (no einsum over the pixel grid, whose sums may fuse or reorder).
     """
     dev = depths.device
-    u = torch.arange(w, dtype=torch.float32, device=dev)[None, None, :]
-    v = torch.arange(h, dtype=torch.float32, device=dev)[None, :, None]
-    d = depths.to(torch.float32)[None, :, None, None]
+    u = torch.arange(w, dtype=M.dtype, device=dev)[None, None, :]
+    v = torch.arange(h, dtype=M.dtype, device=dev)[None, :, None]
+    d = depths.to(M.dtype)[None, :, None, None]
     p = []
     for i in range(3):
         m = M[:, i, :, None, None]                                    # (B, 3, 1, 1)
@@ -197,21 +207,89 @@ def plane_sweep_volume_plain(ref, tgt, depths, M, Kt) -> torch.Tensor:
     return torch.cat([ref[:, None].expand_as(warped), warped], dim=-1)
 
 
-def plane_sweep_volume(ref, tgt, depths, pose, K, K_inv) -> torch.Tensor:
-    """PSNet's cost volume (B, D, H, W, 2C): [ref | tgt warped by `pose` onto
-    each of the D fronto-parallel planes at `depths`], in the features' dtype.
+def plane_sweep_volume_backward_plain(dvol, depths, M, Kt):
+    """The sweep backward kernel's plain PyTorch version: the explicit VJP of
+    `plane_sweep_volume_plain` with respect to its two feature maps.
 
-    ref, tgt (B, H, W, C) f32 or bf16; depths (D,); pose (B, 3, 4) ref->target;
-    K, K_inv (B, 3, 3); geometry in float32. CUDA features go through the sweep
-    kernel, CPU features through `plane_sweep_volume_plain`. The
-    (B, 2C, D, H, W) view `.permute(0, 4, 1, 2, 3)` has channels-last-3d strides.
+    dvol (B, D, H, W, 2C), the volume's gradient; depths, M, Kt as the
+    forward took them. Returns (dref, dtgt), each (B, H, W, C) in dvol's
+    dtype: dref sums dvol's ref half over the planes; dtgt gathers, for
+    every sample, its warped-half gradient times each tap's bilinear weight
+    onto the four taps the forward read (`index_add_` into float32). A sample
+    the forward zeroed (out of the frame, or behind the camera) adds nothing.
     """
-    f32 = torch.float32
-    M, Kt = sweep_matrices(pose.to(f32), K.to(f32), K_inv.to(f32))
-    depths = depths.to(f32)
+    B, D, H, W, C2 = dvol.shape
+    C = C2 // 2
+    g = dvol.to(torch.promote_types(dvol.dtype, torch.float32))
+    dref = g[..., :C].sum(dim=1)
+    x, y = sweep_pixel_coords(depths, M, Kt, H, W)
+    valid, (yi, xi, yi1, xi1), (wx, wy) = _taps(x.reshape(B, -1), y.reshape(B, -1), H, W)
+    gw = g[..., C:].reshape(B, -1, C) * valid[..., None].to(g.dtype)
+    ax, ay = 1 - wx, 1 - wy
+    base = (torch.arange(B, device=dvol.device) * (H * W))[:, None]
+    acc = torch.zeros((B * H * W, C), dtype=g.dtype, device=dvol.device)
+    for yy, xx, w in ((yi, xi, ay * ax), (yi, xi1, ay * wx),
+                      (yi1, xi, wy * ax), (yi1, xi1, wy * wx)):
+        acc.index_add_(0, (base + yy * W + xx).reshape(-1), (gw * w[..., None]).reshape(-1, C))
+    return dref.to(dvol.dtype), acc.reshape(B, H, W, C).to(dvol.dtype)
+
+
+class PlaneSweepVolumeFn(torch.autograd.Function):
+    """PSNet's cost volume with its gradient with respect to ref and tgt.
+
+    Forward: the sweep kernel on CUDA tensors, `plane_sweep_volume_plain` on
+    CPU tensors. Backward: the sweep backward kernel on CUDA tensors,
+    `plane_sweep_volume_backward_plain` on CPU tensors. Depths, M and K t get
+    no gradient (the RANSAC pose is stop-gradient, JAX `models/sfmnet.py:
+    297-300`): the function raises if one of them requires grad.
+    """
+
+    @staticmethod
+    def forward(ctx, ref, tgt, depths, M, Kt):
+        if any(ctx.needs_input_grad[2:]):
+            raise NotImplementedError("the plane sweep has no gradient with respect to "
+                                      "depths, M or K t (a pose gradient is not ported yet)")
+        ctx.save_for_backward(depths, M, Kt)
+        return _sweep_volume(ref, tgt, depths, M, Kt)
+
+    @staticmethod
+    def backward(ctx, dvol):
+        depths, M, Kt = ctx.saved_tensors
+        dvol = dvol.contiguous()
+        if dvol.device.type == "cuda":
+            dref, dtgt = sweep_warp.plane_sweep_volume_backward_cuda(dvol, depths, M, Kt)
+        elif dvol.device.type == "cpu":
+            dref, dtgt = plane_sweep_volume_backward_plain(dvol, depths, M, Kt)
+        else:
+            raise NotImplementedError(f"plane_sweep_volume backward on {dvol.device.type}")
+        need_ref, need_tgt = ctx.needs_input_grad[:2]
+        return (dref if need_ref else None), (dtgt if need_tgt else None), None, None, None
+
+
+def _sweep_volume(ref, tgt, depths, M, Kt) -> torch.Tensor:
     if tgt.device.type == "cuda":
         return sweep_warp.plane_sweep_volume_cuda(ref.contiguous(), tgt.contiguous(),
                                                   depths.contiguous(), M, Kt)
     if tgt.device.type == "cpu":
         return plane_sweep_volume_plain(ref, tgt, depths, M, Kt)
     raise NotImplementedError(f"plane_sweep_volume on {tgt.device.type}")
+
+
+def plane_sweep_volume(ref, tgt, depths, pose, K, K_inv) -> torch.Tensor:
+    """PSNet's cost volume (B, D, H, W, 2C): [ref | tgt warped by `pose` onto
+    each of the D fronto-parallel planes at `depths`], in the features' dtype.
+
+    ref, tgt (B, H, W, C) f32 or bf16; depths (D,); pose (B, 3, 4) ref->target;
+    K, K_inv (B, 3, 3); geometry in float32 (float64 for float64 features, which
+    only the plain version takes). CUDA features go through the sweep
+    kernel, CPU features through `plane_sweep_volume_plain`; where autograd
+    tracks an input, through `PlaneSweepVolumeFn`, whose backward is the sweep
+    backward kernel (plain on the CPU). The (B, 2C, D, H, W) view
+    `.permute(0, 4, 1, 2, 3)` has channels-last-3d strides.
+    """
+    gdt = torch.promote_types(tgt.dtype, torch.float32)
+    M, Kt = sweep_matrices(pose.to(gdt), K.to(gdt), K_inv.to(gdt))
+    depths = depths.to(gdt)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (ref, tgt, depths, M, Kt)):
+        return PlaneSweepVolumeFn.apply(ref, tgt, depths, M, Kt)
+    return _sweep_volume(ref, tgt, depths, M, Kt)

@@ -106,15 +106,17 @@ def test_cli_metrics_equal_the_jax_eval_step(tree, tmp_path):
                                    err_msg=k)
 
 
-@pytest.mark.parametrize("extra", [["--train-flow"], ["--record-pose"], ["--save-pose"],
-                                   ["--pretrained", "ckpt"], ["--pretrained-flow", "ckpt"]])
+@pytest.mark.parametrize("extra", [["--train-flow"], ["--record-pose"], ["--save-pose"]])
 def test_unported_modes_raise(tree, tmp_path, extra):
     with pytest.raises(NotImplementedError, match="not ported yet"):
         cli.main(_argv(tree, tmp_path, TINY, *extra), device="cpu")
 
 
 def test_training_raises(tree, tmp_path):
-    argv = [a for a in _argv(tree, tmp_path, TINY) if a != "-v"]
+    """Training runs the frozen-flow depth step; training the flow net
+    (`train.fix_flownet=False`) is not ported."""
+    over = dict(TINY, **{"train.fix_flownet": False})
+    argv = [a for a in _argv(tree, tmp_path, over) if a != "-v"]
     with pytest.raises(NotImplementedError, match="not ported yet"):
         cli.main(argv, device="cpu")
 

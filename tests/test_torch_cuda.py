@@ -1,6 +1,6 @@
-"""Tests that need an NVIDIA GPU: the port's kernels (B1's gather and plane
-sweep, B2) against their plain versions, and the pose engine on the card
-against itself on the CPU.
+"""Tests that need an NVIDIA GPU: the port's kernels (B1's gather, plane
+sweep and sweep backward, B2) against their plain versions, and the pose
+engine on the card against itself on the CPU.
 
 They skip where no card is present. This file imports no jax, so it also
 runs on a machine without JAX, from the repository root:
@@ -126,6 +126,96 @@ def test_sweep_wrapper_refuses_what_the_kernel_does_not_take():
                  (ref, tgt[:, :4], depths, M, Kt)):
         with pytest.raises((ValueError, TypeError)):
             sweep_warp.plane_sweep_volume_cuda(*args)
+
+
+# the sweep backward: the training shape (b = 4, 256x768 at 1/4, 128 planes)
+# and the odd shapes and poses of the forward's cases
+BWD_CASES = [((4, 128, 64, 192, 32), "forward")] + SWEEP_CASES[1:]
+
+
+def _bwd_tolerance(got, want):
+    """float32 atomics in another order: 1e-5 max|plain| + 1e-6, plus one
+    bf16 ulp of the element when both sums were cast to bf16."""
+    tol = 1e-5 * float(want.float().abs().max()) + 1e-6
+    if got.dtype == torch.bfloat16:
+        _, e = torch.frexp(torch.maximum(got.float().abs(), want.float().abs()))
+        tol = tol + torch.ldexp(torch.ones_like(e, dtype=torch.float32), e - 8)
+    return tol
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape,pose_kind", BWD_CASES)
+def test_sweep_backward_matches_plain_on_card(shape, pose_kind, dtype):
+    """The sweep backward kernel against its plain VJP on the card, within
+    `_bwd_tolerance`; dtgt exactly zero wherever no valid sample lands; dref
+    bit-identical across two launches."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    B, D, H, W, C = shape
+    td = getattr(torch, dtype)
+    _, _, depths, M, Kt = _sweep_inputs(shape, pose_kind, td)
+    g = torch.Generator(device="cuda").manual_seed(2)
+    dvol = torch.randn(B, D, H, W, 2 * C, device="cuda", generator=g).to(td)
+    before = sweep_warp.VOLUME_BACKWARD.launches
+    dref, dtgt = sweep_warp.plane_sweep_volume_backward_cuda(dvol, depths, M, Kt)
+    dref2, _ = sweep_warp.plane_sweep_volume_backward_cuda(dvol, depths, M, Kt)
+    torch.cuda.synchronize()
+    assert sweep_warp.VOLUME_BACKWARD.launches == before + 2
+    assert dref.shape == dtgt.shape == (B, H, W, C) and dref.dtype == dtgt.dtype == td
+    assert torch.equal(dref, dref2)
+    pref, ptgt = tcam.plane_sweep_volume_backward_plain(dvol, depths, M, Kt)
+    for got, want in ((dref, pref), (dtgt, ptgt)):
+        assert bool(((got.float() - want.float()).abs() <= _bwd_tolerance(got, want)).all())
+    _, landed = tcam.plane_sweep_volume_backward_plain(torch.ones_like(dvol, dtype=torch.float32),
+                                                      depths, M, Kt)
+    empty = (landed == 0).all(dim=-1)
+    assert bool((dtgt[empty] == 0).all())
+    if pose_kind != "forward":
+        assert bool(empty.any())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_sweep_backward_through_autograd_on_card(dtype):
+    """Features that need a gradient go through PlaneSweepVolumeFn: one
+    forward and one backward launch, gradients equal to the plain VJP's
+    within `_bwd_tolerance`."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    td = getattr(torch, dtype)
+    ref, tgt, depths, _, _ = _sweep_inputs((2, 16, 24, 40, 32), "forward", td, seed=3)
+    f = 718.856 / 4 * 40 / 320
+    K = torch.tensor([[[f, 0, 20.0], [0, f, 12.0], [0, 0, 1]]], device="cuda").expand(2, 3, 3)
+    pose = torch.tensor([[[1.0, 0, 0.01, 0.2], [0, 1, 0, 0.05], [-0.01, 0, 1, 0.9]]],
+                        device="cuda").expand(2, 3, 4)
+    ref.requires_grad_()
+    tgt.requires_grad_()
+    n = (sweep_warp.VOLUME.launches, sweep_warp.VOLUME_BACKWARD.launches)
+    vol = tcam.plane_sweep_volume(ref, tgt, depths, pose, K, torch.linalg.inv(K))
+    dvol = torch.randn(vol.shape, device="cuda").to(td)
+    gref, gtgt = torch.autograd.grad(vol, (ref, tgt), dvol)
+    torch.cuda.synchronize()
+    assert (sweep_warp.VOLUME.launches, sweep_warp.VOLUME_BACKWARD.launches) == (n[0] + 1,
+                                                                                 n[1] + 1)
+    M, Kt = tcam.sweep_matrices(pose, K, torch.linalg.inv(K))
+    pref, ptgt = tcam.plane_sweep_volume_backward_plain(dvol, depths, M, Kt)
+    for got, want in ((gref, pref), (gtgt, ptgt)):
+        assert bool(((got.float() - want.float()).abs() <= _bwd_tolerance(got, want)).all())
+
+
+@pytest.mark.cuda
+def test_sweep_backward_wrapper_refuses_what_the_kernel_does_not_take():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    _, _, depths, M, Kt = _sweep_inputs((1, 4, 8, 8, 8), "forward", torch.float32)
+    dvol = torch.zeros(1, 4, 8, 8, 16, device="cuda")
+    for args in ((dvol.double(), depths, M, Kt), (dvol[..., :6], depths, M, Kt),
+                 (dvol.transpose(2, 3), depths, M, Kt), (dvol, depths[:3], M, Kt),
+                 (dvol, depths.cpu(), M, Kt), (dvol, depths, M.double(), Kt),
+                 (dvol, depths, M, Kt[:, :2])):
+        with pytest.raises((ValueError, TypeError)):
+            sweep_warp.plane_sweep_volume_backward_cuda(*args)
 
 
 # PWC-DC's five level shapes (f0, f1 at levels 6..2 of a 384x1280 pair), a

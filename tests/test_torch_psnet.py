@@ -63,11 +63,15 @@ def test_psnet_depth_matches_jax(psnet_pair, which):
 
 
 def test_psnet_raises_outside_the_slice():
+    """D-packing (a TPU layout) is not ported; PSNet trains, but through a
+    pose that carries no gradient only (the pose gradient is POSENET's,
+    not ported yet)."""
     with pytest.raises(NotImplementedError):
         tpsnet.PSNet(TConfig.kitti(NLABEL).override(**{"depth.dpack": 4}).depth)
     net = tpsnet.PSNet(TConfig.kitti(NLABEL).depth)  # nn.Module starts in train mode
-    with pytest.raises(NotImplementedError):
-        net(*(torch.from_numpy(a) for a in _inputs()))
+    ref, tgt, pose, K = (torch.from_numpy(np.concatenate([a, a])) for a in _inputs())
+    with pytest.raises(NotImplementedError, match="pose gradient"):
+        net(ref, tgt, pose.requires_grad_(), K)
 
 
 @pytest.fixture(scope="module")
