@@ -6,9 +6,10 @@
 Phases, each of which raises on failure:
 
 1. setup: the card's name and power limit, TF32 off, kernels B1 (the
-   generic gather and the plane-sweep cost volume, one source) and B2
-   built with nvcc (in parallel) from `deep_sfm_revisited_tpu_torch/csrc/
-   sweep_warp.cu` and `csrc/local_corr.cu`;
+   generic gather, the plane-sweep cost volume and its backward, one
+   source, and the PyTorch operators that launch them) and B2 built with
+   nvcc (in parallel) from `deep_sfm_revisited_tpu_torch/csrc/
+   sweep_warp.cu`, `csrc/sweep_warp_ops.cpp` and `csrc/local_corr.cu`;
 2. pose on the card: rigid flow of a known (R, t) -> correspondence
    sampler -> five-point RANSAC in float64 recovers the pose, the
    zero-parallax probe gives a finite pose, and with noise and outliers
@@ -46,7 +47,11 @@ Phases, each of which raises on failure:
    device and events times, bound and share of it, the plain version's
    time, and the device time of the composition it replaced
    (coordinates, the generic gather, the concat and the channels-last-3d
-   copy that stands in for cuDNN's input transpose);
+   copy that stands in for cuDNN's input transpose); the gather's host time
+   per call piece by piece (the earlier ctypes wrapper rebuilt beside the
+   operator),
+   its events time per pair against `F.grid_sample`'s, and the four flow
+   warps captured in a CUDA graph, whose replay must equal eager calls;
 7. B2 against its plain PyTorch version on the inputs slice 2 gave it, on
    a copy whose frame border holds large values, and on two odd shapes
    (C = 40 split across a cluster, C = 3 on the scalar staging path);
@@ -70,8 +75,17 @@ Phases, each of which raises on failure:
 10. the sweep backward against its plain version on the inputs slice 5
    gave it, in bf16 and float32, and on behind-camera and out-of-frame
    variants (exact zeros where no sample lands, dref bit-identical across
-   launches); device and events times, bound and share, the plain
-   version's time and `grid_sampler_2d_backward`'s.
+   launches); the work mapping: tile groups on the shared and the direct
+   path, samples that left their box and 16-byte global reductions, as the
+   kernel counts them, which must equal the plain box rule's, and the
+   distribution of box sizes; device and events times, bound and share,
+   the plain version's time and the yardstick's, `grid_sampler_2d_backward`
+   (the tgt half) plus the `sum(dim=1)` that gives dref, together and the
+   tgt half alone.
+
+`python3 chip_smoke.py --save-sweep-inputs PATH` also writes the sweep
+backward's depths, M and K t from slice 5 (a few hundred floats) to PATH,
+for `b1_compare.py --pose PATH`.
 
 The line before the last is the kernel table as one JSON object; the last
 is {"ok": true, "device": {...}}. Without a CUDA device, or without the
@@ -162,16 +176,17 @@ def phase_setup(*kernels) -> str:
     log(f"setup: torch {torch.__version__} cuda {torch.version.cuda}; "
         f"tf32 matmul={torch.backends.cuda.matmul.allow_tf32} "
         f"cudnn={torch.backends.cudnn.allow_tf32}")
+    builds = [b for k in kernels for b in getattr(k, "BUILDS", (k.KERNEL,))]
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(len(kernels)) as pool:   # one nvcc per source, together
-        for f in [pool.submit(k.KERNEL.build) for k in kernels]:
+    with ThreadPoolExecutor(len(builds)) as pool:   # one nvcc per source, together
+        for f in [pool.submit(b.build) for b in builds]:
             f.result()
-    names = [k.KERNEL.source for k in kernels]
-    log(f"setup: {', '.join(names)} built in {time.perf_counter() - t0:.2f} s")
-    for name, k in zip(names, kernels):
-        for line in k.KERNEL.build_log.splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"  ptxas {name}: {line.strip()}")
+    log(f"setup: {', '.join(b.source for b in builds)} built in "
+        f"{time.perf_counter() - t0:.2f} s")
+    for b in builds:
+        for line in b.build_log.splitlines():
+            if "registers" in line or "spill" in line or "error" in line:
+                log(f"  nvcc {b.source}: {line.strip()}")
     return card
 
 
@@ -665,6 +680,140 @@ def _pair_sums(calls):
     return out
 
 
+def _host_us(fn, reps: int = 2000) -> float:
+    """Host microseconds per call of `fn` (no synchronize: what the caller's
+    thread spends before the next call can start)."""
+    for _ in range(50):
+        fn()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    us = 1e6 * (time.perf_counter() - t0) / reps
+    torch.cuda.synchronize()
+    return us
+
+
+def gather_host_breakdown(img, coords, sweep_warp) -> dict:
+    """The gather's host time per call, piece by piece: the earlier ctypes
+    wrapper's pieces (the build lock, the device context, the Stream object,
+    its attribute checks, torch.empty and the ctypes call that launches) and
+    its whole path rebuilt here; a slim ctypes path (raw stream, new_empty, the
+    call) rebuilt here; the operator the port launches through; and
+    F.grid_sample's host time on the same query count."""
+    import ctypes
+
+    kernel = sweep_warp.KERNEL
+    fn = kernel.build().dsfm_bilinear_sample
+    fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 4
+                   + [ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    dev, index = img.device, img.get_device()
+    B_, H_, W_, C_ = img.shape
+    code = {torch.float32: 0, torch.bfloat16: 1}[img.dtype]
+    shape = coords.shape[:-1] + (C_,)
+    Q = math.prod(shape) // (B_ * C_)
+    out = torch.empty(shape, dtype=img.dtype, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    args = (img.data_ptr(), coords.data_ptr(), out.data_ptr(), B_, H_, W_, C_, Q, code, 1)
+
+    def ctypes_checks():
+        ok = (img.is_cuda and coords.is_cuda and img.device == coords.device
+              and img.dtype in (torch.float32, torch.bfloat16) and coords.dtype == torch.float32
+              and img.dim() == 4 and coords.dim() >= 2 and coords.shape[-1] == 2
+              and coords.shape[0] == img.shape[0] and img.is_contiguous()
+              and coords.is_contiguous() and coords.data_ptr() % 8 == 0)
+        b, h, w, c = img.shape
+        return ok and min(b, h, w, c) >= 1 and img.data_ptr() % 16 == 0
+
+    def device_context():
+        with torch.cuda.device(dev):
+            pass
+
+    def ctypes_path():
+        """The earlier ctypes wrapper's host path (ops/cuda/sweep_warp.py
+        before the operators)."""
+        if not ctypes_checks():
+            raise AssertionError("checks")
+        o = torch.empty(shape, dtype=img.dtype, device=img.device)
+        lib_ = kernel.build()
+        with torch.cuda.device(img.device):
+            st = torch.cuda.current_stream(img.device).cuda_stream
+            lib_.dsfm_bilinear_sample(img.data_ptr(), coords.data_ptr(), o.data_ptr(), B_, H_,
+                                      W_, C_, Q, code, 1, st)
+        return o
+
+    def slim_ctypes():
+        o = img.new_empty(shape)
+        fn(img.data_ptr(), coords.data_ptr(), o.data_ptr(), B_, H_, W_, C_, Q, code, 1,
+           torch._C._cuda_getCurrentRawStream(index))
+        return o
+
+    grid = (coords / torch.tensor([W_ - 1.0, H_ - 1.0], device=dev) * 2 - 1).to(img.dtype)
+    img_nchw = img.permute(0, 3, 1, 2)
+    pieces = {
+        "ctypes wrapper: build() under its lock": _host_us(kernel.build),
+        "ctypes wrapper: torch.cuda.device enter + exit": _host_us(device_context),
+        "ctypes wrapper: current_stream().cuda_stream": _host_us(
+            lambda: torch.cuda.current_stream(dev).cuda_stream),
+        "ctypes wrapper: attribute checks": _host_us(ctypes_checks),
+        "ctypes wrapper: torch.empty": _host_us(
+            lambda: torch.empty(shape, dtype=img.dtype, device=dev)),
+        "ctypes call + launch": _host_us(lambda: fn(*args, stream)),
+        "ctypes wrapper: whole path": _host_us(ctypes_path),
+        "slim ctypes: raw stream + current device": _host_us(
+            lambda: (torch._C._cuda_getCurrentRawStream(index), torch._C._cuda_getDevice())),
+        "slim ctypes: new_empty": _host_us(lambda: img.new_empty(shape)),
+        "slim ctypes: whole path": _host_us(slim_ctypes),
+        "operator: whole wrapper": _host_us(lambda: sweep_warp.bilinear_sample_cuda(img, coords)),
+        "F.grid_sample": _host_us(lambda: F.grid_sample(img_nchw, grid, mode="bilinear",
+                                                        padding_mode="zeros",
+                                                        align_corners=True)),
+    }
+    got = sweep_warp.bilinear_sample_cuda(img, coords)
+    check(torch.equal(ctypes_path(), got) and torch.equal(slim_ctypes(), got),
+          "the rebuilt ctypes paths and the operator give different gathers")
+    log("B1 gather host us per call (img " + f"{tuple(img.shape)}): "
+        + "; ".join(f"{k} {v:.2f}" for k, v in pieces.items()))
+    return pieces
+
+
+def gather_graph_check(captured, sweep_warp) -> dict:
+    """The flow warps' four gathers captured in one CUDA graph (after a
+    warm-up on a side stream, as torch.cuda.graph asks): the capture adds
+    one launch per gather and builds nothing, and a replay on fresh inputs
+    written in place equals an eager call bit for bit."""
+    static = [(img.clone(), coords.clone()) for img, coords in captured]
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for img, coords in static:
+            sweep_warp.bilinear_sample_cuda(img, coords)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    before = sweep_warp.KERNEL.launches
+    with torch.cuda.graph(graph):
+        outs = [sweep_warp.bilinear_sample_cuda(img, coords) for img, coords in static]
+    captured_launches = sweep_warp.KERNEL.launches - before
+    g = torch.Generator(device="cuda").manual_seed(21)
+    for img, coords in static:
+        h, w = img.shape[1:3]
+        img.copy_(torch.randn(img.shape, device="cuda", generator=g).to(img.dtype))
+        coords.copy_(torch.rand(coords.shape, device="cuda", generator=g) * 1.2 - 0.1)
+        coords.mul_(torch.tensor([w - 1.0, h - 1.0], device="cuda"))
+    before = sweep_warp.KERNEL.launches
+    graph.replay()
+    torch.cuda.synchronize()
+    replay_launches = sweep_warp.KERNEL.launches - before
+    equal = all(torch.equal(o, sweep_warp.bilinear_sample_cuda(img, coords))
+                for o, (img, coords) in zip(outs, static))
+    check(captured_launches == len(static) and replay_launches == 0,
+          f"graph: {captured_launches} launches counted in capture, {replay_launches} in replay")
+    check(equal, "the gather's CUDA-graph replay differs from an eager call")
+    log(f"B1 gather under CUDA graph capture: {len(static)} gathers captured, replay on new "
+        "inputs bit-identical to eager calls")
+    return {"gathers": len(static), "replay_equals_eager": equal}
+
+
 def phase_kernel(captured, sweep_warp, camera, path: str = "dicl"):
     """B1's generic gather vs its plain version at the flow warps' inputs;
     times and bounds.
@@ -723,7 +872,16 @@ def phase_kernel(captured, sweep_warp, camera, path: str = "dicl"):
             f"bound {calls[-1]['bound_ms']:.4f} ms "
             f"({calls[-1]['bound_by']}, {nbytes / 1e6:.1f} MB); "
             f"{100 * float(invalid):.1f}% of queries out of range")
-    return calls, max_err
+    extras = {}
+    if path == "dicl":
+        img, coords = captured[0]
+        extras = {"host_breakdown_us": gather_host_breakdown(img, coords, sweep_warp),
+                  "graph": gather_graph_check(captured, sweep_warp)}
+    pair = _pair_sums(calls)
+    log(f"B1 {path} gather per pair: events {pair['ms']:.4f} ms, F.grid_sample "
+        f"{pair['library_ms']:.4f} ms by events: the kernel "
+        f"{'is no slower' if pair['ms'] <= pair['library_ms'] else 'is slower'}")
+    return calls, max_err, extras
 
 
 def _sweep_variants(ref, tgt, depths, M, Kt):
@@ -1133,6 +1291,7 @@ def phase_sweep_backward(captured, sweep_warp, camera):
     del ones, landed
 
     dref, dtgt = sweep_warp.plane_sweep_volume_backward_cuda(dvol, depths, M, Kt)
+    work = backward_work(dvol, depths, M, Kt, sweep_warp, camera)
 
     def run():
         sweep_warp.plane_sweep_volume_backward_cuda(dvol, depths, M, Kt)
@@ -1141,20 +1300,7 @@ def phase_sweep_backward(captured, sweep_warp, camera):
     dev_ms = device_ms(run, "plane_sweep_volume_backward_kernel", reps=10)
     plain_ms = cuda_ms(lambda: camera.plane_sweep_volume_backward_plain(dvol, depths, M, Kt),
                        reps=2, warmup=1)
-    # the yardstick: torch's grid-sampler backward for the tgt half alone, on
-    # the same samples (NCHW input, the (B, D H, W, 2) grid normalized for
-    # align_corners, zeros padding); the port never calls it
-    x, y = camera.sweep_pixel_coords(depths, M, Kt, H, W)
-    grid = torch.stack([x / (W - 1) * 2 - 1, y / (H - 1) * 2 - 1], dim=-1)
-    grid = grid.reshape(B, D * H, W, 2).to(dvol.dtype)
-    tgt_nchw = torch.zeros((B, C, H, W), dtype=dvol.dtype, device=dvol.device)
-    gout = dvol[..., C:].permute(0, 4, 1, 2, 3).reshape(B, C, D * H, W).contiguous()
-    def library():
-        torch.ops.aten.grid_sampler_2d_backward(gout, tgt_nchw, grid, 0, 0, True,
-                                                [True, False])
-
-    library_ms = cuda_ms(library, reps=10)
-    library_dev_ms = sum(v[0] for v in device_profile(library, reps=10).values()) or None
+    yard = backward_yardstick(dvol, depths, M, Kt, camera)
     nbytes = sum(t.numel() * t.element_size() for t in (dvol, depths, M, Kt, dref, dtgt))
     samples = B * D * H * W
     flops = samples * (BWD_FLOPS_PER_SAMPLE + BWD_FLOPS_PER_CHANNEL * C)
@@ -1162,22 +1308,98 @@ def phase_sweep_backward(captured, sweep_warp, camera):
     bound = max(t_bytes, t_ops)
     call = dict(name="psnet_cost_volume_backward", dvol=list(dvol.shape),
                 dtype=str(dvol.dtype).replace("torch.", ""), ms=ms, device_ms=dev_ms,
-                plain_ms=plain_ms, library_ms=library_ms, library_device_ms=library_dev_ms,
+                plain_ms=plain_ms, library_ms=yard["ms"], library_device_ms=yard["device_ms"],
+                library_tgt_half_ms=yard["tgt_half_ms"],
+                library_tgt_half_device_ms=yard["tgt_half_device_ms"],
                 bound_ms=bound, bound_by="bytes" if t_bytes >= t_ops else "operations",
                 bound_share=None if dev_ms is None else bound / dev_ms, bytes=nbytes,
-                flops=flops, atomic_adds=4 * samples * C)
+                flops=flops, work=work)
     fmt = lambda v: "not measured" if v is None else f"{v:.4f} ms"   # noqa: E731
     share = "not measured" if dev_ms is None else f"{100 * bound / dev_ms:.1f}%"
+    half = yard["tgt_half_device_ms"]
+    faster = ("not measured" if dev_ms is None or half is None
+              else "yes" if dev_ms < half else "no")
     log(f"sweep backward kernel: dvol {tuple(dvol.shape)} {call['dtype']}: device "
-        f"{fmt(dev_ms)}, events {ms:.4f} ms, plain {plain_ms:.4f} ms, grid_sampler_2d_backward "
-        f"{library_ms:.4f} ms (device {fmt(library_dev_ms)}), bound {bound:.4f} ms "
-        f"({call['bound_by']}, {nbytes / 1e6:.1f} MB, "
-        f"{flops / 1e9:.2f} GFLOP), share of bound {share}; {4 * samples * C / 1e6:.0f} M "
-        f"float32 atomic adds")
+        f"{fmt(dev_ms)}, events {ms:.4f} ms, plain {plain_ms:.4f} ms; yardstick "
+        f"grid_sampler_2d_backward (tgt half) + sum(dim=1) (dref): events {yard['ms']:.4f} ms, "
+        f"device {fmt(yard['device_ms'])}, the tgt half alone events "
+        f"{yard['tgt_half_ms']:.4f} ms, device {fmt(half)}; bound {bound:.4f} ms "
+        f"({call['bound_by']}, {nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP), share of bound "
+        f"{share}; device time below the tgt half's: {faster}")
     return call, max_err
 
 
-def main() -> int:
+def backward_work(dvol, depths, M, Kt, sweep_warp, camera) -> dict:
+    """The sweep backward's work mapping at these inputs: the kernel's own
+    counts (a probe launch with the default mapping) of tile groups on the
+    shared and the direct path, samples that left their box and 16-byte
+    global reductions, which must equal the plain box rule's
+    (`camera.sweep_backward_counts`), beside the scalar float32 atomics of
+    the first design (4 per channel of a valid sample) and the distribution
+    of box sizes."""
+    B_, D_, H_, W_, C2 = dvol.shape
+    C_ = C2 // 2
+    plan = sweep_warp.backward_plan(C_, dvol.element_size())
+    _, _, kernel_counts = sweep_warp.plane_sweep_volume_backward_probe(dvol, depths, M, Kt, plan)
+    cap = plan[3] // (4 * C_)
+    plain = camera.sweep_backward_counts(depths, M, Kt, H_, W_, C_, *plan[:3], cap)
+    check(kernel_counts == plain, f"sweep backward work: kernel {kernel_counts} != plain {plain}")
+    x, y = camera.sweep_pixel_coords(depths, M, Kt, H_, W_)
+    valid = int(((x >= 0) & (x <= W_ - 1) & (y >= 0) & (y <= H_ - 1)).sum())
+    box = camera.sweep_tap_box_plain(depths, M, Kt, H_, W_, *plan[:3], 10**9)
+    area = (box["w"] * box["h"])[~box["direct"]].float()
+    quant = ([] if area.numel() == 0 else
+             torch.quantile(area, torch.tensor([0.0, 0.5, 0.9, 0.99, 1.0],
+                                               device=area.device)).tolist())
+    work = dict(plan=dict(zip(("tile_h", "tile_w", "planes", "smem_bytes"), plan)),
+                box_pixels_fit=cap, **kernel_counts, first_design_atomics=4 * valid * C_,
+                box_pixels_quantiles=dict(zip(("min", "p50", "p90", "p99", "max"), quant)))
+    log(f"sweep backward work (tile {plan[0]}x{plan[1]}, {plan[2]} planes a group, "
+        f"{plan[3] // 1024} KB = {cap} box pixels): {kernel_counts['shared_groups']} groups "
+        f"shared, {kernel_counts['direct_groups']} direct, {kernel_counts['left_box_samples']} "
+        f"samples left their box; {kernel_counts['global_reductions'] / 1e6:.2f} M 16-byte "
+        f"global reductions against {4 * valid * C_ / 1e6:.0f} M scalar float32 atomics of "
+        f"the first design; kernel counts == plain box rule's; box pixels "
+        + ", ".join(f"{k} {v:.0f}" for k, v in work["box_pixels_quantiles"].items()))
+    return work
+
+
+def backward_yardstick(dvol, depths, M, Kt, camera) -> dict:
+    """PyTorch's calls for the same gradient, which the port never makes:
+    grid_sampler_2d_backward for the tgt half, on the same samples (NCHW
+    input, the (B, D H, W, 2) grid normalized for align_corners, zeros
+    padding), and the sum over the planes for dref. Events and device ms of
+    both together and of the tgt half alone."""
+    B_, D_, H_, W_, C2 = dvol.shape
+    C_ = C2 // 2
+    x, y = camera.sweep_pixel_coords(depths, M, Kt, H_, W_)
+    grid = torch.stack([x / (W_ - 1) * 2 - 1, y / (H_ - 1) * 2 - 1], dim=-1)
+    grid = grid.reshape(B_, D_ * H_, W_, 2).to(dvol.dtype)
+    tgt_nchw = torch.zeros((B_, C_, H_, W_), dtype=dvol.dtype, device=dvol.device)
+    gout = dvol[..., C_:].permute(0, 4, 1, 2, 3).reshape(B_, C_, D_ * H_, W_).contiguous()
+
+    def tgt_half():
+        torch.ops.aten.grid_sampler_2d_backward(gout, tgt_nchw, grid, 0, 0, True,
+                                                [True, False])
+
+    def both():
+        tgt_half()
+        dvol[..., :C_].sum(dim=1)
+
+    def dev_ms(fn):
+        return sum(v[0] for v in device_profile(fn, reps=10).values()) or None
+
+    return {"ms": cuda_ms(both, reps=10), "device_ms": dev_ms(both),
+            "tgt_half_ms": cuda_ms(tgt_half, reps=10), "tgt_half_device_ms": dev_ms(tgt_half)}
+
+
+def main(argv=None) -> int:
+    import argparse
+
+    ap = argparse.ArgumentParser(description="the port's smoke run on one CUDA device")
+    ap.add_argument("--save-sweep-inputs", default=None,
+                    help="write slice 5's sweep depths, M and K t to this .pt file")
+    args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's smoke run needs one", file=sys.stderr)
         return 2
@@ -1198,12 +1420,16 @@ def main() -> int:
         b1_dicl, sweep_dicl, captured, cap_sweep = phase_main_path(dev, sweep_warp)
         (b1_pwc, sweep_pwc, b2_pwc), (cap1, cap_sweep_pwc, cap2) = phase_cli_pwc(
             dev, sweep_warp, local_corr)
-        calls1, err1 = phase_kernel(captured, sweep_warp, camera)
-        pwc_calls1, pwc_err1 = phase_kernel(cap1, sweep_warp, camera, path="pwc")
+        calls1, err1, gather_extras = phase_kernel(captured, sweep_warp, camera)
+        pwc_calls1, pwc_err1, _ = phase_kernel(cap1, sweep_warp, camera, path="pwc")
         sweep_call, sweep_err = phase_sweep(cap_sweep + cap_sweep_pwc, sweep_warp, camera)
         calls2, err2 = phase_b2(cap2, local_corr, correlation)
     phase_small_train_reference(dev)
     (b1_train, sweep_train, bwd_train), cap_bwd = phase_cli_train(dev, sweep_warp)
+    if args.save_sweep_inputs:
+        _, depths, M, Kt = cap_bwd[0]
+        torch.save({"depths": depths.cpu(), "M": M.cpu(), "Kt": Kt.cpu(),
+                    "dvol_shape": list(cap_bwd[0][0].shape)}, args.save_sweep_inputs)
     with torch.no_grad():
         bwd_call, bwd_err = phase_sweep_backward(cap_bwd, sweep_warp, camera)
 
@@ -1214,7 +1440,7 @@ def main() -> int:
           "launches_by_path": {"dicl_main_path": b1_dicl, "pwc_cli_eval": b1_pwc,
                                "cli_train": b1_train},
           "max_abs_err": max(err1, pwc_err1), **_pair_sums(calls1),
-          "pwc_pair": _pair_sums(pwc_calls1), "calls": calls1 + pwc_calls1}
+          "pwc_pair": _pair_sums(pwc_calls1), **gather_extras, "calls": calls1 + pwc_calls1}
     # one launch per pair on either slice; no single PyTorch call builds the
     # volume, so there is no library time (the composition it replaced is
     # timed beside it)

@@ -13,9 +13,10 @@ The JAX CLI's flags (the reference's `main.py:66-115` surface plus
 Weights are random from `train.seed`, or restored: `--pretrained` (the
 port's checkpoint: model, optimizer and step in training, the model alone
 with `-v`), `--pretrained-flow` / `--pretrained-depth` (one network of a
-port checkpoint) and `--pretrained-torch` (a reference-named state dict,
-loaded strictly). `--train-flow`, `--record-pose` and `--save-pose` are
-accepted and raise NotImplementedError.
+port checkpoint) and `--pretrained-torch` (a reference-named state dict:
+what the weight tables cover is loaded, the counts of missing and unused
+keys are printed, as the JAX CLI does). `--train-flow`, `--record-pose`
+and `--save-pose` are accepted and raise NotImplementedError.
 
     python -m deep_sfm_revisited_tpu_torch.cli --data /path/KITTI --cfg kitti -v \\
         [--override flow.estimator=PWC] [--pretrained-torch kitti.pth.tar]
@@ -45,17 +46,20 @@ def build_parser() -> argparse.ArgumentParser:
                    help="'kitti' for the builtin recipe, or a YAML path")
     p.add_argument("--dataset", default=None, choices=[None, "kitti_raw", "kitti_vo"])
     p.add_argument("-b", "--batch-size", type=int, default=None)
+    p.add_argument("--lr", type=float, default=None)
     p.add_argument("--nlabel", type=int, default=None)
     p.add_argument("--epochs", type=int, default=None)
     p.add_argument("--start-epoch", type=int, default=0)
     p.add_argument("-v", "--validate", action="store_true")
+    p.add_argument("--fix-flownet", action="store_true")
+    p.add_argument("--fix-depthnet", action="store_true")
     p.add_argument("--pretrained", default=None,
                    help="the port's checkpoint directory (or file) to restore")
     p.add_argument("--pretrained-flow", default=None)
     p.add_argument("--pretrained-depth", default=None)
     p.add_argument("--pretrained-torch", default=None,
                    help="state dict under the reference's module names "
-                        "(a reference .pth.tar), loaded strictly")
+                        "(a reference .pth.tar); loads what the weight tables cover")
     p.add_argument("--gt-depth-dir", default=None)
     p.add_argument("--train-flow", action="store_true")
     p.add_argument("--record-pose", action="store_true")
@@ -68,7 +72,9 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def config_from_args(args):
-    """The JAX CLI's config assembly (`cli.py:70-103`)."""
+    """The JAX CLI's config assembly (`cli.py:70-103`): the recipe or YAML,
+    then the flags (`--lr`, `--fix-flownet`, `--fix-depthnet` among them),
+    then `--override`."""
     from deep_sfm_revisited_tpu_torch.config import SfMConfig, config_from_yaml
 
     if args.cfg == "kitti":
@@ -80,12 +86,18 @@ def config_from_args(args):
     over = {}
     if args.batch_size is not None:
         over["train.batch_size"] = args.batch_size
+    if args.lr is not None:
+        over["train.lr"] = args.lr
     if args.nlabel is not None:
         over["depth.nlabel"] = args.nlabel
     if args.epochs is not None:
         over["train.epochs"] = args.epochs
     if args.dataset is not None:
         over["data.dataset"] = args.dataset
+    if args.fix_flownet:
+        over["train.fix_flownet"] = True
+    if args.fix_depthnet:
+        over["train.fix_depthnet"] = True
     if args.workers:
         over["data.workers"] = args.workers
     for kv in args.override:
@@ -148,9 +160,9 @@ def apply_pretrained(args, model, trainer=None) -> None:
     onto a fresh model: `--pretrained` restores the whole trainer (model,
     optimizer, step) when one is given and the model alone otherwise;
     `--pretrained-flow` / `--pretrained-depth` merge one network;
-    `--pretrained-torch` loads a reference-named state dict strictly."""
+    `--pretrained-torch` loads what the weight tables cover of a
+    reference-named state dict (`load_pretrained_torch`)."""
     from deep_sfm_revisited_tpu_torch.train import checkpoint as ckpt
-    from deep_sfm_revisited_tpu_torch.utils.weights import load_reference_checkpoint
 
     if args.pretrained:
         if trainer is not None:
@@ -162,7 +174,35 @@ def apply_pretrained(args, model, trainer=None) -> None:
     if args.pretrained_depth:
         ckpt.restore_subtree(args.pretrained_depth, model, "depth_net")
     if args.pretrained_torch:
-        model.load_state_dict(load_reference_checkpoint(args.pretrained_torch), strict=True)
+        load_pretrained_torch(args.pretrained_torch, model, model.cfg)
+
+
+def load_pretrained_torch(path: str, model, cfg) -> dict:
+    """JAX `apply_pretrained`'s `--pretrained-torch` branch (`cli.py:187-219`):
+    a network whose estimator has no weight table is left untouched (both
+    without one: exit), the other is loaded from what the tables cover, and
+    the counts of missing and unused keys are printed. Returns the report of
+    `utils/weights.py::load_reference_state`."""
+    from deep_sfm_revisited_tpu_torch.utils.weights import (FLOW_ENTRIES, load_reference_checkpoint,
+                                                            load_reference_state)
+
+    flow = cfg.flow.estimator if cfg.flow.estimator in FLOW_ENTRIES else None
+    depth = cfg.depth.estimator if cfg.depth.estimator == "PSNET" else None
+    if flow is None:
+        print(f"torch port: no table for flow estimator {cfg.flow.estimator} "
+              "- leaving flow_net untouched")
+    if depth is None:
+        print(f"torch port: no table for depth estimator {cfg.depth.estimator} "
+              "- leaving depth_net untouched")
+    if flow is None and depth is None:
+        raise SystemExit("--pretrained-torch: no port table for either configured estimator")
+    report = load_reference_state(model, load_reference_checkpoint(path), flow, depth,
+                                  context_bn=cfg.depth.context_bn,
+                                  dep_context=cfg.depth.psnet_dep_context)
+    if report["missing"] or report["unused"]:
+        print(f"torch port: {len(report['missing'])} missing, {len(report['unused'])} unused "
+              "torch keys (strict=False semantics, main.py:203)")
+    return report
 
 
 def main(argv=None, device: str | torch.device = "cuda"):
@@ -193,8 +233,9 @@ def main(argv=None, device: str | torch.device = "cuda"):
     dtype = torch.bfloat16 if cfg.train.mixed_prec else torch.float32
     model = SFMNet(cfg, dtype=dtype, device=dev, seed=cfg.train.seed)
     apply_pretrained(args, model)
-    results = validate(loader, model, cfg, generator=torch.Generator(device=dev).manual_seed(0))
     mlog = MetricLogger(out, "test")
+    results = validate(loader, model, cfg, generator=torch.Generator(device=dev).manual_seed(0),
+                       metric_logger=mlog)
     mlog.scalars(results, 0)
     mlog.close()
     print({k: round(v, 4) for k, v in results.items()})

@@ -18,7 +18,8 @@
 // the flow warps. One thread per (query, 16-byte channel chunk), so
 // neighbouring threads read and write neighbouring 16-byte chunks and every
 // store is a full, coalesced 16-byte vector. The warps are small (at most
-// 96x320 queries) and launch-bound.
+// 96x320 queries) and launch-bound, so all three entry points are launched
+// through PyTorch operators (sweep_warp_ops.cpp), not from Python.
 //
 // dsfm_plane_sweep_volume -- PSNet's whole cost volume in one pass, the
 // JAX package's (B, D, H, W, 2C) layout with [ref | warped] on the last
@@ -61,14 +62,27 @@
 // intrinsics get no gradient (the RANSAC pose is stop-gradient).
 // What bounds it: at the training shape (b = 4, 64x192 at 1/4 resolution,
 // C = 32 bf16, 128 planes) it reads the 805 MB gradient once and writes
-// two 3.1 MB maps, a 0.24 ms byte bound; but its warped half costs up to
-// 4 x 201 M float32 atomic adds into a 6.3 MB accumulator, and those, not
-// the bytes, set its pace. The design is the simplest that is right: one
-// thread per (pixel, 16-byte chunk) walks all planes, sums the ref half in
-// registers (no atomics, a fixed order, so dref is deterministic) and
-// scatters the warped half with scalar atomics; the gradient is read with
-// streaming loads so the accumulator stays in L2. Shared-memory tiles of
-// the accumulator or Hopper's vector atomics are left for later.
+// two 3.1 MB maps, a 0.24 ms byte bound; but its warped half is 4 x 201 M
+// weighted tap adds, and where those go to device memory one float32
+// atomic each (the first design), they set the pace, contending in L2
+// where neighbouring pixels share taps. So the adds stay on the SM: a block
+// owns a tile of ref pixels of one batch item and walks the planes in
+// groups; per group it bounds the taps its samples can touch from the
+// tile's corner rays (a box of target pixels), adds the samples into a
+// shared-memory copy of that box with shared atomics, and flushes the box
+// to the accumulator with one 16-byte vector reduction (sm_90's
+// atomicAdd(float4*)) per 4 channels of a box pixel. A group whose box does
+// not fit, or whose corners are not all in front of the camera, and any
+// sample whose taps leave the box by rounding, add straight to the
+// accumulator with 16-byte vector reductions, 4x fewer operations than
+// scalar atomics; correctness never rests on the box bound. The ref half
+// is summed in registers, plane by plane in order, so dref is
+// deterministic; the gradient is read with streaming loads, one plane
+// ahead, so the 6.3 MB accumulator stays in L2. What bounds it now: the
+// shared float32 atomics, which this card runs as compare-and-swap loops
+// (ATOMS.CAST.SPIN in the SASS), one per weighted tap channel. Summing a
+// run of planes on the same taps in registers first cost more in registers
+// than it saved in atomics (b1_compare.py, PERF.md).
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -144,6 +158,7 @@ __device__ __forceinline__ float blend(float v00, float v01, float v10, float v1
 // weight is 0. Offsets are in pixels from the image's origin.
 struct Taps {
   int64_t i00, i01, i10, i11;
+  int xi, yi, xi1, yi1;
   float wx, ax, wy, ay, valid;
   __device__ __forceinline__ Taps(float x, float y, int H, int W) {
     const float wm1 = (float)(W - 1), hm1 = (float)(H - 1);
@@ -155,9 +170,10 @@ struct Taps {
     wy = __fsub_rn(y, y0);
     ax = __fsub_rn(1.f, wx);
     ay = __fsub_rn(1.f, wy);
-    const int xi = min(max((int)x0, 0), W - 1);
-    const int yi = min(max((int)y0, 0), H - 1);
-    const int xi1 = min(xi + 1, W - 1), yi1 = min(yi + 1, H - 1);
+    xi = min(max((int)x0, 0), W - 1);
+    yi = min(max((int)y0, 0), H - 1);
+    xi1 = min(xi + 1, W - 1);
+    yi1 = min(yi + 1, H - 1);
     i00 = (int64_t)yi * W + xi;
     i01 = (int64_t)yi * W + xi1;
     i10 = (int64_t)yi1 * W + xi;
@@ -183,15 +199,19 @@ struct SweepRay {
       kt[i] = __ldg(Kt + 3 * b + i);
     }
   }
+  // the point p = ray d + K t of plane depth d
+  __device__ __forceinline__ void point(float dep, float* p) const {
+#pragma unroll
+    for (int i = 0; i < 3; ++i) p[i] = __fadd_rn(__fmul_rn(ray[i], dep), kt[i]);
+  }
   __device__ __forceinline__ Taps taps(float dep, int H, int W) const {
-    const float p0 = __fadd_rn(__fmul_rn(ray[0], dep), kt[0]);
-    const float p1 = __fadd_rn(__fmul_rn(ray[1], dep), kt[1]);
-    const float p2 = __fadd_rn(__fmul_rn(ray[2], dep), kt[2]);
+    float p[3];
+    point(dep, p);
     // z <= 1e-3: behind the camera; the sample goes to (2W, 2H), i.e. zero
-    const bool behind = p2 <= 1e-3f;
-    const float z = fmaxf(p2, 1e-3f);
-    const float xs = behind ? (float)(2 * W) : __fdiv_rn(p0, z);
-    const float ys = behind ? (float)(2 * H) : __fdiv_rn(p1, z);
+    const bool behind = p[2] <= 1e-3f;
+    const float z = fmaxf(p[2], 1e-3f);
+    const float xs = behind ? (float)(2 * W) : __fdiv_rn(p[0], z);
+    const float ys = behind ? (float)(2 * H) : __fdiv_rn(p[1], z);
     return Taps(xs, ys, H, W);
   }
 };
@@ -350,72 +370,267 @@ cudaError_t launch_sweep(const void* ref, const void* tgt, const float* depths,
 // ---------------------------------------------------------------------------
 // The plane sweep's backward.
 
+constexpr int kBwdThreads = 256;       // the most threads a block may have
+// the default work mapping, the fastest of those timed at slice 5's inputs
+// (b1_compare.py): 16 planes a group, a 64 KB accumulator (512 box pixels
+// at C = 32, three blocks an SM)
+constexpr int kBwdPlanes = 16;         // planes of a group (default)
+constexpr int kBwdSmemBytes = 64 * 1024;   // the shared accumulator (default)
+constexpr int kBwdSmemMax = 200 * 1024;    // the largest a caller may ask for
+
+// The box of one tile group, as the block's first warp computes it and
+// ops/camera.py::sweep_tap_box_plain repeats: lanes 0..7 take the tile's
+// four corner pixels at the group's least and greatest plane depth (their
+// rays with SweepRay's rounding); if every point lies in front of the
+// z = 1e-3 plane, z > 1e-3 over the whole tile and depth range (z is affine
+// in u, v and in d), the tile's image on a plane is the convex quad of its
+// corner images and x, y are monotone in d, so every sample lies in the
+// bounding box of the 8 points. The box is padded by one pixel on each side
+// for rounding, by one more on the far side for the +1 taps, and clipped to
+// the frame. `direct` marks a group whose points are not all in front, or
+// whose box holds more than `cap` pixels.
+struct GroupBox {
+  int x0, y0, w, h, direct;
+};
+
+__device__ __forceinline__ GroupBox group_box(const float* __restrict__ depths,
+                                              const float* __restrict__ M,
+                                              const float* __restrict__ Kt, int b, int d0,
+                                              int d1, int tx0, int ty0, int tx1, int ty1,
+                                              int H, int W, int cap, int lane) {
+  const float inf = __int_as_float(0x7f800000);
+  float xlo = inf, xhi = -inf, ylo = inf, yhi = -inf;
+  int behind = 0;
+  if (lane < 8) {
+    float dmin = __ldg(depths + d0), dmax = dmin;
+    for (int d = d0 + 1; d < d1; ++d) {
+      const float dep = __ldg(depths + d);
+      dmin = fminf(dmin, dep);
+      dmax = fmaxf(dmax, dep);
+    }
+    const SweepRay corner(M, Kt, b, (lane & 1) ? tx1 : tx0, (lane & 2) ? ty1 : ty0);
+    float p[3];
+    corner.point((lane & 4) ? dmax : dmin, p);
+    if (p[2] <= 1e-3f) {
+      behind = 1;
+    } else {
+      xlo = xhi = __fdiv_rn(p[0], p[2]);
+      ylo = yhi = __fdiv_rn(p[1], p[2]);
+    }
+  }
+#pragma unroll
+  for (int off = 1; off < 8; off <<= 1) {
+    xlo = fminf(xlo, __shfl_xor_sync(0xffffffffu, xlo, off));
+    xhi = fmaxf(xhi, __shfl_xor_sync(0xffffffffu, xhi, off));
+    ylo = fminf(ylo, __shfl_xor_sync(0xffffffffu, ylo, off));
+    yhi = fmaxf(yhi, __shfl_xor_sync(0xffffffffu, yhi, off));
+    behind |= __shfl_xor_sync(0xffffffffu, behind, off);
+  }
+  GroupBox g;
+  // clamped first, so a point far off the frame cannot overflow the ints
+  const float fw = (float)W, fh = (float)H;
+  g.x0 = max((int)floorf(fminf(fmaxf(xlo, -4.f), fw + 4.f)) - 1, 0);
+  g.y0 = max((int)floorf(fminf(fmaxf(ylo, -4.f), fh + 4.f)) - 1, 0);
+  const int x1 = min((int)floorf(fminf(fmaxf(xhi, -4.f), fw + 4.f)) + 2, W - 1);
+  const int y1 = min((int)floorf(fminf(fmaxf(yhi, -4.f), fh + 4.f)) + 2, H - 1);
+  g.w = max(x1 - g.x0 + 1, 0);
+  g.h = max(y1 - g.y0 + 1, 0);
+  g.direct = behind || g.w * g.h > cap;
+  if (g.direct) g.w = g.h = 0;
+  return g;
+}
+
+// Channel c of box pixel q in the shared accumulator: rotated by q inside
+// its 32-float window when C is a multiple of 32, so the lanes of a warp,
+// whose pixels sample neighbouring taps, add into 32 different banks.
+__device__ __forceinline__ int smem_slot(int q, int c, int C) {
+  return q * C + ((C & 31) ? c : ((c & ~31) | ((c + q) & 31)));
+}
+
+// dst[0..kVec) += g * w, as kVec / 4 16-byte vector reductions (sm_90).
+template <int kVec>
+__device__ __forceinline__ void red16(float* dst, const float* g, float w) {
+#pragma unroll
+  for (int k = 0; k < kVec; k += 4)
+    atomicAdd(reinterpret_cast<float4*>(dst + k),
+              make_float4(__fmul_rn(g[k], w), __fmul_rn(g[k + 1], w),
+                          __fmul_rn(g[k + 2], w), __fmul_rn(g[k + 3], w)));
+}
+
 // dvol (B, D, H, W, 2C) = the volume's gradient, in T; dref (B, H, W, C) in
-// T; dtgt (B, H, W, C) float32, zeroed by the caller. One thread per (b, y,
-// x, 16-byte channel chunk) walks all D planes: it sums the ref half of its
-// chunk in registers, plane by plane in order (dref is deterministic), and
-// scatters the warped half, times each tap's bilinear weight, onto the four
-// taps its sample read in the forward (float32 atomics: their order, and so
-// dtgt's last bits, vary from launch to launch). An invalid sample (out of
-// the frame before the clip, or behind the camera) scatters nothing.
+// T; dtgt (B, H, W, C) float32, zeroed by the caller. A block owns a tile of
+// tile_h x tile_w ref pixels of one batch item, `tpp` threads a pixel
+// (thread k of a pixel owns channel chunk k); block = ((b tiles_y) + ty)
+// tiles_x + tx. It walks the planes in groups of `planes`. Per group the
+// first warp computes the group's box (`group_box`); on the shared path the
+// block zeroes a box x C float32 accumulator in shared memory, adds every
+// valid sample's four weighted taps into it with shared atomics, and
+// flushes it to dtgt with one 16-byte vector reduction per 4 channels of a
+// box pixel. A direct group, and any sample whose taps leave the box, adds
+// to dtgt with 16-byte vector reductions per tap. The ref half is summed in
+// registers, plane by plane in order (dref is deterministic). dtgt's sums
+// are atomics in no fixed order, so its last bits vary between launches.
+// stats, when not null, counts [shared groups, direct groups, samples that
+// left their box, 16-byte global reductions].
 template <typename T>
-__global__ void __launch_bounds__(kSweepThreads)
+__global__ void __launch_bounds__(kBwdThreads)
 plane_sweep_volume_backward_kernel(const void* __restrict__ dvol,
                                    const float* __restrict__ depths,
                                    const float* __restrict__ M, const float* __restrict__ Kt,
                                    void* __restrict__ dref, float* __restrict__ dtgt,
-                                   int B, int D, int H, int W, int C) {
+                                   int D, int H, int W, int C, int tile_h, int tile_w,
+                                   int tiles_x, int tiles_y, int planes, int cap,
+                                   unsigned long long* __restrict__ stats) {
+  extern __shared__ float4 acc4[];
+  float* const acc = reinterpret_cast<float*>(acc4);
+  __shared__ GroupBox box;
   constexpr int kVec = T::kVec, kBytes = 16 / kVec;
   const int tpp = C / kVec;
-  const int64_t tid = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (tid >= (int64_t)B * H * W * tpp) return;
-  const int64_t pixel = tid / tpp;                 // ((b H) + y) W + x
-  const int c0 = (int)(tid - pixel * tpp) * kVec;
-  const int x = (int)(pixel % W);
-  const int y = (int)((pixel / W) % H);
-  const int b = (int)(pixel / ((int64_t)H * W));
+  const int pix = threadIdx.x / tpp;
+  const int c0 = (threadIdx.x - pix * tpp) * kVec;
+  int r = blockIdx.x;
+  const int tx0 = (r % tiles_x) * tile_w;
+  r /= tiles_x;
+  const int ty0 = (r % tiles_y) * tile_h;
+  const int b = r / tiles_y;
+  const int tx1 = min(tx0 + tile_w, W) - 1, ty1 = min(ty0 + tile_h, H) - 1;
+  const int x = tx0 + pix % tile_w, y = ty0 + pix / tile_w;
+  const bool in = x <= tx1 && y <= ty1;
 
-  const SweepRay ray(M, Kt, b, x, y);
+  const SweepRay ray(M, Kt, b, in ? x : tx0, in ? y : ty0);
   const int64_t plane_bytes = (int64_t)H * W * 2 * C * kBytes;
+  const int64_t pixel = ((int64_t)b * H + y) * W + x;
   const char* src = reinterpret_cast<const char*>(dvol)
                     + ((((int64_t)b * D * H) + y) * W + x) * 2 * C * kBytes + c0 * kBytes;
-  float* acc = dtgt + (int64_t)b * H * W * C + c0;
+  float* const gacc = dtgt + (int64_t)b * H * W * C + c0;
   float rsum[kVec];
 #pragma unroll
   for (int k = 0; k < kVec; ++k) rsum[k] = 0.f;
+  unsigned long long left = 0, direct_ops = 0;
 
-  for (int d = 0; d < D; ++d, src += plane_bytes) {
-    float g[kVec];
-    // streaming loads: the 805 MB gradient must not evict the accumulator from L2
-    T::unpack16(__ldcs(reinterpret_cast<const uint4*>(src)), g);
-#pragma unroll
-    for (int k = 0; k < kVec; ++k) rsum[k] = __fadd_rn(rsum[k], g[k]);
-    const Taps t = ray.taps(__ldg(depths + d), H, W);
-    if (t.valid == 0.f) continue;
-    T::unpack16(__ldcs(reinterpret_cast<const uint4*>(src + C * kBytes)), g);
-    const float w00 = __fmul_rn(t.ay, t.ax), w01 = __fmul_rn(t.ay, t.wx);
-    const float w10 = __fmul_rn(t.wy, t.ax), w11 = __fmul_rn(t.wy, t.wx);
-#pragma unroll
-    for (int k = 0; k < kVec; ++k) {
-      atomicAdd(acc + t.i00 * C + k, __fmul_rn(g[k], w00));
-      atomicAdd(acc + t.i01 * C + k, __fmul_rn(g[k], w01));
-      atomicAdd(acc + t.i10 * C + k, __fmul_rn(g[k], w10));
-      atomicAdd(acc + t.i11 * C + k, __fmul_rn(g[k], w11));
+  for (int d0 = 0; d0 < D; d0 += planes) {
+    const int d1 = min(D, d0 + planes);
+    if (threadIdx.x < 32) {
+      const GroupBox g = group_box(depths, M, Kt, b, d0, d1, tx0, ty0, tx1, ty1, H, W, cap,
+                                   threadIdx.x);
+      if (threadIdx.x == 0) {
+        box = g;
+        if (stats) atomicAdd(stats + (g.direct ? 1 : 0), 1ull);
+      }
     }
+    __syncthreads();
+    const GroupBox g = box;
+    const int n4 = g.w * g.h * C / 4;
+    for (int i = threadIdx.x; i < n4; i += blockDim.x) acc4[i] = make_float4(0.f, 0.f, 0.f, 0.f);
+    __syncthreads();
+
+    if (in) {
+      const char* s = src + d0 * plane_bytes;
+      uint4 next_ref = __ldcs(reinterpret_cast<const uint4*>(s));
+      uint4 next_warp = __ldcs(reinterpret_cast<const uint4*>(s + C * kBytes));
+      for (int d = d0; d < d1; ++d) {
+        // streaming loads, one plane ahead: the gradient must not evict the
+        // accumulator from L2
+        const uint4 cur_ref = next_ref, cur_warp = next_warp;
+        if (d + 1 < d1) {
+          s += plane_bytes;
+          next_ref = __ldcs(reinterpret_cast<const uint4*>(s));
+          next_warp = __ldcs(reinterpret_cast<const uint4*>(s + C * kBytes));
+        }
+        float gv[kVec];
+        T::unpack16(cur_ref, gv);
+#pragma unroll
+        for (int k = 0; k < kVec; ++k) rsum[k] = __fadd_rn(rsum[k], gv[k]);
+        const Taps t = ray.taps(__ldg(depths + d), H, W);
+        if (t.valid == 0.f) continue;
+        T::unpack16(cur_warp, gv);
+        const float w00 = __fmul_rn(t.ay, t.ax), w01 = __fmul_rn(t.ay, t.wx);
+        const float w10 = __fmul_rn(t.wy, t.ax), w11 = __fmul_rn(t.wy, t.wx);
+        if (t.xi >= g.x0 && t.xi1 < g.x0 + g.w && t.yi >= g.y0 && t.yi1 < g.y0 + g.h) {
+          const int q00 = (t.yi - g.y0) * g.w + (t.xi - g.x0);
+          const int q01 = q00 + (t.xi1 - t.xi), q10 = q00 + (t.yi1 - t.yi) * g.w;
+          const int q11 = q10 + (t.xi1 - t.xi);
+#pragma unroll
+          for (int k = 0; k < kVec; ++k) {
+            atomicAdd(acc + smem_slot(q00, c0 + k, C), __fmul_rn(gv[k], w00));
+            atomicAdd(acc + smem_slot(q01, c0 + k, C), __fmul_rn(gv[k], w01));
+            atomicAdd(acc + smem_slot(q10, c0 + k, C), __fmul_rn(gv[k], w10));
+            atomicAdd(acc + smem_slot(q11, c0 + k, C), __fmul_rn(gv[k], w11));
+          }
+        } else {
+          red16<kVec>(gacc + t.i00 * C, gv, w00);
+          red16<kVec>(gacc + t.i01 * C, gv, w01);
+          red16<kVec>(gacc + t.i10 * C, gv, w10);
+          red16<kVec>(gacc + t.i11 * C, gv, w11);
+          if (stats) {
+            left += g.direct ? 0 : (c0 == 0);
+            direct_ops += kVec;   // 4 taps x kVec / 4
+          }
+        }
+      }
+    }
+    __syncthreads();
+    for (int i = threadIdx.x; i < n4; i += blockDim.x) {
+      const int q = i / (C / 4), c = (i - q * (C / 4)) * 4;
+      const float4 v = make_float4(acc[smem_slot(q, c, C)], acc[smem_slot(q, c + 1, C)],
+                                   acc[smem_slot(q, c + 2, C)], acc[smem_slot(q, c + 3, C)]);
+      const int yy = g.y0 + q / g.w, xx = g.x0 + q % g.w;
+      atomicAdd(reinterpret_cast<float4*>(dtgt + ((((int64_t)b * H + yy) * W + xx) * C + c)), v);
+    }
+    if (stats && threadIdx.x == 0) atomicAdd(stats + 3, (unsigned long long)n4);
+    __syncthreads();
   }
-  *reinterpret_cast<uint4*>(reinterpret_cast<char*>(dref) + (pixel * C + c0) * kBytes) =
-      T::pack16(rsum);
+  if (stats) {
+    if (left) atomicAdd(stats + 2, left);
+    if (direct_ops) atomicAdd(stats + 3, direct_ops);
+  }
+  if (in)
+    *reinterpret_cast<uint4*>(reinterpret_cast<char*>(dref) + (pixel * C + c0) * kBytes) =
+        T::pack16(rsum);
+}
+
+// The default tile: about 256 threads, as square as a power-of-two width
+// allows (8 x 8 pixels at 4 threads a pixel).
+__host__ inline void default_tile(int tpp, int* tile_h, int* tile_w) {
+  const int ppt = kBwdThreads / tpp > 0 ? kBwdThreads / tpp : 1;
+  int w = 1;
+  while (w * w < ppt) w *= 2;
+  *tile_w = w < ppt ? w : ppt;
+  *tile_h = ppt / *tile_w;
 }
 
 template <typename T>
 cudaError_t launch_sweep_backward(const void* dvol, const float* depths, const float* M,
                                   const float* Kt, void* dref, float* dtgt, int B, int D,
-                                  int H, int W, int C, cudaStream_t stream) {
-  const int64_t threads = (int64_t)B * H * W * (C / T::kVec);
-  const int64_t blocks = (threads + kSweepThreads - 1) / kSweepThreads;
+                                  int H, int W, int C, int tile_h, int tile_w, int planes,
+                                  int smem_bytes, unsigned long long* stats,
+                                  cudaStream_t stream) {
+  static bool opted_in[kMaxDevices];
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev >= kMaxDevices) return cudaErrorInvalidDevice;
+  if (!opted_in[dev]) {   // shared accumulators above 48 KB, once per device
+    err = cudaFuncSetAttribute(plane_sweep_volume_backward_kernel<T>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, kBwdSmemMax);
+    if (err != cudaSuccess) return err;
+    opted_in[dev] = true;
+  }
+  const int tpp = C / T::kVec;
+  if (tile_h <= 0 || tile_w <= 0) default_tile(tpp, &tile_h, &tile_w);
+  if (planes <= 0) planes = kBwdPlanes;
+  if (smem_bytes <= 0) smem_bytes = kBwdSmemBytes;
+  const int64_t threads = (int64_t)tile_h * tile_w * tpp;
+  if (threads < 32 || threads > kBwdThreads || smem_bytes > kBwdSmemMax)
+    return cudaErrorInvalidConfiguration;
+  const int tiles_x = (W + tile_w - 1) / tile_w, tiles_y = (H + tile_h - 1) / tile_h;
+  const int64_t blocks = (int64_t)B * tiles_y * tiles_x;
   if (blocks > 0x7fffffffLL) return cudaErrorInvalidConfiguration;
-  plane_sweep_volume_backward_kernel<T><<<(unsigned)blocks, kSweepThreads, 0, stream>>>(
-      dvol, depths, M, Kt, dref, dtgt, B, D, H, W, C);
+  const int cap = smem_bytes / (C * 4);
+  plane_sweep_volume_backward_kernel<T><<<(unsigned)blocks, (unsigned)threads, smem_bytes,
+                                          stream>>>(
+      dvol, depths, M, Kt, dref, dtgt, D, H, W, C, tile_h, tile_w, tiles_x, tiles_y, planes,
+      cap, stats);
   return cudaGetLastError();
 }
 
@@ -455,6 +670,34 @@ extern "C" int dsfm_plane_sweep_volume(const void* ref, const void* tgt, const v
   return (int)cudaErrorInvalidValue;
 }
 
+// The same, with the work mapping given (0 takes the default: an 8 x 8
+// tile at 4 threads a pixel, 16 planes a group, a 64 KB shared accumulator)
+// and, where `stats` (4 x uint64 on the device, zeroed) is not null, the
+// counts [shared groups, direct groups, samples that left their box,
+// 16-byte global reductions]: what chip_smoke.py reports and the tuning
+// runs vary.
+extern "C" int dsfm_plane_sweep_volume_backward_probe(const void* dvol, const void* depths,
+                                                      const void* M, const void* Kt,
+                                                      void* dref, void* dtgt, int B, int D,
+                                                      int H, int W, int C, int dtype,
+                                                      int tile_h, int tile_w, int planes,
+                                                      int smem_bytes, void* stats,
+                                                      void* stream) {
+  cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
+  const float* dp = reinterpret_cast<const float*>(depths);
+  const float* mp = reinterpret_cast<const float*>(M);
+  const float* kp = reinterpret_cast<const float*>(Kt);
+  float* acc = reinterpret_cast<float*>(dtgt);
+  unsigned long long* st = reinterpret_cast<unsigned long long*>(stats);
+  if (dtype == 0)
+    return launch_sweep_backward<F32>(dvol, dp, mp, kp, dref, acc, B, D, H, W, C, tile_h,
+                                      tile_w, planes, smem_bytes, st, s);
+  if (dtype == 1)
+    return launch_sweep_backward<BF16>(dvol, dp, mp, kp, dref, acc, B, D, H, W, C, tile_h,
+                                       tile_w, planes, smem_bytes, st, s);
+  return (int)cudaErrorInvalidValue;
+}
+
 // The sweep's backward: given dvol (B, D, H, W, 2C) of `dtype`, dref
 // (B, H, W, C) of `dtype` = the sum of dvol's ref half over D, and dtgt
 // (B, H, W, C) float32, zeroed by the caller, += the warped half scattered
@@ -463,14 +706,6 @@ extern "C" int dsfm_plane_sweep_volume_backward(const void* dvol, const void* de
                                                 const void* M, const void* Kt, void* dref,
                                                 void* dtgt, int B, int D, int H, int W, int C,
                                                 int dtype, void* stream) {
-  cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
-  const float* dp = reinterpret_cast<const float*>(depths);
-  const float* mp = reinterpret_cast<const float*>(M);
-  const float* kp = reinterpret_cast<const float*>(Kt);
-  float* acc = reinterpret_cast<float*>(dtgt);
-  if (dtype == 0)
-    return launch_sweep_backward<F32>(dvol, dp, mp, kp, dref, acc, B, D, H, W, C, s);
-  if (dtype == 1)
-    return launch_sweep_backward<BF16>(dvol, dp, mp, kp, dref, acc, B, D, H, W, C, s);
-  return (int)cudaErrorInvalidValue;
+  return dsfm_plane_sweep_volume_backward_probe(dvol, depths, M, Kt, dref, dtgt, B, D, H, W, C,
+                                                dtype, 0, 0, 0, 0, nullptr, stream);
 }

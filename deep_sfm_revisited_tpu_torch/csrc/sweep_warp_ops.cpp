@@ -1,0 +1,216 @@
+// Kernel B1's three entry points as PyTorch operators (namespace `dsfm`).
+//
+// The gather's kernel takes ~2 us on the card, so the host path around its
+// launch sets its pace: a Python wrapper that allocates the output and
+// calls the kernel library through ctypes spends ~16 us a call, more than
+// one dispatch of `F.grid_sample`. Registered here, each entry point is one
+// dispatcher call from Python: the checks, the allocation (the caching
+// allocator, from C++), the device guard (a no-op on the current device),
+// the current stream (the capture stream inside `torch.cuda.graph`) and the
+// launch all run in C++. Nothing synchronises, so the gather can be
+// captured in a CUDA graph.
+//
+// This file is host code only: it includes no CUDA header, and calls the
+// kernels through the plain C launchers of sweep_warp.cu, whose library it
+// links. ops/cuda/sweep_warp.py builds it with nvcc against
+// torch.utils.cpp_extension's include and library paths and loads it with
+// torch.ops.load_library.
+
+#include <ATen/ops/empty.h>
+#include <ATen/ops/zeros.h>
+#include <c10/core/DeviceGuard.h>
+#include <c10/core/impl/DeviceGuardImplInterface.h>
+#include <torch/library.h>
+
+#include <tuple>
+
+extern "C" {
+int dsfm_bilinear_sample(const void* img, const void* coords, void* out, int B, int H, int W,
+                         int C, long long Q, int dtype, int vector, void* stream);
+int dsfm_plane_sweep_volume(const void* ref, const void* tgt, const void* depths,
+                            const void* M, const void* Kt, void* out, int B, int D, int H,
+                            int W, int C, int dtype, void* stream);
+int dsfm_plane_sweep_volume_backward_probe(const void* dvol, const void* depths, const void* M,
+                                           const void* Kt, void* dref, void* dtgt, int B,
+                                           int D, int H, int W, int C, int dtype, int tile_h,
+                                           int tile_w, int planes, int smem_bytes, void* stats,
+                                           void* stream);
+}
+
+namespace {
+
+constexpr int64_t kMaxRowBytes = 16 * 256;   // the sweep kernels: a 16-byte chunk a thread
+
+int dtype_code(const at::Tensor& t, const char* what) {
+  if (t.scalar_type() == at::kFloat) return 0;
+  if (t.scalar_type() == at::kBFloat16) return 1;
+  TORCH_CHECK_TYPE(false, what, " dtype ", t.scalar_type(), "; takes float32 or bfloat16");
+  return -1;
+}
+
+void* current_stream(const at::Device& device) {
+  return c10::impl::getDeviceGuardImpl(device.type())->getStream(device).native_handle();
+}
+
+void check_launch(int err, const char* what) {
+  TORCH_CHECK(err == 0, what, " launch failed: cudaError ", err);
+}
+
+// img (B, H, W, C) f32/bf16, coords (B, ..., 2) f32 -> (B, ..., C).
+at::Tensor bilinear_sample(const at::Tensor& img, const at::Tensor& coords) {
+  TORCH_CHECK_VALUE(img.is_cuda() && coords.is_cuda(), "B1 takes CUDA tensors only");
+  TORCH_CHECK_VALUE(img.device() == coords.device(), "img on ", img.device(), ", coords on ",
+                    coords.device());
+  const int code = dtype_code(img, "B1 image");
+  TORCH_CHECK_TYPE(coords.scalar_type() == at::kFloat, "B1 coords dtype ",
+                   coords.scalar_type(), "; takes float32");
+  TORCH_CHECK_VALUE(img.dim() == 4 && coords.dim() >= 2 && coords.size(-1) == 2 &&
+                        coords.size(0) == img.size(0),
+                    "B1 shapes img ", img.sizes(), ", coords ", coords.sizes());
+  TORCH_CHECK_VALUE(img.is_contiguous() && coords.is_contiguous(),
+                    "B1 takes contiguous img and coords");
+  TORCH_CHECK_VALUE(reinterpret_cast<uintptr_t>(coords.data_ptr()) % 8 == 0,
+                    "B1 coords must be 8-byte aligned");
+  const int64_t B = img.size(0), H = img.size(1), W = img.size(2), C = img.size(3);
+  TORCH_CHECK_VALUE(B >= 1 && H >= 1 && W >= 1 && C >= 1, "B1 image shape ", img.sizes(),
+                    " out of range");
+  c10::SmallVector<int64_t, 8> shape(coords.sizes().begin(), coords.sizes().end() - 1);
+  shape.push_back(C);
+  c10::OptionalDeviceGuard guard(img.device());
+  at::Tensor out = at::empty(shape, img.options());
+  const int64_t Q = out.numel() / (B * C);
+  if (Q == 0) return out;
+  const int64_t vec = code == 0 ? 4 : 8;
+  const int vector = C % vec == 0 && reinterpret_cast<uintptr_t>(img.data_ptr()) % 16 == 0 &&
+                     reinterpret_cast<uintptr_t>(out.data_ptr()) % 16 == 0;
+  check_launch(dsfm_bilinear_sample(img.data_ptr(), coords.data_ptr(), out.data_ptr(), B, H, W,
+                                    C, Q, code, vector, current_stream(img.device())),
+               "B1");
+  return out;
+}
+
+// The sweep kernels' common rules: CUDA tensors on one device, contiguous;
+// the features of one dtype, float32 or bfloat16, 16-byte aligned, with rows
+// of C channels a multiple of 16 bytes up to kMaxRowBytes; depths (D,),
+// M (B, 3, 3), Kt (B, 3) float32, 4-byte aligned. Returns the dtype code.
+int check_sweep_args(const char* what, std::initializer_list<at::Tensor> feats,
+                     const at::Tensor& depths, const at::Tensor& M, const at::Tensor& Kt,
+                     int64_t B, int64_t C) {
+  const at::Tensor& first = *feats.begin();
+  for (const at::Tensor* t : {&first, &depths, &M, &Kt})
+    TORCH_CHECK_VALUE(t->is_cuda(), "the ", what, " takes CUDA tensors only");
+  for (const at::Tensor& t : feats)
+    TORCH_CHECK_VALUE(t.is_cuda() && t.device() == first.device(), what, " inputs on ",
+                      t.device(), " and ", first.device());
+  for (const at::Tensor* t : {&depths, &M, &Kt})
+    TORCH_CHECK_VALUE(t->device() == first.device(), what, " inputs on ", t->device(),
+                      " and ", first.device());
+  const int code = dtype_code(first, what);
+  for (const at::Tensor& t : feats)
+    TORCH_CHECK_TYPE(t.scalar_type() == first.scalar_type(), what, " features of dtypes ",
+                     t.scalar_type(), " and ", first.scalar_type());
+  for (const at::Tensor* t : {&depths, &M, &Kt})
+    TORCH_CHECK_TYPE(t->scalar_type() == at::kFloat, what, " depths, M and Kt must be float32");
+  TORCH_CHECK_VALUE(depths.dim() == 1 && M.dim() == 3 && M.size(0) == B && M.size(1) == 3 &&
+                        M.size(2) == 3 && Kt.dim() == 2 && Kt.size(0) == B && Kt.size(1) == 3,
+                    what, " depths ", depths.sizes(), ", M ", M.sizes(), ", Kt ", Kt.sizes(),
+                    " for B = ", B);
+  for (const at::Tensor& t : feats)
+    TORCH_CHECK_VALUE(t.is_contiguous(), "the ", what, " takes contiguous inputs");
+  for (const at::Tensor* t : {&depths, &M, &Kt})
+    TORCH_CHECK_VALUE(t->is_contiguous(), "the ", what, " takes contiguous inputs");
+  const int64_t row = C * first.element_size();
+  TORCH_CHECK_VALUE(row % 16 == 0 && row <= kMaxRowBytes, what, " feature rows of ", row,
+                    " bytes; takes a multiple of 16 up to ", kMaxRowBytes);
+  for (const at::Tensor& t : feats)
+    TORCH_CHECK_VALUE(reinterpret_cast<uintptr_t>(t.data_ptr()) % 16 == 0, what,
+                      " features must be 16-byte aligned");
+  for (const at::Tensor* t : {&depths, &M, &Kt})
+    TORCH_CHECK_VALUE(reinterpret_cast<uintptr_t>(t->data_ptr()) % 4 == 0, what,
+                      " depths, M, Kt must be 4-byte aligned");
+  return code;
+}
+
+// ref, tgt (B, H, W, C); depths (D,), M (B, 3, 3), Kt (B, 3) f32 ->
+// (B, D, H, W, 2C) [ref | warped] in the features' dtype.
+at::Tensor plane_sweep_volume(const at::Tensor& ref, const at::Tensor& tgt,
+                              const at::Tensor& depths, const at::Tensor& M,
+                              const at::Tensor& Kt) {
+  TORCH_CHECK_VALUE(ref.dim() == 4 && tgt.sizes() == ref.sizes(), "sweep shapes ref ",
+                    ref.sizes(), ", tgt ", tgt.sizes());
+  const int64_t B = ref.size(0), H = ref.size(1), W = ref.size(2), C = ref.size(3);
+  const int code = check_sweep_args("sweep kernel", {ref, tgt}, depths, M, Kt, B, C);
+  const int64_t D = depths.size(0);
+  c10::OptionalDeviceGuard guard(ref.device());
+  at::Tensor out = at::empty({B, D, H, W, 2 * C}, ref.options());
+  if (out.numel() == 0) return out;
+  check_launch(dsfm_plane_sweep_volume(ref.data_ptr(), tgt.data_ptr(), depths.data_ptr(),
+                                       M.data_ptr(), Kt.data_ptr(), out.data_ptr(), B, D, H, W,
+                                       C, code, current_stream(ref.device())),
+               "sweep kernel");
+  return out;
+}
+
+// dvol (B, D, H, W, 2C) -> (dref in dvol's dtype, dtgt float32, stats) under
+// the work mapping (0: the kernel's default); stats (4,) int64 counts
+// [shared groups, direct groups, samples that left their box, 16-byte
+// global reductions] when `count` is set, and is empty otherwise.
+std::tuple<at::Tensor, at::Tensor, at::Tensor> backward_launch(
+    const at::Tensor& dvol, const at::Tensor& depths, const at::Tensor& M,
+    const at::Tensor& Kt, int64_t tile_h, int64_t tile_w, int64_t planes, int64_t smem_bytes,
+    bool count) {
+  TORCH_CHECK_VALUE(dvol.dim() == 5 && dvol.size(-1) % 2 == 0 && depths.dim() == 1 &&
+                        dvol.size(1) == depths.size(0),
+                    "sweep backward dvol ", dvol.sizes(), ", depths ", depths.sizes());
+  const int64_t B = dvol.size(0), D = dvol.size(1), H = dvol.size(2), W = dvol.size(3);
+  const int64_t C = dvol.size(4) / 2;
+  const int code = check_sweep_args("sweep backward", {dvol}, depths, M, Kt, B, C);
+  c10::OptionalDeviceGuard guard(dvol.device());
+  at::Tensor dref = at::empty({B, H, W, C}, dvol.options());
+  at::Tensor acc = at::zeros({B, H, W, C}, dvol.options().dtype(at::kFloat));
+  at::Tensor stats = at::zeros({int64_t(count ? 4 : 0)}, dvol.options().dtype(at::kLong));
+  if (dvol.numel() == 0) return {dref.zero_(), acc, stats};
+  check_launch(dsfm_plane_sweep_volume_backward_probe(
+                   dvol.data_ptr(), depths.data_ptr(), M.data_ptr(), Kt.data_ptr(),
+                   dref.data_ptr(), acc.data_ptr(), B, D, H, W, C, code, tile_h, tile_w,
+                   planes, smem_bytes, count ? stats.data_ptr() : nullptr,
+                   current_stream(dvol.device())),
+               "sweep backward kernel");
+  return {dref, acc, stats};
+}
+
+// dvol (B, D, H, W, 2C) -> (dref, dtgt), each (B, H, W, C) in dvol's
+// dtype; dtgt is summed in a float32 buffer, then cast.
+std::tuple<at::Tensor, at::Tensor> plane_sweep_volume_backward(const at::Tensor& dvol,
+                                                               const at::Tensor& depths,
+                                                               const at::Tensor& M,
+                                                               const at::Tensor& Kt) {
+  auto r = backward_launch(dvol, depths, M, Kt, 0, 0, 0, 0, false);
+  return {std::get<0>(r), std::get<1>(r).to(dvol.scalar_type())};
+}
+
+std::tuple<at::Tensor, at::Tensor, at::Tensor> plane_sweep_volume_backward_probe(
+    const at::Tensor& dvol, const at::Tensor& depths, const at::Tensor& M,
+    const at::Tensor& Kt, int64_t tile_h, int64_t tile_w, int64_t planes, int64_t smem_bytes) {
+  return backward_launch(dvol, depths, M, Kt, tile_h, tile_w, planes, smem_bytes, true);
+}
+
+}  // namespace
+
+TORCH_LIBRARY(dsfm, m) {
+  m.def("bilinear_sample(Tensor img, Tensor coords) -> Tensor");
+  m.def("plane_sweep_volume(Tensor ref, Tensor tgt, Tensor depths, Tensor M, Tensor Kt) -> Tensor");
+  m.def("plane_sweep_volume_backward(Tensor dvol, Tensor depths, Tensor M, Tensor Kt) -> "
+        "(Tensor, Tensor)");
+  m.def("plane_sweep_volume_backward_probe(Tensor dvol, Tensor depths, Tensor M, Tensor Kt, "
+        "int tile_h, int tile_w, int planes, int smem_bytes) -> (Tensor, Tensor, Tensor)");
+}
+
+// Registered for every dispatch key: a CPU tensor reaches the checks, which
+// refuse it, as the ctypes wrappers did.
+TORCH_LIBRARY_IMPL(dsfm, CompositeExplicitAutograd, m) {
+  m.impl("bilinear_sample", &bilinear_sample);
+  m.impl("plane_sweep_volume", &plane_sweep_volume);
+  m.impl("plane_sweep_volume_backward", &plane_sweep_volume_backward);
+  m.impl("plane_sweep_volume_backward_probe", &plane_sweep_volume_backward_probe);
+}

@@ -234,6 +234,90 @@ def plane_sweep_volume_backward_plain(dvol, depths, M, Kt):
     return dref.to(dvol.dtype), acc.reshape(B, H, W, C).to(dvol.dtype)
 
 
+def sweep_tap_box_plain(depths, M, Kt, H: int, W: int, tile_h: int, tile_w: int,
+                        planes: int, cap: int):
+    """The sweep backward kernel's box rule, in its op order: for each tile
+    of tile_h x tile_w ref pixels and each group of `planes` planes, the box
+    of target taps the group's samples can touch.
+
+    The tile's four corner pixels at the group's least and greatest plane
+    depth give 8 points p = (M [u, v, 1]) d + K t (`sweep_pixel_coords`'s
+    rounding). If each has z > 1e-3, z exceeds 1e-3 over the whole tile and
+    depth range, and every sample's (x, y) lies in their bounding box; it is
+    padded by one pixel on each side for rounding and one more on the far
+    side for the +1 taps, and clipped to the frame. A group is `direct`
+    (its samples add to device memory one by one) when a point has
+    z <= 1e-3 or the box holds more than `cap` pixels; its box is then
+    empty. Returns {x0, y0, w, h, direct}, each (B, tiles_y, tiles_x,
+    groups)."""
+    dev, f32 = depths.device, torch.float32
+    tiles_y, tiles_x = -(-H // tile_h), -(-W // tile_w)
+    groups = -(-depths.shape[0] // planes)
+    tx0 = torch.arange(tiles_x, device=dev) * tile_w
+    ty0 = torch.arange(tiles_y, device=dev) * tile_h
+    tx1, ty1 = torch.clamp(tx0 + tile_w, max=W) - 1, torch.clamp(ty0 + tile_h, max=H) - 1
+    corner = torch.arange(4, device=dev)
+    u = torch.where(corner % 2 == 1, tx1[:, None], tx0[:, None]).to(f32)[None]      # (1, tx, 4)
+    v = torch.where(corner // 2 == 1, ty1[:, None], ty0[:, None]).to(f32)[:, None]  # (ty, 1, 4)
+    pad = groups * planes - depths.shape[0]
+    lo = torch.nn.functional.pad(depths.to(f32), (0, pad), value=float("inf"))
+    hi = torch.nn.functional.pad(depths.to(f32), (0, pad), value=float("-inf"))
+    dep = torch.stack([lo.reshape(groups, planes).amin(1), hi.reshape(groups, planes).amax(1)],
+                      dim=-1)                                                     # (G, 2)
+    p = []
+    for i in range(3):
+        m = M[:, i].to(f32)
+        ray = (m[:, 0, None, None, None] * u + m[:, 1, None, None, None] * v) \
+            + m[:, 2, None, None, None]                                          # (B, ty, tx, 4)
+        p.append(ray[..., None, None] * dep + Kt[:, i].to(f32)[:, None, None, None, None, None])
+    def points(t):                                        # (B, ty, tx, 4, G, 2) -> (.., G, 8)
+        return t.permute(0, 1, 2, 4, 3, 5).flatten(-2)
+
+    behind = points(p[2] <= 1e-3)
+    x, y = points(p[0] / p[2]), points(p[1] / p[2])
+    direct = behind.any(-1)
+
+    def edges(c, n):
+        c = torch.where(behind, float("nan"), c)
+        first = torch.floor(torch.clamp(c.nan_to_num(float("inf")).amin(-1), -4.0, n + 4.0))
+        last = torch.floor(torch.clamp(c.nan_to_num(float("-inf")).amax(-1), -4.0, n + 4.0))
+        c0 = torch.clamp(first.long() - 1, min=0)
+        return c0, torch.clamp(torch.clamp(last.long() + 2, max=n - 1) - c0 + 1, min=0)
+
+    x0, w = edges(x, W)
+    y0, h = edges(y, H)
+    direct = direct | (w * h > cap)
+    w, h = torch.where(direct, 0, w), torch.where(direct, 0, h)
+    return {"x0": x0, "y0": y0, "w": w, "h": h, "direct": direct}
+
+
+def sweep_backward_counts(depths, M, Kt, H: int, W: int, C: int, tile_h: int, tile_w: int,
+                          planes: int, cap: int) -> dict:
+    """What the sweep backward kernel does under the box rule
+    (`sweep_tap_box_plain`) with this work mapping: the tile groups on the
+    shared and on the direct path, the valid samples of shared groups whose
+    taps leave the box (they add to device memory directly), and the 16-byte
+    global reductions (C / 4 per box pixel flushed, 4 C / 4 per sample added
+    directly)."""
+    B, D = M.shape[0], depths.shape[0]
+    box = sweep_tap_box_plain(depths, M, Kt, H, W, tile_h, tile_w, planes, cap)
+    x, y = sweep_pixel_coords(depths, M, Kt, H, W)                               # (B, D, H, W)
+    valid, (yi, xi, yi1, xi1), _ = _taps(x, y, H, W)
+    g = torch.arange(D, device=depths.device) // planes
+    ty = torch.arange(H, device=depths.device) // tile_h
+    tx = torch.arange(W, device=depths.device) // tile_w
+    bi = torch.arange(B, device=depths.device)[:, None, None, None]
+    at = (bi, ty[None, None, :, None], tx[None, None, None, :], g[None, :, None, None])
+    x0, y0, w, h, direct = (box[k][at] for k in ("x0", "y0", "w", "h", "direct"))
+    inside = (xi >= x0) & (xi1 < x0 + w) & (yi >= y0) & (yi1 < y0 + h)
+    added = valid & (direct | ~inside)
+    n_direct = int(box["direct"].sum())
+    return {"shared_groups": box["direct"].numel() - n_direct, "direct_groups": n_direct,
+            "left_box_samples": int((valid & ~direct & ~inside).sum()),
+            "global_reductions": int((box["w"] * box["h"]).sum()) * (C // 4)
+            + int(added.sum()) * C}
+
+
 class PlaneSweepVolumeFn(torch.autograd.Function):
     """PSNet's cost volume with its gradient with respect to ref and tgt.
 

@@ -8,6 +8,12 @@ source, so an edited source is rebuilt and a stale library is never loaded.
 `CudaKernel` owns one library and its launch count: a wrapper adds one to
 `launches` right after each launch and nowhere else, so a run can prove
 that its main path went through the kernel.
+
+`TorchOps` builds a source that registers PyTorch operators
+(`TORCH_LIBRARY`) around the plain C launchers of a `CudaKernel`'s library:
+host code compiled by nvcc against `torch.utils.cpp_extension`'s include
+and library paths (no ninja, no pybind11), linked to that library, into
+`_build/` at first use, and loaded with `torch.ops.load_library`.
 """
 
 from __future__ import annotations
@@ -52,6 +58,7 @@ class CudaKernel:
     def __init__(self):
         self.launches = 0
         self.build_log = ""
+        self.path: Path | None = None
         self._lib = None
         self._lock = threading.Lock()
 
@@ -67,15 +74,59 @@ class CudaKernel:
             digest = hashlib.sha256(src.read_bytes()).hexdigest()[:12]
             lib_path = BUILD_DIR / f"lib{src.stem}_{digest}.so"
             if not lib_path.exists():
-                BUILD_DIR.mkdir(parents=True, exist_ok=True)
-                tmp = lib_path.with_suffix(f".{os.getpid()}.tmp")
-                proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)],
-                                      capture_output=True, text=True)
-                self.build_log = proc.stdout + proc.stderr
-                if proc.returncode != 0:
-                    raise RuntimeError(f"nvcc failed on {src}:\n{self.build_log}")
-                os.replace(tmp, lib_path)
+                self.build_log = _compile([_nvcc(), *NVCC_FLAGS, str(src)], lib_path, src)
             lib = ctypes.CDLL(str(lib_path))
             self._bind(lib)
+            self.path = lib_path
             self._lib = lib
             return lib
+
+
+def _compile(cmd: list, out: Path, src: Path) -> str:
+    """Run nvcc `cmd` (which writes `-o <tmp>`) and move the result to `out`;
+    returns the compiler's output, raises with it on failure."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    proc = subprocess.run([*cmd, "-o", str(tmp)], capture_output=True, text=True)
+    log = proc.stdout + proc.stderr
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed on {src}:\n{log}")
+    os.replace(tmp, out)
+    return log
+
+
+class TorchOps:
+    """Builds (once per source, kernel library and torch version), links and
+    loads one operator source; `build()` returns `torch.ops.<namespace>`."""
+
+    def __init__(self, source: str, kernel: CudaKernel, namespace: str):
+        self.source, self.kernel, self.namespace = source, kernel, namespace
+        self.build_log = ""
+        self._ops = None
+        self._lock = threading.Lock()
+
+    def build(self):
+        with self._lock:
+            if self._ops is not None:
+                return self._ops
+            import torch
+            from torch.utils import cpp_extension
+
+            self.kernel.build()
+            src = CSRC / self.source
+            key = src.read_bytes() + self.kernel.path.name.encode() + torch.__version__.encode()
+            lib_path = BUILD_DIR / f"lib{src.stem}_{hashlib.sha256(key).hexdigest()[:12]}.so"
+            if not lib_path.exists():
+                # torch's own libraries are loaded with torch, so the
+                # library finds them by name without an rpath
+                lib_dirs = cpp_extension.library_paths()
+                abi = int(torch._C._GLIBCXX_USE_CXX11_ABI)
+                self.build_log = _compile(
+                    [_nvcc(), "-std=c++20", "-O2", "-shared", "-Xcompiler", "-fPIC",
+                     f"-D_GLIBCXX_USE_CXX11_ABI={abi}",
+                     *(f"-I{d}" for d in cpp_extension.include_paths()),
+                     str(src), str(self.kernel.path),
+                     *(f"-L{d}" for d in lib_dirs), "-lc10", "-ltorch_cpu"], lib_path, src)
+            torch.ops.load_library(str(lib_path))
+            self._ops = getattr(torch.ops, self.namespace)
+            return self._ops

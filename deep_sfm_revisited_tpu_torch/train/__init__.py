@@ -1,1 +1,3 @@
-"""Evaluation (the Eigen protocol); training is not ported yet."""
+"""Training and evaluation: the frozen-flow depth-training step (`trainer.py`,
+`losses.py`), its loop and checkpoints (`loop.py`, `checkpoint.py`), and the
+Eigen-protocol evaluation (`evaluate.py`, `metrics.py`)."""

@@ -1,6 +1,5 @@
 """Eigen-protocol evaluation of SFMNet (port of the JAX package's eval step,
-`train/trainer.py:443-507`, and of the plain form of `train/loop.py::
-validate`, `:236-290`).
+`train/trainer.py:443-507`, and of `train/loop.py::validate`, `:236-361`).
 
 Per sample: the depth prediction, with the NORM_TARGET normalization undone
 by the ground-truth translation scale, is scored by `evaluate_depth` at the
@@ -62,16 +61,38 @@ def eval_metrics(model, cfg: SfMConfig, batch: Dict[str, torch.Tensor],
     return metrics, out
 
 
-def validate(loader, model, cfg: SfMConfig,
-             generator: Optional[torch.Generator] = None) -> Dict[str, float]:
-    """Mean metrics over `loader` (`validate`, plain form). `generator`
-    drives the sampler and RANSAC draws of every batch in turn."""
+def validate(loader, model, cfg: SfMConfig, generator: Optional[torch.Generator] = None,
+             logger=None, metric_logger=None) -> Dict[str, float]:
+    """Mean metrics over `loader`. `generator` drives the sampler and RANSAC
+    draws of every batch in turn.
+
+    As the JAX package's production `validate` (`loop.py:293-361`, one batch
+    per dispatch): with a `logger`, a line `Test: [done/n]\t abs_rel x`
+    after the first batch and every `train.print_freq` batches after it,
+    and the final means; with a `metric_logger`, the `test/*` image panes
+    (input, flow, predicted and ground-truth depth of the batch's first
+    pair) each time the count of batches done reaches a multiple of
+    `train.image_freq`, at step = that count. The panes come from the
+    forward that gave the metrics; JAX runs a second one for them."""
+    from deep_sfm_revisited_tpu_torch.train.loop import emit_images
+
     device = next(model.parameters()).device
     meters: Dict[str, AverageMeter] = {}
-    for host_batch in loader:
-        metrics, _ = eval_metrics(model, cfg, batch_to_device(host_batch, device), generator)
+    n_batches, print_freq, image_freq = len(loader), cfg.train.print_freq, cfg.train.image_freq
+    next_print = 0
+    for done, host_batch in enumerate(loader, start=1):
+        batch = batch_to_device(host_batch, device)
+        metrics, out = eval_metrics(model, cfg, batch, generator)
         n = (float(np.sum(host_batch["sample_valid"])) if "sample_valid" in host_batch
              else host_batch["ref"].shape[0])
         for name, v in metrics.items():
             meters.setdefault(name, AverageMeter()).update(float(v), n)
-    return {k: m.avg for k, m in meters.items()}
+        if logger is not None and done >= next_print:
+            logger.info(f"Test: [{done}/{n_batches}]\t abs_rel {meters['abs_rel'].avg:.4f}")
+            next_print = done + print_freq
+        if metric_logger is not None and image_freq > 0 and done % image_freq == 0:
+            emit_images(metric_logger, "test", batch, out["flow"], out["depth"], done)
+    final = {k: m.avg for k, m in meters.items()}
+    if logger is not None:
+        logger.info(" ".join(f"{k} {v:.4f}" for k, v in sorted(final.items())))
+    return final

@@ -27,8 +27,8 @@ from deep_sfm_revisited_tpu_torch.train.trainer import Trainer
 from deep_sfm_revisited_tpu_torch.utils.logging import AverageMeter, MetricLogger, create_logger
 
 
-def _emit_images(metric_logger: MetricLogger, prefix: str, batch: Dict[str, torch.Tensor],
-                 flow: torch.Tensor, depth: torch.Tensor, step: int) -> None:
+def emit_images(metric_logger: MetricLogger, prefix: str, batch: Dict[str, torch.Tensor],
+                flow: torch.Tensor, depth: torch.Tensor, step: int) -> None:
     """The reference's image panes: input, flow RGB, predicted and GT depth
     colormaps of the batch's first pair (JAX `loop.py::_emit_images`)."""
     from deep_sfm_revisited_tpu_torch.utils.viz import depth_to_colormap, flow_to_rgb
@@ -71,8 +71,8 @@ def train_epoch(loader, trainer: Trainer, epoch: int, generator: torch.Generator
                                 generator=torch.Generator(device=device).manual_seed(
                                     trainer.step))
                 model.train()
-                _emit_images(metric_logger, "train", batch, out["flow"], out["depth"],
-                             trainer.step)
+                emit_images(metric_logger, "train", batch, out["flow"], out["depth"],
+                            trainer.step)
         if logger is not None and i % print_freq == 0:
             logger.info(f"Epoch: [{epoch}][{i}/{len(loader)}]\tTime {batch_time}\t"
                         f"Loss {losses}")
@@ -118,10 +118,10 @@ def fit(cfg: SfMConfig, train_loader, val_loader=None, out_dir: str = "output",
             if val_loader is not None:
                 model.eval()
                 results = validate(val_loader, model, cfg,
-                                   generator=torch.Generator(device=dev).manual_seed(0))
+                                   generator=torch.Generator(device=dev).manual_seed(0),
+                                   logger=logger, metric_logger=mlog_val)
                 model.train()
                 mlog_val.scalars(results, epoch)
-                logger.info(" ".join(f"{k} {v:.4f}" for k, v in sorted(results.items())))
                 record.update(results)
                 metric = results["abs_rel"]
             is_best = metric < best

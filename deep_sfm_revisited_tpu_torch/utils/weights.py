@@ -22,6 +22,12 @@ each transform in reverse:
 
 Input: the flax variables as nested dicts of arrays (numpy or anything
 `np.asarray` takes), {"params": ..., "batch_stats": ...}.
+
+`load_reference_state` reads the same tables the other way round: it loads
+the keys of a reference state dict that the tables cover into the port's
+model and reports the rest, as the JAX package's
+`torch_port.convert_reference_checkpoint` does (the reference's
+`strict=False`, `main.py:203`).
 """
 
 from __future__ import annotations
@@ -264,3 +270,56 @@ def load_reference_checkpoint(path: str) -> Dict[str, torch.Tensor]:
     blob = torch.load(path, map_location="cpu", weights_only=True)
     sd = blob.get("state_dict", blob) if isinstance(blob, dict) else blob
     return {k[len("module."):] if k.startswith("module.") else k: v for k, v in sd.items()}
+
+
+BN_SUFFIXES = ("weight", "bias", "running_mean", "running_var")
+
+
+def load_reference_state(model: torch.nn.Module, sd: Dict[str, torch.Tensor],
+                         flow: str | None, depth: str | None, context_bn: bool = False,
+                         dep_context: bool = True) -> Dict[str, List[str]]:
+    """Load into `model` the keys of the reference state dict `sd` that the
+    weight tables of `flow` (a key of FLOW_ENTRIES, or None) and `depth`
+    ("PSNET" or None) cover; a network given as None is left untouched.
+
+    As the JAX package's `convert_reference_checkpoint` (`torch_port.py:
+    520-568`): a checkpoint whose flow (depth) keys lack the
+    `flow_estimator.` (`depth_estimator.`) prefix is read without it; a
+    BN entry takes weight, bias and the running statistics, any other entry
+    its weight and, where `sd` has one, its bias. Returns {"consumed",
+    "missing", "unused"}: the keys loaded, the keys a table wants that `sd`
+    lacks, and the keys of `sd` no table took. A shape that differs from
+    the model's raises.
+    """
+    tables = []
+    if flow is not None:
+        prefix = "flow_estimator" if any(k.startswith("flow_estimator.") for k in sd) else ""
+        tables.append((FLOW_ENTRIES[flow](prefix, "flow_net"), prefix, "flow_estimator"))
+    if depth is not None:
+        if depth != "PSNET":
+            raise KeyError(f"no weight table for depth estimator {depth}")
+        prefix = "depth_estimator" if any(k.startswith("depth_estimator.") for k in sd) else ""
+        tables.append((psnet_entries(prefix, "depth_net", context_bn=context_bn,
+                                     dep_context=dep_context), prefix, "depth_estimator"))
+    load, consumed, missing = {}, [], []
+    for entries, prefix, module in tables:
+        def take(key, required=True):
+            key = key.lstrip(".")
+            if key in sd:
+                consumed.append(key)
+                load[key if prefix else f"{module}.{key}"] = sd[key]
+            elif required:
+                missing.append(key)
+
+        for kind, tkey, _ in entries:
+            if kind == "bn":
+                for suffix in BN_SUFFIXES:
+                    take(f"{tkey}.{suffix}")
+            else:
+                take(f"{tkey}.weight")
+                take(f"{tkey}.bias", required=False)
+    result = model.load_state_dict(load, strict=False)
+    if result.unexpected_keys:
+        raise KeyError(f"table keys the model lacks: {result.unexpected_keys[:5]}")
+    return {"consumed": consumed, "missing": missing,
+            "unused": sorted(set(sd) - set(consumed))}

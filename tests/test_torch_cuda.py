@@ -218,6 +218,87 @@ def test_sweep_backward_wrapper_refuses_what_the_kernel_does_not_take():
             sweep_warp.plane_sweep_volume_backward_cuda(*args)
 
 
+# the sweep backward's two paths, forced: the default mapping on a forward
+# pose (shared boxes), a one-pixel accumulator (every group direct), and a
+# pose that puts the near planes behind the camera, in groups of 4 planes so
+# that the far groups lie in front (direct groups beside shared ones);
+# C = 8, 32 and 64
+BWD_PATHS = [("shared", "forward", None, None), ("too large", "forward", 1, None),
+             ("behind", "behind", None, 4)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("C", [8, 32, 64])
+@pytest.mark.parametrize("path,pose_kind,cap,planes", BWD_PATHS)
+def test_sweep_backward_paths_on_card(path, pose_kind, cap, planes, C, dtype):
+    """Each path of the sweep backward against the plain VJP within
+    `_bwd_tolerance`, with the kernel's counts of shared and direct groups,
+    samples that left their box and 16-byte reductions equal to the plain
+    box rule's (`sweep_backward_counts`); dref bit-identical to the
+    default launch's."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    td = getattr(torch, dtype)
+    shape = (2, 24, 20, 44, C)
+    B, D, H, W, _ = shape
+    _, _, depths, M, Kt = _sweep_inputs(shape, pose_kind, td, seed=4)
+    g = torch.Generator(device="cuda").manual_seed(5)
+    dvol = torch.randn(B, D, H, W, 2 * C, device="cuda", generator=g).to(td)
+    tile_h, tile_w, default_planes, smem = sweep_warp.backward_plan(C, dvol.element_size())
+    planes = planes or default_planes
+    if cap is not None:
+        smem = cap * 4 * C
+    dref, acc, counts = sweep_warp.plane_sweep_volume_backward_probe(
+        dvol, depths, M, Kt, (tile_h, tile_w, planes, smem))
+    want = tcam.sweep_backward_counts(depths, M, Kt, H, W, C, tile_h, tile_w, planes,
+                                      smem // (4 * C))
+    assert counts == want
+    if path == "shared":
+        assert counts["direct_groups"] == 0 and counts["shared_groups"] > 0
+    elif path == "too large":     # only empty or one-pixel boxes stay shared
+        assert counts["direct_groups"] > 0
+        assert counts["global_reductions"] > counts["direct_groups"] * C
+    else:
+        assert counts["direct_groups"] > 0 and counts["shared_groups"] > 0
+    pref, ptgt = tcam.plane_sweep_volume_backward_plain(dvol, depths, M, Kt)
+    for got, want_ in ((dref, pref), (acc.to(td), ptgt)):
+        assert bool(((got.float() - want_.float()).abs() <= _bwd_tolerance(got, want_)).all())
+    dref2, _ = sweep_warp.plane_sweep_volume_backward_cuda(dvol, depths, M, Kt)
+    assert torch.equal(dref, dref2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_gather_replays_in_a_cuda_graph(dtype):
+    """The gather captured in a CUDA graph (after a warm-up on a side stream)
+    counts one launch at capture and none at replay, and a replay on new
+    inputs written in place equals an eager call bit for bit."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    td = getattr(torch, dtype)
+    g = torch.Generator(device="cuda").manual_seed(8)
+    img = torch.randn(1, 48, 160, 32, device="cuda", generator=g).to(td)
+    coords = torch.rand(1, 48, 160, 2, device="cuda", generator=g) * 170 - 5
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        sweep_warp.bilinear_sample_cuda(img, coords)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    n = sweep_warp.KERNEL.launches
+    with torch.cuda.graph(graph):
+        out = sweep_warp.bilinear_sample_cuda(img, coords)
+    assert sweep_warp.KERNEL.launches == n + 1
+    img.copy_(torch.randn(img.shape, device="cuda", generator=g).to(td))
+    coords.copy_(torch.rand(coords.shape, device="cuda", generator=g) * 170 - 5)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert sweep_warp.KERNEL.launches == n + 1
+    assert torch.equal(out, sweep_warp.bilinear_sample_cuda(img, coords))
+    assert torch.equal(out, tcam.bilinear_sample_plain(img, coords))
+
+
 # PWC-DC's five level shapes (f0, f1 at levels 6..2 of a 384x1280 pair), a
 # batch of 2, and odd shapes: C = 40 splits unevenly across a cluster, C = 3
 # takes the scalar staging path

@@ -69,6 +69,25 @@ def test_one_epoch_trains_validates_and_checkpoints(runs):
                      for k in ("depth_gt", "depth_pred", "flow", "input")}
 
 
+def test_validation_logs_progress_and_writes_test_panes(runs):
+    """The epoch's validation (2 pairs) logs `Test: [1/2]` and the final
+    means, and writes the `test/*` panes at its image_freq = 2nd pair, in
+    each run: files and event-file tags."""
+    from deep_sfm_revisited_tpu_torch.utils.tb_events import read_events
+
+    _, _, out, _ = runs
+    run = out / "kitti"
+    log = "".join(p.read_text() for p in run.glob("kitti_*.log"))
+    assert log.count("Test: [1/2]\t abs_rel ") == 2
+    test = run / "test"
+    panes = {f for f in os.listdir(test) if f.endswith(".png")}
+    assert panes == {f"test_{k}_2.png" for k in ("depth_gt", "depth_pred", "flow", "input")}
+    events = [e for f in os.listdir(test) if "tfevents" in f
+              for e in read_events(str(test / f)) if "tag" in e]
+    assert {(e["tag"], e["step"]) for e in events if e["tag"].startswith("test/")} == {
+        (f"test/{k}", 2) for k in ("depth_gt", "depth_pred", "flow", "input")}
+
+
 def test_start_epoch_resumes_from_the_checkpoint(runs):
     """The resumed run trains epoch 1 only, continuing the step count and
     the optimizer from epoch 0's checkpoint, and writes epoch 1's."""
