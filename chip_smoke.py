@@ -6,7 +6,7 @@
 Phases, each of which raises on failure:
 
 1. setup: the card's name and power limit, TF32 off, kernels B1 (the
-   generic gather, the plane-sweep cost volume and its backward, one
+   generic gather, the plane-sweep cost volume and its two gradients, one
    source, and the PyTorch operators that launch them) and B2 built with
    nvcc (in parallel) from `deep_sfm_revisited_tpu_torch/csrc/
    sweep_warp.cu`, `csrc/sweep_warp_ops.cpp` and `csrc/local_corr.cu`;
@@ -62,14 +62,19 @@ Phases, each of which raises on failure:
    float32, TF32 off) on the card against the same step on the CPU (plain
    versions) with the same weights, batch, noise and RANSAC draws, at the
    card's pose: the loss, and PSNet's gradients with the float32
-   conditioning the phase measures on the CPU alone;
+   conditioning the phase measures on the CPU alone; then the same on the
+   POSENET route (both devices online, PoseNet's gradients with PSNet's,
+   the pose gradient launched once); on both routes the ReLU units whose
+   sign differs between the devices must have inputs within rounding of
+   zero, and the CPU step rerun with the card's ReLU masks must give the
+   card's gradients to 1e-3;
 9. slice 5's main path, through the entry point a user calls:
    `cli.main` in training mode on a golden KITTI raw tree rendered at
    370x1224, cropped to the recipe's 256x768, b = 4, nlabel 128, bf16, the
    slices' pose overrides; one warm-up step (which records the sweep
    backward's inputs), the launch counts reset, five timed steps, each of
-   which must launch the gather 4 times and the sweep and the sweep
-   backward once, give a finite loss, leave DICL's parameters bit-identical
+   which must launch the gather 4 times, the sweep and the sweep
+   backward once and the sweep pose gradient no time, give a finite loss, leave DICL's parameters bit-identical
    while its BN statistics move, and move PSNet's parameters; ms/step, the
    stage split and peak memory; then the epoch's validation and checkpoint;
 10. the sweep backward against its plain version on the inputs slice 5
@@ -81,7 +86,26 @@ Phases, each of which raises on failure:
    distribution of box sizes; device and events times, bound and share,
    the plain version's time and the yardstick's, `grid_sampler_2d_backward`
    (the tgt half) plus the `sum(dim=1)` that gives dref, together and the
-   tgt half alone.
+   tgt half alone;
+11. slice 7's pose tools through `cli.main` on a golden KITTI VO tree
+   rendered at 370x1226 (test sequences 9 and 10, train sequence 0),
+   padded to 384x1280, DICL flow, bf16: `--record-pose` (after a warm-up
+   pair each pair launches the gather 8 times and the sweep no time; ms
+   per pair and the flow / pose split; the six error keys, num_matches,
+   uniform_fallback, the odometry report per test sequence, whose links
+   launch the gather 4 times each), `--save-pose` (both splits' stacks),
+   and training with `pred_pose_online=False` on the saved poses (b = 4,
+   256x768, a warm-up and two steps, each launching the sweep and its
+   backward once and the gather no time);
+12. slice 7's POSENET training step: phase 9 with `pose.estimator=POSENET`
+   (each step also launches the sweep pose gradient once; the loss has its
+   pose term; PoseNet's and PSNet's parameters move, DICL's do not);
+13. the sweep pose gradient against its plain version on the inputs phase
+   12 gave it, in bf16 and float32, and on behind-camera, out-of-frame and
+   all-behind variants (exactly zero there), bit-identical across two
+   launches; device and events times, the bound (dvol read only for the
+   valid samples) and share, the plain version's time and the yardstick's,
+   `grid_sampler_2d_backward`'s grid gradient.
 
 `python3 chip_smoke.py --save-sweep-inputs PATH` also writes the sweep
 backward's depths, M and K t from slice 5 (a few hundred floats) to PATH,
@@ -993,7 +1017,10 @@ def phase_sweep(captured, sweep_warp, camera):
 
 # slice 5: the recipe's frozen-flow depth-training step at its crop, b = 4
 TRAIN_B, TRAIN_HW, TRAIN_STEPS = 4, (256, 768), 5
-TRAIN_PER_STEP = (B1_PER_PAIR, SWEEP_PER_PAIR, 1)   # gather, sweep, sweep backward
+# gather, sweep, sweep backward, sweep pose gradient (the RANSAC pose is
+# stop-gradient; PoseNet's is not)
+TRAIN_PER_STEP = (B1_PER_PAIR, SWEEP_PER_PAIR, 1, 0)
+POSENET_PER_STEP = (B1_PER_PAIR, SWEEP_PER_PAIR, 1, 1)
 # the sweep backward: per (b, d, y, x) the coordinates (8) and the 4 tap
 # weights; per channel the ref sum and the 4 weighted taps (product, sum)
 BWD_FLOPS_PER_SAMPLE, BWD_FLOPS_PER_CHANNEL = 12, 9
@@ -1013,30 +1040,43 @@ def _grad_report(got: dict, want: dict):
     return errs, float(1 - (g @ w) / (g.norm() * w.norm()))
 
 
-def phase_small_train_reference(dev) -> None:
+def phase_small_train_reference(dev, posenet: bool = False) -> None:
     """One train step of the port at 128x128 (nlabel 8, the SMALL pose
     overrides), float32, TF32 off, on the card, against the same step on the
     CPU (plain versions) with the same weights, batch, noise and RANSAC
-    draws. The CPU runs at the card's RANSAC pose (`pred_pose_online=False`
-    with that pose): with random weights the vote is degenerate across
-    devices (phase 3).
+    draws. On the RANSAC route the CPU runs at the card's RANSAC pose
+    (`pred_pose_online=False` with that pose): with random weights the vote
+    is degenerate across devices (phase 3). With `posenet` the route is
+    POSENET (PoseNet's pose, trained through the sweep's pose gradient),
+    which both devices run online, and PoseNet's gradients join PSNet's.
 
-    Tolerances: the loss to 1e-4 relative. PSNet's gradients: the two
-    devices sum in other orders (the sweep backward's atomics, cuDNN's
-    backward), and at random weights a float32 ReLU whose input lies within
-    rounding of zero switches between them; one such unit moves a weight's
-    gradient by ~1/sqrt(positions) of its largest element. The phase
-    measures that on the CPU alone (the same step at an input scaled by
-    1 + 1e-6, which moves some tensor by ~5e-2 of its largest element) and
-    holds the card, tensor by tensor, to twice the largest such move (at
-    least 1e-3 of the tensor's largest element), and to 1 - cosine <= 1e-4
-    over all of PSNet's gradients."""
+    Tolerances: the loss to 1e-4 relative. The gradients: the two devices
+    sum in other orders (the sweep backward's atomics, cuDNN's backward),
+    and at random weights a float32 ReLU whose input lies within rounding of
+    zero switches between them; one such unit moves a weight's gradient by
+    ~1/sqrt(positions) of its largest element (and on the POSENET route a
+    sample of the sweep that crosses a tap moves the pose's gradient). The
+    phase measures that on the CPU alone, as the largest move over the same
+    step at three inputs scaled by 1 + 1e-6, 1 - 1e-6 and 1 + 3e-6, and
+    holds the card, tensor by tensor, to twice that move (at least 1e-3 of
+    the tensor's largest element), and to 1 - cosine <= 1e-4 over all the
+    compared gradients.
+
+    The witness for that cause: the inputs of every ReLU of the trained
+    networks are recorded on both devices; the units whose sign differs
+    must each have an input within 1e-4 of its tensor's largest (rounding,
+    not a fault), and the CPU step rerun with the card's ReLU masks (each
+    ReLU's output x * mask) must give every gradient within 1e-3 of its
+    largest element of the card's."""
     from deep_sfm_revisited_tpu_torch.config import SfMConfig
     from deep_sfm_revisited_tpu_torch.models.sfmnet import SFMNet
     from deep_sfm_revisited_tpu_torch.ops.cuda import sweep_warp
     from deep_sfm_revisited_tpu_torch.train.trainer import Trainer, add_image_noise
 
-    cfg = SfMConfig.kitti().override(**SMALL, **{"train.mixed_prec": False})
+    route = {"pose.estimator": "POSENET"} if posenet else {}
+    cfg = SfMConfig.kitti().override(**SMALL, **route, **{"train.mixed_prec": False})
+    what = "small train reference" + (" (POSENET)" if posenet else "")
+    trained = ("depth_estimator", "posenet") if posenet else ("depth_estimator",)
     h = w = 128
     g = torch.Generator().manual_seed(8)
     ref = torch.rand((1, h, w, 3), generator=g) * 2 - 1
@@ -1055,56 +1095,117 @@ def phase_small_train_reference(dev) -> None:
              "sample_idx": torch.randint(0, cfg.pose.num_correspondences,
                                          (1, cfg.pose.num_hypotheses, 5), generator=g)}
 
+    def grads(model):
+        return {f"{m}.{k}": p.grad for m in trained
+                for k, p in getattr(model, m).named_parameters()}
+
+    def relu_hooks(model, fn):
+        # fn(name, input) on every nn.ReLU of the trained networks, in call
+        # order; a value it returns replaces the ReLU's output
+        return [mod.register_forward_hook(lambda mod, a, o, name=f"{m}.{n}": fn(name, a[0]))
+                for m in trained for n, mod in getattr(model, m).named_modules()
+                if isinstance(mod, torch.nn.ReLU)]
+
     card = Trainer(SFMNet(cfg, device=dev, seed=1), cfg, steps_per_epoch=1)
-    poses = []
+    poses, card_relu = [], []
     card.model.depth_estimator.register_forward_pre_hook(
         lambda m, args: poses.append(args[2][:, 0].detach().clone()))
-    before = sweep_warp.VOLUME_BACKWARD.launches
+    handles = relu_hooks(card.model, lambda name, x: card_relu.append((name, x.detach().cpu())))
+    counters = (sweep_warp.VOLUME_BACKWARD, sweep_warp.VOLUME_POSE_GRAD)
+    before = _launches(*counters)
     m_card = card.train_step({k: v.to(dev) for k, v in batch.items()}, noise=False,
                              draws={k: v.to(dev) for k, v in draws.items()})
     torch.cuda.synchronize()
-    check(sweep_warp.VOLUME_BACKWARD.launches == before + 1,
-          "small train reference: the sweep backward kernel did not launch once")
-    g_card = {k: p.grad.cpu() for k, p in card.model.depth_estimator.named_parameters()}
+    for h in handles:
+        h.remove()
+    n = tuple(x - y for x, y in zip(_launches(*counters), before))
+    check(n == (1, int(posenet)), f"{what}: the sweep backward and pose-gradient kernels "
+          f"launched {n} times, expected {(1, int(posenet))}")
+    check(posenet == ("pose_loss" in m_card), f"{what}: metrics {sorted(m_card)}")
+    g_card = {k: v.cpu() for k, v in grads(card.model).items()}
 
-    cpu_cfg = cfg.override(pred_pose_online=False)
+    cpu_cfg = cfg if posenet else cfg.override(pred_pose_online=False)
 
-    def cpu_step(scale):
+    def cpu_step(scale, record=None, masks=None):
         t = Trainer(SFMNet(cpu_cfg, device="cpu", seed=1), cpu_cfg, steps_per_epoch=1)
         b = dict(batch, ref=batch["ref"] * scale, pred_pose=poses[0].cpu())
-        m = t.train_step(b, noise=False)
-        return m, {k: p.grad for k, p in t.model.depth_estimator.named_parameters()}
+        calls = iter(range(len(masks or ())))
 
-    m_cpu, g_cpu = cpu_step(1.0)
-    _, g_cpu2 = cpu_step(1.0 + 1e-6)
+        def hook(name, x):
+            if record is not None:
+                record.append((name, x.detach().clone()))
+            return None if masks is None else x * masks[next(calls)]
+
+        handles = relu_hooks(t.model, hook)
+        try:
+            m = t.train_step(b, noise=False)
+        finally:
+            for h in handles:
+                h.remove()
+        return m, grads(t.model)
+
+    cpu_relu = []
+    m_cpu, g_cpu = cpu_step(1.0, record=cpu_relu)
+    self_errs, self_cos = {}, 0.0
+    for scale in (1 + 1e-6, 1 - 1e-6, 1 + 3e-6):
+        e, c = _grad_report(cpu_step(scale)[1], g_cpu)
+        self_errs = {k: max(v, self_errs.get(k, 0.0)) for k, v in e.items()}
+        self_cos = max(self_cos, c)
     loss_err = abs(float(m_card["loss"]) - float(m_cpu["loss"])) / abs(float(m_cpu["loss"]))
     errs, cos_err = _grad_report(g_card, g_cpu)
-    self_errs, self_cos = _grad_report(g_cpu2, g_cpu)
     worst = max(errs, key=errs.get)
-    log(f"small train reference: loss card {float(m_card['loss']):.7f} vs cpu "
-        f"{float(m_cpu['loss']):.7f} (relative {loss_err:.2e}); PSNet gradients: "
-        f"{sum(e <= 1e-3 for e in errs.values())}/{len(errs)} tensors within 1e-3 of their "
-        f"max, worst {errs[worst]:.2e} ({worst}), 1 - cosine {cos_err:.2e}; the CPU against "
-        f"itself at 1 + 1e-6 input: worst {max(self_errs.values()):.2e}, "
+    log(f"{what}: loss card {float(m_card['loss']):.7f} vs cpu "
+        f"{float(m_cpu['loss']):.7f} (relative {loss_err:.2e}); {' and '.join(trained)} "
+        f"gradients: {sum(e <= 1e-3 for e in errs.values())}/{len(errs)} tensors within 1e-3 "
+        f"of their max, worst {errs[worst]:.2e} ({worst}), 1 - cosine {cos_err:.2e}; the CPU "
+        f"against itself at three perturbed inputs: worst {max(self_errs.values()):.2e}, "
         f"{sum(e > 1e-3 for e in self_errs.values())} tensors beyond 1e-3, 1 - cosine "
         f"{self_cos:.2e}")
-    check(math.isfinite(float(m_card["loss"])), "small train reference: non-finite loss")
-    check(loss_err <= 1e-4, f"small train reference: loss differs by {loss_err}")
+
+    check([n for n, _ in card_relu] == [n for n, _ in cpu_relu],
+          f"{what}: the ReLUs ran in another order on the card than on the CPU")
+    flips = []          # (ReLU, units of other sign, largest such |input| / max |input|)
+    for (name, xc), (_, xp) in zip(card_relu, cpu_relu):
+        other = (xc > 0) != (xp > 0)
+        if other.any():
+            near = torch.maximum(xc.abs(), xp.abs())[other].max()
+            flips.append((name, int(other.sum()), float(near / xp.abs().max())))
+    _, g_forced = cpu_step(1.0, masks=[(x > 0).to(x.dtype) for _, x in card_relu])
+    f_errs, f_cos = _grad_report(g_card, g_forced)
+    f_worst = max(f_errs, key=f_errs.get)
+    by_units = sorted(flips, key=lambda f: -f[1])[:4]
+    log(f"{what}: ReLU units of other sign on the card than on the CPU: "
+        f"{sum(f[1] for f in flips)} in {len(flips)} of {len(card_relu)} ReLU calls, their "
+        f"largest input {max((f[2] for f in flips), default=0.0):.2e} of its tensor's max "
+        f"(most in {', '.join(f'{n} {u}' for n, u, _ in by_units) or 'none'}); the CPU step "
+        f"with the card's ReLU masks: worst {f_errs[f_worst]:.2e} ({f_worst}), "
+        f"{worst} {f_errs[worst]:.2e}, 1 - cosine {f_cos:.2e}")
+    check(all(f[2] <= 1e-4 for f in flips), f"{what}: a ReLU unit of other sign on the card "
+          f"has an input beyond 1e-4 of its tensor's max: {max(flips, key=lambda f: f[2])}")
+    check(f_errs[f_worst] <= 1e-3, f"{what}: with the card's ReLU masks the CPU gradient "
+          f"{f_worst} still differs by {f_errs[f_worst]} of its max, beyond 1e-3")
+    check(math.isfinite(float(m_card["loss"])), f"{what}: non-finite loss")
+    check(loss_err <= 1e-4, f"{what}: loss differs by {loss_err}")
     bound = max(1e-3, 2 * max(self_errs.values()))
-    check(errs[worst] <= bound, f"small train reference: gradient {worst} differs by "
+    check(errs[worst] <= bound, f"{what}: gradient {worst} differs by "
           f"{errs[worst]} of its max, beyond {bound}")
-    check(cos_err <= 1e-4, f"small train reference: 1 - cosine of the gradients {cos_err}")
+    check(cos_err <= 1e-4, f"{what}: 1 - cosine of the gradients {cos_err}")
 
 
 class TrainStageTimer(StageTimer):
     """StageTimer's flow, pose and depth-forward events plus the step's
     start and end and the Adam update's; the loss and backward are the time
-    between the depth network's exit and Adam's start."""
+    between the depth network's exit and Adam's start. On the POSENET route
+    PoseNet's forward is timed on its own as well (within the pose stage)."""
 
     def __init__(self, trainer):
         super().__init__(trainer.model)
         trainer.optimizer.register_step_pre_hook(lambda o, a, k: self._mark("adam_start"))
         trainer.optimizer.register_step_post_hook(lambda o, a, k: self._mark("adam_end"))
+        posenet = getattr(trainer.model, "posenet", None)
+        if posenet is not None:
+            posenet.register_forward_pre_hook(lambda m, a: self._mark("posenet_start"))
+            posenet.register_forward_hook(lambda m, a, o: self._mark("posenet_end"))
 
     def stages_ms(self):
         e = self.events
@@ -1113,40 +1214,59 @@ class TrainStageTimer(StageTimer):
                    backward=e["depth_end"].elapsed_time(e["adam_start"]),
                    adam=e["adam_start"].elapsed_time(e["adam_end"]),
                    step=e["step_start"].elapsed_time(e["step_end"]))
+        if "posenet_start" in e:
+            out["posenet"] = e["posenet_start"].elapsed_time(e["posenet_end"])
         return out
 
 
-def phase_cli_train(dev, sweep_warp):
+def phase_cli_train(dev, sweep_warp, posenet: bool = False):
     """Slice 5 through `cli.main` in training mode on a rendered golden KITTI
     raw tree (370x1224, cropped to the recipe's 256x768, b = 4, nlabel 128,
     bf16, the slices' pose overrides): one warm-up step, which records the
     sweep backward's inputs, then TRAIN_STEPS timed steps with the launch
     counts reset after the warm-up, then the epoch's validation and
     checkpoint. Each step must launch the gather 4 times, the sweep and the
-    sweep backward once, give a finite loss, leave DICL's parameters
-    bit-identical, move every DICL BN running mean and every PSNet parameter
-    that got a gradient. Returns (launches over the run after the warm-up
-    (gather, sweep, sweep backward), the sweep backward's inputs)."""
+    sweep backward once and the sweep pose gradient no time, give a finite
+    loss, leave DICL's parameters bit-identical, move every DICL BN running
+    mean and every PSNet parameter that got a gradient. With `posenet`, the
+    same with `pose.estimator=POSENET` (slice 7): the pose gradient launches
+    once a step (the warm-up records its inputs too), the loss has its
+    `pose_loss` term, and PoseNet's parameters move. Returns (launches over
+    the run after the warm-up (gather, sweep, sweep backward, sweep pose
+    gradient), the sweep backward's inputs, the pose gradient's inputs)."""
     from deep_sfm_revisited_tpu_torch import cli
     from deep_sfm_revisited_tpu_torch.data.synthetic import write_kitti_raw_tree
     from deep_sfm_revisited_tpu_torch.train.trainer import Trainer
 
-    counters = (sweep_warp.KERNEL, sweep_warp.VOLUME, sweep_warp.VOLUME_BACKWARD)
-    real_step, backward = Trainer.train_step, sweep_warp.plane_sweep_volume_backward_cuda
-    rows, captured, timer = [], [], []
+    what = "cli train (POSENET)" if posenet else "cli train"
+    per_step = POSENET_PER_STEP if posenet else TRAIN_PER_STEP
+    counters = (sweep_warp.KERNEL, sweep_warp.VOLUME, sweep_warp.VOLUME_BACKWARD,
+                sweep_warp.VOLUME_POSE_GRAD)
+    real_step = Trainer.train_step
+    backward = sweep_warp.plane_sweep_volume_backward_cuda
+    pose_grad = sweep_warp.plane_sweep_volume_pose_grad_cuda
+    rows, captured, cap_pose, timer = [], [], [], []
 
     def record_backward(*args):
         captured.append(tuple(a.clone() for a in args))
         return backward(*args)
+
+    def record_pose_grad(*args):
+        cap_pose.append(tuple(a.clone() for a in args))
+        return pose_grad(*args)
 
     def timed_step(trainer, *args, **kw):
         warm = not timer
         if warm:
             timer.append(TrainStageTimer(trainer))
             sweep_warp.plane_sweep_volume_backward_cuda = record_backward
+            sweep_warp.plane_sweep_volume_pose_grad_cuda = record_pose_grad
         model = trainer.model
         dicl = {k: v.clone() for k, v in model.flow_estimator.state_dict().items()}
-        psnet = {k: p.detach().clone() for k, p in model.depth_estimator.named_parameters()}
+        trained = [("PSNet", model.depth_estimator)] + (
+            [("PoseNet", model.posenet)] if posenet else [])
+        params = {name: {k: p.detach().clone() for k, p in net.named_parameters()}
+                  for name, net in trained}
         before = _launches(*counters)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -1155,37 +1275,50 @@ def phase_cli_train(dev, sweep_warp):
             metrics = real_step(trainer, *args, **kw)
         finally:
             sweep_warp.plane_sweep_volume_backward_cuda = backward
+            sweep_warp.plane_sweep_volume_pose_grad_cuda = pose_grad
         timer[0]._mark("step_end")
         torch.cuda.synchronize()
         ms = 1e3 * (time.perf_counter() - t0)
         n = tuple(a - b for a, b in zip(_launches(*counters), before))
         i = len(rows) + (0 if warm else 1)
         loss = float(metrics["loss"])
-        check(math.isfinite(loss), f"train step {i}: loss {loss}")
-        check(n == TRAIN_PER_STEP, f"train step {i}: gather, sweep, sweep backward launched "
-              f"{n} times, expected {TRAIN_PER_STEP}")
+        check(math.isfinite(loss), f"{what} step {i}: loss {loss}")
+        check(posenet == ("pose_loss" in metrics), f"{what} step {i}: metrics {sorted(metrics)}")
+        pose_loss = float(metrics["pose_loss"]) if posenet else None
+        check(not posenet or math.isfinite(pose_loss), f"{what} step {i}: pose loss {pose_loss}")
+        check(n == per_step, f"{what} step {i}: gather, sweep, sweep backward, pose gradient "
+              f"launched {n} times, expected {per_step}")
         state = model.flow_estimator.state_dict()
         for k, p in model.flow_estimator.named_parameters():
-            check(torch.equal(p, dicl[k]), f"train step {i}: DICL parameter {k} moved")
+            check(torch.equal(p, dicl[k]), f"{what} step {i}: DICL parameter {k} moved")
         stale = [k for k in state if k.endswith("running_mean") and torch.equal(state[k], dicl[k])]
-        check(not stale, f"train step {i}: DICL BN statistics did not move: {stale[:3]}")
-        still = [k for k, p in model.depth_estimator.named_parameters()
-                 if p.grad is not None and p.grad.any() and torch.equal(p, psnet[k])]
-        check(not still, f"train step {i}: PSNet parameters with a gradient did not move: "
-              f"{still[:3]}")
+        check(not stale, f"{what} step {i}: DICL BN statistics did not move: {stale[:3]}")
+        for name, net in trained:
+            got_grad = [k for k, p in net.named_parameters() if p.grad is not None and p.grad.any()]
+            still = [k for k in got_grad if torch.equal(dict(net.named_parameters())[k],
+                                                        params[name][k])]
+            check(got_grad, f"{what} step {i}: no {name} parameter got a gradient")
+            check(not still, f"{what} step {i}: {name} parameters with a gradient did not "
+                  f"move: {still[:3]}")
         if warm:
             for k in counters:
                 k.launches = 0
             torch.cuda.reset_peak_memory_stats()
-            log(f"cli train: warm-up step {ms:.1f} ms, loss {loss:.4f}; sweep backward "
-                f"inputs {[tuple(a[0].shape) for a in captured]} {captured[0][0].dtype}")
+            log(f"{what}: warm-up step {ms:.1f} ms, loss {loss:.4f}; sweep backward "
+                f"inputs {[tuple(a[0].shape) for a in captured]} {captured[0][0].dtype}"
+                + (f"; pose gradient inputs {[tuple(a[0].shape) for a in cap_pose]}"
+                   if posenet else ""))
         else:
             rows.append(dict(ms=ms, loss=loss, **timer[0].stages_ms()))
-            log(f"cli train: step {i}: {ms:.1f} ms (prep {rows[-1]['prep']:.1f}, flow "
-                f"{rows[-1]['flow']:.1f}, pose {rows[-1]['pose']:.1f}, depth forward "
+            if posenet:
+                rows[-1]["pose_loss"] = pose_loss
+            extra = (f", PoseNet forward {rows[-1]['posenet']:.1f}" if posenet else "")
+            log(f"{what}: step {i}: {ms:.1f} ms (prep {rows[-1]['prep']:.1f}, flow "
+                f"{rows[-1]['flow']:.1f}, pose {rows[-1]['pose']:.1f}{extra}, depth forward "
                 f"{rows[-1]['depth']:.1f}, loss + backward {rows[-1]['backward']:.1f}, Adam "
-                f"{rows[-1]['adam']:.1f} ms device); loss {loss:.4f}; gather, sweep, sweep "
-                f"backward launches {n}")
+                f"{rows[-1]['adam']:.1f} ms device); loss {loss:.4f}"
+                + (f" (pose loss {pose_loss:.4f})" if posenet else "")
+                + f"; gather, sweep, sweep backward, pose gradient launches {n}")
             if len(rows) == TRAIN_STEPS:
                 rows.append(dict(peak_gib=torch.cuda.max_memory_allocated() / 2**30,
                                  launches=_launches(*counters)))
@@ -1197,13 +1330,14 @@ def phase_cli_train(dev, sweep_warp):
         t0 = time.perf_counter()
         write_kitti_raw_tree(root, n_frames=n_test + TRAIN_B * (TRAIN_STEPS + 1),
                              hw=(370, 1224), focal=K_KITTI[0][0], n_test=n_test)
-        log(f"cli train: golden tree of {n_test + TRAIN_B * (TRAIN_STEPS + 1)} 370x1224 frames "
+        log(f"{what}: golden tree of {n_test + TRAIN_B * (TRAIN_STEPS + 1)} 370x1224 frames "
             f"rendered in {time.perf_counter() - t0:.2f} s")
         argv = ["--data", root, "--cfg", "kitti", "--gt-depth-dir", f"{root}/gt_depth",
                 "--out", f"{tmp}/out", "--workers", "4", "-b", str(TRAIN_B), "--epochs", "1",
                 "--override", f"data.train_size={TRAIN_HW}",
-                *[f"{k}={v}" for k, v in BENCH_OVERRIDES.items()]]
-        log("cli train: cli.main(" + json.dumps(argv).replace(tmp, "<tmp>") + ")")
+                *[f"{k}={v}" for k, v in BENCH_OVERRIDES.items()],
+                *(["pose.estimator=POSENET"] if posenet else [])]
+        log(f"{what}: cli.main(" + json.dumps(argv).replace(tmp, "<tmp>") + ")")
         for k in counters:
             k.launches = 0
         Trainer.train_step = timed_step
@@ -1214,25 +1348,27 @@ def phase_cli_train(dev, sweep_warp):
         finally:
             Trainer.train_step = real_step
         launches = _launches(*counters)
-        check(os.path.exists(f"{tmp}/out/kitti/ckpt/0.pt"), "cli train: no checkpoint written")
-    check(len(rows) == TRAIN_STEPS + 1, f"cli train: {len(rows) - 1} timed steps, expected "
+        check(os.path.exists(f"{tmp}/out/kitti/ckpt/0.pt"), f"{what}: no checkpoint written")
+    check(len(rows) == TRAIN_STEPS + 1, f"{what}: {len(rows) - 1} timed steps, expected "
           f"{TRAIN_STEPS}")
     tail = rows.pop()
-    check(tail["launches"] == tuple(TRAIN_STEPS * n for n in TRAIN_PER_STEP),
-          f"cli train: the timed steps launched {tail['launches']}")
+    check(tail["launches"] == tuple(TRAIN_STEPS * n for n in per_step),
+          f"{what}: the timed steps launched {tail['launches']}")
     check(len(history) == 1 and all(math.isfinite(history[0][k]) for k in EIGEN_KEYS),
-          f"cli train: validation {history}")
+          f"{what}: validation {history}")
     mean = {k: sum(r[k] for r in rows) / TRAIN_STEPS for k in rows[0]}
-    log(f"cli train: mean over {TRAIN_STEPS} steps at b = {TRAIN_B}, {TRAIN_HW[0]}x"
+    log(f"{what}: mean over {TRAIN_STEPS} steps at b = {TRAIN_B}, {TRAIN_HW[0]}x"
         f"{TRAIN_HW[1]}: {mean['ms']:.2f} ms/step ({1e3 * TRAIN_B / mean['ms']:.3f} pairs/s); "
         f"device stages prep {mean['prep']:.2f}, flow {mean['flow']:.2f}, pose "
-        f"{mean['pose']:.2f}, depth forward {mean['depth']:.2f}, loss + backward "
+        f"{mean['pose']:.2f}"
+        + (f" (PoseNet forward {mean['posenet']:.2f})" if posenet else "")
+        + f", depth forward {mean['depth']:.2f}, loss + backward "
         f"{mean['backward']:.2f}, Adam {mean['adam']:.2f} ms (step {mean['step']:.2f}); peak "
         f"memory {tail['peak_gib']:.2f} GiB; cli.main {wall:.2f} s; validation "
         f"{json.dumps({k: history[0][k] for k in sorted(EIGEN_KEYS)})}; launches after the "
         f"warm-up, validation included: {launches}")
-    log("cli train rows: " + json.dumps(rows))
-    return launches, captured
+    log(f"{what} rows: " + json.dumps(rows))
+    return launches, captured, cap_pose
 
 
 def _bf16_ulp(x):
@@ -1373,6 +1509,7 @@ def backward_yardstick(dvol, depths, M, Kt, camera) -> dict:
     B_, D_, H_, W_, C2 = dvol.shape
     C_ = C2 // 2
     x, y = camera.sweep_pixel_coords(depths, M, Kt, H_, W_)
+    valid = int(((x >= 0) & (x <= W_ - 1) & (y >= 0) & (y <= H_ - 1)).sum())
     grid = torch.stack([x / (W_ - 1) * 2 - 1, y / (H_ - 1) * 2 - 1], dim=-1)
     grid = grid.reshape(B_, D_ * H_, W_, 2).to(dvol.dtype)
     tgt_nchw = torch.zeros((B_, C_, H_, W_), dtype=dvol.dtype, device=dvol.device)
@@ -1391,6 +1528,325 @@ def backward_yardstick(dvol, depths, M, Kt, camera) -> dict:
 
     return {"ms": cuda_ms(both, reps=10), "device_ms": dev_ms(both),
             "tgt_half_ms": cuda_ms(tgt_half, reps=10), "tgt_half_device_ms": dev_ms(tgt_half)}
+
+
+# slice 7: the pose tools on a golden KITTI VO tree at KITTI's odometry
+# size (padded to 384x1280), and training from the poses they save
+VO_HW, VO_TEST_FRAMES, VO_TRAIN_FRAMES = (370, 1226), 6, 3 * TRAIN_B + 1
+RECORD_PER_PAIR = (2 * B1_PER_PAIR, 0, 0, 0)    # both directions' flow warps, no depth
+LINK_PER_PAIR = (B1_PER_PAIR, 0, 0, 0)          # one odometry link: the backward pose
+PRED_POSE_PER_STEP = (0, SWEEP_PER_PAIR, 1, 0)  # saved poses: no flow, no pose gradient
+POSE_KEYS = {"rot_err", "trans_dist", "trans_angle", "rot_err_fw", "trans_dist_fw",
+             "trans_angle_fw", "num_matches", "uniform_fallback"}
+ODOMETRY_KEYS = {"ate_rmse", "t_err_pct", "r_err_deg_per_100m"}
+
+
+class PoseStageTimer:
+    """CUDA events at the flow network's entry and exit and at the model's
+    exit, per call of the early-return pose forward: flow, then pose
+    (sampler + RANSAC)."""
+
+    def __init__(self, model):
+        self.calls, self._ev = [], {}
+        model.flow_estimator.register_forward_pre_hook(lambda m, a: self._mark("flow_start"))
+        model.flow_estimator.register_forward_hook(lambda m, a, o: self._mark("flow_end"))
+        model.register_forward_hook(lambda m, a, o: self._end())
+
+    def _mark(self, key):
+        self._ev[key] = torch.cuda.Event(enable_timing=True)
+        self._ev[key].record()
+
+    def _end(self):
+        self._mark("end")
+        self.calls.append(self._ev)
+        self._ev = {}
+
+    def take_ms(self):
+        """{flow, pose} summed over the calls since the last take (after a
+        synchronize)."""
+        calls, self.calls = self.calls, []
+        return {"flow": sum(e["flow_start"].elapsed_time(e["flow_end"]) for e in calls),
+                "pose": sum(e["flow_end"].elapsed_time(e["end"]) for e in calls)}
+
+
+def phase_cli_pose(dev, sweep_warp):
+    """Slice 7's pose tools through `cli.main` on a golden KITTI VO tree
+    rendered at 370x1226 (KITTI's focal; test sequences 9 and 10 of
+    VO_TEST_FRAMES frames, train sequence 0 of VO_TRAIN_FRAMES), padded to
+    384x1280, DICL flow, bf16, the slices' pose overrides:
+
+    - `--record-pose`: the first pair (both directions) warms up and the
+      launch counts go to 0; each later pair must launch the gather 8 times
+      and the sweep no time; its host time around the synchronised pair and
+      the CUDA-event split between flow and pose; the result has the six
+      error keys, num_matches and uniform_fallback, all finite, and an
+      odometry report per test sequence, each link of which launches the
+      gather 4 times;
+    - `--save-pose`: pred_poses/{seq}_fw.npy and _bw.npy for every sequence
+      of both splits, finite;
+    - training with `pred_pose_online=False` on those poses, b = 4 at
+      256x768: a warm-up step and two more, each launching the gather no
+      time and the sweep and its backward once, with a finite loss, on a
+      batch whose pred_pose is the saved one.
+
+    Returns {path: launches (gather, sweep, sweep backward, pose gradient)}
+    for the record run (odometry included) and the training run."""
+    import numpy as np
+
+    from deep_sfm_revisited_tpu_torch import cli
+    from deep_sfm_revisited_tpu_torch.data.synthetic import write_kitti_vo_tree
+    from deep_sfm_revisited_tpu_torch.train.trainer import Trainer
+
+    counters = (sweep_warp.KERNEL, sweep_warp.VOLUME, sweep_warp.VOLUME_BACKWARD,
+                sweep_warp.VOLUME_POSE_GRAD)
+    real_make = cli.make_pose_forward
+    rows, links, calls = [], [], []
+    out = {}
+
+    def make(model, diag=False):
+        fwd = real_make(model, diag)
+        if not diag:      # the odometry report: one backward pose per link
+            def link(*args):
+                before = _launches(*counters)
+                pose = fwd(*args)
+                links.append(tuple(a - b for a, b in zip(_launches(*counters), before)))
+                return pose
+            return link
+        timer = PoseStageTimer(model)
+
+        def counted(*args):   # record_pose_errors: backward, then forward, per pair
+            if len(calls) % 2 == 0:
+                torch.cuda.synchronize()
+                calls.append((time.perf_counter(), _launches(*counters)))
+            else:
+                calls.append(None)
+            result = fwd(*args)
+            if len(calls) % 2 == 0:
+                torch.cuda.synchronize()
+                t0, before = calls[-2]
+                ms = 1e3 * (time.perf_counter() - t0)
+                n = tuple(a - b for a, b in zip(_launches(*counters), before))
+                stages = timer.take_ms()
+                pair = len(calls) // 2 - 1
+                if pair == 0:
+                    for k in counters:
+                        k.launches = 0
+                    log(f"cli record-pose: warm-up pair {ms:.1f} ms, launches {n}")
+                    return result
+                check(n == RECORD_PER_PAIR, f"cli record-pose: pair {pair} launched (gather, "
+                      f"sweep, sweep backward, pose gradient) {n}, expected {RECORD_PER_PAIR}")
+                rows.append(dict(ms=ms, **stages))
+                log(f"cli record-pose: pair {pair}: {ms:.1f} ms (both directions; flow "
+                    f"{stages['flow']:.1f}, pose {stages['pose']:.1f} ms device); launches {n}")
+            return result
+        return counted
+
+    with tempfile.TemporaryDirectory() as tmp:
+        root = f"{tmp}/kitti_vo"
+        t0 = time.perf_counter()
+        write_kitti_vo_tree(root, seqs=(9, 10), n_frames=VO_TEST_FRAMES, hw=VO_HW,
+                            focal=K_KITTI[0][0])
+        write_kitti_vo_tree(root, seqs=(0,), n_frames=VO_TRAIN_FRAMES, hw=VO_HW,
+                            focal=K_KITTI[0][0])
+        log(f"cli pose: golden VO tree ({2 * VO_TEST_FRAMES} test, {VO_TRAIN_FRAMES} train "
+            f"frames at {VO_HW[0]}x{VO_HW[1]}) rendered in {time.perf_counter() - t0:.2f} s")
+        base = ["--data", root, "--cfg", "kitti", "--dataset", "kitti_vo", "--out",
+                f"{tmp}/out", "--workers", "4"]
+        bench = [f"{k}={v}" for k, v in BENCH_OVERRIDES.items()]
+        argv = base + ["--record-pose", "--override", *bench]
+        log("cli record-pose: cli.main(" + json.dumps(argv).replace(tmp, "<tmp>") + ")")
+        for k in counters:
+            k.launches = 0
+        cli.make_pose_forward = make
+        try:
+            t0 = time.perf_counter()
+            res = cli.main(argv)
+            wall = time.perf_counter() - t0
+        finally:
+            cli.make_pose_forward = real_make
+        out["cli_record_pose"] = _launches(*counters)
+        check(len(rows) == VO_TEST_FRAMES * 2 - 1, f"cli record-pose: {len(rows)} timed pairs")
+        check(POSE_KEYS <= set(res) and all(math.isfinite(res[k]) for k in POSE_KEYS),
+              f"cli record-pose: result {res}")
+        odo = res.get("odometry", {})
+        check(sorted(odo) == [9, 10] and all(ODOMETRY_KEYS <= set(r) for r in odo.values())
+              and all(math.isfinite(r["ate_rmse"]) for r in odo.values()),
+              f"cli record-pose: odometry {odo}")
+        check(len(links) == 2 * (VO_TEST_FRAMES - 1) and all(n == LINK_PER_PAIR for n in links),
+              f"cli record-pose: odometry links launched {links}")
+        mean = {k: sum(r[k] for r in rows) / len(rows) for k in rows[0]}
+        log(f"cli record-pose: mean over {len(rows)} pairs after the warm-up: {mean['ms']:.2f} "
+            f"ms/pair (both directions, {1e3 / mean['ms']:.3f} pairs/s); device flow "
+            f"{mean['flow']:.2f}, pose {mean['pose']:.2f} ms; cli.main {wall:.2f} s (odometry "
+            f"included); errors {json.dumps({k: res[k] for k in sorted(POSE_KEYS)})}")
+        for seq, r in odo.items():
+            log(f"cli record-pose: odometry seq {seq:02d}: " + json.dumps(
+                {k: r[k] for k in ("ate_rmse", "rpe_trans", "rpe_rot_deg", "t_err_pct",
+                                   "r_err_deg_per_100m", "frames_scored")})
+                + " (t_err, r_err: NaN where the path is shorter than KITTI's shortest "
+                  "segment, 100 m)")
+        log("cli record-pose rows: " + json.dumps(rows))
+
+        argv = base + ["--save-pose", "--override", *bench]
+        t0 = time.perf_counter()
+        written = cli.main(argv)
+        log(f"cli save-pose: cli.main {time.perf_counter() - t0:.2f} s, sequences {written}")
+        for seq, n in ((0, VO_TRAIN_FRAMES), (9, VO_TEST_FRAMES), (10, VO_TEST_FRAMES)):
+            for d in ("fw", "bw"):
+                path = f"{root}/pred_poses/{seq:02d}_{d}.npy"
+                check(os.path.exists(path), f"cli save-pose: {path} missing")
+                arr = np.load(path)
+                check(arr.shape == (n, 3, 4) and np.isfinite(arr).all()
+                      and (np.abs(arr).max(axis=(1, 2)) > 0).all(),
+                      f"cli save-pose: {path} {arr.shape}, or a frame without a pose")
+        saved_bw = np.load(f"{root}/pred_poses/00_bw.npy")
+
+        real_step, steps = Trainer.train_step, []
+
+        def counted_step(trainer, batch, *args, **kw):
+            before = _launches(*counters)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            metrics = real_step(trainer, batch, *args, **kw)
+            torch.cuda.synchronize()
+            ms = 1e3 * (time.perf_counter() - t0)
+            n = tuple(a - b for a, b in zip(_launches(*counters), before))
+            loss = float(metrics["loss"])
+            pred = batch["pred_pose"].float().cpu().numpy()
+            check(math.isfinite(loss), f"cli pred-pose train: loss {loss}")
+            check(n == PRED_POSE_PER_STEP, f"cli pred-pose train: step launched {n}, expected "
+                  f"{PRED_POSE_PER_STEP}")
+            check(all(np.isclose(pred[b], saved_bw, atol=0).all(axis=(1, 2)).any()
+                      for b in range(len(pred))),
+                  "cli pred-pose train: a batch pose is none of the saved ones")
+            if not steps:
+                for k in counters:
+                    k.launches = 0
+            steps.append(ms)
+            log(f"cli pred-pose train: step {len(steps) - 1}{' (warm-up)' if len(steps) == 1 else ''}"
+                f": {ms:.1f} ms, loss {loss:.4f}, launches {n}")
+            return metrics
+
+        argv = base + ["-b", str(TRAIN_B), "--epochs", "1", "--override",
+                       f"data.train_size={TRAIN_HW}", "pred_pose_online=False", *bench]
+        log("cli pred-pose train: cli.main(" + json.dumps(argv).replace(tmp, "<tmp>") + ")")
+        Trainer.train_step = counted_step
+        try:
+            history = cli.main(argv)
+        finally:
+            Trainer.train_step = real_step
+        check(len(steps) == 3, f"cli pred-pose train: {len(steps)} steps, expected 3")
+        check(len(history) == 1 and math.isfinite(history[0]["train_loss"]),
+              f"cli pred-pose train: {history}")
+        out["cli_pred_pose_train"] = _launches(*counters)
+        log(f"cli pred-pose train: {len(steps) - 1} steps after the warm-up, "
+            f"{sum(steps[1:]) / (len(steps) - 1):.2f} ms/step; launches after the warm-up, "
+            f"validation included: {out['cli_pred_pose_train']}")
+    return out
+
+
+POSE_GRAD_REPLACES = "deep_sfm_revisited_tpu/models/psnet.py:253"
+# the pose gradient: per (b, d, y, x) the point, divide and taps (14); per
+# valid sample the float64 chain to dp and the plane sums (16) and, per
+# channel, the four tap differences, their weights, the two sums and the
+# two products with dvol and their accumulation (14). An invalid sample
+# reads no dvol and adds nothing.
+POSE_GRAD_FLOPS_PER_SAMPLE, POSE_GRAD_FLOPS_PER_VALID, POSE_GRAD_FLOPS_PER_CHANNEL = 14, 16, 14
+
+
+def phase_pose_grad(cap_pose, sweep_warp, camera):
+    """The sweep pose-gradient kernel against its plain version on the
+    inputs slice 7's POSENET step gave it (the volume's bf16 gradient at
+    b = 4, 64x192, 128 planes, and the target features), in bf16 and
+    float32, and on a pose that puts the near planes behind the camera, one
+    that pushes most samples out of the frame and one with every plane
+    behind it (exactly zero).
+
+    Tolerance: the kernel sums the per-sample float32 terms in float64 in a
+    fixed order, the plain version in torch's: |kernel - plain| <= 1e-5
+    max|plain|. dM and dK t are bit-identical across two launches."""
+    dvol, tgt, depths, M, Kt = cap_pose[0]
+    B_, D_, H_, W_, C2 = dvol.shape
+    C_ = C2 // 2
+    behind, outward, none = Kt.clone(), Kt.clone(), Kt.clone()
+    behind[:, 2] = -depths[D_ // 2]
+    outward[:, 0] += 2 * W_ * depths[D_ // 4]
+    none[:, 2] = -1e4
+    variants = {"main path": Kt, "behind the camera": behind, "out of frame": outward,
+                "no valid sample": none}
+    max_err = 0.0
+    for what, kt in variants.items():
+        x, y = camera.sweep_pixel_coords(depths, M, kt, H_, W_)
+        invalid = float(((x < 0) | (x > W_ - 1) | (y < 0) | (y > H_ - 1)).float().mean())
+        for dtype in (torch.bfloat16, torch.float32):
+            dv, tg = dvol.to(dtype), tgt.to(dtype)
+            first = sweep_warp.plane_sweep_volume_pose_grad_cuda(dv, tg, depths, M, kt)
+            second = sweep_warp.plane_sweep_volume_pose_grad_cuda(dv, tg, depths, M, kt)
+            plain = camera.plane_sweep_volume_pose_grad_plain(dv, tg, depths, M, kt)
+            name = f"sweep pose gradient {what} {str(dtype)[6:]}"
+            for got, again, want in zip(first, second, plain):
+                check(torch.equal(got, again), f"{name}: differs between two launches")
+                err = float((got - want).abs().max())
+                scale = float(want.abs().max())
+                if what == "no valid sample":
+                    check(scale == 0 and float(got.abs().max()) == 0, f"{name}: not zero")
+                    continue
+                max_err = max(max_err, err)
+                check(scale > 0 and err <= 1e-5 * scale, f"{name}: max |kernel - plain| "
+                      f"{err} against max |plain| {scale}")
+            del dv, tg
+        log(f"sweep pose gradient {what}: kernel within 1e-5 of plain in bf16 and float32, "
+            f"bit-identical across launches; invalid samples {100 * invalid:.2f}%")
+
+    dM, dKt = sweep_warp.plane_sweep_volume_pose_grad_cuda(dvol, tgt, depths, M, Kt)
+
+    def run():
+        sweep_warp.plane_sweep_volume_pose_grad_cuda(dvol, tgt, depths, M, Kt)
+
+    ms = cuda_ms(run, reps=10)
+    dev_ms = device_ms(run, "plane_sweep_pose_grad", reps=10)
+    plain_ms = cuda_ms(lambda: camera.plane_sweep_volume_pose_grad_plain(dvol, tgt, depths, M,
+                                                                          Kt),
+                       reps=2, warmup=1)
+    x, y = camera.sweep_pixel_coords(depths, M, Kt, H_, W_)
+    valid = int(((x >= 0) & (x <= W_ - 1) & (y >= 0) & (y <= H_ - 1)).sum())
+    grid = torch.stack([x / (W_ - 1) * 2 - 1, y / (H_ - 1) * 2 - 1], dim=-1)
+    grid = grid.reshape(B_, D_ * H_, W_, 2).to(dvol.dtype)
+    tgt_nchw = tgt.permute(0, 3, 1, 2).contiguous()
+    gout = dvol[..., C_:].permute(0, 4, 1, 2, 3).reshape(B_, C_, D_ * H_, W_).contiguous()
+
+    def yardstick():
+        torch.ops.aten.grid_sampler_2d_backward(gout, tgt_nchw, grid, 0, 0, True,
+                                                [False, True])
+
+    lib_ms = cuda_ms(yardstick, reps=10)
+    lib_dev = sum(v[0] for v in device_profile(yardstick, reps=10).values()) or None
+    del grid, gout, tgt_nchw, x, y
+    # the least work of any implementation: dvol's tgt half read only where
+    # the sample is valid (validity follows from M, K t and the depths
+    # alone), the other inputs read once, dM and dK t written once
+    samples = B_ * D_ * H_ * W_
+    nbytes = valid * C_ * dvol.element_size() + sum(
+        t.numel() * t.element_size() for t in (tgt, depths, M, Kt, dM, dKt))
+    flops = (samples * POSE_GRAD_FLOPS_PER_SAMPLE
+             + valid * (POSE_GRAD_FLOPS_PER_VALID + POSE_GRAD_FLOPS_PER_CHANNEL * C_))
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / F32_FLOPS * 1e3
+    bound = max(t_bytes, t_ops)
+    call = dict(name="plane_sweep_volume_pose_grad", dvol=list(dvol.shape),
+                dtype=str(dvol.dtype).replace("torch.", ""), ms=ms, device_ms=dev_ms,
+                plain_ms=plain_ms, library_ms=lib_ms, library_device_ms=lib_dev,
+                bound_ms=bound, bound_by="bytes" if t_bytes >= t_ops else "operations",
+                bound_share=None if dev_ms is None else bound / dev_ms, bytes=nbytes,
+                flops=flops, valid_share=valid / samples)
+    fmt = lambda v: "not measured" if v is None else f"{v:.4f} ms"   # noqa: E731
+    share = "not measured" if dev_ms is None else f"{100 * bound / dev_ms:.1f}%"
+    log(f"sweep pose gradient kernel: dvol {tuple(dvol.shape)} {call['dtype']}: device "
+        f"{fmt(dev_ms)}, events {ms:.4f} ms, plain {plain_ms:.4f} ms; yardstick "
+        f"grid_sampler_2d_backward (the grid's gradient alone): events {lib_ms:.4f} ms, device "
+        f"{fmt(lib_dev)}; bound {bound:.4f} ms ({call['bound_by']}, {nbytes / 1e6:.1f} MB, "
+        f"{flops / 1e9:.2f} GFLOP, valid samples {100 * valid / samples:.2f}%), share of bound "
+        f"{share}")
+    return call, max_err
 
 
 def main(argv=None) -> int:
@@ -1425,44 +1881,74 @@ def main(argv=None) -> int:
         sweep_call, sweep_err = phase_sweep(cap_sweep + cap_sweep_pwc, sweep_warp, camera)
         calls2, err2 = phase_b2(cap2, local_corr, correlation)
     phase_small_train_reference(dev)
-    (b1_train, sweep_train, bwd_train), cap_bwd = phase_cli_train(dev, sweep_warp)
+    phase_small_train_reference(dev, posenet=True)
+    (b1_train, sweep_train, bwd_train, pg_train), cap_bwd, _ = phase_cli_train(dev, sweep_warp)
+    check(pg_train == 0, f"cli train: the RANSAC step launched the pose gradient {pg_train} times")
     if args.save_sweep_inputs:
         _, depths, M, Kt = cap_bwd[0]
         torch.save({"depths": depths.cpu(), "M": M.cpu(), "Kt": Kt.cpu(),
                     "dvol_shape": list(cap_bwd[0][0].shape)}, args.save_sweep_inputs)
     with torch.no_grad():
         bwd_call, bwd_err = phase_sweep_backward(cap_bwd, sweep_warp, camera)
+    del cap_bwd
+    pose_paths = phase_cli_pose(dev, sweep_warp)
+    posenet_launches, _, cap_pose = phase_cli_train(dev, sweep_warp, posenet=True)
+    pose_paths["cli_posenet_train"] = posenet_launches
+    with torch.no_grad():
+        pg_call, pg_err = phase_pose_grad(cap_pose, sweep_warp, camera)
+    del cap_pose
+    by_path = {k: dict(zip(("gather", "sweep", "backward", "pose_grad"), v))
+               for k, v in pose_paths.items()}
 
     # per frame pair: slice 1's four flow warps head the gather's row;
     # slice 2's pair makes its own four
     b1 = {"name": "bilinear_sample", "route": "cuda", "source": B1_SOURCE,
-          "replaces": B1_REPLACES, "launches": b1_dicl + b1_pwc + b1_train,
+          "replaces": B1_REPLACES,
+          "launches": b1_dicl + b1_pwc + b1_train + sum(v["gather"] for v in by_path.values()),
           "launches_by_path": {"dicl_main_path": b1_dicl, "pwc_cli_eval": b1_pwc,
-                               "cli_train": b1_train},
+                               "cli_train": b1_train,
+                               **{k: v["gather"] for k, v in by_path.items()}},
           "max_abs_err": max(err1, pwc_err1), **_pair_sums(calls1),
           "pwc_pair": _pair_sums(pwc_calls1), **gather_extras, "calls": calls1 + pwc_calls1}
     # one launch per pair on either slice; no single PyTorch call builds the
     # volume, so there is no library time (the composition it replaced is
     # timed beside it)
     sweep = {"name": "plane_sweep_volume", "route": "cuda", "source": B1_SOURCE,
-             "replaces": B1_REPLACES, "launches": sweep_dicl + sweep_pwc + sweep_train,
+             "replaces": B1_REPLACES,
+             "launches": sweep_dicl + sweep_pwc + sweep_train
+             + sum(v["sweep"] for v in by_path.values()),
              "launches_by_path": {"dicl_main_path": sweep_dicl, "pwc_cli_eval": sweep_pwc,
-                                  "cli_train": sweep_train},
+                                  "cli_train": sweep_train,
+                                  **{k: v["sweep"] for k, v in by_path.items()}},
              "max_abs_err": sweep_err,
              **{k: v for k, v in sweep_call.items() if k != "name"}}
     b2 = {"name": "local_correlation", "route": "cuda", "source": B2_SOURCE,
           "replaces": B2_REPLACES, "launches": b2_pwc,
-          "launches_by_path": {"pwc_cli_eval": b2_pwc}, "max_abs_err": err2,
+          "launches_by_path": {"pwc_cli_eval": b2_pwc, **{k: 0 for k in by_path}},
+          "max_abs_err": err2,
           # per frame pair: PWC-DC's five levels; no single PyTorch call
           # computes a windowed correlation, so there is no library time
           **_pair_sums(calls2), "calls": calls2}
     # one launch per training step; it replaces the gradient XLA derives for
     # the JAX cost volume (the TPU had no kernel of its own for it)
     bwd = {"name": "plane_sweep_volume_backward", "route": "cuda", "source": B1_SOURCE,
-           "replaces": BWD_REPLACES, "launches": bwd_train,
-           "launches_by_path": {"cli_train": bwd_train}, "max_abs_err": bwd_err,
-           **{k: v for k, v in bwd_call.items() if k != "name"}}
-    for k in (b1, sweep, b2, bwd):
+           "replaces": BWD_REPLACES,
+           "launches": bwd_train + sum(v["backward"] for v in by_path.values()),
+           "launches_by_path": {"cli_train": bwd_train,
+                                **{k: v["backward"] for k, v in by_path.items()}},
+           "max_abs_err": bwd_err, **{k: v for k, v in bwd_call.items() if k != "name"}}
+    # one launch per POSENET training step, none on the RANSAC step (its pose
+    # is stop-gradient); it replaces the gradient XLA derives for the JAX cost
+    # volume with respect to the pose
+    pg = {"name": "plane_sweep_volume_pose_grad", "route": "cuda", "source": B1_SOURCE,
+          "replaces": POSE_GRAD_REPLACES,
+          "launches": pg_train + sum(v["pose_grad"] for v in by_path.values()),
+          "launches_by_path": {"cli_train": pg_train,
+                               **{k: v["pose_grad"] for k, v in by_path.items()}},
+          "max_abs_err": pg_err, **{k: v for k, v in pg_call.items() if k != "name"}}
+    check(pg["launches_by_path"]["cli_posenet_train"] > 0 and b1["launches_by_path"][
+        "cli_record_pose"] > 0, "the pose paths launched no pose gradient or no gather")
+    for k in (b1, sweep, b2, bwd, pg):
         lib = "none" if k["library_ms"] is None else f"{k['library_ms']:.4f} ms"
         dev = "not measured" if k["device_ms"] is None else f"{k['device_ms']:.4f} ms"
         log(f"{k['name']} per pair or step: kernel {k['ms']:.4f} ms (device {dev}), plain "
@@ -1470,7 +1956,7 @@ def main(argv=None) -> int:
             f"bound {k['bound_ms']:.4f} ms ({k['bound_by']}), library {lib}, "
             f"launches {k['launches']}")
     log(f"chip_smoke: all phases passed in {time.perf_counter() - t_start:.1f} s")
-    log(json.dumps({"kernels": [b1, sweep, b2, bwd]}))
+    log(json.dumps({"kernels": [b1, sweep, b2, bwd, pg]}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",
                                            "kind": torch.cuda.get_device_name(0),
                                            "count": torch.cuda.device_count()}}))

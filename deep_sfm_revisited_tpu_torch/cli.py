@@ -8,22 +8,33 @@ The JAX CLI's flags (the reference's `main.py:66-115` surface plus
 - without `-v`: training, the recipe's frozen-flow depth step (`train/
   loop.py::fit`): the KITTI train split with the recipe's augmentation,
   `train.epochs` epochs, a validation and a checkpoint after each, resumed
-  from `--start-epoch` with `--pretrained`.
+  from `--start-epoch` with `--pretrained`;
+- `--record-pose`: the pose errors of the test split in both directions
+  (`train/pose_eval.py::record_pose_errors`) and, with `--dataset
+  kitti_vo`, the odometry report of each test sequence (ATE, RPE, the KITTI
+  segment errors);
+- `--save-pose`: the predicted poses of both splits, written into the
+  dataset tree where the loaders read them back for training with
+  `--override pred_pose_online=False`.
 
 Weights are random from `train.seed`, or restored: `--pretrained` (the
 port's checkpoint: model, optimizer and step in training, the model alone
 with `-v`), `--pretrained-flow` / `--pretrained-depth` (one network of a
 port checkpoint) and `--pretrained-torch` (a reference-named state dict:
 what the weight tables cover is loaded, the counts of missing and unused
-keys are printed, as the JAX CLI does). `--train-flow`, `--record-pose`
-and `--save-pose` are accepted and raise NotImplementedError.
+keys are printed, as the JAX CLI does; the pose net is left untouched, as
+the JAX CLI's converter call leaves it). `--train-flow` is accepted and
+raises NotImplementedError.
 
     python -m deep_sfm_revisited_tpu_torch.cli --data /path/KITTI --cfg kitti -v \\
         [--override flow.estimator=PWC] [--pretrained-torch kitti.pth.tar]
     python -m deep_sfm_revisited_tpu_torch.cli --data /path/KITTI --cfg kitti -b 4 \\
         --gt-depth-dir /path/gt_depth [--epochs 12] [--pretrained out/kitti/ckpt --start-epoch 3]
+    python -m deep_sfm_revisited_tpu_torch.cli --data /path/KITTI_odometry --cfg kitti \\
+        --dataset kitti_vo --record-pose [--override pose.estimator=POSENET]
+    python -m deep_sfm_revisited_tpu_torch.cli --data /path/KITTI --cfg kitti --save-pose
 
-Both run on the GPU; `main(argv, device="cpu")` asks for the CPU (the tests
+All run on the GPU; `main(argv, device="cpu")` asks for the CPU (the tests
 do). Without a GPU and without that argument it raises.
 """
 
@@ -110,11 +121,8 @@ def config_from_args(args):
 
 
 def _check_ported(args) -> None:
-    unported = [("--train-flow", args.train_flow), ("--record-pose", args.record_pose),
-                ("--save-pose", args.save_pose)]
-    for flag, given in unported:
-        if given:
-            raise NotImplementedError(f"{flag} is not ported yet")
+    if args.train_flow:
+        raise NotImplementedError("--train-flow is not ported yet")
 
 
 def build_val_loader(cfg, args):
@@ -205,9 +213,77 @@ def load_pretrained_torch(path: str, model, cfg) -> dict:
     return report
 
 
+def make_pose_forward(model, diag: bool = False):
+    """The early-return pose forward (JAX `make_pose_forward`, `cli.py:223-
+    249`) of `model`, an SFMNet built with `record_pose=True` (in bf16
+    autocast where `train.mixed_prec` is set, as `main` builds it):
+    (ref, target, K, generator) -> pose (B, 3, 4), or with `diag` (pose,
+    num_matches), num_matches None on routes without a confidence. Inputs
+    move to the model's device; eval mode, no gradient."""
+    if not model.cfg.record_pose:
+        raise ValueError("make_pose_forward wants a model built with record_pose=True")
+    dev = model.device
+
+    def fwd(ref, target, K, generator):
+        model.eval()
+        with torch.no_grad():
+            out = model(ref.to(dev), target.to(dev), K.to(dev), generator=generator)
+        return (out["pose"], out.get("num_matches")) if diag else out["pose"]
+
+    return fwd
+
+
+def _pose_tools(args, cfg, dev, model):
+    """The `--record-pose` / `--save-pose` branches (JAX `_eval_tools`,
+    `cli.py:397-478`). The port is one process, so no barrier."""
+    from deep_sfm_revisited_tpu_torch.data import (Compose, KittiRawDataset, KittiVODataset,
+                                                   Normalize)
+    from deep_sfm_revisited_tpu_torch.train import pose_eval
+
+    def generator():
+        return torch.Generator(device=dev).manual_seed(0)
+
+    tf = Compose([Normalize()])
+    if args.record_pose:
+        results = pose_eval.record_pose_errors(build_val_loader(cfg, args),
+                                               make_pose_forward(model, diag=True), generator(),
+                                               min_matches=cfg.pose.min_matches)
+        print({k: round(v, 6) for k, v in results.items()})
+        if cfg.data.dataset == "kitti_vo":
+            ds = KittiVODataset(args.data, train=False, skip=cfg.data.skip, transform=tf)
+            odo = pose_eval.evaluate_vo_odometry(ds, make_pose_forward(model), generator(),
+                                                 pad_multiple=cfg.data.pad_multiple)
+            for seq, rep in odo.items():
+                print(f"seq {seq:02d}: ATE {rep['ate_rmse']:.3f} m  "
+                      f"t_err {rep['t_err_pct']:.2f} %  "
+                      f"r_err {rep['r_err_deg_per_100m']:.4f} deg/100m")
+            results["odometry"] = odo
+        return results
+
+    # --save-pose: deterministic datasets over both splits, for
+    # pred_pose_online=False training (save_pose, main.py:636-703)
+    fwd = make_pose_forward(model)
+    written = []
+    for train_split in (True, False):
+        if cfg.data.dataset == "kitti_vo":
+            ds = KittiVODataset(args.data, train=train_split, skip=cfg.data.skip, transform=tf)
+            written.extend(pose_eval.save_vo_pred_poses(ds, fwd, args.data, generator(),
+                                                        pad_multiple=cfg.data.pad_multiple))
+        else:
+            ds = KittiRawDataset(args.data, train=train_split, gt_depth_dir=args.gt_depth_dir,
+                                 transform=tf, random_offset=False, random_fw_bw=False)
+            written.extend(pose_eval.save_raw_pred_poses(ds, fwd, args.data, generator(),
+                                                         pad_multiple=cfg.data.pad_multiple))
+    print(f"saved predicted poses for {len(written)} entries")
+    return written
+
+
 def main(argv=None, device: str | torch.device = "cuda"):
     """Run the CLI. `-v` returns the mean Eigen metrics {name: float};
-    training returns `fit`'s record of each epoch it ran."""
+    training returns `fit`'s record of each epoch it ran; `--record-pose`
+    the pose errors {name: float} (with `odometry`: {seq: report} on
+    kitti_vo); `--save-pose` what it wrote (file paths on the raw split,
+    sequence numbers on VO)."""
     from deep_sfm_revisited_tpu_torch.config import save_config
     from deep_sfm_revisited_tpu_torch.models.sfmnet import SFMNet
     from deep_sfm_revisited_tpu_torch.train.evaluate import validate
@@ -218,7 +294,7 @@ def main(argv=None, device: str | torch.device = "cuda"):
     cfg = config_from_args(args)
     dev = resolve_device(device)
 
-    if not args.validate:
+    if not (args.validate or args.record_pose or args.save_pose):
         from deep_sfm_revisited_tpu_torch.train.loop import fit
 
         return fit(cfg, build_train_loader(cfg, args), build_val_loader(cfg, args),
@@ -229,8 +305,13 @@ def main(argv=None, device: str | torch.device = "cuda"):
     out = os.path.join(args.out, cfg.tag)
     os.makedirs(out, exist_ok=True)
     save_config(cfg, os.path.join(out, "config.yaml"))
-    loader = build_val_loader(cfg, args)
     dtype = torch.bfloat16 if cfg.train.mixed_prec else torch.float32
+    if args.record_pose or args.save_pose:
+        model = SFMNet(cfg.override(record_pose=True), dtype=dtype, device=dev,
+                       seed=cfg.train.seed)
+        apply_pretrained(args, model)
+        return _pose_tools(args, cfg, dev, model)
+    loader = build_val_loader(cfg, args)
     model = SFMNet(cfg, dtype=dtype, device=dev, seed=cfg.train.seed)
     apply_pretrained(args, model)
     mlog = MetricLogger(out, "test")

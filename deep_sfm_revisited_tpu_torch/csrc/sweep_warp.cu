@@ -1,5 +1,6 @@
 // Kernel B1: bilinear gather for DICL's and PWC-DC's flow warps, and the
-// fused plane-sweep cost volume of PSNet, written for Hopper (sm_90a).
+// fused plane-sweep cost volume of PSNet with its two gradients, written for
+// Hopper (sm_90a).
 //
 // Replaces deep_sfm_revisited_tpu/ops/pallas/sweep_warp.py::
 // bilinear_sample_pallas (the Pallas TPU kernel; its semantics are
@@ -12,7 +13,7 @@
 // PyTorch versions of the port (ops/camera.py::bilinear_sample_plain and
 // ops/camera.py::plane_sweep_volume_plain).
 //
-// Three entry points share that rule (`Taps`, `SweepRay` and `blend` below):
+// Four entry points share that rule (`Taps`, `SweepRay` and `blend` below):
 //
 // dsfm_bilinear_sample -- the generic gather at given coordinates, used by
 // the flow warps. One thread per (query, 16-byte channel chunk), so
@@ -83,6 +84,33 @@
 // (ATOMS.CAST.SPIN in the SASS), one per weighted tap channel. Summing a
 // run of planes on the same taps in registers first cost more in registers
 // than it saved in atomics (b1_compare.py, PERF.md).
+//
+// dsfm_plane_sweep_volume_pose_grad -- the volume's gradient with respect
+// to M and K t (the pose), for training PoseNet through PSNet's cost volume
+// (pose.estimator = POSENET). It replaces the gradient XLA derives for the
+// JAX package's cost volume with respect to the pose (deep_sfm_revisited_tpu/
+// models/psnet.py:253-260; no Pallas kernel computed it), and follows
+// jax.vjp of that volume: per valid sample, g_x = sum_c dvol_c d(blend)/dx
+// from the four tgt taps' differences and g_y likewise, halved where the
+// coordinate lies exactly on the frame's first or last row or column (the
+// gradient of JAX's clip there), with a +1 tap beyond the frame read as zero
+// (JAX's pad); then dp = (g_x / z, g_y / z, -(g_x x + g_y y) / z),
+// dM_ij += dp_i d [u, v, 1]_j and dKt_i += dp_i. Taps, weights and validity
+// come from `SweepRay`, so they are the forward's own; a sample the forward
+// zeroed adds nothing. Plain version: ops/camera.py::
+// plane_sweep_volume_pose_grad_plain.
+// What bounds it: device-memory bytes. At the training shape it must read
+// dvol's warped half, 4 x 128 x 64 x 192 x 32 bf16 = 402.7 MB (0.120 ms at
+// 3.35 TB/s), for about 1.6 GFLOP; the 3.1 MB tgt map stays in L2. So a
+// thread owns one 16-byte chunk of a pixel's warped half and walks the
+// planes with streaming loads (the forward's mapping: a pixel's chunks are
+// neighbouring threads); a pixel's lanes sum g_x, g_y with a butterfly of
+// shuffles, and its first lane sums the six plane sums in float64 registers.
+// The reduction runs in a fixed order, without atomics, so dM and dK t are
+// the same bits from launch to launch: each block (a tile of one row of one
+// batch item) sums its pixels' twelve terms in shared memory, in pixel
+// order, into one partial of 12 doubles; a second kernel sums each batch
+// item's partials, in a fixed tree, into dM and dK t.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -634,6 +662,169 @@ cudaError_t launch_sweep_backward(const void* dvol, const float* depths, const f
   return cudaGetLastError();
 }
 
+
+// ---------------------------------------------------------------------------
+// The plane sweep's pose gradient.
+
+constexpr int kPoseThreads = 256;     // threads of a block of the first pass
+constexpr int kPoseReduceThreads = 256;
+constexpr int kPoseTerms = 12;        // dM (row-major 3 x 3), then dKt (3)
+
+// The pixels of one tile: a block serves ppt = 256 / tpp pixels of one row
+// of one batch item, tpp = C / kVec threads a pixel (a power of two up to 32,
+// so a pixel's lanes lie in one warp). block = (b H + y) tiles + tile.
+template <typename T>
+__global__ void __launch_bounds__(kPoseThreads)
+plane_sweep_pose_grad_kernel(const void* __restrict__ dvol, const void* __restrict__ tgt,
+                             const float* __restrict__ depths, const float* __restrict__ M,
+                             const float* __restrict__ Kt, double* __restrict__ partial,
+                             int D, int H, int W, int C, int tiles) {
+  constexpr int kVec = T::kVec, kBytes = 16 / kVec;
+  __shared__ double terms[kPoseThreads][kPoseTerms];   // one row a pixel
+  const int tpp = C / kVec;
+  const int ppt = kPoseThreads / tpp;
+  const int pix = threadIdx.x / tpp, lane = threadIdx.x - pix * tpp;
+  const int c0 = lane * kVec;
+  int r = blockIdx.x;
+  const int tile = r % tiles; r /= tiles;
+  const int y = r % H;
+  const int b = r / H;
+  const int x = tile * ppt + pix;
+  const bool in = x < W;           // lanes past the row's end still shuffle
+  const int xc = in ? x : W - 1;
+  const float wm1 = (float)(W - 1), hm1 = (float)(H - 1);
+
+  const SweepRay ray(M, Kt, b, xc, y);
+  const char* img = reinterpret_cast<const char*>(tgt) + (int64_t)b * H * W * C * kBytes;
+  const int64_t plane_bytes = (int64_t)H * W * 2 * C * kBytes;
+  const char* g = reinterpret_cast<const char*>(dvol)
+                  + ((((int64_t)b * D * H + y) * W + xc) * 2 * C + C + c0) * kBytes;
+  double s[3] = {0.0, 0.0, 0.0}, t[3] = {0.0, 0.0, 0.0};   // sum_d dp_i d, sum_d dp_i
+
+#pragma unroll 2
+  for (int d = 0; d < D; ++d, g += plane_bytes) {
+    const float dep = __ldg(depths + d);
+    float p[3];
+    ray.point(dep, p);
+    const bool behind = p[2] <= 1e-3f;
+    const float z = fmaxf(p[2], 1e-3f);
+    const float xs = behind ? (float)(2 * W) : __fdiv_rn(p[0], z);
+    const float ys = behind ? (float)(2 * H) : __fdiv_rn(p[1], z);
+    const Taps tp(xs, ys, H, W);
+    const bool valid = in && tp.valid != 0.f;
+    float gx = 0.f, gy = 0.f;
+    if (valid) {
+      float gv[kVec], v00[kVec], v01[kVec], v10[kVec], v11[kVec];
+      T::unpack16(__ldcs(reinterpret_cast<const uint4*>(g)), gv);
+      const bool x1 = tp.xi + 1 < W, y1 = tp.yi + 1 < H;   // else JAX's zero pad
+      T::load16(img + (tp.i00 * C + c0) * kBytes, v00);
+#pragma unroll
+      for (int k = 0; k < kVec; ++k) v01[k] = v10[k] = v11[k] = 0.f;
+      if (x1) T::load16(img + (tp.i01 * C + c0) * kBytes, v01);
+      if (y1) T::load16(img + (tp.i10 * C + c0) * kBytes, v10);
+      if (x1 && y1) T::load16(img + (tp.i11 * C + c0) * kBytes, v11);
+#pragma unroll
+      for (int k = 0; k < kVec; ++k) {
+        const float dx = __fadd_rn(__fmul_rn(__fsub_rn(v01[k], v00[k]), tp.ay),
+                                   __fmul_rn(__fsub_rn(v11[k], v10[k]), tp.wy));
+        const float dy = __fadd_rn(__fmul_rn(__fsub_rn(v10[k], v00[k]), tp.ax),
+                                   __fmul_rn(__fsub_rn(v11[k], v01[k]), tp.wx));
+        gx = __fadd_rn(gx, __fmul_rn(gv[k], dx));
+        gy = __fadd_rn(gy, __fmul_rn(gv[k], dy));
+      }
+    }
+    // the pixel's sum over its channel chunks, the same tree on every lane
+    for (int o = tpp >> 1; o > 0; o >>= 1) {
+      gx += __shfl_xor_sync(0xffffffffu, gx, o);
+      gy += __shfl_xor_sync(0xffffffffu, gy, o);
+    }
+    if (valid && lane == 0) {
+      const double GX = (double)gx * ((xs == 0.f || xs == wm1) ? 0.5 : 1.0);
+      const double GY = (double)gy * ((ys == 0.f || ys == hm1) ? 0.5 : 1.0);
+      const double zd = (double)z;
+      const double dp[3] = {GX / zd, GY / zd, -(GX * (double)xs + GY * (double)ys) / zd};
+#pragma unroll
+      for (int i = 0; i < 3; ++i) {
+        s[i] += dp[i] * (double)dep;
+        t[i] += dp[i];
+      }
+    }
+  }
+  if (lane == 0) {
+    const double u = in ? (double)x : 0.0, v = (double)y;
+    double* row = terms[pix];
+#pragma unroll
+    for (int i = 0; i < 3; ++i) {
+      row[3 * i] = s[i] * u;
+      row[3 * i + 1] = s[i] * v;
+      row[3 * i + 2] = s[i];
+      row[9 + i] = t[i];
+    }
+  }
+  __syncthreads();
+  if (threadIdx.x < kPoseTerms) {    // the block's partial, in pixel order
+    double acc = 0.0;
+    for (int q = 0; q < ppt; ++q) acc += terms[q][threadIdx.x];
+    partial[(int64_t)blockIdx.x * kPoseTerms + threadIdx.x] = acc;
+  }
+}
+
+// One block a batch item: thread k sums partials k, k + 256, ... of the
+// item's `per_b` blocks in order, then a fixed tree in shared memory.
+__global__ void __launch_bounds__(kPoseReduceThreads)
+plane_sweep_pose_grad_reduce(const double* __restrict__ partial, float* __restrict__ dM,
+                             float* __restrict__ dKt, int per_b) {
+  __shared__ double sum[kPoseReduceThreads][kPoseTerms];
+  const int b = blockIdx.x;
+  double acc[kPoseTerms];
+#pragma unroll
+  for (int j = 0; j < kPoseTerms; ++j) acc[j] = 0.0;
+  for (int k = threadIdx.x; k < per_b; k += kPoseReduceThreads) {
+    const double* p = partial + ((int64_t)b * per_b + k) * kPoseTerms;
+#pragma unroll
+    for (int j = 0; j < kPoseTerms; ++j) acc[j] += p[j];
+  }
+#pragma unroll
+  for (int j = 0; j < kPoseTerms; ++j) sum[threadIdx.x][j] = acc[j];
+  __syncthreads();
+  for (int half = kPoseReduceThreads / 2; half > 0; half >>= 1) {
+    if (threadIdx.x < half) {
+#pragma unroll
+      for (int j = 0; j < kPoseTerms; ++j) sum[threadIdx.x][j] += sum[threadIdx.x + half][j];
+    }
+    __syncthreads();
+  }
+  if (threadIdx.x < 9) dM[9 * b + threadIdx.x] = (float)sum[0][threadIdx.x];
+  else if (threadIdx.x < kPoseTerms) dKt[3 * b + threadIdx.x - 9] = (float)sum[0][threadIdx.x];
+}
+
+// The first pass's block count (the partials' rows), or -1 where the
+// channel chunks of a pixel are not a power of two up to 32.
+__host__ inline int64_t pose_grad_blocks(int B, int H, int W, int C, int kvec, int* tiles) {
+  const int tpp = C / kvec;
+  if (C % kvec != 0 || tpp < 1 || tpp > 32 || (tpp & (tpp - 1)) != 0) return -1;
+  const int ppt = kPoseThreads / tpp;
+  *tiles = (W + ppt - 1) / ppt;
+  return (int64_t)B * H * *tiles;
+}
+
+template <typename T>
+cudaError_t launch_pose_grad(const void* dvol, const void* tgt, const float* depths,
+                             const float* M, const float* Kt, double* partial, float* dM,
+                             float* dKt, int B, int D, int H, int W, int C,
+                             cudaStream_t stream) {
+  int tiles = 0;
+  const int64_t blocks = pose_grad_blocks(B, H, W, C, T::kVec, &tiles);
+  if (blocks <= 0 || blocks > 0x7fffffffLL) return cudaErrorInvalidConfiguration;
+  plane_sweep_pose_grad_kernel<T><<<(unsigned)blocks, kPoseThreads, 0, stream>>>(
+      dvol, tgt, depths, M, Kt, partial, D, H, W, C, tiles);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  plane_sweep_pose_grad_reduce<<<B, kPoseReduceThreads, 0, stream>>>(
+      partial, dM, dKt, (int)(blocks / B));
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16. vector: 1 when C * itemsize is a
@@ -708,4 +899,37 @@ extern "C" int dsfm_plane_sweep_volume_backward(const void* dvol, const void* de
                                                 int dtype, void* stream) {
   return dsfm_plane_sweep_volume_backward_probe(dvol, depths, M, Kt, dref, dtgt, B, D, H, W, C,
                                                 dtype, 0, 0, 0, 0, nullptr, stream);
+}
+
+// The rows of the pose gradient's partials (12 doubles each) for B, H, W, C
+// of `dtype`, or -1 where the kernel does not take C.
+extern "C" long long dsfm_plane_sweep_volume_pose_grad_blocks(int B, int H, int W, int C,
+                                                              int dtype) {
+  int tiles = 0;
+  if (dtype != 0 && dtype != 1) return -1;
+  return pose_grad_blocks(B, H, W, C, dtype == 0 ? F32::kVec : BF16::kVec, &tiles);
+}
+
+// The sweep's pose gradient: given dvol (B, D, H, W, 2C) and tgt (B, H, W, C)
+// of `dtype`, depths (D,), M (B, 3, 3), Kt (B, 3) float32, and the partials
+// (blocks x 12 doubles, from dsfm_plane_sweep_volume_pose_grad_blocks),
+// writes dM (B, 3, 3) and dKt (B, 3) float32. The same alignment rules as
+// the forward; C * itemsize / 16 a power of two up to 32.
+extern "C" int dsfm_plane_sweep_volume_pose_grad(const void* dvol, const void* tgt,
+                                                 const void* depths, const void* M,
+                                                 const void* Kt, void* partial, void* dM,
+                                                 void* dKt, int B, int D, int H, int W, int C,
+                                                 int dtype, void* stream) {
+  cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
+  const float* dp = reinterpret_cast<const float*>(depths);
+  const float* mp = reinterpret_cast<const float*>(M);
+  const float* kp = reinterpret_cast<const float*>(Kt);
+  double* part = reinterpret_cast<double*>(partial);
+  float* om = reinterpret_cast<float*>(dM);
+  float* ok = reinterpret_cast<float*>(dKt);
+  if (dtype == 0)
+    return launch_pose_grad<F32>(dvol, tgt, dp, mp, kp, part, om, ok, B, D, H, W, C, s);
+  if (dtype == 1)
+    return launch_pose_grad<BF16>(dvol, tgt, dp, mp, kp, part, om, ok, B, D, H, W, C, s);
+  return (int)cudaErrorInvalidValue;
 }

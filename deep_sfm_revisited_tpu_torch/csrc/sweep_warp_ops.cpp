@@ -1,4 +1,4 @@
-// Kernel B1's three entry points as PyTorch operators (namespace `dsfm`).
+// Kernel B1's entry points as PyTorch operators (namespace `dsfm`).
 //
 // The gather's kernel takes ~2 us on the card, so the host path around its
 // launch sets its pace: a Python wrapper that allocates the output and
@@ -35,6 +35,11 @@ int dsfm_plane_sweep_volume_backward_probe(const void* dvol, const void* depths,
                                            int D, int H, int W, int C, int dtype, int tile_h,
                                            int tile_w, int planes, int smem_bytes, void* stats,
                                            void* stream);
+long long dsfm_plane_sweep_volume_pose_grad_blocks(int B, int H, int W, int C, int dtype);
+int dsfm_plane_sweep_volume_pose_grad(const void* dvol, const void* tgt, const void* depths,
+                                      const void* M, const void* Kt, void* partial, void* dM,
+                                      void* dKt, int B, int D, int H, int W, int C, int dtype,
+                                      void* stream);
 }
 
 namespace {
@@ -195,6 +200,39 @@ std::tuple<at::Tensor, at::Tensor, at::Tensor> plane_sweep_volume_backward_probe
   return backward_launch(dvol, depths, M, Kt, tile_h, tile_w, planes, smem_bytes, true);
 }
 
+// dvol (B, D, H, W, 2C), tgt (B, H, W, C) of one dtype; depths, M, Kt as the
+// forward took them -> (dM (B, 3, 3), dKt (B, 3)) float32. The partials are
+// scratch, 12 doubles a block of the first pass.
+std::tuple<at::Tensor, at::Tensor> plane_sweep_volume_pose_grad(const at::Tensor& dvol,
+                                                                const at::Tensor& tgt,
+                                                                const at::Tensor& depths,
+                                                                const at::Tensor& M,
+                                                                const at::Tensor& Kt) {
+  TORCH_CHECK_VALUE(dvol.dim() == 5 && tgt.dim() == 4 && depths.dim() == 1 &&
+                        dvol.size(0) == tgt.size(0) && dvol.size(1) == depths.size(0) &&
+                        dvol.size(2) == tgt.size(1) && dvol.size(3) == tgt.size(2) &&
+                        dvol.size(4) == 2 * tgt.size(3),
+                    "sweep pose gradient dvol ", dvol.sizes(), ", tgt ", tgt.sizes(),
+                    ", depths ", depths.sizes());
+  const int64_t B = tgt.size(0), D = depths.size(0), H = tgt.size(1), W = tgt.size(2);
+  const int64_t C = tgt.size(3);
+  const int code = check_sweep_args("sweep pose gradient", {dvol, tgt}, depths, M, Kt, B, C);
+  c10::OptionalDeviceGuard guard(dvol.device());
+  at::Tensor dM = at::zeros({B, 3, 3}, M.options());
+  at::Tensor dKt = at::zeros({B, 3}, Kt.options());
+  if (dvol.numel() == 0) return {dM, dKt};
+  const long long blocks = dsfm_plane_sweep_volume_pose_grad_blocks(B, H, W, C, code);
+  TORCH_CHECK_VALUE(blocks > 0, "sweep pose gradient takes C * itemsize / 16 a power of two "
+                    "up to 32, got C = ", C, " of ", dvol.scalar_type());
+  at::Tensor partial = at::empty({blocks, 12}, dvol.options().dtype(at::kDouble));
+  check_launch(dsfm_plane_sweep_volume_pose_grad(
+                   dvol.data_ptr(), tgt.data_ptr(), depths.data_ptr(), M.data_ptr(),
+                   Kt.data_ptr(), partial.data_ptr(), dM.data_ptr(), dKt.data_ptr(), B, D, H,
+                   W, C, code, current_stream(dvol.device())),
+               "sweep pose gradient kernel");
+  return {dM, dKt};
+}
+
 }  // namespace
 
 TORCH_LIBRARY(dsfm, m) {
@@ -204,6 +242,8 @@ TORCH_LIBRARY(dsfm, m) {
         "(Tensor, Tensor)");
   m.def("plane_sweep_volume_backward_probe(Tensor dvol, Tensor depths, Tensor M, Tensor Kt, "
         "int tile_h, int tile_w, int planes, int smem_bytes) -> (Tensor, Tensor, Tensor)");
+  m.def("plane_sweep_volume_pose_grad(Tensor dvol, Tensor tgt, Tensor depths, Tensor M, "
+        "Tensor Kt) -> (Tensor, Tensor)");
 }
 
 // Registered for every dispatch key: a CPU tensor reaches the checks, which
@@ -213,4 +253,5 @@ TORCH_LIBRARY_IMPL(dsfm, CompositeExplicitAutograd, m) {
   m.impl("plane_sweep_volume", &plane_sweep_volume);
   m.impl("plane_sweep_volume_backward", &plane_sweep_volume_backward);
   m.impl("plane_sweep_volume_backward_probe", &plane_sweep_volume_backward_probe);
+  m.impl("plane_sweep_volume_pose_grad", &plane_sweep_volume_pose_grad);
 }

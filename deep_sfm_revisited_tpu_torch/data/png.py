@@ -1,7 +1,9 @@
-"""PNG decoder on zlib + numpy (no image library).
+"""PNG decoder, size probe and uint16 writer on zlib + numpy (no image library).
 
 The port reads KITTI's frames (8-bit RGB) and its depth maps (16-bit gray,
-depth * 256) with this module: the JAX package's readers go through a C++
+depth * 256) with this module, probes a frame's size from its header
+(`probe_png`, for the VO depth exporter) and writes 16-bit gray depth maps
+(`write_png_u16`): the JAX package's readers and writers go through a C++
 libpng library or imageio, neither of which the port may assume.
 
 Decodes non-interlaced PNGs of bit depth 8 (gray, gray + alpha, RGB, RGBA)
@@ -79,6 +81,41 @@ def _unfilter(raw: bytes, h: int, stride: int, bpp: int) -> np.ndarray:
             raise ValueError(f"PNG filter type {kind}")
         prior = out[y]
     return out
+
+
+def probe_png(data: bytes):
+    """(h, w, channels, bit_depth) from a PNG stream's IHDR without
+    decoding it, or None when the stream does not start with one."""
+    if data[:8] != _SIGNATURE or data[12:16] != b"IHDR" or len(data) < 26:
+        return None
+    w, h, depth, color = struct.unpack_from(">IIBB", data, 16)
+    if color not in _CHANNELS:
+        return None
+    return h, w, _CHANNELS[color], depth
+
+
+def encode_png_u16(img: np.ndarray) -> bytes:
+    """(h, w) uint16 -> a 16-bit gray PNG stream: one zlib-compressed IDAT
+    of filter-type-0 scanlines, samples big-endian as the format stores
+    them."""
+    if img.dtype != np.uint16 or img.ndim != 2:
+        raise TypeError(f"encode_png_u16 wants a 2-D uint16 array, got {img.dtype} {img.shape}")
+    arr = np.ascontiguousarray(img).astype(">u2")
+    h, w = arr.shape
+    raw = b"".join(b"\x00" + arr[y].tobytes() for y in range(h))
+
+    def chunk(kind: bytes, body: bytes) -> bytes:
+        return (struct.pack(">I", len(body)) + kind + body
+                + struct.pack(">I", zlib.crc32(kind + body) & 0xFFFFFFFF))
+
+    ihdr = struct.pack(">IIBBBBB", w, h, 16, 0, 0, 0, 0)
+    return (_SIGNATURE + chunk(b"IHDR", ihdr) + chunk(b"IDAT", zlib.compress(raw))
+            + chunk(b"IEND", b""))
+
+
+def write_png_u16(path: str, img: np.ndarray) -> None:
+    with open(path, "wb") as f:
+        f.write(encode_png_u16(img))
 
 
 def decode_png(data: bytes) -> np.ndarray:

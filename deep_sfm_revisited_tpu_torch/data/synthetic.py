@@ -186,21 +186,9 @@ def _write_png_u8(path: str, img01: np.ndarray) -> None:
 
 def _write_png_u16(path: str, depth: np.ndarray) -> None:
     """KITTI depth PNG convention: uint16, value = depth * 256."""
-    import struct
-    import zlib
+    from deep_sfm_revisited_tpu_torch.data.png import write_png_u16
 
-    arr = np.clip(depth * 256.0, 0, 65535).astype(">u2")  # big-endian
-    h, w = arr.shape
-    raw = b"".join(b"\x00" + arr[y].tobytes() for y in range(h))
-
-    def chunk(typ: bytes, data: bytes) -> bytes:
-        return (struct.pack(">I", len(data)) + typ + data
-                + struct.pack(">I", zlib.crc32(typ + data) & 0xFFFFFFFF))
-
-    ihdr = struct.pack(">IIBBBBB", w, h, 16, 0, 0, 0, 0)  # 16-bit gray
-    with open(path, "wb") as f:
-        f.write(b"\x89PNG\r\n\x1a\n" + chunk(b"IHDR", ihdr)
-                + chunk(b"IDAT", zlib.compress(raw)) + chunk(b"IEND", b""))
+    write_png_u16(path, np.clip(depth * 256.0, 0, 65535).astype(np.uint16))
 
 
 def write_kitti_vo_tree(

@@ -1,10 +1,13 @@
 """Velodyne LiDAR -> camera-2 depth-map projection.
 
-The PyTorch port's copy of the eval-side part of
-`deep_sfm_revisited_tpu/data/velodyne.py` (the port imports nothing of the
-JAX package): scan reading, calibration and the closest-depth projection,
-in numpy only (no C++ library). The offline VO-sequence exporter
-(`lidar_to_depth.py`) is not ported.
+The PyTorch port's copy of `deep_sfm_revisited_tpu/data/velodyne.py` (the
+port imports nothing of the JAX package): scan reading, calibration, the
+closest-depth projection, and the offline VO-sequence exporter
+(`lidar_to_depth.py`), in numpy only (no C++ library, no imageio: the
+frame's size comes from its PNG header and the depth maps are written by
+`data/png.py`). Run the exporter as
+
+    python -m deep_sfm_revisited_tpu_torch.data.velodyne --root /path/KITTI_odometry [--seqs 00 01]
 
 Rebuild of `kitti_utils.py` (`load_velodyne_points` `:7`,
 `read_calib_file` `:25` via utils, `generate_depth_map` `:44`) and the
@@ -97,3 +100,97 @@ def generate_depth_map(calib_dir: str, velo_path: str, shape: Tuple[int, int]):
     """
     P, R, T = velo_to_cam_transform(calib_dir)
     return project_depth(load_velodyne_points(velo_path), P, R, T, shape)
+
+
+# ---------------------------------------------------------------------
+# Offline VO-sequence exporter (≙ `lidar_to_depth.py:14-52`): project
+# every velodyne scan of an odometry sequence into a uint16/256 PNG
+# under RealDepth/<seq>/velodyne/, the tree KittiVODataset consumes.
+# The reference exporter's conventions differ from generate_depth_map's
+# and are reproduced exactly: P2 @ Tr from the sequence calib.txt,
+# valid mask u,v > 0 & round(u,v) < (W,H) & 0 < z < 1000, pixel index
+# round() WITHOUT the -1 shift, last-point-wins (no closest-depth
+# de-dup), clamp-to-zero outside uint16 range (lidar_to_depth.py:30-46).
+
+
+def odometry_calib(calib_path: str) -> Tuple[np.ndarray, np.ndarray]:
+    """(P2 (3,4), Tr (4,4)) from an odometry sequences/<seq>/calib.txt."""
+    calib = read_calib_file(calib_path)
+    P2 = calib["P2"].reshape(3, 4)
+    Tr = np.eye(4)
+    Tr[:3] = calib["Tr"].reshape(3, 4)
+    return P2, Tr
+
+
+def export_depth_png(points: np.ndarray, M: np.ndarray,
+                     shape: Tuple[int, int]) -> np.ndarray:
+    """One scan -> uint16 depth*256 image, reference-exporter semantics
+    (lidar_to_depth.py:33-46)."""
+    h, w = shape
+    res = M @ points.T  # (3, N)
+    z = res[2]
+    u = res[0] / z
+    v = res[1] / z
+    valid = ((u > 0) & (np.round(u) < w) & (v > 0) & (np.round(v) < h)
+             & (z > 0) & (z < 1000))
+    ui = np.round(u[valid]).astype(np.uint32)
+    vi = np.round(v[valid]).astype(np.uint32)
+    depth = np.zeros((h, w), np.float64)
+    depth[vi, ui] = z[valid]  # last point wins, as the reference
+    d16 = depth * 256.0
+    d16[(d16 < 0) | (d16 > 65535)] = 0
+    return d16.astype(np.uint16)
+
+
+def export_sequence(root: str, seq: str, out_subdir: str = "RealDepth",
+                    verbose: bool = False) -> int:
+    """Export every scan of sequences/<seq>/velodyne/*.bin. The image size
+    comes from the matching image_2 frame's PNG header; a scan without a
+    frame is skipped. Returns the number of files written."""
+    import glob
+
+    from deep_sfm_revisited_tpu_torch.data.png import probe_png, write_png_u16
+
+    P2, Tr = odometry_calib(os.path.join(root, "sequences", seq, "calib.txt"))
+    M = P2 @ Tr
+    bins = sorted(glob.glob(os.path.join(root, "sequences", seq, "velodyne", "*.bin")))
+    n = 0
+    for b in bins:
+        frame = os.path.splitext(os.path.basename(b))[0]
+        img = os.path.join(root, "sequences", seq, "image_2", frame + ".png")
+        if not os.path.exists(img):
+            continue  # no camera frame -> no depth target size
+        with open(img, "rb") as f:
+            meta = probe_png(f.read(64))
+        if meta is None:
+            raise ValueError(f"{img}: not a PNG with an IHDR of a known colour type")
+        d16 = export_depth_png(load_velodyne_points(b), M, meta[:2])
+        out = os.path.join(root, out_subdir, seq, "velodyne", frame + ".png")
+        os.makedirs(os.path.dirname(out), exist_ok=True)
+        write_png_u16(out, d16)
+        n += 1
+        if verbose and n % 100 == 0:
+            print(f"seq {seq}: {n}/{len(bins)}", flush=True)
+    return n
+
+
+def _main(argv=None):
+    import argparse
+
+    p = argparse.ArgumentParser(
+        description="Export KITTI-VO velodyne scans to RealDepth/ PNGs "
+                    "(offline, ≙ lidar_to_depth.py)")
+    p.add_argument("--root", required=True, help="KITTI odometry root")
+    p.add_argument("--seqs", nargs="*", default=[f"{i:02d}" for i in range(11)])
+    p.add_argument("--out-subdir", default="RealDepth")
+    args = p.parse_args(argv)
+    total = 0
+    for seq in args.seqs:
+        n = export_sequence(args.root, seq, args.out_subdir, verbose=True)
+        print(f"seq {seq}: wrote {n} depth maps", flush=True)
+        total += n
+    print(f"done: {total} files", flush=True)
+
+
+if __name__ == "__main__":
+    _main()

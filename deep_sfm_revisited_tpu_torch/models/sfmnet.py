@@ -4,21 +4,26 @@ DICL flow with entropy confidence, or PWC-DC flow (no confidence, so the
 sampler takes its uniform path) -> correspondence sampling -> five-point
 RANSAC in float64 -> PSNet plane-sweep depth. Like
 `SFMNet(cfg, dtype=jnp.bfloat16)` of the JAX package, `dtype=torch.bfloat16`
-runs flow and depth under `torch.autocast(..., torch.bfloat16)`; the pose
-runs outside autocast in float64 (the reference's `autocast(enabled=False)`
-+ `.double()` region, `models/SFMnet.py:265-270`).
+runs flow, PoseNet and depth under `torch.autocast(..., torch.bfloat16)`;
+RANSAC runs outside autocast in float64 (the reference's
+`autocast(enabled=False)` + `.double()` region, `models/SFMnet.py:265-270`).
 
-Routes: online RANSAC with the entropy or uniform sampler, `use_gt_pose`,
-and pre-saved poses (`pred_pose_online=False`). Everything else the JAX
-composite offers raises NotImplementedError (ROADMAP.md lists what is
-still to port).
+Routes: online RANSAC with the entropy, texture (Shi-Tomasi score of the
+ref image) or uniform sampler; PoseNet regression (`pose.estimator=
+"POSENET"`, `PlainPose` fed the flow and DICL's entropy, its `rt` output
+returned for the pose loss); `use_gt_pose`; and pre-saved poses
+(`pred_pose_online=False`). Everything else the JAX composite offers raises
+NotImplementedError (ROADMAP.md lists what is still to port).
 
 Train mode (`model.train()`, JAX `train=True`, `sfmnet.py:163-170`) is the
 recipe's frozen-flow step: the flow net runs in train mode (BN batch
 statistics, its running statistics updated) without gradient, returns its
 per-level stack `flow_all` and `flow = flow_all[-1]`; RANSAC runs without
-gradient (JAX's stop_gradient); PSNet runs in train mode with autograd on.
-Training the flow net (`train.fix_flownet=False`) raises.
+gradient (JAX's stop_gradient); PoseNet and PSNet run in train mode with
+autograd on, and PoseNet's pose reaches PSNet's cost volume with its
+gradient (the plane sweep's pose gradient, `ops/camera.py::
+PlaneSweepVolumeFn`). Training the flow net (`train.fix_flownet=False`)
+raises.
 """
 
 from __future__ import annotations
@@ -31,10 +36,13 @@ from torch import nn
 
 from deep_sfm_revisited_tpu_torch.config import SfMConfig
 from deep_sfm_revisited_tpu_torch.models.dicl import DICLFlow, SmoothCost
+from deep_sfm_revisited_tpu_torch.models.posenet import PlainPose
 from deep_sfm_revisited_tpu_torch.models.psnet import PSNet
 from deep_sfm_revisited_tpu_torch.models.pwcnet import PWCDCNet
 from deep_sfm_revisited_tpu_torch.ops.essential import ransac_pose
-from deep_sfm_revisited_tpu_torch.ops.flow_ops import sample_correspondences
+from deep_sfm_revisited_tpu_torch.ops.flow_ops import (sample_correspondences,
+                                                       texture_pseudo_entropy)
+from deep_sfm_revisited_tpu_torch.ops.rotations import rt_to_pose
 from deep_sfm_revisited_tpu_torch.utils.device import resolve_device
 
 
@@ -45,8 +53,8 @@ def _check_supported(cfg: SfMConfig) -> None:
     unsupported = {
         "flow.estimator": cfg.flow.estimator not in FLOW_NETS,
         "depth.estimator": cfg.depth.estimator != "PSNET",
-        "pose.estimator": cfg.pose.estimator != "RANSAC",
-        "pose.sampler": cfg.pose.sampler not in ("entropy", "uniform"),
+        "pose.estimator": cfg.pose.estimator not in ("RANSAC", "POSENET"),
+        "pose.sampler": cfg.pose.sampler not in ("entropy", "texture", "uniform"),
         "pose.differentiable": cfg.pose.differentiable,
     }
     for key, bad in unsupported.items():
@@ -110,6 +118,8 @@ class SFMNet(nn.Module):
         norm_target = cfg.train.norm_target if cfg.train.rescale_depth else 0.0
         self.flow_estimator = FLOW_NETS[cfg.flow.estimator](cfg.flow)
         self.depth_estimator = PSNet(cfg.depth, norm_target=norm_target)
+        if cfg.pose.estimator == "POSENET":
+            self.posenet = PlainPose()
         init_weights(self, torch.Generator().manual_seed(seed))
         self.to(self.device)
         self.eval()
@@ -124,7 +134,8 @@ class SFMNet(nn.Module):
                 draws: Optional[Dict[str, torch.Tensor]] = None):
         """Returns dict(flow, flow_all, pose, rt, depth_init, depth,
         inliers, num_matches), the keys of the JAX composite
-        (`sfmnet.py:213-226`); `pose` is ref->target (B, 3, 4).
+        (`sfmnet.py:213-226`); `pose` is ref->target (B, 3, 4), `rt` PoseNet's
+        raw (B, 6) output on the POSENET route (None elsewhere).
 
         `generator` drives the sampler jitter, the Gumbel draws and the
         RANSAC minimal samples (a fresh generator seeded 0 when None).
@@ -135,10 +146,12 @@ class SFMNet(nn.Module):
         train, grad = self.training, torch.is_grad_enabled()
         if train:
             check_trainable(cfg, use_gt_pose)
+        rt = conf = None
         with torch.no_grad():
             K = K.float()
             K_inv = torch.linalg.inv(K)
             inliers = num_matches = flow_all = None
+            online = not use_gt_pose and cfg.pred_pose_online
             if use_gt_pose:
                 if pose_gt is None:
                     raise ValueError("use_gt_pose needs pose_gt")
@@ -162,18 +175,30 @@ class SFMNet(nn.Module):
                     else:
                         flow, conf = self.flow_estimator(pair)
                 flow = flow.float()
-                conf_s = conf if cfg.pose.sampler == "entropy" else None
-                pose, inliers, num_matches = self._pose_by_ransac(
-                    flow, K_inv, conf_s, generator, draws or {})
-                pose = self._gt_scaled(pose, pose_gt)
+                if cfg.pose.estimator == "RANSAC":
+                    conf_s = None    # the uniform grid
+                    if cfg.pose.sampler == "entropy":
+                        conf_s = conf
+                    elif cfg.pose.sampler == "texture":
+                        conf_s = texture_pseudo_entropy(ref)
+                    pose, inliers, num_matches = self._pose_by_ransac(
+                        flow, K_inv, conf_s, generator, draws or {})
+                    pose = self._gt_scaled(pose, pose_gt)
 
-            if cfg.record_pose or (cfg.record_pose_eval and not train):
-                return {"pose": pose, "flow": flow, "num_matches": num_matches}
+        if online and cfg.pose.estimator == "POSENET":
+            # the flow and its confidence are inputs; PoseNet's pose keeps
+            # its gradient into the depth net (not stop-gradient)
+            with torch.set_grad_enabled(train and grad), self._autocast():
+                rt = self.posenet(flow, ref, target, conf)
+            pose = self._gt_scaled(rt_to_pose(rt), pose_gt)
+
+        if cfg.record_pose or (cfg.record_pose_eval and not train):
+            return {"pose": pose, "flow": flow, "num_matches": num_matches}
 
         with torch.set_grad_enabled(train and grad), self._autocast():
             depth_init, depth = self.depth_estimator(
                 ref, target[:, None], pose[:, None], K, K_inv)
-        return {"flow": flow, "flow_all": flow_all, "pose": pose, "rt": None,
+        return {"flow": flow, "flow_all": flow_all, "pose": pose, "rt": rt,
                 "depth_init": depth_init, "depth": depth, "inliers": inliers,
                 "num_matches": num_matches}
 

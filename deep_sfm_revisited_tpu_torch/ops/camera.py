@@ -7,11 +7,13 @@ Layouts as in the JAX package: images/features (B, H, W, C), flow
 Two ops here have hand-written kernels, both in kernel B1's source
 (`csrc/sweep_warp.cu`, wrapper `ops/cuda/sweep_warp.py`): `bilinear_sample`
 (the generic gather) and `plane_sweep_volume` (PSNet's fused cost volume,
-whose gradient with respect to the features, `PlaneSweepVolumeFn`, is a
-third kernel of the same source). On CUDA tensors each launches its kernel;
-on CPU tensors each runs its plain PyTorch version (`bilinear_sample_plain`,
-`plane_sweep_volume_plain`, `plane_sweep_volume_backward_plain`). There is
-no fallback from one to the other.
+whose gradients, `PlaneSweepVolumeFn`, are two more kernels of the same
+source: with respect to the features, and with respect to M = K R K^-1 and
+K t, the pose). On CUDA tensors each launches its kernel; on CPU tensors
+each runs its plain PyTorch version (`bilinear_sample_plain`,
+`plane_sweep_volume_plain`, `plane_sweep_volume_backward_plain`,
+`plane_sweep_volume_pose_grad_plain`). There is no fallback from one to the
+other.
 """
 
 from __future__ import annotations
@@ -158,10 +160,9 @@ def sweep_matrices(pose, K, K_inv):
     return M.contiguous(), Kt.contiguous()
 
 
-def sweep_pixel_coords(depths, M, Kt, h: int, w: int):
-    """Target-view pixel (x, y), each (B, D, H, W), of ref pixel (u, v) on the
-    fronto-parallel plane at each depth d: p = (M [u, v, 1]) d + K t, then
-    `_divide` (JAX `plane_sweep_coords`, `camera.py:165-195`).
+def sweep_points(depths, M, Kt, h: int, w: int):
+    """The points p = (M [u, v, 1]) d + K t, (p0, p1, p2) each (B, D, H, W), of
+    every ref pixel (u, v) on the fronto-parallel plane at each depth d.
 
     Written in the sweep kernel's op order, one rounding per op: the ray
     ray_i = (M_i0 u + M_i1 v) + M_i2 once per pixel, p_i = ray_i d + (K t)_i
@@ -176,7 +177,14 @@ def sweep_pixel_coords(depths, M, Kt, h: int, w: int):
         m = M[:, i, :, None, None]                                    # (B, 3, 1, 1)
         ray = (m[:, 0] * u + m[:, 1] * v) + m[:, 2]                   # (B, H, W)
         p.append(ray[:, None] * d + Kt[:, i, None, None, None])      # (B, D, H, W)
-    return _divide(*p, h, w)
+    return p
+
+
+def sweep_pixel_coords(depths, M, Kt, h: int, w: int):
+    """Target-view pixel (x, y), each (B, D, H, W), of ref pixel (u, v) on the
+    fronto-parallel plane at each depth d: `sweep_points`, then `_divide`
+    (JAX `plane_sweep_coords`, `camera.py:165-195`)."""
+    return _divide(*sweep_points(depths, M, Kt, h, w), h, w)
 
 
 def plane_sweep_coords(depths, pose, K, K_inv, h: int, w: int) -> torch.Tensor:
@@ -232,6 +240,70 @@ def plane_sweep_volume_backward_plain(dvol, depths, M, Kt):
                       (yi1, xi, wy * ax), (yi1, xi1, wy * wx)):
         acc.index_add_(0, (base + yy * W + xx).reshape(-1), (gw * w[..., None]).reshape(-1, C))
     return dref.to(dvol.dtype), acc.reshape(B, H, W, C).to(dvol.dtype)
+
+
+def plane_sweep_volume_pose_grad_plain(dvol, tgt, depths, M, Kt):
+    """The sweep pose-gradient kernel's plain PyTorch version: the VJP of
+    `plane_sweep_volume_plain` with respect to M (B, 3, 3) and K t (B, 3),
+    as `jax.vjp` of the JAX package's volume gives it.
+
+    dvol (B, D, H, W, 2C), the volume's gradient (its ref half plays no
+    part); tgt (B, H, W, C), the features the forward warped; depths, M, Kt
+    as the forward took them. Returns (dM, dKt) in M's dtype.
+
+    Per sample, with the forward's point p, z = p2, pixel (x, y) = (p0/z,
+    p1/z) and its taps (`_taps`): g_x = sum_c dvol_c (d blend / d x), from
+    the four taps' differences, and g_y likewise, each times 1/2 where the
+    coordinate lies exactly on the frame's first or last row or column (the
+    JAX gradient of its clip there), with a +1 tap beyond the frame read as
+    zero (the JAX gather's zero pad). Then dp = (g_x / z, g_y / z,
+    -(g_x x + g_y y) / z), dM_ij += dp_i d [u, v, 1]_j and dKt_i += dp_i. A
+    sample the forward zeroed (z <= 1e-3, or out of the frame) adds nothing.
+    Taps, weights and edges come from the float32 coordinates the forward's
+    gather reads. The tap products and the channel sum run in float32 (float64 for float64
+    inputs), everything after them in float64, in the kernel's order of
+    operations; only the order of the sums differs from the kernel's.
+    """
+    B, D, H, W, C2 = dvol.shape
+    C = C2 // 2
+    cdt = torch.promote_types(dvol.dtype, torch.float32)
+    p0, p1, p2 = sweep_points(depths, M, Kt, H, W)
+    x, y = _divide(p0, p1, p2, H, W)
+    z = torch.clamp(p2, min=1e-3)
+    # the gather's float32 coordinates, as the forward reads them
+    x32, y32 = x.reshape(B, -1).float(), y.reshape(B, -1).float()
+    valid, (yi, xi, yi1, xi1), (wx, wy) = _taps(x32, y32, H, W)
+    wx, wy = wx.to(cdt)[..., None], wy.to(cdt)[..., None]
+    ax, ay = 1 - wx, 1 - wy
+    img = tgt.reshape(B, H * W, C).to(cdt)
+    has_x1 = (xi + 1 < W).to(cdt)[..., None]
+    has_y1 = (yi + 1 < H).to(cdt)[..., None]
+
+    def tap(yy, xx):
+        return torch.gather(img, 1, (yy * W + xx)[..., None].expand(-1, -1, C))
+
+    v00 = tap(yi, xi)
+    v01 = tap(yi, xi1) * has_x1
+    v10 = tap(yi1, xi) * has_y1
+    v11 = tap(yi1, xi1) * (has_x1 * has_y1)
+    g = dvol[..., C:].reshape(B, -1, C).to(cdt)
+    gx = torch.sum(g * ((v01 - v00) * ay + (v11 - v10) * wy), dim=-1)
+    gy = torch.sum(g * ((v10 - v00) * ax + (v11 - v01) * wx), dim=-1)
+
+    f64 = torch.float64
+    xs, ys, zs = (t.reshape(B, -1).to(f64) for t in (x, y, z))
+    edge_x = (x32 == 0) | (x32 == W - 1)
+    edge_y = (y32 == 0) | (y32 == H - 1)
+    gx = torch.where(valid, gx.to(f64) * torch.where(edge_x, 0.5, 1.0), 0.0)
+    gy = torch.where(valid, gy.to(f64) * torch.where(edge_y, 0.5, 1.0), 0.0)
+    dp = torch.stack([gx / zs, gy / zs, -(gx * xs + gy * ys) / zs], dim=1)    # (B, 3, N)
+    dev = dvol.device
+    d = depths.to(f64)[:, None, None].expand(D, H, W).reshape(1, 1, -1)
+    u = torch.arange(W, dtype=f64, device=dev).expand(D, H, W).reshape(1, 1, -1)
+    v = torch.arange(H, dtype=f64, device=dev)[:, None].expand(D, H, W).reshape(1, 1, -1)
+    sd = dp * d
+    dM = torch.stack([(sd * u).sum(-1), (sd * v).sum(-1), sd.sum(-1)], dim=-1)  # (B, 3, 3)
+    return dM.to(M.dtype), dp.sum(-1).to(Kt.dtype)
 
 
 def sweep_tap_box_plain(depths, M, Kt, H: int, W: int, tile_h: int, tile_w: int,
@@ -319,35 +391,49 @@ def sweep_backward_counts(depths, M, Kt, H: int, W: int, C: int, tile_h: int, ti
 
 
 class PlaneSweepVolumeFn(torch.autograd.Function):
-    """PSNet's cost volume with its gradient with respect to ref and tgt.
+    """PSNet's cost volume with its gradients with respect to ref, tgt, M
+    and K t.
 
     Forward: the sweep kernel on CUDA tensors, `plane_sweep_volume_plain` on
-    CPU tensors. Backward: the sweep backward kernel on CUDA tensors,
-    `plane_sweep_volume_backward_plain` on CPU tensors. Depths, M and K t get
-    no gradient (the RANSAC pose is stop-gradient, JAX `models/sfmnet.py:
-    297-300`): the function raises if one of them requires grad.
+    CPU tensors. Backward, for what needs a gradient: the features' through
+    the sweep backward kernel (`plane_sweep_volume_backward_plain` on CPU
+    tensors), and the pose's, dM and dK t, through the sweep pose-gradient
+    kernel (`plane_sweep_volume_pose_grad_plain` on CPU tensors), launched
+    only when M or K t requires grad: PoseNet's pose does, the RANSAC pose
+    is stop-gradient (JAX `models/sfmnet.py:297-300`). The plane depths get
+    no gradient: the function raises if they require grad.
     """
 
     @staticmethod
     def forward(ctx, ref, tgt, depths, M, Kt):
-        if any(ctx.needs_input_grad[2:]):
+        if ctx.needs_input_grad[2]:
             raise NotImplementedError("the plane sweep has no gradient with respect to "
-                                      "depths, M or K t (a pose gradient is not ported yet)")
-        ctx.save_for_backward(depths, M, Kt)
+                                      "its plane depths")
+        ctx.save_for_backward(tgt if any(ctx.needs_input_grad[3:]) else None, depths, M, Kt)
         return _sweep_volume(ref, tgt, depths, M, Kt)
 
     @staticmethod
     def backward(ctx, dvol):
-        depths, M, Kt = ctx.saved_tensors
+        tgt, depths, M, Kt = ctx.saved_tensors
+        need_ref, need_tgt, _, need_M, need_Kt = ctx.needs_input_grad
         dvol = dvol.contiguous()
-        if dvol.device.type == "cuda":
-            dref, dtgt = sweep_warp.plane_sweep_volume_backward_cuda(dvol, depths, M, Kt)
-        elif dvol.device.type == "cpu":
-            dref, dtgt = plane_sweep_volume_backward_plain(dvol, depths, M, Kt)
-        else:
-            raise NotImplementedError(f"plane_sweep_volume backward on {dvol.device.type}")
-        need_ref, need_tgt = ctx.needs_input_grad[:2]
-        return (dref if need_ref else None), (dtgt if need_tgt else None), None, None, None
+        dref = dtgt = dM = dKt = None
+        kind = dvol.device.type
+        if kind not in ("cuda", "cpu"):
+            raise NotImplementedError(f"plane_sweep_volume backward on {kind}")
+        if need_ref or need_tgt:
+            if kind == "cuda":
+                dref, dtgt = sweep_warp.plane_sweep_volume_backward_cuda(dvol, depths, M, Kt)
+            else:
+                dref, dtgt = plane_sweep_volume_backward_plain(dvol, depths, M, Kt)
+        if need_M or need_Kt:
+            if kind == "cuda":
+                dM, dKt = sweep_warp.plane_sweep_volume_pose_grad_cuda(
+                    dvol, tgt.contiguous(), depths, M, Kt)
+            else:
+                dM, dKt = plane_sweep_volume_pose_grad_plain(dvol, tgt, depths, M, Kt)
+        return (dref if need_ref else None, dtgt if need_tgt else None, None,
+                dM if need_M else None, dKt if need_Kt else None)
 
 
 def _sweep_volume(ref, tgt, depths, M, Kt) -> torch.Tensor:
@@ -368,7 +454,8 @@ def plane_sweep_volume(ref, tgt, depths, pose, K, K_inv) -> torch.Tensor:
     only the plain version takes). CUDA features go through the sweep
     kernel, CPU features through `plane_sweep_volume_plain`; where autograd
     tracks an input, through `PlaneSweepVolumeFn`, whose backward is the sweep
-    backward kernel (plain on the CPU). The (B, 2C, D, H, W) view
+    backward kernel and, where the pose requires grad, the sweep
+    pose-gradient kernel (plain on the CPU). The (B, 2C, D, H, W) view
     `.permute(0, 4, 1, 2, 3)` has channels-last-3d strides.
     """
     gdt = torch.promote_types(tgt.dtype, torch.float32)

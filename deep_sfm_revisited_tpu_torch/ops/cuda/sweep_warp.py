@@ -3,7 +3,7 @@
 Both replace `deep_sfm_revisited_tpu/ops/pallas/sweep_warp.py::
 bilinear_sample_pallas` (`pallas_call` at `:145`); the JAX package's PSNet
 reaches it through `plane_sweep_warp_pallas` (`:169`). One source,
-`csrc/sweep_warp.cu`, built at first use by `ops/cuda/build.py`, exports three
+`csrc/sweep_warp.cu`, built at first use by `ops/cuda/build.py`, exports four
 kernels; `csrc/sweep_warp_ops.cpp` registers them as the PyTorch operators
 `torch.ops.dsfm.*` (`OPS`), through which each wrapper launches its kernel
 and adds one to its own launch count:
@@ -21,6 +21,13 @@ and adds one to its own launch count:
   `ops/camera.py::PlaneSweepVolumeFn.backward` sends CUDA tensors here. Its
   work mapping (tiles, plane groups, the shared accumulator) is
   `backward_plan`, and its box rule `ops/camera.py::sweep_tap_box_plain`.
+- `plane_sweep_volume_pose_grad_cuda` (`VOLUME_POSE_GRAD.launches`): the
+  volume's gradient with respect to M = K R K^-1 and K t, the pose (two
+  passes, a fixed-order float64 reduction: the same bits every launch).
+  Plain version `ops/camera.py::plane_sweep_volume_pose_grad_plain`;
+  `ops/camera.py::PlaneSweepVolumeFn.backward` sends CUDA tensors here when
+  the pose requires grad. It replaces XLA's gradient of the JAX package's
+  cost volume with respect to the pose (`models/psnet.py:253-260`).
 
 The source's header says what bounds each kernel and how its design answers
 that.
@@ -135,6 +142,28 @@ class PlaneSweepVolumeBackward:
         return dref, dtgt
 
 
+class PlaneSweepVolumePoseGrad:
+    """Launches the sweep's pose-gradient kernel through `OPS`; owns its
+    launch count."""
+
+    def __init__(self):
+        self.launches = 0
+        self._op = None
+
+    def __call__(self, dvol: torch.Tensor, tgt: torch.Tensor, depths: torch.Tensor,
+                 M: torch.Tensor, Kt: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+        """dvol (B, D, H, W, 2C) and tgt (B, H, W, C) of one dtype, f32/bf16;
+        depths (D,), M (B, 3, 3), Kt (B, 3) f32 -> (dM (B, 3, 3), dKt (B, 3))
+        float32."""
+        op = self._op
+        if op is None:
+            _cuda_only("sweep pose gradient", dvol, tgt, depths, M, Kt)
+            op = self._op = OPS.build().plane_sweep_volume_pose_grad.default
+        dM, dKt = op(dvol, tgt, depths, M, Kt)
+        self.launches += 1
+        return dM, dKt
+
+
 def plane_sweep_volume_backward_probe(dvol: torch.Tensor, depths: torch.Tensor,
                                       M: torch.Tensor, Kt: torch.Tensor,
                                       plan: tuple[int, int, int, int] | None = None):
@@ -155,6 +184,7 @@ OPS = TorchOps("sweep_warp_ops.cpp", KERNEL, "dsfm")
 BUILDS = (KERNEL, OPS)      # what chip_smoke.py's setup builds, in parallel with B2
 VOLUME = PlaneSweepVolume()
 VOLUME_BACKWARD = PlaneSweepVolumeBackward()
+VOLUME_POSE_GRAD = PlaneSweepVolumePoseGrad()
 
 
 def bilinear_sample_cuda(img: torch.Tensor, coords: torch.Tensor) -> torch.Tensor:
@@ -173,3 +203,10 @@ def plane_sweep_volume_backward_cuda(dvol: torch.Tensor, depths: torch.Tensor,
     """Launch the sweep's backward kernel on the current stream (see
     `PlaneSweepVolumeBackward.__call__`)."""
     return VOLUME_BACKWARD(dvol, depths, M, Kt)
+
+
+def plane_sweep_volume_pose_grad_cuda(dvol: torch.Tensor, tgt: torch.Tensor,
+                                      depths: torch.Tensor, M: torch.Tensor, Kt: torch.Tensor):
+    """Launch the sweep's pose-gradient kernel on the current stream (see
+    `PlaneSweepVolumePoseGrad.__call__`)."""
+    return VOLUME_POSE_GRAD(dvol, tgt, depths, M, Kt)

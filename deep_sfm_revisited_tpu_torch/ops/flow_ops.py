@@ -4,11 +4,16 @@ The random draws of the JAX sampler (the candidate-grid jitter,
 `flow_ops.py:58`, and the Gumbel uniforms, `:173-175`) are injectable
 tensors here, so a test can hand both sides the same numbers; when not
 given they are drawn from an explicit `torch.Generator`.
+
+`texture_pseudo_entropy` is the image-driven sampling weight of
+`pose.sampler="texture"`: the Shi-Tomasi score in plain torch (the JAX
+function has no Pallas kernel).
 """
 
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 from deep_sfm_revisited_tpu_torch.ops.camera import pixel_grid
 
@@ -20,6 +25,33 @@ def flow2coord(flow: torch.Tensor):
     coord1 = grid[None].expand(b, h, w, 3)
     coord2 = torch.cat([coord1[..., :2] + flow, coord1[..., 2:]], dim=-1)
     return coord1, coord2
+
+
+def texture_pseudo_entropy(image: torch.Tensor, window: int = 5) -> torch.Tensor:
+    """Shi-Tomasi texture score as a pseudo-entropy map (low = textured =
+    trustworthy), the `conf` of `sample_correspondences` (JAX
+    `flow_ops.py:67-103`). image (B, H, W, 3) -> (B, H, W, 1).
+
+    Mean gray, edge-padded central differences, the structure tensor
+    box-filtered over `window` x `window` with zero padding ("SAME"), its
+    smaller eigenvalue normalized by the per-image maximum, as 1 - score.
+    """
+    gray = image.float().mean(dim=-1)[:, None]                    # (B, 1, H, W)
+    gp = F.pad(gray, (1, 1, 1, 1), mode="replicate")
+    ix = 0.5 * (gp[:, :, 1:-1, 2:] - gp[:, :, 1:-1, :-2])
+    iy = 0.5 * (gp[:, :, 2:, 1:-1] - gp[:, :, :-2, 1:-1])
+    k = torch.full((1, 1, window, window), 1.0 / (window * window), device=image.device)
+
+    def box(x):
+        return F.conv2d(x, k, padding=window // 2)
+
+    sxx, sxy, syy = box(ix * ix), box(ix * iy), box(iy * iy)
+    half_tr = 0.5 * (sxx + syy)
+    rad = torch.sqrt(torch.clamp((0.5 * (sxx - syy)) ** 2 + sxy ** 2, min=0.0))
+    lam_min = torch.clamp(half_tr - rad, min=0.0)
+    peak = lam_min.amax(dim=(1, 2, 3), keepdim=True)
+    score = lam_min / torch.clamp(peak, min=1e-12)
+    return (1.0 - score).permute(0, 2, 3, 1)
 
 
 def _grid_shape(h: int, w: int, margin: int, n: int):

@@ -1,9 +1,10 @@
-"""The depth training loss (port of `deep_sfm_revisited_tpu/train/losses.py:24-90`).
+"""The training losses (port of `deep_sfm_revisited_tpu/train/losses.py:24-107`).
 
 The reference's masked smooth-L1 on depth_init and depth (`main.py:350-394`,
 "follow the setting of DPSNet") with the RESCALE_DEPTH scale window, as
 mask-weighted means (the JAX package's form: no boolean indexing, so every
-batch has one shape).
+batch has one shape); and the PoseNet route's MSE pose loss
+(`main.py:396-408`).
 """
 
 from __future__ import annotations
@@ -11,6 +12,8 @@ from __future__ import annotations
 from typing import Dict, Tuple
 
 import torch
+
+from deep_sfm_revisited_tpu_torch.ops.rotations import pose_to_rt
 
 
 def smooth_l1(pred: torch.Tensor, gt: torch.Tensor) -> torch.Tensor:
@@ -68,3 +71,18 @@ def depth_training_loss(
     loss = init_weight * loss_init + loss_out
     return loss, {"depth_init": loss_init, "depth_out": loss_out,
                   "valid_frac": _masked_mean(torch.ones_like(depth_gt), mask)}
+
+
+def pose_regression_loss(rt_pred: torch.Tensor, pose_gt: torch.Tensor,
+                         rot_weight: float = 20.0) -> torch.Tensor:
+    """MSE of PoseNet's (rot3, unit trans3) against the GT pose's Euler
+    angles and unit translation, per dimension over the batch, the rotation
+    dimensions weighted by `rot_weight` (JAX `losses.py:93-107`)."""
+    rt_gt = pose_to_rt(pose_gt)
+    t = rt_gt[:, 3:]
+    t = t / torch.clamp(torch.linalg.vector_norm(t, dim=-1, keepdim=True), min=1e-12)
+    target = torch.cat([rt_gt[:, :3], t], dim=-1)
+    per_dim = torch.mean((rt_pred - target) ** 2, dim=0)            # (6,)
+    weight = torch.tensor([rot_weight] * 3 + [1.0] * 3, dtype=per_dim.dtype,
+                          device=per_dim.device)
+    return torch.mean(per_dim * weight)

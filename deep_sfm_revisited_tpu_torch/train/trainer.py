@@ -2,7 +2,7 @@
 
 The reference's `train_epoch` step (`main.py:295-450`) as the JAX package
 builds it: random photometric noise, SFMNet in train mode, the masked
-smooth-L1 depth loss, Adam with milestone decay (`main.py:212,245`), frozen
+smooth-L1 depth loss (plus the MSE pose loss on the PoseNet route), Adam with milestone decay (`main.py:212,245`), frozen
 subtrees left out of the optimizer (the effect of optax's `set_to_zero`,
 `--fix-flownet` / `--fix-depthnet`, `main.py:222-233`). Mixed precision is
 the model's bf16 autocast; parameters and the optimizer stay float32, and
@@ -21,9 +21,11 @@ import torch
 
 from deep_sfm_revisited_tpu_torch.config import SfMConfig
 from deep_sfm_revisited_tpu_torch.models.sfmnet import check_trainable
-from deep_sfm_revisited_tpu_torch.train.losses import depth_training_loss
+from deep_sfm_revisited_tpu_torch.train.losses import depth_training_loss, pose_regression_loss
 
 # SFMNet's submodule for each subtree name of the JAX package's parameters
+# that can be frozen; PoseNet (`posenet`, JAX `pose_net`) always trains
+# (JAX `trainer.py:80-82`)
 SUBTREES = {"flow_net": "flow_estimator", "depth_net": "depth_estimator"}
 
 
@@ -73,7 +75,8 @@ def loss_and_metrics(model, cfg: SfMConfig, batch: Dict[str, torch.Tensor],
                      generator: Optional[torch.Generator] = None,
                      draws: Optional[Dict[str, torch.Tensor]] = None):
     """One forward of the training objective (JAX `_build_loss_fn`,
-    `trainer.py:193-284`, the depth-loss and degenerate-pair terms) ->
+    `trainer.py:193-284`, the depth-loss, pose-loss and degenerate-pair
+    terms) ->
     (loss, {metric: 0-d tensor}, model outputs)."""
     t, d = cfg.train, cfg.depth
     out = model(batch["ref"], batch["target"], batch["intrinsics"],
@@ -91,6 +94,13 @@ def loss_and_metrics(model, cfg: SfMConfig, batch: Dict[str, torch.Tensor],
         nm = out["num_matches"].float()
         aux = dict(aux, num_matches=torch.mean(nm),
                    uniform_fallback=torch.mean((nm < cfg.pose.min_matches).float()))
+    if out.get("rt") is not None:
+        # PoseNet supervision on its raw output, whenever it predicts the
+        # pose online (main.py:396-408)
+        pl = pose_regression_loss(out["rt"].float(), batch["pose_gt"].float(),
+                                  rot_weight=t.pose_rot_weight)
+        loss = loss + pl
+        aux = dict(aux, pose_loss=pl)
     return loss, aux, out
 
 
@@ -114,7 +124,7 @@ class Trainer:
         """Noise (unless `noise=False`), forward in train mode, backward, one
         Adam update at the schedule's rate for this step. Returns the
         metrics {loss, depth_init, depth_out, valid_frac[, num_matches,
-        uniform_fallback]} as detached 0-d tensors on the device."""
+        uniform_fallback][, pose_loss]} as detached 0-d tensors on the device."""
         self.model.train()
         if noise:
             batch = add_image_noise(batch, generator)

@@ -1,7 +1,7 @@
 """Weight bridge: JAX package variables -> the port's torch state dict.
 
 The port's modules carry the reference's names (`flow_estimator.*`,
-`depth_estimator.*`), so a reference `kitti.pth.tar` loads with a plain
+`depth_estimator.*`, `posenet.*`), so a reference `kitti.pth.tar` loads with a plain
 `load_state_dict`, and the JAX package's own converter
 (`deep_sfm_revisited_tpu/utils/torch_port.py`) maps reference tensors onto
 flax variables through explicit entry tables. This module keeps a COPY of
@@ -186,6 +186,19 @@ def pwc_entries(t: str = "flow_estimator", f: str = "flow_net") -> List[Entry]:
     return e
 
 
+def plainpose_entries(t: str = "posenet", f: str = "pose_net") -> List[Entry]:
+    """`PlainPose` (torch_port.py:633): biased conv + BN + ReLU stacks,
+    `posenet.conv.{i}` (the shared frame encoder), `posenet.pose_agg.{i}`
+    and the 1x1 head `posenet.pose_reg`."""
+    e: List[Entry] = []
+    for i in range(7):
+        e += _convbn2d(f"{t}.conv.{i}", f"{f}/frame_enc/_ConvBNRelu_{i}")
+    for i in range(5):
+        e += _convbn2d(f"{t}.pose_agg.{i}", f"{f}/_ConvBNRelu_{i}")
+    e += [("conv2d", f"{t}.pose_reg", f"{f}/Conv_0")]
+    return e
+
+
 # ---- the reverse transforms ------------------------------------------------
 
 def disp_transpose_perm(s2: int) -> np.ndarray:
@@ -256,10 +269,14 @@ FLOW_ENTRIES = {"DICL": dicl_entries, "PWC": pwc_entries}
 def jax_params_to_torch(variables: Dict[str, Any], context_bn: bool = False,
                         dep_context: bool = True,
                         flow_estimator: str = "DICL") -> Dict[str, torch.Tensor]:
-    """State dict of the port's `SFMNet` (DICL or PWC-DC flow + PSNet) from
+    """State dict of the port's `SFMNet` (DICL or PWC-DC flow + PSNet, and
+    PoseNet where the variables hold a `pose_net`, the POSENET route) from
     the JAX `SFMNet` variables, under the reference's module names."""
-    return convert(variables, FLOW_ENTRIES[flow_estimator]() + psnet_entries(
-        context_bn=context_bn, dep_context=dep_context))
+    entries = FLOW_ENTRIES[flow_estimator]() + psnet_entries(
+        context_bn=context_bn, dep_context=dep_context)
+    if "pose_net" in variables["params"]:
+        entries += plainpose_entries()
+    return convert(variables, entries)
 
 
 def load_reference_checkpoint(path: str) -> Dict[str, torch.Tensor]:
@@ -277,10 +294,13 @@ BN_SUFFIXES = ("weight", "bias", "running_mean", "running_var")
 
 def load_reference_state(model: torch.nn.Module, sd: Dict[str, torch.Tensor],
                          flow: str | None, depth: str | None, context_bn: bool = False,
-                         dep_context: bool = True) -> Dict[str, List[str]]:
+                         dep_context: bool = True,
+                         pose: str | None = None) -> Dict[str, List[str]]:
     """Load into `model` the keys of the reference state dict `sd` that the
-    weight tables of `flow` (a key of FLOW_ENTRIES, or None) and `depth`
-    ("PSNET" or None) cover; a network given as None is left untouched.
+    weight tables of `flow` (a key of FLOW_ENTRIES, or None), `depth`
+    ("PSNET" or None) and `pose` ("POSENET" or None) cover; a network given
+    as None is left untouched (the CLI passes no `pose`, as the JAX CLI's
+    converter call does not, `cli.py:207-213`).
 
     As the JAX package's `convert_reference_checkpoint` (`torch_port.py:
     520-568`): a checkpoint whose flow (depth) keys lack the
@@ -301,6 +321,10 @@ def load_reference_state(model: torch.nn.Module, sd: Dict[str, torch.Tensor],
         prefix = "depth_estimator" if any(k.startswith("depth_estimator.") for k in sd) else ""
         tables.append((psnet_entries(prefix, "depth_net", context_bn=context_bn,
                                      dep_context=dep_context), prefix, "depth_estimator"))
+    if pose is not None:
+        if pose != "POSENET":
+            raise KeyError(f"no weight table for pose estimator {pose}")
+        tables.append((plainpose_entries("posenet", "pose_net"), "posenet", "posenet"))
     load, consumed, missing = {}, [], []
     for entries, prefix, module in tables:
         def take(key, required=True):

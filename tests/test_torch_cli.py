@@ -106,7 +106,7 @@ def test_cli_metrics_equal_the_jax_eval_step(tree, tmp_path):
                                    err_msg=k)
 
 
-@pytest.mark.parametrize("extra", [["--train-flow"], ["--record-pose"], ["--save-pose"]])
+@pytest.mark.parametrize("extra", [["--train-flow"]])
 def test_unported_modes_raise(tree, tmp_path, extra):
     with pytest.raises(NotImplementedError, match="not ported yet"):
         cli.main(_argv(tree, tmp_path, TINY, *extra), device="cpu")

@@ -1,5 +1,5 @@
 """Tests that need an NVIDIA GPU: the port's kernels (B1's gather, plane
-sweep and sweep backward, B2) against their plain versions, and the pose
+sweep, sweep backward and sweep pose gradient, B2) against their plain versions, and the pose
 engine on the card against itself on the CPU.
 
 They skip where no card is present. This file imports no jax, so it also
@@ -216,6 +216,107 @@ def test_sweep_backward_wrapper_refuses_what_the_kernel_does_not_take():
                  (dvol, depths, M, Kt[:, :2])):
         with pytest.raises((ValueError, TypeError)):
             sweep_warp.plane_sweep_volume_backward_cuda(*args)
+
+
+# the sweep's pose gradient: the training shape, the odd shapes whose channel
+# chunks a pixel are a power of two, and the poses of the forward's cases
+POSE_GRAD_CASES = [case for case in BWD_CASES if case[0][-1] != 24]
+
+
+def _pose_grad_close(got, want):
+    """A fixed-order float64 sum of float32 per-sample terms against the
+    plain version's other order: 1e-5 of the largest magnitude (measured at
+    the training shape: 1.6e-7)."""
+    return bool(((got - want).abs() <= 1e-5 * float(want.abs().max()) + 1e-30).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape,pose_kind", POSE_GRAD_CASES)
+def test_sweep_pose_grad_matches_plain_on_card(shape, pose_kind, dtype):
+    """The pose-gradient kernel against its plain version on the card; dM
+    and dK t bit-identical across two launches."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    B, D, H, W, C = shape
+    td = getattr(torch, dtype)
+    _, tgt, depths, M, Kt = _sweep_inputs(shape, pose_kind, td)
+    g = torch.Generator(device="cuda").manual_seed(4)
+    dvol = torch.randn(B, D, H, W, 2 * C, device="cuda", generator=g).to(td)
+    before = sweep_warp.VOLUME_POSE_GRAD.launches
+    dM, dKt = sweep_warp.plane_sweep_volume_pose_grad_cuda(dvol, tgt, depths, M, Kt)
+    dM2, dKt2 = sweep_warp.plane_sweep_volume_pose_grad_cuda(dvol, tgt, depths, M, Kt)
+    torch.cuda.synchronize()
+    assert sweep_warp.VOLUME_POSE_GRAD.launches == before + 2
+    assert dM.shape == (B, 3, 3) and dKt.shape == (B, 3)
+    assert dM.dtype == dKt.dtype == torch.float32
+    assert torch.equal(dM, dM2) and torch.equal(dKt, dKt2)
+    pM, pKt = tcam.plane_sweep_volume_pose_grad_plain(dvol, tgt, depths, M, Kt)
+    assert float(pM.abs().max()) > 0
+    assert _pose_grad_close(dM, pM) and _pose_grad_close(dKt, pKt)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_sweep_pose_grad_without_a_valid_sample_is_zero(dtype):
+    """Every plane behind the camera: exactly zero."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    td = getattr(torch, dtype)
+    _, tgt, depths, M, Kt = _sweep_inputs((2, 16, 24, 40, 32), "behind", td)
+    Kt = Kt.clone()
+    Kt[:, 2] = -1e4
+    dvol = torch.ones(2, 16, 24, 40, 64, device="cuda", dtype=td)
+    dM, dKt = sweep_warp.plane_sweep_volume_pose_grad_cuda(dvol, tgt, depths, M, Kt)
+    torch.cuda.synchronize()
+    assert bool((dM == 0).all()) and bool((dKt == 0).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_sweep_pose_grad_through_autograd_on_card(dtype):
+    """A pose that needs a gradient: one launch of the pose-gradient kernel
+    per backward, the pose's gradient equal to the plain version's chained
+    through `sweep_matrices`; a pose that needs none launches it no time."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    td = getattr(torch, dtype)
+    ref, tgt, depths, _, _ = _sweep_inputs((2, 16, 24, 40, 32), "forward", td, seed=5)
+    f = 718.856 / 4 * 40 / 320
+    K = torch.tensor([[[f, 0, 20.0], [0, f, 12.0], [0, 0, 1]]], device="cuda").expand(2, 3, 3)
+    K_inv = torch.linalg.inv(K)
+    pose = torch.tensor([[[1.0, 0, 0.01, 0.2], [0, 1, 0, 0.05], [-0.01, 0, 1, 0.9]]],
+                        device="cuda").repeat(2, 1, 1).requires_grad_()
+    tgt.requires_grad_()
+    n = sweep_warp.VOLUME_POSE_GRAD.launches
+    vol = tcam.plane_sweep_volume(ref, tgt, depths, pose, K, K_inv)
+    dvol = torch.randn(vol.shape, device="cuda").to(td)
+    gpose, = torch.autograd.grad(vol, (pose,), dvol)
+    torch.cuda.synchronize()
+    assert sweep_warp.VOLUME_POSE_GRAD.launches == n + 1
+    M, Kt = tcam.sweep_matrices(pose.detach(), K, K_inv)
+    pM, pKt = tcam.plane_sweep_volume_pose_grad_plain(dvol, tgt.detach(), depths, M, Kt)
+    want, = torch.autograd.grad(tcam.sweep_matrices(pose, K, K_inv), (pose,), (pM, pKt))
+    assert _pose_grad_close(gpose, want)
+    vol = tcam.plane_sweep_volume(ref, tgt, depths, pose.detach(), K, K_inv)
+    torch.autograd.grad(vol, (tgt,), dvol)
+    torch.cuda.synchronize()
+    assert sweep_warp.VOLUME_POSE_GRAD.launches == n + 1
+
+
+@pytest.mark.cuda
+def test_sweep_pose_grad_wrapper_refuses_what_the_kernel_does_not_take():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    _, tgt, depths, M, Kt = _sweep_inputs((1, 4, 8, 8, 8), "forward", torch.float32)
+    dvol = torch.zeros(1, 4, 8, 8, 16, device="cuda")
+    odd = torch.zeros(1, 8, 8, 24, device="cuda")      # 6 chunks a pixel: no power of two
+    for args in ((dvol.bfloat16(), tgt, depths, M, Kt), (dvol, tgt.cpu(), depths, M, Kt),
+                 (dvol, tgt.transpose(1, 2), depths, M, Kt), (dvol, tgt, depths[:3], M, Kt),
+                 (dvol, tgt, depths, M.double(), Kt), (dvol, tgt, depths, M, Kt[:, :2]),
+                 (torch.zeros(1, 4, 8, 8, 48, device="cuda"), odd, depths, M, Kt)):
+        with pytest.raises((ValueError, TypeError)):
+            sweep_warp.plane_sweep_volume_pose_grad_cuda(*args)
 
 
 # the sweep backward's two paths, forced: the default mapping on a forward

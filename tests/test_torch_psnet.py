@@ -63,15 +63,18 @@ def test_psnet_depth_matches_jax(psnet_pair, which):
 
 
 def test_psnet_raises_outside_the_slice():
-    """D-packing (a TPU layout) is not ported; PSNet trains, but through a
-    pose that carries no gradient only (the pose gradient is POSENET's,
-    not ported yet)."""
+    """D-packing (a TPU layout) is not ported and raises. A pose that needs a
+    gradient no longer does (slice 7, POSENET): PSNet trains through it and
+    the pose gets a finite, nonzero gradient through the plane sweep's pose
+    gradient."""
     with pytest.raises(NotImplementedError):
         tpsnet.PSNet(TConfig.kitti(NLABEL).override(**{"depth.dpack": 4}).depth)
     net = tpsnet.PSNet(TConfig.kitti(NLABEL).depth)  # nn.Module starts in train mode
     ref, tgt, pose, K = (torch.from_numpy(np.concatenate([a, a])) for a in _inputs())
-    with pytest.raises(NotImplementedError, match="pose gradient"):
-        net(ref, tgt, pose.requires_grad_(), K)
+    depth_init, depth = net(ref, tgt, pose.requires_grad_(), K)
+    (depth_init.mean() + depth.mean()).backward()
+    assert pose.grad is not None and bool(torch.isfinite(pose.grad).all())
+    assert float(pose.grad.abs().max()) > 0
 
 
 @pytest.fixture(scope="module")

@@ -193,9 +193,7 @@ def test_pwc_route_is_supported():
 
 
 @pytest.mark.parametrize("over", [{"flow.estimator": "RAFT"}, {"depth.estimator": "PANET"},
-                                  {"pose.estimator": "POSENET"},
-                                  {"pose.differentiable": True},
-                                  {"pose.sampler": "texture"}])
+                                  {"pose.differentiable": True}])
 def test_routes_outside_the_slice_raise(over):
     with pytest.raises(NotImplementedError):
         TSFMNet(TConfig.kitti().override(**over), device="cpu")

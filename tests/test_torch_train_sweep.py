@@ -110,16 +110,24 @@ def test_only_the_needed_gradient_is_returned():
 
 @pytest.mark.parametrize("which", ["pose", "K"])
 def test_sweep_function_raises_on_a_pose_gradient(which):
-    """M = K R K^-1 and K t get no gradient: if they would need one, the
-    autograd function raises instead of returning a wrong zero."""
+    """M = K R K^-1 and K t have a gradient since slice 7 (PoseNet's pose is
+    not stop-gradient): a pose or K that requires grad gets the plain pose
+    gradient chained through `sweep_matrices`, never a silent zero; only the
+    plane depths still make the autograd function raise."""
     t = _torch(_scene((1, 4, 6, 8, 8), "forward"))
     t[which].requires_grad_()
-    with pytest.raises(NotImplementedError, match="pose gradient"):
-        tcam.plane_sweep_volume(t["ref"].requires_grad_(), t["tgt"], t["depths"], t["pose"],
-                                t["K"], t["K_inv"])
-    M, Kt = tcam.sweep_matrices(t["pose"].detach(), t["K"].detach(), t["K_inv"])
-    with pytest.raises(NotImplementedError, match="pose gradient"):
-        tcam.PlaneSweepVolumeFn.apply(t["ref"], t["tgt"], t["depths"], M.requires_grad_(), Kt)
+    vol = tcam.plane_sweep_volume(t["ref"].requires_grad_(), t["tgt"], t["depths"], t["pose"],
+                                  t["K"], t["K_inv"])
+    (got,) = torch.autograd.grad(vol, (t[which],), t["dvol"])
+    M, Kt = tcam.sweep_matrices(t["pose"], t["K"], t["K_inv"])
+    dM, dKt = tcam.plane_sweep_volume_pose_grad_plain(t["dvol"], t["tgt"], t["depths"],
+                                                      M.detach(), Kt.detach())
+    (want,) = torch.autograd.grad((M, Kt), (t[which],), (dM, dKt))
+    assert float(got.abs().max()) > 0
+    torch.testing.assert_close(got, want)
+    with pytest.raises(NotImplementedError, match="plane depths"):
+        tcam.PlaneSweepVolumeFn.apply(t["ref"], t["tgt"], t["depths"].requires_grad_(),
+                                      M.detach(), Kt.detach())
 
 
 def test_no_gradient_no_function():

@@ -89,6 +89,57 @@ def test_bridge_inverts_the_jax_converter(sfm_variables):
         np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
 
 
+@pytest.fixture(scope="module")
+def posenet_variables():
+    over = dict(OVER, **{"pose.estimator": "POSENET"})
+    net = JSFMNet(JConfig.kitti().override(**over))
+    x = jnp.zeros((1, 128, 128, 3), jnp.float32)
+    K = jnp.asarray([[[100.0, 0, 64], [0, 100.0, 64], [0, 0, 1]]], jnp.float32)
+    return over, random_variables(lambda r, t, k: net.init(
+        jax.random.PRNGKey(0), r, t, k, key=jax.random.PRNGKey(1)), x, x, K, seed=6)
+
+
+def test_posenet_state_dict_loads_strictly_and_inverts(posenet_variables):
+    """The POSENET route: every flax leaf (DICL + PSNet + PlainPose) feeds
+    one tensor of the port's state dict, which loads strictly; the JAX
+    package's converter with `pose="POSENET"` rebuilds the variables."""
+    over, variables = posenet_variables
+    sd = weights.jax_params_to_torch(variables)
+    load_strict(TSFMNet(TConfig.kitti().override(**over), device="cpu"), sd)
+    n_bn = sum(k.endswith("num_batches_tracked") for k in sd)
+    assert len(sd) - n_bn == len(jax.tree_util.tree_leaves(variables))
+    assert sum(k.startswith("posenet.") for k in sd) == 12 * 7 + 2   # 12 conv + BN, the head
+    back, report = torch_port.convert_reference_checkpoint(
+        {k: v.numpy() for k, v in sd.items()}, variables, pose="POSENET")
+    assert not report["missing"]
+    for a, b in zip(jax.tree_util.tree_leaves(back), jax.tree_util.tree_leaves(variables)):
+        np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
+
+
+@pytest.mark.parametrize("pose", [None, "POSENET"])
+def test_reference_state_carries_the_pose_net_when_asked(posenet_variables, pose):
+    """`load_reference_state` loads `posenet.*` only with pose="POSENET"
+    (the CLI passes none, as the JAX CLI's converter call); without it the
+    pose net keeps its weights and its keys are reported unused."""
+    over, variables = posenet_variables
+    sd = weights.jax_params_to_torch(variables)
+    net = TSFMNet(TConfig.kitti().override(**over), device="cpu", seed=3)
+    before = {k: v.clone() for k, v in net.posenet.state_dict().items()}
+    report = weights.load_reference_state(net, sd, "DICL", "PSNET", pose=pose)
+    pose_keys = {k for k in sd if k.startswith("posenet.")
+                 and not k.endswith("num_batches_tracked")}
+    unused = {k for k in report["unused"] if not k.endswith("num_batches_tracked")}
+    assert not report["missing"]
+    if pose is None:
+        assert unused == pose_keys
+        assert all(torch.equal(v, before[k]) for k, v in net.posenet.state_dict().items())
+    else:
+        assert not unused and pose_keys <= set(report["consumed"])
+        for k, v in net.posenet.state_dict().items():
+            if not k.endswith("num_batches_tracked"):
+                assert torch.equal(v, sd[f"posenet.{k}"]), k
+
+
 def test_deconv_flip_matches_flax():
     """Flax ConvTranspose(k4, s2, SAME) == torch ConvTranspose2d(k4, s2, p1)
     with the bridge's channel swap and spatial flip."""
@@ -132,7 +183,8 @@ def test_port_imports_no_jax():
         "    importlib.import_module('.'.join((p.__name__,) + parts))\n"
         "import chip_smoke\n"
         "need = ['cli', 'models.pwcnet', 'ops.correlation', 'ops.cuda.local_corr',\n"
-        "        'data.png', 'data.kitti', 'train.evaluate', 'train.metrics']\n"
+        "        'data.png', 'data.kitti', 'train.evaluate', 'train.metrics',\n"
+        "        'models.posenet', 'train.odometry', 'train.pose_eval', 'data.velodyne']\n"
         "missing = [m for m in need if p.__name__ + '.' + m not in sys.modules]\n"
         "assert not missing, missing\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'flax',"
