@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
-"""B1's sweep backward against an earlier source of itself, in turns, on one
-card; and the work mappings of the current source, to check
-`ops/cuda/sweep_warp.py::backward_plan`'s choice.
+"""B1's sweep backward, sweep pose gradient and displacement volume against
+other sources of themselves, in turns, on one card; and the work mappings of
+the current source, to check `ops/cuda/sweep_warp.py::backward_plan`'s
+choice.
 
     git show <commit>:deep_sfm_revisited_tpu_torch/csrc/sweep_warp.cu > local/sweep_warp_old.cu
     python3 chip_smoke.py --save-sweep-inputs local/sweep_inputs.pt   # slice 5's pose
@@ -24,6 +25,19 @@ line, one line per measurement and, as the last line, one JSON object;
 writes the same object to --out. --turns times the mappings it lists by
 CUDA events in turns; with --variant, each beside the same mapping of
 another source that has the current probe entry point.
+
+    python3 b1_compare.py --pose-grad [--pose <saved inputs>] [--sources a.cu,b.cu]
+    python3 b1_compare.py --volume --sources a.cu,b.cu
+
+--pose-grad times the sweep pose gradient at the POSENET step's shape (the
+same dvol, a target map of unit normals, the --pose or synthetic pose) and
+--volume DICL's displacement volume at slice 1's five level shapes and the
+training step's level 2 (bf16 unit normals, flows of a few pixels): the
+current source and each of --sources (earlier or variant sources of
+`sweep_warp.cu` with the same C entry points), each held to the plain
+version (the pose gradient to 1e-5 of its largest value, the volume bit
+for bit), then timed by torch.profiler in turns, in the order given and
+back.
 """
 
 from __future__ import annotations
@@ -226,6 +240,99 @@ def compare(path: Path, dvol, depths, M, Kt, sweep_warp, camera) -> dict:
     return row
 
 
+def volume_kernel(path: Path):
+    """Another source's displacement volume, built beside the current one and
+    called through its plain C entry point with ctypes."""
+    from deep_sfm_revisited_tpu_torch.ops.cuda.build import CudaKernel
+
+    class Volume(CudaKernel):
+        source = str(path.resolve())
+
+        def _bind(self, lib):
+            fn = lib.dsfm_displacement_volume
+            fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+            fn.restype = ctypes.c_int
+
+        def __call__(self, x, y, flow, md):
+            B, C, h, w = x.shape
+            out = torch.empty((B, (2 * md + 1) ** 2, 2 * C, h, w), dtype=x.dtype, device=x.device)
+            err = self.build().dsfm_displacement_volume(
+                x.data_ptr(), y.data_ptr(), None if flow is None else flow.data_ptr(),
+                out.data_ptr(), B, C, h, w, md, {torch.float32: 0, torch.bfloat16: 1}[x.dtype],
+                int(w % 2 == 0), torch.cuda.current_stream().cuda_stream)
+            if err != 0:
+                raise RuntimeError(f"{path}: displacement volume launch failed: cudaError {err}")
+            return out
+
+    return Volume()
+
+
+def in_turns(runs: dict, kernel_name: str, reps: int = 20) -> dict:
+    """Device ms of each run by torch.profiler, in the order given and back."""
+    order = list(runs) + list(runs)[::-1]
+    times = {name: [] for name in runs}
+    for name in order:
+        times[name].append(smoke.device_ms(runs[name], kernel_name, reps=reps))
+    return times
+
+
+def pose_grad_turns(sources, pose, sweep_warp, camera, generator) -> dict:
+    """The pose gradient of the current source and of each other source at
+    the POSENET step's shape, held to the plain version, timed in turns."""
+    dvol, depths, M, Kt = inputs(pose, generator)
+    B, _, H, W, C2 = dvol.shape
+    tgt = torch.randn((B, H, W, C2 // 2), device="cuda", generator=generator).to(dvol.dtype)
+    x, y = camera.sweep_pixel_coords(depths, M, Kt, H, W)
+    valid = float(((x >= 0) & (x <= W - 1) & (y >= 0) & (y <= H - 1)).float().mean())
+    want = camera.plane_sweep_volume_pose_grad_plain(dvol, tgt, depths, M, Kt)
+    runs = {"current": lambda: sweep_warp.plane_sweep_volume_pose_grad_cuda(dvol, tgt, depths,
+                                                                             M, Kt)}
+    for src in sources:
+        kernel = smoke.old_pose_grad_kernel(Path(src))
+        runs[src] = lambda k=kernel: k(dvol, tgt, depths, M, Kt)
+    for name, run in runs.items():
+        for got, w in zip(run(), want):
+            smoke.check(float((got - w).abs().max()) <= 1e-5 * float(w.abs().max()),
+                        f"{name}: the pose gradient is not within 1e-5 of the plain version")
+    times = in_turns(runs, "plane_sweep_pose_grad")
+    smoke.log(f"b1_compare pose gradient {tuple(dvol.shape)} bf16, valid samples "
+              f"{100 * valid:.2f}%, device ms in turns: {json.dumps(times)}")
+    return {"shape": list(dvol.shape), "valid_share": valid, "device_ms": times}
+
+
+# slice 1's five DICL levels (b = 1, 384x1280) and the training step's level 2
+VOLUME_SHAPES = [(1, 6, 20), (1, 12, 40), (1, 24, 80), (1, 48, 160), (1, 96, 320),
+                 (4, 64, 192)]
+
+
+def volume_turns(sources, sweep_warp, dicl, generator) -> list[dict]:
+    """The displacement volume of the current source and of each other
+    source at each of VOLUME_SHAPES (C = 32, md = 3, bf16; a flow but at
+    level 6), bit for bit against the plain version, timed in turns."""
+    kernels = {src: volume_kernel(Path(src)) for src in sources}
+    rows = []
+    with torch.no_grad():
+        for B, h, w in VOLUME_SHAPES:
+            x = torch.randn((B, 32, h, w), device="cuda", generator=generator).bfloat16()
+            y = torch.randn((B, 32, h, w), device="cuda", generator=generator).bfloat16()
+            flow = (None if h == 6 else
+                    torch.randn((B, 2, h, w), device="cuda", generator=generator) * 3)
+            want = dicl.displacement_volume_plain(x, y, flow, 3)
+            runs = {"current": lambda: sweep_warp.displacement_volume_cuda(x, y, flow, 3)}
+            runs.update({src: (lambda k=k: k(x, y, flow, 3)) for src, k in kernels.items()})
+            for name, run in runs.items():
+                smoke.check(torch.equal(run(), want), f"{name}: the volume differs from plain")
+            nbytes = sum(t.numel() * t.element_size() for t in (x, y, want)) + (
+                0 if flow is None else flow.numel() * 4)
+            row = {"shape": [B, 32, h, w], "bound_ms": nbytes / smoke.HBM_BYTES_PER_S * 1e3,
+                   "device_ms": in_turns(runs, "displacement_volume_kernel")}
+            smoke.log(f"b1_compare displacement volume {tuple(x.shape)}: bound "
+                      f"{row['bound_ms']:.4f} ms, device ms in turns: "
+                      f"{json.dumps(row['device_ms'])}")
+            rows.append(row)
+    return rows
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--old", help="an earlier sweep_warp.cu, timed in turns with the current")
@@ -237,16 +344,31 @@ def main() -> int:
     ap.add_argument("--turns", help="mappings HxW/planes/KB,... timed by events in turns")
     ap.add_argument("--variant", help="a source with the current probe entry, timed in turns "
                                       "with the current one at each --turns mapping")
+    ap.add_argument("--pose-grad", action="store_true",
+                    help="time the sweep pose gradient beside --sources in turns")
+    ap.add_argument("--volume", action="store_true",
+                    help="time DICL's displacement volume beside --sources in turns")
+    ap.add_argument("--sources", default="",
+                    help="comma-separated sweep_warp.cu files for --pose-grad and --volume")
     ap.add_argument("--out", help="also write the JSON object here")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("b1_compare: no CUDA device", file=sys.stderr)
         return 2
+    from deep_sfm_revisited_tpu_torch.models import dicl
     from deep_sfm_revisited_tpu_torch.ops import camera
     from deep_sfm_revisited_tpu_torch.ops.cuda import sweep_warp
 
     card = smoke.phase_setup(sweep_warp)
     g = torch.Generator(device="cuda").manual_seed(0)
+    sources = [p for p in args.sources.split(",") if p]
+    if args.pose_grad or args.volume:
+        summary = {"card": card}
+        if args.pose_grad:
+            summary["pose_grad"] = pose_grad_turns(sources, args.pose, sweep_warp, camera, g)
+        if args.volume:
+            summary["volume"] = volume_turns(sources, sweep_warp, dicl, g)
+        return _emit(summary, args.out)
     dvol, depths, M, Kt = inputs(args.pose, g)
     summary = {"card": card, "shape": list(dvol.shape), "pose": args.pose or "synthetic",
                "work": smoke.backward_work(dvol, depths, M, Kt, sweep_warp, camera)}
@@ -265,10 +387,14 @@ def main() -> int:
         summary["plans"] = plans(dvol, depths, M, Kt, sweep_warp, camera, tiles,
                                  [int(v) for v in args.planes.split(",")],
                                  [int(v) for v in args.smem_kb.split(",")])
+    return _emit(summary, args.out)
+
+
+def _emit(summary: dict, out: str | None) -> int:
     line = json.dumps(summary)
-    if args.out:
-        Path(args.out).parent.mkdir(parents=True, exist_ok=True)
-        Path(args.out).write_text(line + "\n")
+    if out:
+        Path(out).parent.mkdir(parents=True, exist_ok=True)
+        Path(out).write_text(line + "\n")
     print(line, flush=True)
     return 0
 

@@ -6,8 +6,9 @@
 Phases, each of which raises on failure:
 
 1. setup: the card's name and power limit, TF32 off, kernels B1 (the
-   generic gather, the plane-sweep cost volume and its two gradients, one
-   source, and the PyTorch operators that launch them) and B2 built with
+   generic gather, DICL's displacement volume, the plane-sweep cost volume
+   and its two gradients, one source, and the PyTorch operators that
+   launch them) and B2 built with
    nvcc (in parallel) from `deep_sfm_revisited_tpu_torch/csrc/
    sweep_warp.cu`, `csrc/sweep_warp_ops.cpp` and `csrc/local_corr.cu`;
 2. pose on the card: rigid flow of a known (R, t) -> correspondence
@@ -24,8 +25,8 @@ Phases, each of which raises on failure:
    from a seed, as `bench.py` runs the JAX package. One warm-up pair
    records B1's inputs; then the launch counts go to 0, three distinct
    pairs run, and each must have launched the sweep kernel once (PSNet's
-   cost volume) and the generic gather four times (DICL's flow warps at
-   levels 5..2);
+   cost volume), the displacement volume five times (DICL's levels 6..2,
+   the flow warp of levels 5..2 fused in) and the generic gather no time;
 5. slice 2's main path, through the entry point a user calls: a golden
    KITTI raw tree rendered at 370x1224 (`data/synthetic.py`) evaluated by
    `cli.main([... "-v", "--override", "flow.estimator=PWC", ...])` (PWC-DC
@@ -34,11 +35,11 @@ Phases, each of which raises on failure:
    pair records B1's and B2's inputs, the counts go to 0 again, and each of
    the three test pairs after it must launch B2 five times (PWC-DC's
    correlation at levels 6..2), the generic gather four times (its warps at
-   levels 5..2) and the sweep kernel once; the result must be the 9 Eigen
-   metrics, finite;
+   levels 5..2), the sweep kernel once and the displacement volume no
+   time; the result must be the 9 Eigen metrics, finite;
 6. B1 against its plain PyTorch versions on the inputs both main paths
-   gave it, in bf16 and float32, bit for bit: the generic gather on the
-   flow warps, with out-of-range and behind-the-camera coordinates added,
+   gave it, in bf16 and float32, bit for bit: the generic gather on
+   PWC-DC's flow warps, with out-of-range and behind-the-camera coordinates added,
    its time (CUDA events, and on the device from torch.profiler) beside the
    plain version's, `F.grid_sample`'s (both ways) and the bound; the sweep kernel on
    PSNet's inputs and on copies with a bordered target map, a pose that
@@ -73,8 +74,9 @@ Phases, each of which raises on failure:
    370x1224, cropped to the recipe's 256x768, b = 4, nlabel 128, bf16, the
    slices' pose overrides; one warm-up step (which records the sweep
    backward's inputs), the launch counts reset, five timed steps, each of
-   which must launch the gather 4 times, the sweep and the sweep
-   backward once and the sweep pose gradient no time, give a finite loss, leave DICL's parameters bit-identical
+   which must launch the displacement volume 5 times, the sweep and the
+   sweep backward once and the gather and the sweep pose gradient no time,
+   give a finite loss, leave DICL's parameters bit-identical
    while its BN statistics move, and move PSNet's parameters; ms/step, the
    stage split and peak memory; then the epoch's validation and checkpoint;
 10. the sweep backward against its plain version on the inputs slice 5
@@ -90,13 +92,15 @@ Phases, each of which raises on failure:
 11. slice 7's pose tools through `cli.main` on a golden KITTI VO tree
    rendered at 370x1226 (test sequences 9 and 10, train sequence 0),
    padded to 384x1280, DICL flow, bf16: `--record-pose` (after a warm-up
-   pair each pair launches the gather 8 times and the sweep no time; ms
-   per pair and the flow / pose split; the six error keys, num_matches,
-   uniform_fallback, the odometry report per test sequence, whose links
-   launch the gather 4 times each), `--save-pose` (both splits' stacks),
-   and training with `pred_pose_online=False` on the saved poses (b = 4,
-   256x768, a warm-up and two steps, each launching the sweep and its
-   backward once and the gather no time);
+   pair, which records the displacement volume's inputs, each pair
+   launches the displacement volume 10 times and the gather and the sweep
+   no time; ms per pair and the flow / pose split; the six error keys,
+   num_matches, uniform_fallback, the odometry report per test sequence,
+   whose links launch the displacement volume 5 times each), `--save-pose`
+   (both splits' stacks), and training with `pred_pose_online=False` on the
+   saved poses (b = 4, 256x768, a warm-up and two steps, each launching the
+   sweep and its backward once and the gather and the displacement volume
+   no time);
 12. slice 7's POSENET training step: phase 9 with `pose.estimator=POSENET`
    (each step also launches the sweep pose gradient once; the loss has its
    pose term; PoseNet's and PSNet's parameters move, DICL's do not);
@@ -105,11 +109,21 @@ Phases, each of which raises on failure:
    all-behind variants (exactly zero there), bit-identical across two
    launches; device and events times, the bound (dvol read only for the
    valid samples) and share, the plain version's time and the yardstick's,
-   `grid_sampler_2d_backward`'s grid gradient.
+   `grid_sampler_2d_backward`'s grid gradient; with `--old-b1 PATH`, an
+   earlier `sweep_warp.cu`'s pose gradient timed beside it in turns (old,
+   new, new, old);
+14. DICL's displacement volume against its plain version (`shifted_pairs`
+   of `warp_flow` with the gather's plain version) on the inputs slice 1,
+   the training step and `--record-pose` gave it, in bf16 and float32, bit
+   for bit, and two launches bit for bit; per level of slice 1's pair and
+   of the training step, device and events times, the bound and share, the
+   plain version's time, and the device time and kernel count of the
+   eager composition it replaced.
 
 `python3 chip_smoke.py --save-sweep-inputs PATH` also writes the sweep
 backward's depths, M and K t from slice 5 (a few hundred floats) to PATH,
-for `b1_compare.py --pose PATH`.
+for `b1_compare.py --pose PATH`; `--old-b1 PATH` names the earlier source
+phase 13 compares with.
 
 The line before the last is the kernel table as one JSON object; the last
 is {"ok": true, "device": {...}}. Without a CUDA device, or without the
@@ -118,6 +132,7 @@ port's package beside this script, it exits non-zero and prints no result.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import os
@@ -140,7 +155,8 @@ PAIRS = 3
 K_KITTI = [[718.856, 0.0, 607.19], [0.0, 718.856, 185.2], [0.0, 0.0, 1.0]]
 BENCH_OVERRIDES = {"pose.num_hypotheses": 512, "pose.ransac_iter": 5,
                    "pose.num_correspondences": 1024, "pose.polish_iters": 5}
-B1_PER_PAIR = 4  # the generic gather: DICL's (or PWC-DC's) warps at levels 5..2
+B1_PER_PAIR = 4  # the generic gather: PWC-DC's warps at levels 5..2 (DICL's are fused)
+DISP_PER_PAIR = 5  # the displacement volume: DICL's levels 6..2, warp included
 SWEEP_PER_PAIR = 1  # the sweep kernel: PSNet's cost volume (one target)
 B2_PER_PAIR = 5  # PWC-DC's correlation at levels 6..2
 EIGEN_KEYS = {"abs_rel", "sq_rel", "rmse", "rmse_log", "a1", "a2", "a3", "l1_inv", "sc_inv"}
@@ -384,10 +400,34 @@ def _launches(*kernels):
     return tuple(k.launches for k in kernels)
 
 
+@contextlib.contextmanager
+def recording_displacement(sweep_warp):
+    """Within the block, every call of B1's displacement-volume wrapper
+    records copies of its inputs (x, y, flow or None, md) in the list the
+    block binds, then launches."""
+    calls, launch = [], sweep_warp.displacement_volume_cuda
+
+    def record(x, y, flow, md):
+        calls.append((x.clone(), y.clone(), None if flow is None else flow.clone(), md))
+        return launch(x, y, flow, md)
+
+    sweep_warp.displacement_volume_cuda = record
+    try:
+        yield calls
+    finally:
+        sweep_warp.displacement_volume_cuda = launch
+
+
+def _disp_shapes(calls):
+    return [tuple(x.shape) + ("flow" if f is not None else "no flow",) for x, _, f, _ in calls]
+
+
 def phase_main_path(dev, sweep_warp):
-    """Warm-up pair (records the inputs of B1's two kernels), then PAIRS
-    counted, timed pairs. Returns (gather launches, sweep launches, gather
-    inputs, sweep inputs)."""
+    """Warm-up pair (records the inputs of B1's sweep and displacement-volume
+    kernels), then PAIRS counted, timed pairs, each of which must launch the
+    displacement volume 5 times, the sweep once and the generic gather no
+    time. Returns (sweep launches, displacement-volume launches, sweep
+    inputs, displacement-volume inputs)."""
     from deep_sfm_revisited_tpu_torch.config import SfMConfig
     from deep_sfm_revisited_tpu_torch.models.sfmnet import SFMNet
 
@@ -399,35 +439,34 @@ def phase_main_path(dev, sweep_warp):
     K = torch.tensor(K_KITTI, device=dev).expand(B, 3, 3)
     timer = StageTimer(model)
 
-    captured, cap_sweep = [], []
-    gather, sweep = sweep_warp.bilinear_sample_cuda, sweep_warp.plane_sweep_volume_cuda
-
-    def recording(img, coords):
-        captured.append((img.clone(), coords.clone()))
-        return gather(img, coords)
+    cap_sweep = []
+    sweep = sweep_warp.plane_sweep_volume_cuda
 
     def recording_sweep(*args):
         cap_sweep.append(tuple(a.clone() for a in args))
         return sweep(*args)
 
-    sweep_warp.bilinear_sample_cuda = recording
     sweep_warp.plane_sweep_volume_cuda = recording_sweep
     try:
-        t0 = time.perf_counter()
-        _check_pair(model(refs[0], tgts[0], K,
-                          generator=torch.Generator(device=dev).manual_seed(100)), 0)
-        torch.cuda.synchronize()
+        with recording_displacement(sweep_warp) as cap_disp:
+            t0 = time.perf_counter()
+            _check_pair(model(refs[0], tgts[0], K,
+                              generator=torch.Generator(device=dev).manual_seed(100)), 0)
+            torch.cuda.synchronize()
     finally:
-        sweep_warp.bilinear_sample_cuda, sweep_warp.plane_sweep_volume_cuda = gather, sweep
+        sweep_warp.plane_sweep_volume_cuda = sweep
     log(f"main path: warm-up pair {1e3 * (time.perf_counter() - t0):.1f} ms, "
-        f"gather inputs recorded: {[tuple(c.shape) for _, c in captured]}, sweep inputs: "
+        f"displacement-volume inputs recorded: {_disp_shapes(cap_disp)}, sweep inputs: "
         f"{[tuple(a[0].shape) + (len(a[2]),) for a in cap_sweep]}")
-    check((len(captured), len(cap_sweep)) == (B1_PER_PAIR, SWEEP_PER_PAIR),
-          f"warm-up launched the gather {len(captured)}, the sweep {len(cap_sweep)} times")
+    check((len(cap_disp), len(cap_sweep)) == (DISP_PER_PAIR, SWEEP_PER_PAIR),
+          f"warm-up launched the displacement volume {len(cap_disp)}, the sweep "
+          f"{len(cap_sweep)} times")
 
     torch.cuda.reset_peak_memory_stats()
-    counters = (sweep_warp.KERNEL, sweep_warp.VOLUME)
-    sweep_warp.KERNEL.launches = sweep_warp.VOLUME.launches = 0
+    counters = (sweep_warp.KERNEL, sweep_warp.VOLUME, sweep_warp.DISPLACEMENT)
+    per_pair = (0, SWEEP_PER_PAIR, DISP_PER_PAIR)
+    for k in counters:
+        k.launches = 0
     rows = []
     for i in range(1, PAIRS + 1):
         before = _launches(*counters)
@@ -439,25 +478,24 @@ def phase_main_path(dev, sweep_warp):
         ms = 1e3 * (time.perf_counter() - t0)
         n = tuple(a - b for a, b in zip(_launches(*counters), before))
         _check_pair(out, i)
-        check(n == (B1_PER_PAIR, SWEEP_PER_PAIR),
-              f"pair {i}: gather, sweep launched {n} times, expected "
-              f"{(B1_PER_PAIR, SWEEP_PER_PAIR)}")
+        check(n == per_pair, f"pair {i}: gather, sweep, displacement volume launched {n} "
+              f"times, expected {per_pair}")
         rows.append(dict(ms=ms, **timer.stages_ms(), inliers=int(out["inliers"][0]),
                          num_matches=int(out["num_matches"][0])))
         log(f"main path: pair {i}: {ms:.1f} ms (flow {rows[-1]['flow']:.1f}, pose "
             f"{rows[-1]['pose']:.1f}, depth {rows[-1]['depth']:.1f} ms device); "
             f"inliers {rows[-1]['inliers']}/{cfg.pose.num_correspondences}, confident candidates "
-            f"{rows[-1]['num_matches']}, gather launches {n[0]}, sweep launches {n[1]}")
+            f"{rows[-1]['num_matches']}, gather, sweep, displacement volume launches {n}")
     launches = _launches(*counters)
-    check(launches == (B1_PER_PAIR * PAIRS, SWEEP_PER_PAIR * PAIRS),
-          f"gather, sweep launched {launches} times in the main path")
+    check(launches == tuple(PAIRS * n for n in per_pair),
+          f"gather, sweep, displacement volume launched {launches} times in the main path")
     mean = {k: sum(r[k] for r in rows) / PAIRS for k in ("ms", "flow", "pose", "depth")}
     log(f"main path: mean over {PAIRS} pairs: {mean['ms']:.2f} ms/pair "
         f"({1e3 / mean['ms']:.3f} pairs/s); stages flow {mean['flow']:.2f}, pose "
         f"{mean['pose']:.2f}, depth {mean['depth']:.2f} ms; peak memory "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     log("main path rows: " + json.dumps(rows))
-    return launches[0], launches[1], captured, cap_sweep
+    return launches[1], launches[2], cap_sweep, cap_disp
 
 
 def _with_edges(coords, h, w):
@@ -482,8 +520,9 @@ def phase_cli_pwc(dev, sweep_warp, local_corr):
     around the forward and a synchronize; stage times by CUDA events),
     counts each kernel's launches per pair, and on the warm-up pair records
     the inputs of B1's gather and sweep kernels and of B2. Returns the launch
-    counts over the three pairs after the warm-up (gather, sweep, B2) and
-    the inputs (gather, sweep, B2).
+    counts over the three pairs after the warm-up (gather, sweep, B2, and
+    B1's displacement volume, which PWC-DC never launches) and the inputs
+    (gather, sweep, B2).
     """
     from deep_sfm_revisited_tpu_torch import cli
     from deep_sfm_revisited_tpu_torch.data.synthetic import write_kitti_raw_tree
@@ -493,8 +532,9 @@ def phase_cli_pwc(dev, sweep_warp, local_corr):
     real_forward, launch1, launch2 = (SFMNet.forward, sweep_warp.bilinear_sample_cuda,
                                       local_corr.local_correlation_cuda)
     sweep = sweep_warp.plane_sweep_volume_cuda
-    counters = (sweep_warp.KERNEL, sweep_warp.VOLUME, local_corr.KERNEL)
-    per_pair = (B1_PER_PAIR, SWEEP_PER_PAIR, B2_PER_PAIR)
+    counters = (sweep_warp.KERNEL, sweep_warp.VOLUME, local_corr.KERNEL,
+                sweep_warp.DISPLACEMENT)
+    per_pair = (B1_PER_PAIR, SWEEP_PER_PAIR, B2_PER_PAIR, 0)
 
     def record1(img, coords):
         cap1.append((img.clone(), coords.clone()))
@@ -528,8 +568,8 @@ def phase_cli_pwc(dev, sweep_warp, local_corr):
         i = len(rows) + (0 if warm else 1)
         _check_pair(out, i)
         check(out["num_matches"] is None, f"PWC pair {i}: the sampler reported confidences")
-        check(n == per_pair, f"PWC pair {i}: gather, sweep, B2 launched {n} times, "
-              f"expected {per_pair}")
+        check(n == per_pair, f"PWC pair {i}: gather, sweep, B2, displacement volume launched "
+              f"{n} times, expected {per_pair}")
         if warm:
             for k in counters:
                 k.launches = 0
@@ -542,7 +582,7 @@ def phase_cli_pwc(dev, sweep_warp, local_corr):
             log(f"cli PWC: pair {i}: {ms:.1f} ms (flow {rows[-1]['flow']:.1f}, pose "
                 f"{rows[-1]['pose']:.1f}, depth {rows[-1]['depth']:.1f} ms device); inliers "
                 f"{rows[-1]['inliers']}/{BENCH_OVERRIDES['pose.num_correspondences']}; "
-                f"gather, sweep, B2 launches {n}")
+                f"gather, sweep, B2, displacement volume launches {n}")
         return out
 
     with tempfile.TemporaryDirectory() as tmp:
@@ -569,7 +609,8 @@ def phase_cli_pwc(dev, sweep_warp, local_corr):
         launches = _launches(*counters)
     check(len(rows) == PAIRS, f"cli PWC: {len(rows)} test pairs after the warm-up, expected {PAIRS}")
     check(launches == tuple(PAIRS * n for n in per_pair),
-          f"cli PWC: gather, sweep, B2 launched {launches} times in the main path")
+          f"cli PWC: gather, sweep, B2, displacement volume launched {launches} times in the "
+          "main path")
     check(set(results) == EIGEN_KEYS, f"cli PWC: metrics {sorted(results)}")
     check(all(math.isfinite(v) for v in results.values()), f"cli PWC: metrics {results}")
     mean = {k: sum(r[k] for r in rows) / PAIRS for k in ("ms", "flow", "pose", "depth")}
@@ -603,11 +644,15 @@ def device_profile(fn, reps: int = 20) -> dict:
     return by_name
 
 
-def device_ms(fn, kernel_name: str, reps: int = 20) -> float | None:
+def device_ms(fn, kernel_name: str, reps: int = 20, tries: int = 3) -> float | None:
     """Device time in ms per call of `fn` of the kernels whose names contain
-    `kernel_name`; None if the trace shows none."""
-    ms = sum(v[0] for n, v in device_profile(fn, reps).items() if kernel_name in n)
-    return ms or None
+    `kernel_name`; None if `tries` traces show none (a trace now and then
+    comes back without the kernel's events)."""
+    for _ in range(tries):
+        ms = sum(v[0] for n, v in device_profile(fn, reps).items() if kernel_name in n)
+        if ms:
+            return ms
+    return None
 
 
 def _edged_features(f1):
@@ -838,9 +883,11 @@ def gather_graph_check(captured, sweep_warp) -> dict:
     return {"gathers": len(static), "replay_equals_eager": equal}
 
 
-def phase_kernel(captured, sweep_warp, camera, path: str = "dicl"):
-    """B1's generic gather vs its plain version at the flow warps' inputs;
-    times and bounds.
+def phase_kernel(captured, sweep_warp, camera):
+    """B1's generic gather vs its plain version at PWC-DC's flow warps'
+    inputs (DICL's warps are fused into its displacement volume); times and
+    bounds; the host time per call piece by piece; the four warps replayed
+    from a CUDA graph.
 
     Tolerance: exact in bf16 and float32 -- the kernel rounds op by op with
     __fmul_rn/__fadd_rn in the plain version's order (the card's own bound
@@ -848,7 +895,7 @@ def phase_kernel(captured, sweep_warp, camera, path: str = "dicl"):
     calls, max_err = [], 0.0
     for img, coords in captured:
         _, h, w, _ = img.shape
-        name = f"{path}_warp_{h}x{w}"
+        name = f"pwc_warp_{h}x{w}"
         edged, zero = _with_edges(coords, h, w)
         invalid = ((coords[..., 0] < 0) | (coords[..., 0] > w - 1)
                    | (coords[..., 1] < 0) | (coords[..., 1] > h - 1)).float().mean()
@@ -896,13 +943,11 @@ def phase_kernel(captured, sweep_warp, camera, path: str = "dicl"):
             f"bound {calls[-1]['bound_ms']:.4f} ms "
             f"({calls[-1]['bound_by']}, {nbytes / 1e6:.1f} MB); "
             f"{100 * float(invalid):.1f}% of queries out of range")
-    extras = {}
-    if path == "dicl":
-        img, coords = captured[0]
-        extras = {"host_breakdown_us": gather_host_breakdown(img, coords, sweep_warp),
-                  "graph": gather_graph_check(captured, sweep_warp)}
+    img, coords = captured[0]
+    extras = {"host_breakdown_us": gather_host_breakdown(img, coords, sweep_warp),
+              "graph": gather_graph_check(captured, sweep_warp)}
     pair = _pair_sums(calls)
-    log(f"B1 {path} gather per pair: events {pair['ms']:.4f} ms, F.grid_sample "
+    log(f"B1 PWC-DC gather per pair: events {pair['ms']:.4f} ms, F.grid_sample "
         f"{pair['library_ms']:.4f} ms by events: the kernel "
         f"{'is no slower' if pair['ms'] <= pair['library_ms'] else 'is slower'}")
     return calls, max_err, extras
@@ -1018,9 +1063,9 @@ def phase_sweep(captured, sweep_warp, camera):
 # slice 5: the recipe's frozen-flow depth-training step at its crop, b = 4
 TRAIN_B, TRAIN_HW, TRAIN_STEPS = 4, (256, 768), 5
 # gather, sweep, sweep backward, sweep pose gradient (the RANSAC pose is
-# stop-gradient; PoseNet's is not)
-TRAIN_PER_STEP = (B1_PER_PAIR, SWEEP_PER_PAIR, 1, 0)
-POSENET_PER_STEP = (B1_PER_PAIR, SWEEP_PER_PAIR, 1, 1)
+# stop-gradient; PoseNet's is not), displacement volume (DICL's levels)
+TRAIN_PER_STEP = (0, SWEEP_PER_PAIR, 1, 0, DISP_PER_PAIR)
+POSENET_PER_STEP = (0, SWEEP_PER_PAIR, 1, 1, DISP_PER_PAIR)
 # the sweep backward: per (b, d, y, x) the coordinates (8) and the 4 tap
 # weights; per channel the ref sum and the 4 weighted taps (product, sum)
 BWD_FLOPS_PER_SAMPLE, BWD_FLOPS_PER_CHANNEL = 12, 9
@@ -1223,17 +1268,19 @@ def phase_cli_train(dev, sweep_warp, posenet: bool = False):
     """Slice 5 through `cli.main` in training mode on a rendered golden KITTI
     raw tree (370x1224, cropped to the recipe's 256x768, b = 4, nlabel 128,
     bf16, the slices' pose overrides): one warm-up step, which records the
-    sweep backward's inputs, then TRAIN_STEPS timed steps with the launch
-    counts reset after the warm-up, then the epoch's validation and
-    checkpoint. Each step must launch the gather 4 times, the sweep and the
-    sweep backward once and the sweep pose gradient no time, give a finite
-    loss, leave DICL's parameters bit-identical, move every DICL BN running
-    mean and every PSNet parameter that got a gradient. With `posenet`, the
-    same with `pose.estimator=POSENET` (slice 7): the pose gradient launches
-    once a step (the warm-up records its inputs too), the loss has its
-    `pose_loss` term, and PoseNet's parameters move. Returns (launches over
-    the run after the warm-up (gather, sweep, sweep backward, sweep pose
-    gradient), the sweep backward's inputs, the pose gradient's inputs)."""
+    sweep backward's and the displacement volume's inputs, then TRAIN_STEPS
+    timed steps with the launch counts reset after the warm-up, then the
+    epoch's validation and checkpoint. Each step must launch the
+    displacement volume 5 times, the sweep and the sweep backward once, the
+    gather and the sweep pose gradient no time, give a finite loss, leave
+    DICL's parameters bit-identical, move every DICL BN running mean and
+    every PSNet parameter that got a gradient. With `posenet`, the same with
+    `pose.estimator=POSENET` (slice 7): the pose gradient launches once a
+    step (the warm-up records its inputs too), the loss has its `pose_loss`
+    term, and PoseNet's parameters move. Returns (launches over the run
+    after the warm-up (gather, sweep, sweep backward, sweep pose gradient,
+    displacement volume), the sweep backward's inputs, the pose gradient's
+    inputs, the displacement volume's inputs)."""
     from deep_sfm_revisited_tpu_torch import cli
     from deep_sfm_revisited_tpu_torch.data.synthetic import write_kitti_raw_tree
     from deep_sfm_revisited_tpu_torch.train.trainer import Trainer
@@ -1241,11 +1288,11 @@ def phase_cli_train(dev, sweep_warp, posenet: bool = False):
     what = "cli train (POSENET)" if posenet else "cli train"
     per_step = POSENET_PER_STEP if posenet else TRAIN_PER_STEP
     counters = (sweep_warp.KERNEL, sweep_warp.VOLUME, sweep_warp.VOLUME_BACKWARD,
-                sweep_warp.VOLUME_POSE_GRAD)
+                sweep_warp.VOLUME_POSE_GRAD, sweep_warp.DISPLACEMENT)
     real_step = Trainer.train_step
     backward = sweep_warp.plane_sweep_volume_backward_cuda
     pose_grad = sweep_warp.plane_sweep_volume_pose_grad_cuda
-    rows, captured, cap_pose, timer = [], [], [], []
+    rows, captured, cap_pose, cap_disp, timer = [], [], [], [], []
 
     def record_backward(*args):
         captured.append(tuple(a.clone() for a in args))
@@ -1271,11 +1318,14 @@ def phase_cli_train(dev, sweep_warp, posenet: bool = False):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         timer[0]._mark("step_start")
+        recording = recording_displacement(sweep_warp) if warm else contextlib.nullcontext([])
         try:
-            metrics = real_step(trainer, *args, **kw)
+            with recording as calls:
+                metrics = real_step(trainer, *args, **kw)
         finally:
             sweep_warp.plane_sweep_volume_backward_cuda = backward
             sweep_warp.plane_sweep_volume_pose_grad_cuda = pose_grad
+        cap_disp.extend(calls)
         timer[0]._mark("step_end")
         torch.cuda.synchronize()
         ms = 1e3 * (time.perf_counter() - t0)
@@ -1286,8 +1336,8 @@ def phase_cli_train(dev, sweep_warp, posenet: bool = False):
         check(posenet == ("pose_loss" in metrics), f"{what} step {i}: metrics {sorted(metrics)}")
         pose_loss = float(metrics["pose_loss"]) if posenet else None
         check(not posenet or math.isfinite(pose_loss), f"{what} step {i}: pose loss {pose_loss}")
-        check(n == per_step, f"{what} step {i}: gather, sweep, sweep backward, pose gradient "
-              f"launched {n} times, expected {per_step}")
+        check(n == per_step, f"{what} step {i}: gather, sweep, sweep backward, pose gradient, "
+              f"displacement volume launched {n} times, expected {per_step}")
         state = model.flow_estimator.state_dict()
         for k, p in model.flow_estimator.named_parameters():
             check(torch.equal(p, dicl[k]), f"{what} step {i}: DICL parameter {k} moved")
@@ -1305,7 +1355,8 @@ def phase_cli_train(dev, sweep_warp, posenet: bool = False):
                 k.launches = 0
             torch.cuda.reset_peak_memory_stats()
             log(f"{what}: warm-up step {ms:.1f} ms, loss {loss:.4f}; sweep backward "
-                f"inputs {[tuple(a[0].shape) for a in captured]} {captured[0][0].dtype}"
+                f"inputs {[tuple(a[0].shape) for a in captured]} {captured[0][0].dtype}; "
+                f"displacement-volume inputs {_disp_shapes(cap_disp)}"
                 + (f"; pose gradient inputs {[tuple(a[0].shape) for a in cap_pose]}"
                    if posenet else ""))
         else:
@@ -1318,7 +1369,8 @@ def phase_cli_train(dev, sweep_warp, posenet: bool = False):
                 f"{rows[-1]['depth']:.1f}, loss + backward {rows[-1]['backward']:.1f}, Adam "
                 f"{rows[-1]['adam']:.1f} ms device); loss {loss:.4f}"
                 + (f" (pose loss {pose_loss:.4f})" if posenet else "")
-                + f"; gather, sweep, sweep backward, pose gradient launches {n}")
+                + f"; gather, sweep, sweep backward, pose gradient, displacement volume "
+                f"launches {n}")
             if len(rows) == TRAIN_STEPS:
                 rows.append(dict(peak_gib=torch.cuda.max_memory_allocated() / 2**30,
                                  launches=_launches(*counters)))
@@ -1368,7 +1420,7 @@ def phase_cli_train(dev, sweep_warp, posenet: bool = False):
         f"{json.dumps({k: history[0][k] for k in sorted(EIGEN_KEYS)})}; launches after the "
         f"warm-up, validation included: {launches}")
     log(f"{what} rows: " + json.dumps(rows))
-    return launches, captured, cap_pose
+    return launches, captured, cap_pose, cap_disp
 
 
 def _bf16_ulp(x):
@@ -1533,9 +1585,10 @@ def backward_yardstick(dvol, depths, M, Kt, camera) -> dict:
 # slice 7: the pose tools on a golden KITTI VO tree at KITTI's odometry
 # size (padded to 384x1280), and training from the poses they save
 VO_HW, VO_TEST_FRAMES, VO_TRAIN_FRAMES = (370, 1226), 6, 3 * TRAIN_B + 1
-RECORD_PER_PAIR = (2 * B1_PER_PAIR, 0, 0, 0)    # both directions' flow warps, no depth
-LINK_PER_PAIR = (B1_PER_PAIR, 0, 0, 0)          # one odometry link: the backward pose
-PRED_POSE_PER_STEP = (0, SWEEP_PER_PAIR, 1, 0)  # saved poses: no flow, no pose gradient
+# gather, sweep, sweep backward, pose gradient, displacement volume
+RECORD_PER_PAIR = (0, 0, 0, 0, 2 * DISP_PER_PAIR)  # both directions' flow, no depth
+LINK_PER_PAIR = (0, 0, 0, 0, DISP_PER_PAIR)        # one odometry link: the backward pose
+PRED_POSE_PER_STEP = (0, SWEEP_PER_PAIR, 1, 0, 0)  # saved poses: no flow, no pose gradient
 POSE_KEYS = {"rot_err", "trans_dist", "trans_angle", "rot_err_fw", "trans_dist_fw",
              "trans_angle_fw", "num_matches", "uniform_fallback"}
 ODOMETRY_KEYS = {"ate_rmse", "t_err_pct", "r_err_deg_per_100m"}
@@ -1575,22 +1628,24 @@ def phase_cli_pose(dev, sweep_warp):
     VO_TEST_FRAMES frames, train sequence 0 of VO_TRAIN_FRAMES), padded to
     384x1280, DICL flow, bf16, the slices' pose overrides:
 
-    - `--record-pose`: the first pair (both directions) warms up and the
-      launch counts go to 0; each later pair must launch the gather 8 times
+    - `--record-pose`: the first pair (both directions) warms up, records
+      the displacement volume's inputs, and the launch counts go to 0; each
+      later pair must launch the displacement volume 10 times and the gather
       and the sweep no time; its host time around the synchronised pair and
       the CUDA-event split between flow and pose; the result has the six
       error keys, num_matches and uniform_fallback, all finite, and an
       odometry report per test sequence, each link of which launches the
-      gather 4 times;
+      displacement volume 5 times;
     - `--save-pose`: pred_poses/{seq}_fw.npy and _bw.npy for every sequence
       of both splits, finite;
     - training with `pred_pose_online=False` on those poses, b = 4 at
-      256x768: a warm-up step and two more, each launching the gather no
-      time and the sweep and its backward once, with a finite loss, on a
-      batch whose pred_pose is the saved one.
+      256x768: a warm-up step and two more, each launching the gather and
+      the displacement volume no time and the sweep and its backward once,
+      with a finite loss, on a batch whose pred_pose is the saved one.
 
-    Returns {path: launches (gather, sweep, sweep backward, pose gradient)}
-    for the record run (odometry included) and the training run."""
+    Returns ({path: launches (gather, sweep, sweep backward, pose gradient,
+    displacement volume)} for the record run (odometry included) and the
+    training run, the displacement volume's inputs of the warm-up pair)."""
     import numpy as np
 
     from deep_sfm_revisited_tpu_torch import cli
@@ -1598,9 +1653,9 @@ def phase_cli_pose(dev, sweep_warp):
     from deep_sfm_revisited_tpu_torch.train.trainer import Trainer
 
     counters = (sweep_warp.KERNEL, sweep_warp.VOLUME, sweep_warp.VOLUME_BACKWARD,
-                sweep_warp.VOLUME_POSE_GRAD)
+                sweep_warp.VOLUME_POSE_GRAD, sweep_warp.DISPLACEMENT)
     real_make = cli.make_pose_forward
-    rows, links, calls = [], [], []
+    rows, links, calls, cap_disp = [], [], [], []
     out = {}
 
     def make(model, diag=False):
@@ -1620,7 +1675,10 @@ def phase_cli_pose(dev, sweep_warp):
                 calls.append((time.perf_counter(), _launches(*counters)))
             else:
                 calls.append(None)
-            result = fwd(*args)
+            warm = len(calls) <= 2
+            with recording_displacement(sweep_warp) if warm else contextlib.nullcontext([]) as rec:
+                result = fwd(*args)
+            cap_disp.extend(rec)
             if len(calls) % 2 == 0:
                 torch.cuda.synchronize()
                 t0, before = calls[-2]
@@ -1631,10 +1689,12 @@ def phase_cli_pose(dev, sweep_warp):
                 if pair == 0:
                     for k in counters:
                         k.launches = 0
-                    log(f"cli record-pose: warm-up pair {ms:.1f} ms, launches {n}")
+                    log(f"cli record-pose: warm-up pair {ms:.1f} ms, launches {n}; "
+                        f"displacement-volume inputs {_disp_shapes(cap_disp)}")
                     return result
                 check(n == RECORD_PER_PAIR, f"cli record-pose: pair {pair} launched (gather, "
-                      f"sweep, sweep backward, pose gradient) {n}, expected {RECORD_PER_PAIR}")
+                      f"sweep, sweep backward, pose gradient, displacement volume) {n}, expected "
+                      f"{RECORD_PER_PAIR}")
                 rows.append(dict(ms=ms, **stages))
                 log(f"cli record-pose: pair {pair}: {ms:.1f} ms (both directions; flow "
                     f"{stages['flow']:.1f}, pose {stages['pose']:.1f} ms device); launches {n}")
@@ -1742,7 +1802,107 @@ def phase_cli_pose(dev, sweep_warp):
         log(f"cli pred-pose train: {len(steps) - 1} steps after the warm-up, "
             f"{sum(steps[1:]) / (len(steps) - 1):.2f} ms/step; launches after the warm-up, "
             f"validation included: {out['cli_pred_pose_train']}")
-    return out
+    return out, cap_disp
+
+
+# DICL's displacement volume: per output element the two mask products;
+# per sample of a warped level the coordinate sums (2) and, per channel,
+# the gather's blend (B1_FLOPS_PER_OUTPUT)
+DISP_FLOPS_PER_OUTPUT, DISP_FLOPS_PER_SAMPLE = 2, 2
+DISP_FUSES = "deep_sfm_revisited_tpu/models/dicl.py:160 (shifted_pairs), :231 (warp_flow)"
+
+
+def phase_displacement(captured, sweep_warp, dicl):
+    """B1's displacement-volume kernel against its plain version (the
+    composition it replaced, `shifted_pairs` of `warp_flow`, with the
+    gather's plain version) on the inputs that slice 1's pair, the training
+    step and the `--record-pose` pair gave it (`captured`: {path: [(x, y,
+    flow or None, md)]}), in bf16 and float32, and two launches on the same
+    inputs; then per level of slice 1's pair and of the training step, as
+    the main path ran them: device and events ms, the bound and share of
+    it, the plain version's time, and the device time and kernel count of
+    the composition it replaced (the card's gather, then the eager stack).
+
+    Tolerance: exact -- the samples take B1's taps and blend rounded op by
+    op, and the masks are 0 or 1, so the stack equals the composition's bit
+    for bit (`torch.equal`)."""
+    max_err = 0.0
+    for path, calls in captured.items():
+        for i, (x, y, flow, md) in enumerate(calls):
+            for dtype in (torch.bfloat16, torch.float32):
+                xd, yd = x.to(dtype), y.to(dtype)
+                got = sweep_warp.displacement_volume_cuda(xd, yd, flow, md)
+                again = sweep_warp.displacement_volume_cuda(xd, yd, flow, md)
+                want = dicl.displacement_volume_plain(xd, yd, flow, md)
+                name = f"displacement volume {path} call {i} {tuple(x.shape)} {str(dtype)[6:]}"
+                check(torch.equal(got, again), f"{name}: differs between two launches")
+                err = float((got.float() - want.float()).abs().max())
+                max_err = max(max_err, err)
+                check(got.shape == want.shape and torch.equal(got, want),
+                      f"{name}: max |kernel - plain| = {err}")
+                del got, again, want
+        log(f"displacement volume {path}: {len(calls)} calls {_disp_shapes(calls)}: kernel == "
+            "plain in bf16 and float32, bit-identical across launches")
+
+    fmt = lambda v: "not measured" if v is None else f"{v:.4f} ms"   # noqa: E731
+    out = {}
+    for path in ("dicl_main_path", "cli_train"):
+        rows = []
+        for x, y, flow, md in captured[path][:DISP_PER_PAIR]:
+            def run():
+                return sweep_warp.displacement_volume_cuda(x, y, flow, md)
+
+            def old():
+                return dicl.shifted_pairs(x, y if flow is None else dicl.warp_flow(y, flow), md)
+
+            vol = run()
+            check(torch.equal(old(), vol), f"{path}: the replaced composition differs")
+            ms = cuda_ms(run, reps=20)
+            dev_ms = device_ms(run, "displacement_volume_kernel")
+            plain_ms = cuda_ms(lambda: dicl.displacement_volume_plain(x, y, flow, md), reps=3,
+                               warmup=1)
+            old_ms = cuda_ms(old, reps=5)
+            old_profile = device_profile(old, reps=5)
+            old_dev_ms = sum(v[0] for v in old_profile.values()) or None
+            old_kernels = sum(v[1] for v in old_profile.values())
+            ins = (x, y) if flow is None else (x, y, flow)
+            nbytes = sum(t.numel() * t.element_size() for t in ins + (vol,))
+            flops = DISP_FLOPS_PER_OUTPUT * vol.numel() + (0 if flow is None else (
+                DISP_FLOPS_PER_SAMPLE * flow[:, 0].numel() + B1_FLOPS_PER_OUTPUT * y.numel()))
+            t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / F32_FLOPS * 1e3
+            bound = max(t_bytes, t_ops)
+            rows.append(dict(name=f"{path}_level_{tuple(x.shape[-2:])}", x=list(x.shape), md=md,
+                             flow=flow is not None, out=list(vol.shape),
+                             dtype=str(x.dtype).replace("torch.", ""), ms=ms, device_ms=dev_ms,
+                             plain_ms=plain_ms, library_ms=None, bound_ms=bound,
+                             bound_by="bytes" if t_bytes >= t_ops else "operations",
+                             bound_share=None if dev_ms is None else bound / dev_ms,
+                             bytes=nbytes, flops=flops, old_composition_ms=old_ms,
+                             old_composition_device_ms=old_dev_ms,
+                             old_composition_kernels=old_kernels))
+            share = "not measured" if dev_ms is None else f"{100 * bound / dev_ms:.1f}%"
+            log(f"displacement volume {path} x {tuple(x.shape)} md {md} "
+                f"{'with' if flow is not None else 'without'} flow -> {tuple(vol.shape)} "
+                f"{rows[-1]['dtype']}: device {fmt(dev_ms)}, events {ms:.4f} ms, plain "
+                f"{plain_ms:.4f} ms, bound {bound:.4f} ms ({rows[-1]['bound_by']}, "
+                f"{nbytes / 1e6:.1f} MB), share of bound {share}; the replaced composition "
+                f"device {fmt(old_dev_ms)} in {old_kernels:.0f} kernels, events {old_ms:.4f} ms")
+            del vol
+        total = _pair_sums(rows)
+        for key in ("old_composition_ms", "old_composition_kernels"):
+            total[key] = sum(r[key] for r in rows)
+        total["old_composition_device_ms"] = (
+            None if any(r["old_composition_device_ms"] is None for r in rows)
+            else sum(r["old_composition_device_ms"] for r in rows))
+        total["bound_share"] = (None if total["device_ms"] is None
+                                else total["bound_ms"] / total["device_ms"])
+        out[path] = dict(total, calls=rows)
+        log(f"displacement volume per {'pair' if path == 'dicl_main_path' else 'step'} "
+            f"({path}): device {fmt(total['device_ms'])}, events {total['ms']:.4f} ms, bound "
+            f"{total['bound_ms']:.4f} ms, plain {total['plain_ms']:.4f} ms; the replaced "
+            f"composition device {fmt(total['old_composition_device_ms'])} in "
+            f"{total['old_composition_kernels']:.0f} kernels")
+    return out, max_err
 
 
 POSE_GRAD_REPLACES = "deep_sfm_revisited_tpu/models/psnet.py:253"
@@ -1754,13 +1914,59 @@ POSE_GRAD_REPLACES = "deep_sfm_revisited_tpu/models/psnet.py:253"
 POSE_GRAD_FLOPS_PER_SAMPLE, POSE_GRAD_FLOPS_PER_VALID, POSE_GRAD_FLOPS_PER_CHANNEL = 14, 16, 14
 
 
-def phase_pose_grad(cap_pose, sweep_warp, camera):
+def old_pose_grad_kernel(path: Path):
+    """The sweep pose gradient of an earlier `sweep_warp.cu`, built by
+    `ops/cuda/build.py` beside the current source and called through its
+    plain C entry point with ctypes (an earlier `_blocks` entry may take no
+    plane count; the source says which)."""
+    import ctypes
+
+    from deep_sfm_revisited_tpu_torch.ops.cuda.build import CudaKernel
+
+    takes_d = "pose_grad_blocks(int B, int D," in path.read_text()
+
+    class OldPoseGrad(CudaKernel):
+        source = str(path.resolve())   # an absolute path replaces csrc/
+
+        def _bind(self, lib):
+            blocks = lib.dsfm_plane_sweep_volume_pose_grad_blocks
+            blocks.argtypes = [ctypes.c_int] * (6 if takes_d else 5)
+            blocks.restype = ctypes.c_longlong
+            fn = lib.dsfm_plane_sweep_volume_pose_grad
+            fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+            fn.restype = ctypes.c_int
+
+        def __call__(self, dvol, tgt, depths, M, Kt):
+            lib = self.build()
+            B_, D_, H_, W_, C2 = dvol.shape
+            code = {torch.float32: 0, torch.bfloat16: 1}[dvol.dtype]
+            dims = (B_, D_, H_, W_, C2 // 2) if takes_d else (B_, H_, W_, C2 // 2)
+            n = lib.dsfm_plane_sweep_volume_pose_grad_blocks(*dims, code)
+            check(n > 0, f"the earlier pose gradient refuses {tuple(dvol.shape)}")
+            partial = torch.empty((n, 12), dtype=torch.float64, device=dvol.device)
+            dM = torch.zeros((B_, 3, 3), device=dvol.device)
+            dKt = torch.zeros((B_, 3), device=dvol.device)
+            err = lib.dsfm_plane_sweep_volume_pose_grad(
+                dvol.data_ptr(), tgt.data_ptr(), depths.data_ptr(), M.data_ptr(), Kt.data_ptr(),
+                partial.data_ptr(), dM.data_ptr(), dKt.data_ptr(), B_, D_, H_, W_, C2 // 2, code,
+                torch.cuda.current_stream().cuda_stream)
+            check(err == 0, f"the earlier pose gradient's launch failed: cudaError {err}")
+            return dM, dKt
+
+    return OldPoseGrad()
+
+
+def phase_pose_grad(cap_pose, sweep_warp, camera, old_source: str | None = None):
     """The sweep pose-gradient kernel against its plain version on the
     inputs slice 7's POSENET step gave it (the volume's bf16 gradient at
     b = 4, 64x192, 128 planes, and the target features), in bf16 and
     float32, and on a pose that puts the near planes behind the camera, one
     that pushes most samples out of the frame and one with every plane
     behind it (exactly zero).
+
+    With `old_source`, an earlier `sweep_warp.cu` (`old_pose_grad_kernel`),
+    its pose gradient is held to the same tolerance and timed beside the
+    current one in turns (old, new, new, old) on the main path's inputs.
 
     Tolerance: the kernel sums the per-sample float32 terms in float64 in a
     fixed order, the plain version in torch's: |kernel - plain| <= 1e-5
@@ -1822,6 +2028,23 @@ def phase_pose_grad(cap_pose, sweep_warp, camera):
     lib_ms = cuda_ms(yardstick, reps=10)
     lib_dev = sum(v[0] for v in device_profile(yardstick, reps=10).values()) or None
     del grid, gout, tgt_nchw, x, y
+    in_turns = None
+    if old_source:
+        old = old_pose_grad_kernel(Path(old_source))
+        want = camera.plane_sweep_volume_pose_grad_plain(dvol, tgt, depths, M, Kt)
+        for got, w in zip(old(dvol, tgt, depths, M, Kt), want):
+            check(float((got - w).abs().max()) <= 1e-5 * float(w.abs().max()),
+                  "the earlier pose gradient is not within 1e-5 of the plain version")
+        runs = {"old": lambda: old(dvol, tgt, depths, M, Kt), "new": run}
+        in_turns = {f"{who}_{k}": [] for who in runs for k in ("device_ms", "events_ms")}
+        for who in ("old", "new", "new", "old"):
+            in_turns[f"{who}_device_ms"].append(device_ms(runs[who], "plane_sweep_pose_grad",
+                                                          reps=10))
+            in_turns[f"{who}_events_ms"].append(cuda_ms(runs[who], reps=10))
+        log(f"sweep pose gradient in turns (old, new, new, old) against {old_source}: "
+            + json.dumps(in_turns))
+    else:
+        log("sweep pose gradient: no earlier source given (--old-b1), no timing in turns")
     # the least work of any implementation: dvol's tgt half read only where
     # the sample is valid (validity follows from M, K t and the depths
     # alone), the other inputs read once, dM and dK t written once
@@ -1837,7 +2060,7 @@ def phase_pose_grad(cap_pose, sweep_warp, camera):
                 plain_ms=plain_ms, library_ms=lib_ms, library_device_ms=lib_dev,
                 bound_ms=bound, bound_by="bytes" if t_bytes >= t_ops else "operations",
                 bound_share=None if dev_ms is None else bound / dev_ms, bytes=nbytes,
-                flops=flops, valid_share=valid / samples)
+                flops=flops, valid_share=valid / samples, in_turns=in_turns)
     fmt = lambda v: "not measured" if v is None else f"{v:.4f} ms"   # noqa: E731
     share = "not measured" if dev_ms is None else f"{100 * bound / dev_ms:.1f}%"
     log(f"sweep pose gradient kernel: dvol {tuple(dvol.shape)} {call['dtype']}: device "
@@ -1855,6 +2078,9 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description="the port's smoke run on one CUDA device")
     ap.add_argument("--save-sweep-inputs", default=None,
                     help="write slice 5's sweep depths, M and K t to this .pt file")
+    ap.add_argument("--old-b1", default=None,
+                    help="an earlier csrc/sweep_warp.cu whose sweep pose gradient phase 13 "
+                         "times in turns with the current one")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's smoke run needs one", file=sys.stderr)
@@ -1863,27 +2089,30 @@ def main(argv=None) -> int:
         print(f"chip_smoke: the package {PKG} is not beside this script", file=sys.stderr)
         return 2
     sys.path.insert(0, str(REPO))
+    from deep_sfm_revisited_tpu_torch.models import dicl
     from deep_sfm_revisited_tpu_torch.ops import camera, correlation
     from deep_sfm_revisited_tpu_torch.ops.cuda import local_corr, sweep_warp
 
     dev = torch.device("cuda", 0)
     t_start = time.perf_counter()
     phase_setup(sweep_warp, local_corr)
+    cap_disp = {}
     with torch.no_grad():
         phase_pose(dev)
         phase_small_reference(dev, "DICL")
         phase_small_reference(dev, "PWC")
-        b1_dicl, sweep_dicl, captured, cap_sweep = phase_main_path(dev, sweep_warp)
-        (b1_pwc, sweep_pwc, b2_pwc), (cap1, cap_sweep_pwc, cap2) = phase_cli_pwc(
+        sweep_dicl, disp_dicl, cap_sweep, cap_disp["dicl_main_path"] = phase_main_path(
+            dev, sweep_warp)
+        (b1_pwc, sweep_pwc, b2_pwc, disp_pwc), (cap1, cap_sweep_pwc, cap2) = phase_cli_pwc(
             dev, sweep_warp, local_corr)
-        calls1, err1, gather_extras = phase_kernel(captured, sweep_warp, camera)
-        pwc_calls1, pwc_err1, _ = phase_kernel(cap1, sweep_warp, camera, path="pwc")
+        calls1, err1, gather_extras = phase_kernel(cap1, sweep_warp, camera)
         sweep_call, sweep_err = phase_sweep(cap_sweep + cap_sweep_pwc, sweep_warp, camera)
         calls2, err2 = phase_b2(cap2, local_corr, correlation)
     phase_small_train_reference(dev)
     phase_small_train_reference(dev, posenet=True)
-    (b1_train, sweep_train, bwd_train, pg_train), cap_bwd, _ = phase_cli_train(dev, sweep_warp)
-    check(pg_train == 0, f"cli train: the RANSAC step launched the pose gradient {pg_train} times")
+    train_launches, cap_bwd, _, cap_disp["cli_train"] = phase_cli_train(dev, sweep_warp)
+    check(train_launches[3] == 0,
+          f"cli train: the RANSAC step launched the pose gradient {train_launches[3]} times")
     if args.save_sweep_inputs:
         _, depths, M, Kt = cap_bwd[0]
         torch.save({"depths": depths.cpu(), "M": M.cpu(), "Kt": Kt.cpu(),
@@ -1891,40 +2120,48 @@ def main(argv=None) -> int:
     with torch.no_grad():
         bwd_call, bwd_err = phase_sweep_backward(cap_bwd, sweep_warp, camera)
     del cap_bwd
-    pose_paths = phase_cli_pose(dev, sweep_warp)
-    posenet_launches, _, cap_pose = phase_cli_train(dev, sweep_warp, posenet=True)
-    pose_paths["cli_posenet_train"] = posenet_launches
+    pose_paths, cap_disp["cli_record_pose"] = phase_cli_pose(dev, sweep_warp)
+    pose_paths["cli_posenet_train"], _, cap_pose, _ = phase_cli_train(dev, sweep_warp,
+                                                                      posenet=True)
     with torch.no_grad():
-        pg_call, pg_err = phase_pose_grad(cap_pose, sweep_warp, camera)
-    del cap_pose
-    by_path = {k: dict(zip(("gather", "sweep", "backward", "pose_grad"), v))
-               for k, v in pose_paths.items()}
+        pg_call, pg_err = phase_pose_grad(cap_pose, sweep_warp, camera, args.old_b1)
+        del cap_pose
+        disp_calls, disp_err = phase_displacement(cap_disp, sweep_warp, dicl)
+    del cap_disp
+    names = ("gather", "sweep", "backward", "pose_grad", "volume")
+    by_path = {"dicl_main_path": dict(zip(names, (0, sweep_dicl, 0, 0, disp_dicl))),
+               "pwc_cli_eval": dict(zip(names, (b1_pwc, sweep_pwc, 0, 0, disp_pwc))),
+               "cli_train": dict(zip(names, train_launches)),
+               **{k: dict(zip(names, v)) for k, v in pose_paths.items()}}
 
-    # per frame pair: slice 1's four flow warps head the gather's row;
-    # slice 2's pair makes its own four
+    def launches(kernel):
+        counts = {k: v[kernel] for k, v in by_path.items()}
+        return {"launches": sum(counts.values()), "launches_by_path": counts}
+
+    # per frame pair: PWC-DC's four flow warps (DICL's are fused into its
+    # displacement volume)
     b1 = {"name": "bilinear_sample", "route": "cuda", "source": B1_SOURCE,
-          "replaces": B1_REPLACES,
-          "launches": b1_dicl + b1_pwc + b1_train + sum(v["gather"] for v in by_path.values()),
-          "launches_by_path": {"dicl_main_path": b1_dicl, "pwc_cli_eval": b1_pwc,
-                               "cli_train": b1_train,
-                               **{k: v["gather"] for k, v in by_path.items()}},
-          "max_abs_err": max(err1, pwc_err1), **_pair_sums(calls1),
-          "pwc_pair": _pair_sums(pwc_calls1), **gather_extras, "calls": calls1 + pwc_calls1}
+          "replaces": B1_REPLACES, **launches("gather"), "max_abs_err": err1,
+          **_pair_sums(calls1), **gather_extras, "calls": calls1}
+    # per slice-1 pair: DICL's five levels, each one launch (the training
+    # step's five beside it); no single PyTorch call builds the stack, so
+    # there is no library time (the composition it replaced is timed beside
+    # it)
+    disp = {"name": "displacement_volume", "route": "cuda", "source": B1_SOURCE,
+            "replaces": B1_REPLACES, "fuses": DISP_FUSES, **launches("volume"),
+            "max_abs_err": disp_err,
+            **{k: v for k, v in disp_calls["dicl_main_path"].items() if k != "calls"},
+            "train_step": disp_calls["cli_train"],
+            "calls": disp_calls["dicl_main_path"]["calls"]}
     # one launch per pair on either slice; no single PyTorch call builds the
     # volume, so there is no library time (the composition it replaced is
     # timed beside it)
     sweep = {"name": "plane_sweep_volume", "route": "cuda", "source": B1_SOURCE,
-             "replaces": B1_REPLACES,
-             "launches": sweep_dicl + sweep_pwc + sweep_train
-             + sum(v["sweep"] for v in by_path.values()),
-             "launches_by_path": {"dicl_main_path": sweep_dicl, "pwc_cli_eval": sweep_pwc,
-                                  "cli_train": sweep_train,
-                                  **{k: v["sweep"] for k, v in by_path.items()}},
-             "max_abs_err": sweep_err,
+             "replaces": B1_REPLACES, **launches("sweep"), "max_abs_err": sweep_err,
              **{k: v for k, v in sweep_call.items() if k != "name"}}
     b2 = {"name": "local_correlation", "route": "cuda", "source": B2_SOURCE,
           "replaces": B2_REPLACES, "launches": b2_pwc,
-          "launches_by_path": {"pwc_cli_eval": b2_pwc, **{k: 0 for k in by_path}},
+          "launches_by_path": {k: b2_pwc if k == "pwc_cli_eval" else 0 for k in by_path},
           "max_abs_err": err2,
           # per frame pair: PWC-DC's five levels; no single PyTorch call
           # computes a windowed correlation, so there is no library time
@@ -1932,23 +2169,21 @@ def main(argv=None) -> int:
     # one launch per training step; it replaces the gradient XLA derives for
     # the JAX cost volume (the TPU had no kernel of its own for it)
     bwd = {"name": "plane_sweep_volume_backward", "route": "cuda", "source": B1_SOURCE,
-           "replaces": BWD_REPLACES,
-           "launches": bwd_train + sum(v["backward"] for v in by_path.values()),
-           "launches_by_path": {"cli_train": bwd_train,
-                                **{k: v["backward"] for k, v in by_path.items()}},
-           "max_abs_err": bwd_err, **{k: v for k, v in bwd_call.items() if k != "name"}}
+           "replaces": BWD_REPLACES, **launches("backward"), "max_abs_err": bwd_err,
+           **{k: v for k, v in bwd_call.items() if k != "name"}}
     # one launch per POSENET training step, none on the RANSAC step (its pose
     # is stop-gradient); it replaces the gradient XLA derives for the JAX cost
     # volume with respect to the pose
     pg = {"name": "plane_sweep_volume_pose_grad", "route": "cuda", "source": B1_SOURCE,
-          "replaces": POSE_GRAD_REPLACES,
-          "launches": pg_train + sum(v["pose_grad"] for v in by_path.values()),
-          "launches_by_path": {"cli_train": pg_train,
-                               **{k: v["pose_grad"] for k, v in by_path.items()}},
-          "max_abs_err": pg_err, **{k: v for k, v in pg_call.items() if k != "name"}}
-    check(pg["launches_by_path"]["cli_posenet_train"] > 0 and b1["launches_by_path"][
-        "cli_record_pose"] > 0, "the pose paths launched no pose gradient or no gather")
-    for k in (b1, sweep, b2, bwd, pg):
+          "replaces": POSE_GRAD_REPLACES, **launches("pose_grad"), "max_abs_err": pg_err,
+          **{k: v for k, v in pg_call.items() if k != "name"}}
+    kernels = [b1, disp, sweep, b2, bwd, pg]
+    check(all(k["launches"] > 0 for k in kernels), "a kernel was launched no time on the "
+          f"main paths: {[(k['name'], k['launches']) for k in kernels]}")
+    check(pg["launches_by_path"]["cli_posenet_train"] > 0
+          and disp["launches_by_path"]["cli_record_pose"] > 0,
+          "the pose paths launched no pose gradient or no displacement volume")
+    for k in kernels:
         lib = "none" if k["library_ms"] is None else f"{k['library_ms']:.4f} ms"
         dev = "not measured" if k["device_ms"] is None else f"{k['device_ms']:.4f} ms"
         log(f"{k['name']} per pair or step: kernel {k['ms']:.4f} ms (device {dev}), plain "
@@ -1956,7 +2191,7 @@ def main(argv=None) -> int:
             f"bound {k['bound_ms']:.4f} ms ({k['bound_by']}), library {lib}, "
             f"launches {k['launches']}")
     log(f"chip_smoke: all phases passed in {time.perf_counter() - t_start:.1f} s")
-    log(json.dumps({"kernels": [b1, sweep, b2, bwd, pg]}))
+    log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",
                                            "kind": torch.cuda.get_device_name(0),
                                            "count": torch.cuda.device_count()}}))

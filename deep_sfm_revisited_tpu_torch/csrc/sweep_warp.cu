@@ -1,6 +1,6 @@
-// Kernel B1: bilinear gather for DICL's and PWC-DC's flow warps, and the
-// fused plane-sweep cost volume of PSNet with its two gradients, written for
-// Hopper (sm_90a).
+// Kernel B1: bilinear gather for PWC-DC's flow warps, DICL's fused warp and
+// displacement volume, and the fused plane-sweep cost volume of PSNet with
+// its two gradients, written for Hopper (sm_90a).
 //
 // Replaces deep_sfm_revisited_tpu/ops/pallas/sweep_warp.py::
 // bilinear_sample_pallas (the Pallas TPU kernel; its semantics are
@@ -13,14 +13,44 @@
 // PyTorch versions of the port (ops/camera.py::bilinear_sample_plain and
 // ops/camera.py::plane_sweep_volume_plain).
 //
-// Four entry points share that rule (`Taps`, `SweepRay` and `blend` below):
+// Five entry points share that rule (`Taps`, `SweepRay` and `blend` below):
 //
 // dsfm_bilinear_sample -- the generic gather at given coordinates, used by
-// the flow warps. One thread per (query, 16-byte channel chunk), so
+// PWC-DC's flow warps. One thread per (query, 16-byte channel chunk), so
 // neighbouring threads read and write neighbouring 16-byte chunks and every
 // store is a full, coalesced 16-byte vector. The warps are small (at most
-// 96x320 queries) and launch-bound, so all three entry points are launched
+// 96x320 queries) and launch-bound, so every entry point is launched
 // through PyTorch operators (sweep_warp_ops.cpp), not from Python.
+//
+// dsfm_displacement_volume -- DICL's (B, S2, 2C, h, w) displacement stack
+// of one pyramid level in one pass, S = 2 md + 1: per ref pixel p and
+// displacement d = (du, dv) (dv outer), the pair [x m hole | ys m hole],
+// where ys is y warped by the level's flow (B1's gather at q + flow(q),
+// q = p + d, rounded to y's dtype) or y itself at the coarsest level, m is
+// 1 where q lies in the frame and hole is 1 where some channel of ys is
+// non-zero (models/dicl.py::shifted_pairs of warp_flow, JAX
+// models/dicl.py:160-188, :231-239; the TPU ran that stack as XLA-fused
+// jnp around bilinear_sample). It replaces ~500 eager launches a level.
+// What bounds it: device-memory bytes. At slice 1 (b = 1, 384x1280, C = 32
+// bf16, md = 3) the level-2 stack is 49 x 64 x 96 x 320 x 2 B = 192.7 MB,
+// ~257 MB over the five levels (0.077 ms at 3.35 TB/s), against ~2 MB of
+// maps that stay in L2, so every choice serves the store stream:
+// - a work item is one dv and a tile of 4 rows x 64 pixels; its block
+//   samples the target rows it needs (md columns beyond each side) once
+//   into shared memory, taps computed once a sample and 8-channel chunk
+//   (32 loads in flight a thread), each sample's hole flag reduced over its
+//   channels as it is written;
+// - a thread stores a pixel pair's 8-channel chunk for all S displacements
+//   of the item's dv, its x channels held in registers, neighbouring threads
+//   on neighbouring pairs: every warp store is one coalesced 128-byte
+//   (bf16) or 256-byte (float32) stretch, a streaming store (st.global.cs);
+// - the work of a block is spread over all its threads at every level (the
+//   coarse levels are a few small items), and the grid is persistent (as
+//   many blocks as the occupancy allows; level 2 of one pair is 840 items).
+// Its time is latency more than bytes: each item samples, then stores, and
+// the coarse levels are a few items (PERF.md has the numbers).
+// m and hole are 0 or 1, so x m hole is x (m hole) bit for bit: the stack
+// is bit-identical to the plain composition in bf16 and float32.
 //
 // dsfm_plane_sweep_volume -- PSNet's whole cost volume in one pass, the
 // JAX package's (B, D, H, W, 2C) layout with [ref | warped] on the last
@@ -99,18 +129,29 @@
 // come from `SweepRay`, so they are the forward's own; a sample the forward
 // zeroed adds nothing. Plain version: ops/camera.py::
 // plane_sweep_volume_pose_grad_plain.
-// What bounds it: device-memory bytes. At the training shape it must read
-// dvol's warped half, 4 x 128 x 64 x 192 x 32 bf16 = 402.7 MB (0.120 ms at
-// 3.35 TB/s), for about 1.6 GFLOP; the 3.1 MB tgt map stays in L2. So a
-// thread owns one 16-byte chunk of a pixel's warped half and walks the
-// planes with streaming loads (the forward's mapping: a pixel's chunks are
-// neighbouring threads); a pixel's lanes sum g_x, g_y with a butterfly of
-// shuffles, and its first lane sums the six plane sums in float64 registers.
+// What bounds it: device-memory bytes. At the POSENET step's inputs it must
+// read dvol's warped half where the sample is valid (49% of 4 x 128 x 64 x
+// 192 x 32 bf16, 201.5 MB: 0.060 ms at 3.35 TB/s), for about 1.5 GFLOP; the
+// 3.1 MB tgt map stays in L2. A thread owns one 16-byte chunk of a pixel's
+// warped half (the forward's mapping: a pixel's chunks are neighbouring
+// threads). The first design walked all 128 planes in one thread behind 768
+// blocks (less than one wave), issued each plane's load after its two
+// divisions, and left the float64 chain to one lane (0.3133 ms). Now a
+// block owns one row tile and a group of 32 planes (3072 blocks at that
+// shape), and walks its group in rings of min(tpp, 8) planes (4 in bf16):
+// lane j of a pixel computes plane j's coordinates, validity and taps once
+// and passes them to the pixel's other lanes by shuffles, then all the
+// ring's dvol loads are issued (streaming), then the taps and the chunk
+// sums; a pixel's lanes sum g_x, g_y with a butterfly of shuffles, and
+// lane j runs plane j's float64 chain, with 1/z once a sample. Most of its
+// time is instructions, not bytes: the per-channel tap arithmetic of the
+// valid samples (in fused multiply-adds) and the per-sample coordinates.
 // The reduction runs in a fixed order, without atomics, so dM and dK t are
-// the same bits from launch to launch: each block (a tile of one row of one
-// batch item) sums its pixels' twelve terms in shared memory, in pixel
-// order, into one partial of 12 doubles; a second kernel sums each batch
-// item's partials, in a fixed tree, into dM and dK t.
+// the same bits from launch to launch:
+// each warp sums its pixels' twelve terms by shuffles in a fixed tree, the
+// block its warps in order, into one partial of 12 doubles per (tile, plane
+// group); a second kernel sums each batch item's partials, in a fixed
+// tree, into dM and dK t.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -140,6 +181,25 @@ struct F32 {
   __device__ __forceinline__ static void store1(void* p, int64_t i, float v) {
     reinterpret_cast<float*>(p)[i] = v;
   }
+  // one element as stored, and the displacement volume's pair accesses
+  using Bits = float;
+  __device__ __forceinline__ static float to_float(Bits b) { return b; }
+  __device__ __forceinline__ static Bits from_float(float v) { return v; }
+  __device__ __forceinline__ static Bits load_bits(const void* p, int64_t i) {
+    return __ldg(reinterpret_cast<const float*>(p) + i);
+  }
+  __device__ __forceinline__ static void load2(const void* p, int64_t i, float& a, float& b) {
+    const float2 r =
+        __ldg(reinterpret_cast<const float2*>(reinterpret_cast<const float*>(p) + i));
+    a = r.x;
+    b = r.y;
+  }
+  __device__ __forceinline__ static void store1cs(void* p, int64_t i, float v) {
+    __stcs(reinterpret_cast<float*>(p) + i, v);
+  }
+  __device__ __forceinline__ static void store2cs(void* p, int64_t i, float a, float b) {
+    __stcs(reinterpret_cast<float2*>(reinterpret_cast<float*>(p) + i), make_float2(a, b));
+  }
 };
 
 struct BF16 {
@@ -168,6 +228,28 @@ struct BF16 {
   }
   __device__ __forceinline__ static void store1(void* p, int64_t i, float v) {
     reinterpret_cast<unsigned short*>(p)[i] = (unsigned short)bits(v);
+  }
+  using Bits = unsigned short;
+  __device__ __forceinline__ static float to_float(Bits b) {
+    return __uint_as_float(((uint32_t)b) << 16);
+  }
+  __device__ __forceinline__ static Bits from_float(float v) { return (Bits)bits(v); }
+  __device__ __forceinline__ static Bits load_bits(const void* p, int64_t i) {
+    return __ldg(reinterpret_cast<const unsigned short*>(p) + i);
+  }
+  __device__ __forceinline__ static void load2(const void* p, int64_t i, float& a, float& b) {
+    const uint32_t w = __ldg(reinterpret_cast<const unsigned int*>(
+        reinterpret_cast<const unsigned short*>(p) + i));
+    a = lo(w);
+    b = hi(w);
+  }
+  __device__ __forceinline__ static void store1cs(void* p, int64_t i, float v) {
+    __stcs(reinterpret_cast<unsigned short*>(p) + i, (unsigned short)bits(v));
+  }
+  __device__ __forceinline__ static void store2cs(void* p, int64_t i, float a, float b) {
+    const __nv_bfloat162 v = __floats2bfloat162_rn(a, b);   // a at the lower address
+    __stcs(reinterpret_cast<unsigned int*>(reinterpret_cast<unsigned short*>(p) + i),
+           *reinterpret_cast<const unsigned int*>(&v));
   }
 };
 
@@ -669,23 +751,34 @@ cudaError_t launch_sweep_backward(const void* dvol, const float* depths, const f
 constexpr int kPoseThreads = 256;     // threads of a block of the first pass
 constexpr int kPoseReduceThreads = 256;
 constexpr int kPoseTerms = 12;        // dM (row-major 3 x 3), then dKt (3)
+constexpr int kPosePlanes = 32;       // planes of a block's group
 
-// The pixels of one tile: a block serves ppt = 256 / tpp pixels of one row
-// of one batch item, tpp = C / kVec threads a pixel (a power of two up to 32,
-// so a pixel's lanes lie in one warp). block = (b H + y) tiles + tile.
-template <typename T>
-__global__ void __launch_bounds__(kPoseThreads)
+// Block = ((b H + y) tiles + tile) groups + group: ppt = 256 / tpp pixels of
+// one row of one batch item, tpp = C / kVec threads a pixel (a power of two
+// up to 32, so a pixel's lanes lie in one warp), and plane group `group`
+// (kPosePlanes planes). It walks its group in rings of kRing = min(tpp, 8)
+// planes: lane j < kRing of a pixel computes plane j's point, divide,
+// validity and taps, and sends them to the pixel's other lanes; all the
+// ring's dvol loads are issued before any tap arithmetic; after the channel
+// sums, lane j runs plane j's float64 chain. The block's partial, 12
+// doubles, is row blockIdx.x, so a batch item's partials are one contiguous
+// run in a fixed order.
+// Three blocks an SM (<= 85 registers), which timed faster than two at
+// 122 registers or four at 64.
+template <typename T, int kRing>
+__global__ void __launch_bounds__(kPoseThreads, 3)
 plane_sweep_pose_grad_kernel(const void* __restrict__ dvol, const void* __restrict__ tgt,
                              const float* __restrict__ depths, const float* __restrict__ M,
                              const float* __restrict__ Kt, double* __restrict__ partial,
-                             int D, int H, int W, int C, int tiles) {
+                             int D, int H, int W, int C, int tiles, int groups) {
   constexpr int kVec = T::kVec, kBytes = 16 / kVec;
-  __shared__ double terms[kPoseThreads][kPoseTerms];   // one row a pixel
+  __shared__ double warp_terms[kPoseThreads / 32][kPoseTerms];
   const int tpp = C / kVec;
   const int ppt = kPoseThreads / tpp;
   const int pix = threadIdx.x / tpp, lane = threadIdx.x - pix * tpp;
   const int c0 = lane * kVec;
   int r = blockIdx.x;
+  const int group = r % groups; r /= groups;
   const int tile = r % tiles; r /= tiles;
   const int y = r % H;
   const int b = r / H;
@@ -695,76 +788,142 @@ plane_sweep_pose_grad_kernel(const void* __restrict__ dvol, const void* __restri
   const float wm1 = (float)(W - 1), hm1 = (float)(H - 1);
 
   const SweepRay ray(M, Kt, b, xc, y);
-  const char* img = reinterpret_cast<const char*>(tgt) + (int64_t)b * H * W * C * kBytes;
+  const char* img = reinterpret_cast<const char*>(tgt) + (int64_t)b * H * W * C * kBytes
+                    + c0 * kBytes;
   const int64_t plane_bytes = (int64_t)H * W * 2 * C * kBytes;
+  const int d0 = group * kPosePlanes, d1 = min(D, d0 + kPosePlanes);
   const char* g = reinterpret_cast<const char*>(dvol)
-                  + ((((int64_t)b * D * H + y) * W + xc) * 2 * C + C + c0) * kBytes;
-  double s[3] = {0.0, 0.0, 0.0}, t[3] = {0.0, 0.0, 0.0};   // sum_d dp_i d, sum_d dp_i
+                  + (((((int64_t)b * D + d0) * H + y) * W + xc) * 2 * C + C + c0) * kBytes;
+  // lane j's planes: sum_d dp_k d and sum_d dp_k, k = 0, 1, 2
+  double s[3] = {0.0, 0.0, 0.0}, t[3] = {0.0, 0.0, 0.0};
 
-#pragma unroll 2
-  for (int d = 0; d < D; ++d, g += plane_bytes) {
-    const float dep = __ldg(depths + d);
+  for (int db = d0; db < d1; db += kRing, g += kRing * plane_bytes) {
+    // 1. this lane's plane of the ring: point, divide and validity, as the
+    //    forward's; its taps as one packed word: tap offset << 4 | the +1
+    //    taps' presence (bits 0, 1) | the half-gradient edges (bits 2, 3),
+    //    or -1 where the sample is invalid
+    const int dmine = db + (lane < kRing ? lane : 0);
+    const float dep = dmine < d1 ? __ldg(depths + dmine) : 0.f;
     float p[3];
     ray.point(dep, p);
     const bool behind = p[2] <= 1e-3f;
     const float z = fmaxf(p[2], 1e-3f);
     const float xs = behind ? (float)(2 * W) : __fdiv_rn(p[0], z);
     const float ys = behind ? (float)(2 * H) : __fdiv_rn(p[1], z);
-    const Taps tp(xs, ys, H, W);
-    const bool valid = in && tp.valid != 0.f;
-    float gx = 0.f, gy = 0.f;
-    if (valid) {
-      float gv[kVec], v00[kVec], v01[kVec], v10[kVec], v11[kVec];
-      T::unpack16(__ldcs(reinterpret_cast<const uint4*>(g)), gv);
-      const bool x1 = tp.xi + 1 < W, y1 = tp.yi + 1 < H;   // else JAX's zero pad
-      T::load16(img + (tp.i00 * C + c0) * kBytes, v00);
+    int word = -1;
+    float wx = 0.f, wy = 0.f;
+    if (in && dmine < d1 && xs >= 0.f && xs <= wm1 && ys >= 0.f && ys <= hm1) {
+      const Taps tp(xs, ys, H, W);
+      wx = tp.wx;
+      wy = tp.wy;
+      word = ((tp.yi * W + tp.xi) << 4) | (tp.xi + 1 < W ? 1 : 0) | (tp.yi + 1 < H ? 2 : 0)
+             | (xs == 0.f || xs == wm1 ? 4 : 0) | (ys == 0.f || ys == hm1 ? 8 : 0);
+    }
+    int words[kRing];
+    float wxs[kRing], wys[kRing];
+#pragma unroll
+    for (int j = 0; j < kRing; ++j) {
+      words[j] = __shfl_sync(0xffffffffu, word, j, tpp);
+      wxs[j] = __shfl_sync(0xffffffffu, wx, j, tpp);
+      wys[j] = __shfl_sync(0xffffffffu, wy, j, tpp);
+    }
+    // 2. every valid sample's dvol chunk, all in flight before any tap
+    uint4 gv[kRing];
+#pragma unroll
+    for (int j = 0; j < kRing; ++j)
+      gv[j] = words[j] >= 0 ? __ldcs(reinterpret_cast<const uint4*>(g + j * plane_bytes))
+                            : make_uint4(0u, 0u, 0u, 0u);
+    // 3. the taps and the chunk's sums (a +1 tap beyond the frame reads as
+    //    zero, JAX's pad): g_x = ay (S01 - S00) + wy (S11 - S10) and g_y =
+    //    ax (S10 - S00) + wx (S11 - S01), S_t the chunk's dot product of the
+    //    gradient with tap t, four fused multiply-adds a channel
+    float gx[kRing], gy[kRing];
+#pragma unroll
+    for (int j = 0; j < kRing; ++j) {
+      gx[j] = gy[j] = 0.f;
+      const int wd = words[j];
+      if (wd < 0) continue;
+      const int64_t q = (int64_t)(wd >> 4) * C * kBytes;
+      const float tx = wxs[j], ty = wys[j], ax = __fsub_rn(1.f, tx), ay = __fsub_rn(1.f, ty);
+      float gf[kVec], v00[kVec], v01[kVec], v10[kVec], v11[kVec];
+      T::unpack16(gv[j], gf);
+      T::load16(img + q, v00);
 #pragma unroll
       for (int k = 0; k < kVec; ++k) v01[k] = v10[k] = v11[k] = 0.f;
-      if (x1) T::load16(img + (tp.i01 * C + c0) * kBytes, v01);
-      if (y1) T::load16(img + (tp.i10 * C + c0) * kBytes, v10);
-      if (x1 && y1) T::load16(img + (tp.i11 * C + c0) * kBytes, v11);
+      const int64_t row = (int64_t)W * C * kBytes, col = C * kBytes;
+      if (wd & 1) T::load16(img + q + col, v01);
+      if (wd & 2) T::load16(img + q + row, v10);
+      if ((wd & 3) == 3) T::load16(img + q + row + col, v11);
+      float s00 = 0.f, s01 = 0.f, s10 = 0.f, s11 = 0.f;
 #pragma unroll
       for (int k = 0; k < kVec; ++k) {
-        const float dx = __fadd_rn(__fmul_rn(__fsub_rn(v01[k], v00[k]), tp.ay),
-                                   __fmul_rn(__fsub_rn(v11[k], v10[k]), tp.wy));
-        const float dy = __fadd_rn(__fmul_rn(__fsub_rn(v10[k], v00[k]), tp.ax),
-                                   __fmul_rn(__fsub_rn(v11[k], v01[k]), tp.wx));
-        gx = __fadd_rn(gx, __fmul_rn(gv[k], dx));
-        gy = __fadd_rn(gy, __fmul_rn(gv[k], dy));
+        s00 = fmaf(gf[k], v00[k], s00);
+        s01 = fmaf(gf[k], v01[k], s01);
+        s10 = fmaf(gf[k], v10[k], s10);
+        s11 = fmaf(gf[k], v11[k], s11);
+      }
+      gx[j] = fmaf(ay, s01 - s00, ty * (s11 - s10));
+      gy[j] = fmaf(ax, s10 - s00, tx * (s11 - s01));
+    }
+    // 4. the pixel's sums over its channel chunks, the same tree on every lane
+#pragma unroll
+    for (int j = 0; j < kRing; ++j) {
+      for (int o = tpp >> 1; o > 0; o >>= 1) {
+        gx[j] += __shfl_xor_sync(0xffffffffu, gx[j], o);
+        gy[j] += __shfl_xor_sync(0xffffffffu, gy[j], o);
       }
     }
-    // the pixel's sum over its channel chunks, the same tree on every lane
-    for (int o = tpp >> 1; o > 0; o >>= 1) {
-      gx += __shfl_xor_sync(0xffffffffu, gx, o);
-      gy += __shfl_xor_sync(0xffffffffu, gy, o);
-    }
-    if (valid && lane == 0) {
-      const double GX = (double)gx * ((xs == 0.f || xs == wm1) ? 0.5 : 1.0);
-      const double GY = (double)gy * ((ys == 0.f || ys == hm1) ? 0.5 : 1.0);
-      const double zd = (double)z;
-      const double dp[3] = {GX / zd, GY / zd, -(GX * (double)xs + GY * (double)ys) / zd};
+    // 5. lane j: plane j's float64 chain, with 1/z once
+    float gxm = 0.f, gym = 0.f;
 #pragma unroll
-      for (int i = 0; i < 3; ++i) {
-        s[i] += dp[i] * (double)dep;
-        t[i] += dp[i];
+    for (int j = 0; j < kRing; ++j) {
+      if (lane == j) {
+        gxm = gx[j];
+        gym = gy[j];
+      }
+    }
+    if (lane < kRing && word >= 0) {
+      const double GX = (double)gxm * ((word & 4) ? 0.5 : 1.0);
+      const double GY = (double)gym * ((word & 8) ? 0.5 : 1.0);
+      const double rz = 1.0 / (double)z;
+      const double dp[3] = {GX * rz, GY * rz, -(GX * (double)xs + GY * (double)ys) * rz};
+#pragma unroll
+      for (int k = 0; k < 3; ++k) {
+        s[k] += dp[k] * (double)dep;
+        t[k] += dp[k];
       }
     }
   }
-  if (lane == 0) {
-    const double u = in ? (double)x : 0.0, v = (double)y;
-    double* row = terms[pix];
+
+  // the block's partial, in a fixed tree: the pixel's lanes sum their six
+  // sums by shuffles; lane l of the pixel then carries terms l, l + tpp, ...
+  // and the warp sums them over its pixels by shuffles between lanes of the
+  // same rank; the first 12 threads sum the warps in order
 #pragma unroll
-    for (int i = 0; i < 3; ++i) {
-      row[3 * i] = s[i] * u;
-      row[3 * i + 1] = s[i] * v;
-      row[3 * i + 2] = s[i];
-      row[9 + i] = t[i];
+  for (int k = 0; k < 3; ++k) {
+    for (int o = tpp >> 1; o > 0; o >>= 1) {
+      s[k] += __shfl_xor_sync(0xffffffffu, s[k], o);
+      t[k] += __shfl_xor_sync(0xffffffffu, t[k], o);
     }
+  }
+  const double u = (double)xc, v = (double)y;
+  const int wl = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  for (int m0 = 0; m0 < kPoseTerms; m0 += tpp) {     // uniform across the warp
+    const int m = m0 + lane;
+    const int comp = m < 9 ? m / 3 : m - 9;
+    const double sk = comp == 0 ? s[0] : comp == 1 ? s[1] : s[2];
+    const double tk = comp == 0 ? t[0] : comp == 1 ? t[1] : t[2];
+    const int which = m < 9 ? m % 3 : 3;
+    double term = m >= kPoseTerms ? 0.0
+                  : which == 0 ? sk * u : which == 1 ? sk * v : which == 2 ? sk : tk;
+    for (int o = tpp; o < 32; o <<= 1) term += __shfl_xor_sync(0xffffffffu, term, o);
+    if (wl < tpp && m < kPoseTerms) warp_terms[warp][m] = term;
   }
   __syncthreads();
-  if (threadIdx.x < kPoseTerms) {    // the block's partial, in pixel order
+  if (threadIdx.x < kPoseTerms) {
     double acc = 0.0;
-    for (int q = 0; q < ppt; ++q) acc += terms[q][threadIdx.x];
+#pragma unroll
+    for (int q = 0; q < kPoseThreads / 32; ++q) acc += warp_terms[q][threadIdx.x];
     partial[(int64_t)blockIdx.x * kPoseTerms + threadIdx.x] = acc;
   }
 }
@@ -800,12 +959,15 @@ plane_sweep_pose_grad_reduce(const double* __restrict__ partial, float* __restri
 
 // The first pass's block count (the partials' rows), or -1 where the
 // channel chunks of a pixel are not a power of two up to 32.
-__host__ inline int64_t pose_grad_blocks(int B, int H, int W, int C, int kvec, int* tiles) {
+__host__ inline int64_t pose_grad_blocks(int B, int D, int H, int W, int C, int kvec,
+                                         int* tiles, int* groups) {
   const int tpp = C / kvec;
-  if (C % kvec != 0 || tpp < 1 || tpp > 32 || (tpp & (tpp - 1)) != 0) return -1;
+  if (C % kvec != 0 || tpp < 1 || tpp > 32 || (tpp & (tpp - 1)) != 0 || D < 1) return -1;
+  if ((int64_t)H * W >= (1 << 27)) return -1;   // a tap offset and 4 flags in an int
   const int ppt = kPoseThreads / tpp;
   *tiles = (W + ppt - 1) / ppt;
-  return (int64_t)B * H * *tiles;
+  *groups = (D + kPosePlanes - 1) / kPosePlanes;
+  return (int64_t)B * H * *tiles * *groups;
 }
 
 template <typename T>
@@ -813,15 +975,245 @@ cudaError_t launch_pose_grad(const void* dvol, const void* tgt, const float* dep
                              const float* M, const float* Kt, double* partial, float* dM,
                              float* dKt, int B, int D, int H, int W, int C,
                              cudaStream_t stream) {
-  int tiles = 0;
-  const int64_t blocks = pose_grad_blocks(B, H, W, C, T::kVec, &tiles);
+  int tiles = 0, groups = 0;
+  const int64_t blocks = pose_grad_blocks(B, D, H, W, C, T::kVec, &tiles, &groups);
   if (blocks <= 0 || blocks > 0x7fffffffLL) return cudaErrorInvalidConfiguration;
-  plane_sweep_pose_grad_kernel<T><<<(unsigned)blocks, kPoseThreads, 0, stream>>>(
-      dvol, tgt, depths, M, Kt, partial, D, H, W, C, tiles);
+  const int tpp = C / T::kVec;   // the ring: min(tpp, 8) planes
+  if (tpp == 1)
+    plane_sweep_pose_grad_kernel<T, 1><<<(unsigned)blocks, kPoseThreads, 0, stream>>>(
+        dvol, tgt, depths, M, Kt, partial, D, H, W, C, tiles, groups);
+  else if (tpp == 2)
+    plane_sweep_pose_grad_kernel<T, 2><<<(unsigned)blocks, kPoseThreads, 0, stream>>>(
+        dvol, tgt, depths, M, Kt, partial, D, H, W, C, tiles, groups);
+  else if (tpp == 4)
+    plane_sweep_pose_grad_kernel<T, 4><<<(unsigned)blocks, kPoseThreads, 0, stream>>>(
+        dvol, tgt, depths, M, Kt, partial, D, H, W, C, tiles, groups);
+  else
+    plane_sweep_pose_grad_kernel<T, 8><<<(unsigned)blocks, kPoseThreads, 0, stream>>>(
+        dvol, tgt, depths, M, Kt, partial, D, H, W, C, tiles, groups);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   plane_sweep_pose_grad_reduce<<<B, kPoseReduceThreads, 0, stream>>>(
       partial, dM, dKt, (int)(blocks / B));
+  return cudaGetLastError();
+}
+
+
+// ---------------------------------------------------------------------------
+// DICL's displacement volume.
+
+constexpr int kDispThreads = 256;
+constexpr int kDispTileW = 64;         // a tile: 4 rows of 64 pixels at most
+constexpr int kDispTileH = 4;
+constexpr int kDispChunk = 8;          // channels a thread moves at a time
+constexpr int kDispMaxMd = 4;
+constexpr int kDispMaxC = 64;
+constexpr int kDispSmemMax = 200 * 1024;
+constexpr int kDispCacheSize = 8;      // shared-memory sizes whose occupancy is kept
+
+// A work item's tile: kDispTileH x kDispTileW pixels, or the whole map where
+// it is smaller.
+__host__ inline void disp_tile(int h, int w, int* th, int* tw) {
+  *th = h < kDispTileH ? h : kDispTileH;
+  *tw = w < kDispTileW ? w : kDispTileW;
+}
+
+// The shared rows of a work item: C x th x (tw + 2 md + 1) sampled target
+// values in T (md columns beyond the tile on each side, and one spare that
+// the last pixel pair of an odd row reads and never stores), then one keep
+// flag a halo pixel, padded to 16 bytes.
+__host__ inline int disp_smem_bytes(int C, int md, int th, int tw, int elem_bytes) {
+  const int halo = th * (tw + 2 * md + 1);
+  return (C * halo * elem_bytes + halo + 15) / 16 * 16;
+}
+
+// x, y (B, C, h, w) NCHW in T; flow (B, 2, h, w) float32, or null for none;
+// out (B, S2, 2C, h, w), S = 2 md + 1, displacement s = (dv + md) S + du +
+// md. A work item is (b, dv, tile) of a tile of th x tw pixels: item =
+// ((b S + dv + md) tiles_y + ty) tiles_x + tx. Phase 1 samples the target
+// rows y0 + dv .. y0 + dv + th - 1, md columns beyond the tile on each
+// side, into shared memory (a thread a halo pixel and 8-channel chunk,
+// neighbouring threads on neighbouring pixels) and sets each halo pixel's
+// keep flag where it lies in the frame and some channel of its sample is
+// non-zero. Phase 2 stores the S displacements (dv, du) of the item: a
+// thread a (channel chunk, row, pixel pair), pairs fastest, so a warp's
+// stores of one channel row are one contiguous stretch; it holds its pair's
+// 8 x channels in registers across the S du. `pair_io`: w is even and x is
+// aligned for two-pixel loads, so every pair access is one load or store.
+// Three blocks an SM (<= 85 registers): the fastest of the mappings timed
+// at slice 1's five levels and the training step's level 2.
+template <typename T>
+__global__ void __launch_bounds__(kDispThreads, 3)
+displacement_volume_kernel(const void* __restrict__ x, const void* __restrict__ y,
+                           const float* __restrict__ flow, void* __restrict__ out, int C,
+                           int h, int w, int md, int th, int tw, int tiles_x, int tiles_y,
+                           int pair_io, int64_t items) {
+  extern __shared__ float4 disp_smem[];
+  using Bits = typename T::Bits;
+  const int S = 2 * md + 1;
+  const int halo_w = tw + 2 * md + 1;
+  const int halo = th * halo_w;
+  const int chunks = (C + kDispChunk - 1) / kDispChunk;
+  Bits* const ys = reinterpret_cast<Bits*>(disp_smem);            // [C][th][halo_w]
+  unsigned char* const keep = reinterpret_cast<unsigned char*>(ys + C * halo);
+  const int64_t hw = (int64_t)h * w;
+  const int64_t item_elems = 2 * C * hw;                          // one displacement's pair
+  const int hw32 = h * w;   // offsets inside one displacement's pair fit an int
+
+  for (int64_t item = blockIdx.x; item < items; item += gridDim.x) {
+    int64_t r = item;
+    const int tx = (int)(r % tiles_x); r /= tiles_x;
+    const int ty = (int)(r % tiles_y); r /= tiles_y;
+    const int dvi = (int)(r % S);
+    const int b = (int)(r / S);
+    const int dv = dvi - md;
+    const int x0 = tx * tw, y0 = ty * th;
+    const int rows = min(th, h - y0), cols = min(tw, w - x0);
+    const char* yb = reinterpret_cast<const char*>(y) + (int64_t)b * C * hw * sizeof(Bits);
+
+    __syncthreads();   // the previous item's reads of the shared rows are done
+    for (int i = threadIdx.x; i < halo; i += kDispThreads) keep[i] = 0;
+    __syncthreads();
+    // 1. the sampled rows: by B1's rule at q + flow(q), rounded to T before
+    //    anything reads them; without a flow, y at q
+    const int hcols = cols + 2 * md, hpix = rows * hcols;
+    for (int u = threadIdx.x; u < hpix * chunks; u += kDispThreads) {
+      const int i = u % hpix, c0 = (u / hpix) * kDispChunk;
+      const int hr = i / hcols, hc = i - hr * hcols;
+      const int qy = y0 + hr + dv, qx = x0 - md + hc;
+      Bits* const dst = ys + hr * halo_w + hc;
+      bool any = false;
+      if (qy >= 0 && qy < h && qx >= 0 && qx < w) {
+        const int q = qy * w + qx;
+        if (flow != nullptr) {
+          const float* f = flow + (int64_t)b * 2 * hw + q;
+          // the coordinate as grid + flow.float() rounds it
+          const Taps t(__fadd_rn((float)qx, __ldg(f)), __fadd_rn((float)qy, __ldg(f + hw)), h, w);
+          const int i00 = t.yi * w + t.xi, i01 = i00 + (t.xi1 - t.xi);
+          const int i10 = i00 + (t.yi1 - t.yi) * w, i11 = i10 + (t.xi1 - t.xi);
+#pragma unroll
+          for (int k = 0; k < kDispChunk; ++k) {
+            const int c = c0 + k;
+            if (c >= C) continue;
+            const int o = c * hw32;
+            const Bits v = T::from_float(blend(T::load1(yb, o + i00), T::load1(yb, o + i01),
+                                               T::load1(yb, o + i10), T::load1(yb, o + i11),
+                                               t.wx, t.ax, t.wy, t.ay, t.valid));
+            dst[c * halo] = v;
+            any |= T::to_float(v) != 0.f;
+          }
+        } else {
+#pragma unroll
+          for (int k = 0; k < kDispChunk; ++k) {
+            const int c = c0 + k;
+            if (c >= C) continue;
+            const Bits v = T::load_bits(yb, c * hw32 + q);
+            dst[c * halo] = v;
+            any |= T::to_float(v) != 0.f;
+          }
+        }
+      } else {
+#pragma unroll
+        for (int k = 0; k < kDispChunk; ++k)
+          if (c0 + k < C) dst[(c0 + k) * halo] = Bits(0);
+      }
+      if (any) keep[hr * halo_w + hc] = 1;   // benign: every writer writes 1
+    }
+    __syncthreads();
+
+    // 2. the pairs [x m hole | ys m hole] of the item's S displacements
+    const int pairs = (cols + 1) / 2;
+    const char* xb = reinterpret_cast<const char*>(x) + (int64_t)b * C * hw * sizeof(Bits);
+    char* const ob = reinterpret_cast<char*>(out)
+                     + ((int64_t)b * S + dvi) * S * item_elems * sizeof(Bits);
+    for (int u = threadIdx.x; u < chunks * rows * pairs; u += kDispThreads) {
+      const int pr = u % pairs, rr = (u / pairs) % rows, c0 = (u / (pairs * rows)) * kDispChunk;
+      const int px = x0 + 2 * pr, py = y0 + rr;
+      const bool two = px + 1 < w;
+      const bool vec = two && pair_io;
+      const int pix = py * w + px;
+      float xa[kDispChunk], xn[kDispChunk];   // channels c0.. of pixels px, px + 1
+#pragma unroll
+      for (int k = 0; k < kDispChunk; ++k) {
+        xa[k] = xn[k] = 0.f;
+        if (c0 + k >= C) continue;
+        const int o = (c0 + k) * hw32 + pix;
+        if (vec) {
+          T::load2(xb, o, xa[k], xn[k]);
+        } else {
+          xa[k] = T::load1(xb, o);
+          if (two) xn[k] = T::load1(xb, o + 1);
+        }
+      }
+      const unsigned char* krow = keep + rr * halo_w + 2 * pr;   // + du index
+      const Bits* yrow = ys + rr * halo_w + 2 * pr;               // + c rows + du index
+      for (int du = 0; du < S; ++du) {
+        // m hole of each pixel: 0 or 1, so x m hole = x (m hole) bit for bit
+        const float k0 = krow[du] ? 1.f : 0.f, k1 = krow[du + 1] ? 1.f : 0.f;
+        char* const o = ob + du * item_elems * sizeof(Bits);
+#pragma unroll
+        for (int k = 0; k < kDispChunk; ++k) {
+          const int c = c0 + k;
+          if (c >= C) continue;
+          const Bits* yc = yrow + c * halo;
+          const float ya = T::to_float(yc[du]), yn = T::to_float(yc[du + 1]);
+          const int ix = c * hw32 + pix, iy = (C + c) * hw32 + pix;
+          if (vec) {
+            T::store2cs(o, ix, __fmul_rn(xa[k], k0), __fmul_rn(xn[k], k1));
+            T::store2cs(o, iy, __fmul_rn(ya, k0), __fmul_rn(yn, k1));
+          } else {
+            T::store1cs(o, ix, __fmul_rn(xa[k], k0));
+            T::store1cs(o, iy, __fmul_rn(ya, k0));
+            if (two) {
+              T::store1cs(o, ix + 1, __fmul_rn(xn[k], k1));
+              T::store1cs(o, iy + 1, __fmul_rn(yn, k1));
+            }
+          }
+        }
+      }
+    }
+  }
+}
+
+template <typename T>
+cudaError_t launch_displacement(const void* x, const void* y, const float* flow, void* out,
+                                int B, int C, int h, int w, int md, int pair_io,
+                                cudaStream_t stream) {
+  if (md < 0 || md > kDispMaxMd || C < 1 || C > kDispMaxC) return cudaErrorInvalidValue;
+  int th = 0, tw = 0;
+  disp_tile(h, w, &th, &tw);
+  const int smem = disp_smem_bytes(C, md, th, tw, (int)sizeof(typename T::Bits));
+  if (smem > kDispSmemMax) return cudaErrorInvalidValue;
+  // the persistent grid: as many blocks as fit on the card at once, looked
+  // up once per device and shared-memory size (a pyramid has a few sizes)
+  static int cache_smem[kMaxDevices][kDispCacheSize], cache_blocks[kMaxDevices][kDispCacheSize];
+  static bool opted_in[kMaxDevices];
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev >= kMaxDevices) return cudaErrorInvalidDevice;
+  if (!opted_in[dev]) {   // shared rows above 48 KB, once per device
+    err = cudaFuncSetAttribute(displacement_volume_kernel<T>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, kDispSmemMax);
+    if (err != cudaSuccess) return err;
+    opted_in[dev] = true;
+  }
+  const int slot = (smem / 16) % kDispCacheSize;
+  if (cache_smem[dev][slot] != smem) {
+    int sms = 0, per_sm = 0;
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err != cudaSuccess) return err;
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, displacement_volume_kernel<T>, kDispThreads, smem);
+    if (err != cudaSuccess) return err;
+    cache_blocks[dev][slot] = sms * (per_sm > 0 ? per_sm : 1);
+    cache_smem[dev][slot] = smem;
+  }
+  const int tiles_x = (w + tw - 1) / tw, tiles_y = (h + th - 1) / th;
+  const int64_t items = (int64_t)B * (2 * md + 1) * tiles_y * tiles_x;
+  const int64_t grid = items < cache_blocks[dev][slot] ? items : cache_blocks[dev][slot];
+  displacement_volume_kernel<T><<<(unsigned)grid, kDispThreads, smem, stream>>>(
+      x, y, flow, out, C, h, w, md, th, tw, tiles_x, tiles_y, pair_io, items);
   return cudaGetLastError();
 }
 
@@ -901,13 +1293,13 @@ extern "C" int dsfm_plane_sweep_volume_backward(const void* dvol, const void* de
                                                 dtype, 0, 0, 0, 0, nullptr, stream);
 }
 
-// The rows of the pose gradient's partials (12 doubles each) for B, H, W, C
-// of `dtype`, or -1 where the kernel does not take C.
-extern "C" long long dsfm_plane_sweep_volume_pose_grad_blocks(int B, int H, int W, int C,
-                                                              int dtype) {
-  int tiles = 0;
+// The rows of the pose gradient's partials (12 doubles each) for B, D, H,
+// W, C of `dtype`, or -1 where the kernel does not take C.
+extern "C" long long dsfm_plane_sweep_volume_pose_grad_blocks(int B, int D, int H, int W,
+                                                              int C, int dtype) {
+  int tiles = 0, groups = 0;
   if (dtype != 0 && dtype != 1) return -1;
-  return pose_grad_blocks(B, H, W, C, dtype == 0 ? F32::kVec : BF16::kVec, &tiles);
+  return pose_grad_blocks(B, D, H, W, C, dtype == 0 ? F32::kVec : BF16::kVec, &tiles, &groups);
 }
 
 // The sweep's pose gradient: given dvol (B, D, H, W, 2C) and tgt (B, H, W, C)
@@ -931,5 +1323,23 @@ extern "C" int dsfm_plane_sweep_volume_pose_grad(const void* dvol, const void* t
     return launch_pose_grad<F32>(dvol, tgt, dp, mp, kp, part, om, ok, B, D, H, W, C, s);
   if (dtype == 1)
     return launch_pose_grad<BF16>(dvol, tgt, dp, mp, kp, part, om, ok, B, D, H, W, C, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+// DICL's displacement volume: out (B, S2, 2C, h, w), S = 2 md + 1, of x and
+// y (B, C, h, w) of `dtype` (0 = float32, 1 = bfloat16), NCHW, warped by
+// flow (B, 2, h, w) float32 on the device, or not warped where flow is
+// null. The wrapper checks 0 <= md <= 4, 1 <= C <= 64, B, h, w >= 1,
+// h w < 2^24 (offsets inside one displacement's pair fit an int), and
+// sets `pair_io` only where w is even and x is aligned to two elements.
+extern "C" int dsfm_displacement_volume(const void* x, const void* y, const void* flow,
+                                        void* out, int B, int C, int h, int w, int md,
+                                        int dtype, int pair_io, void* stream) {
+  cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
+  const float* fp = reinterpret_cast<const float*>(flow);
+  if (dtype == 0)
+    return launch_displacement<F32>(x, y, fp, out, B, C, h, w, md, pair_io, s);
+  if (dtype == 1)
+    return launch_displacement<BF16>(x, y, fp, out, B, C, h, w, md, pair_io, s);
   return (int)cudaErrorInvalidValue;
 }

@@ -22,6 +22,7 @@
 #include <c10/core/impl/DeviceGuardImplInterface.h>
 #include <torch/library.h>
 
+#include <optional>
 #include <tuple>
 
 extern "C" {
@@ -35,11 +36,14 @@ int dsfm_plane_sweep_volume_backward_probe(const void* dvol, const void* depths,
                                            int D, int H, int W, int C, int dtype, int tile_h,
                                            int tile_w, int planes, int smem_bytes, void* stats,
                                            void* stream);
-long long dsfm_plane_sweep_volume_pose_grad_blocks(int B, int H, int W, int C, int dtype);
+long long dsfm_plane_sweep_volume_pose_grad_blocks(int B, int D, int H, int W, int C,
+                                                   int dtype);
 int dsfm_plane_sweep_volume_pose_grad(const void* dvol, const void* tgt, const void* depths,
                                       const void* M, const void* Kt, void* partial, void* dM,
                                       void* dKt, int B, int D, int H, int W, int C, int dtype,
                                       void* stream);
+int dsfm_displacement_volume(const void* x, const void* y, const void* flow, void* out, int B,
+                             int C, int h, int w, int md, int dtype, int pair_io, void* stream);
 }
 
 namespace {
@@ -221,9 +225,10 @@ std::tuple<at::Tensor, at::Tensor> plane_sweep_volume_pose_grad(const at::Tensor
   at::Tensor dM = at::zeros({B, 3, 3}, M.options());
   at::Tensor dKt = at::zeros({B, 3}, Kt.options());
   if (dvol.numel() == 0) return {dM, dKt};
-  const long long blocks = dsfm_plane_sweep_volume_pose_grad_blocks(B, H, W, C, code);
+  const long long blocks = dsfm_plane_sweep_volume_pose_grad_blocks(B, D, H, W, C, code);
   TORCH_CHECK_VALUE(blocks > 0, "sweep pose gradient takes C * itemsize / 16 a power of two "
-                    "up to 32, got C = ", C, " of ", dvol.scalar_type());
+                    "up to 32 and H W < 2^27, got C = ", C, " of ", dvol.scalar_type(), ", H ",
+                    H, ", W ", W);
   at::Tensor partial = at::empty({blocks, 12}, dvol.options().dtype(at::kDouble));
   check_launch(dsfm_plane_sweep_volume_pose_grad(
                    dvol.data_ptr(), tgt.data_ptr(), depths.data_ptr(), M.data_ptr(),
@@ -231,6 +236,48 @@ std::tuple<at::Tensor, at::Tensor> plane_sweep_volume_pose_grad(const at::Tensor
                    W, C, code, current_stream(dvol.device())),
                "sweep pose gradient kernel");
   return {dM, dKt};
+}
+
+// DICL's displacement volume: x, y (B, C, h, w) f32/bf16 NCHW, flow
+// (B, 2, h, w) f32 or None, md -> (B, (2md+1)^2, 2C, h, w) in x's dtype. The
+// same rules as ops/cuda/sweep_warp.py::check_displacement_args.
+at::Tensor displacement_volume(const at::Tensor& x, const at::Tensor& y,
+                               const std::optional<at::Tensor>& flow, int64_t md) {
+  const char* what = "displacement volume";
+  TORCH_CHECK_VALUE(x.is_cuda() && y.is_cuda(), "the ", what, " takes CUDA tensors only");
+  TORCH_CHECK_VALUE(y.device() == x.device(), what, " inputs on ", x.device(), " and ",
+                    y.device());
+  const int code = dtype_code(x, what);
+  TORCH_CHECK_TYPE(y.scalar_type() == x.scalar_type(), what, " x and y of dtypes ",
+                   x.scalar_type(), " and ", y.scalar_type());
+  TORCH_CHECK_VALUE(x.dim() == 4 && y.sizes() == x.sizes(), what, " shapes x ", x.sizes(),
+                    ", y ", y.sizes());
+  const int64_t B = x.size(0), C = x.size(1), h = x.size(2), w = x.size(3);
+  TORCH_CHECK_VALUE(B >= 1 && h >= 1 && w >= 1 && C >= 1 && C <= 64 && h * w < (1 << 24), what,
+                    " x ", x.sizes(), "; takes 1 <= C <= 64 and h w < 2^24");
+  TORCH_CHECK_VALUE(md >= 0 && md <= 4, what, " md ", md, "; takes 0 <= md <= 4");
+  TORCH_CHECK_VALUE(x.is_contiguous() && y.is_contiguous(), "the ", what,
+                    " takes contiguous x and y");
+  const void* fp = nullptr;
+  if (flow.has_value()) {
+    const at::Tensor& f = *flow;
+    TORCH_CHECK_VALUE(f.is_cuda() && f.device() == x.device(), what, " flow on ", f.device());
+    TORCH_CHECK_TYPE(f.scalar_type() == at::kFloat, what, " flow dtype ", f.scalar_type(),
+                     "; takes float32");
+    TORCH_CHECK_VALUE(f.dim() == 4 && f.size(0) == B && f.size(1) == 2 && f.size(2) == h &&
+                          f.size(3) == w && f.is_contiguous(),
+                      what, " flow ", f.sizes(), "; takes a contiguous (B, 2, h, w)");
+    fp = f.data_ptr();
+  }
+  const int64_t S = 2 * md + 1;
+  c10::OptionalDeviceGuard guard(x.device());
+  at::Tensor out = at::empty({B, S * S, 2 * C, h, w}, x.options());
+  const int pair_io =
+      w % 2 == 0 && reinterpret_cast<uintptr_t>(x.data_ptr()) % (2 * x.element_size()) == 0;
+  check_launch(dsfm_displacement_volume(x.data_ptr(), y.data_ptr(), fp, out.data_ptr(), B, C, h,
+                                        w, md, code, pair_io, current_stream(x.device())),
+               "displacement volume kernel");
+  return out;
 }
 
 }  // namespace
@@ -244,6 +291,7 @@ TORCH_LIBRARY(dsfm, m) {
         "int tile_h, int tile_w, int planes, int smem_bytes) -> (Tensor, Tensor, Tensor)");
   m.def("plane_sweep_volume_pose_grad(Tensor dvol, Tensor tgt, Tensor depths, Tensor M, "
         "Tensor Kt) -> (Tensor, Tensor)");
+  m.def("displacement_volume(Tensor x, Tensor y, Tensor? flow, int md) -> Tensor");
 }
 
 // Registered for every dispatch key: a CPU tensor reaches the checks, which
@@ -254,4 +302,5 @@ TORCH_LIBRARY_IMPL(dsfm, CompositeExplicitAutograd, m) {
   m.impl("plane_sweep_volume_backward", &plane_sweep_volume_backward);
   m.impl("plane_sweep_volume_backward_probe", &plane_sweep_volume_backward_probe);
   m.impl("plane_sweep_volume_pose_grad", &plane_sweep_volume_pose_grad);
+  m.impl("displacement_volume", &displacement_volume);
 }

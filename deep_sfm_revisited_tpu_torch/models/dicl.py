@@ -2,10 +2,12 @@
 
 `FeatureGA` U-net features at strides 4..64 -> per level 6..2: the
 (2md+1)^2-displacement stack of [x | shifted y] pairs with warp-hole
-masking, a shared matching net folded over the displacement axis, the
-learned 1x1 cost smoothing, soft-argmax flow and its entropy, a dilated
-context net, and the warp of the next level's target features by the
-upsampled flow (`warp_flow`, through kernel B1 on the GPU).
+masking, where y is the level's target features warped by the upsampled
+flow of the level before (`displacement_volume`: on the GPU one launch of
+kernel B1's fused warp-and-displacement-volume entry point, on the CPU its
+plain version, `shifted_pairs` of `warp_flow`), a shared matching net
+folded over the displacement axis, the learned 1x1 cost smoothing,
+soft-argmax flow and its entropy, and a dilated context net.
 
 Module names follow the reference (`models/DICL_shallow.py`), so its
 checkpoints load with `load_state_dict`. Displacements are stacked in the
@@ -18,8 +20,8 @@ JAX `dicl.py:264-272`) and `all_iters=True` returns the per-level flow stack
 (`:356-361`). The port trains the recipe's depth network with DICL frozen
 (`train.fix_flownet`): DICL then runs in train mode under `torch.no_grad()`,
 so its BN running statistics update as JAX's `mutable=["batch_stats"]` step
-updates them. A gradient through DICL (the generic gather's backward) is not
-ported: train mode with autograd on raises.
+updates them. A gradient through DICL (the displacement volume's backward)
+is not ported: train mode with autograd on raises.
 
 Layouts: `DICLFlow.forward` takes and returns NHWC like the JAX module;
 the helpers below work on the internal NCHW tensors (features (B, C, H,
@@ -37,7 +39,9 @@ from torch import nn
 
 from deep_sfm_revisited_tpu_torch.config import FlowConfig
 from deep_sfm_revisited_tpu_torch.models.submodules import BatchNorm2d, _resize_nchw, no_autocast
-from deep_sfm_revisited_tpu_torch.ops.camera import bilinear_sample, pixel_grid
+from deep_sfm_revisited_tpu_torch.ops.camera import (bilinear_sample, bilinear_sample_plain,
+                                                    pixel_grid)
+from deep_sfm_revisited_tpu_torch.ops.cuda import sweep_warp
 from deep_sfm_revisited_tpu_torch.utils.weights import disp_transpose_perm
 
 
@@ -209,15 +213,41 @@ def flow_entropy(cost: torch.Tensor) -> torch.Tensor:
     return ent / math.log(S2)
 
 
-def warp_flow(y: torch.Tensor, flow: torch.Tensor) -> torch.Tensor:
+def warp_flow(y: torch.Tensor, flow: torch.Tensor, sample=None) -> torch.Tensor:
     """Backward-warp features y (B, C, H, W) by flow (B, 2, H, W) with zero
-    fill, through `bilinear_sample` (kernel B1 on the GPU)."""
+    fill, through `sample` (by default `bilinear_sample`: kernel B1's gather
+    on the GPU)."""
     B, C, H, W = y.shape
     with no_autocast(y.device):
         grid = pixel_grid(H, W, torch.float32, y.device)[:2]          # (2, H, W)
         coords = (grid[None] + flow.float()).permute(0, 2, 3, 1)      # (B, H, W, 2)
-    out = bilinear_sample(y.permute(0, 2, 3, 1).contiguous(), coords)
+    out = (sample or bilinear_sample)(y.permute(0, 2, 3, 1).contiguous(), coords)
     return out.permute(0, 3, 1, 2)
+
+
+def displacement_volume_plain(x: torch.Tensor, y: torch.Tensor, flow: Optional[torch.Tensor],
+                              md: int) -> torch.Tensor:
+    """The displacement-volume kernel's plain PyTorch version: the
+    (B, S2, 2C, H, W) stack `shifted_pairs(x, warp_flow(y, flow), md)` with
+    the gather's plain version, or `shifted_pairs(x, y, md)` without a flow."""
+    if flow is not None:
+        y = warp_flow(y, flow, bilinear_sample_plain)
+    return shifted_pairs(x, y, md)
+
+
+def displacement_volume(x: torch.Tensor, y: torch.Tensor, flow: Optional[torch.Tensor],
+                        md: int) -> torch.Tensor:
+    """One level's displacement stack (B, S2, 2C, H, W) of x and y
+    (B, C, H, W) with y warped by flow (B, 2, H, W), or not warped where flow
+    is None. CUDA tensors go through kernel B1's fused entry point (one
+    launch), CPU tensors through `displacement_volume_plain`."""
+    if x.device.type == "cuda":
+        return sweep_warp.displacement_volume_cuda(
+            x.contiguous(), y.contiguous(), None if flow is None else flow.float().contiguous(),
+            md)
+    if x.device.type == "cpu":
+        return displacement_volume_plain(x, y, flow, md)
+    raise NotImplementedError(f"displacement_volume on {x.device.type}")
 
 
 class DICLFlow(nn.Module):
@@ -242,9 +272,9 @@ class DICLFlow(nn.Module):
                 layers.append(nn.Conv2d(32, 2, 3, 1, 1, bias=True))
                 self.add_module(f"context{lvl}", nn.Sequential(*layers))
 
-    def _level_cost(self, xf, yf, md, lvl):
+    def _level_cost(self, xf, yf, flow, md, lvl):
         B, C, h, w = xf.shape
-        stack = shifted_pairs(xf, yf, md)
+        stack = displacement_volume(xf, yf, flow, md)
         S2 = stack.shape[1]
         out = getattr(self, f"matching{lvl}")(stack.reshape(B * S2, 2 * C, h, w))
         cost = out.reshape(B, S2, h, w)
@@ -279,8 +309,7 @@ class DICLFlow(nn.Module):
             idx = 4 - li
             xf, yf = xs[idx], ys[idx]
             md = mds[idx]
-            y_in = yf if up_flow is None else warp_flow(yf, up_flow)
-            cost = self._level_cost(xf, y_in, md, lvl)
+            cost = self._level_cost(xf, yf, up_flow, md, lvl)
             flow = flow_regression(cost, md, cfg.dicl_truncated_size
                                    if cfg.dicl_truncated else None)
             if up_flow is not None:

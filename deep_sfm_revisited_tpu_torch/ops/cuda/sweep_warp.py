@@ -1,16 +1,21 @@
-"""Kernel B1: the bilinear gather and the fused plane-sweep cost volume, in CUDA for Hopper.
+"""Kernel B1: the bilinear gather, DICL's displacement volume and the fused plane-sweep cost volume, in CUDA for Hopper.
 
-Both replace `deep_sfm_revisited_tpu/ops/pallas/sweep_warp.py::
+All replace `deep_sfm_revisited_tpu/ops/pallas/sweep_warp.py::
 bilinear_sample_pallas` (`pallas_call` at `:145`); the JAX package's PSNet
 reaches it through `plane_sweep_warp_pallas` (`:169`). One source,
-`csrc/sweep_warp.cu`, built at first use by `ops/cuda/build.py`, exports four
+`csrc/sweep_warp.cu`, built at first use by `ops/cuda/build.py`, exports five
 kernels; `csrc/sweep_warp_ops.cpp` registers them as the PyTorch operators
 `torch.ops.dsfm.*` (`OPS`), through which each wrapper launches its kernel
 and adds one to its own launch count:
 
-- `bilinear_sample_cuda` (`KERNEL.launches`): the generic gather, for the
-  flow warps. Plain version `ops/camera.py::bilinear_sample_plain`;
+- `bilinear_sample_cuda` (`KERNEL.launches`): the generic gather, for
+  PWC-DC's flow warps. Plain version `ops/camera.py::bilinear_sample_plain`;
   `ops/camera.py::bilinear_sample` sends CUDA tensors here.
+- `displacement_volume_cuda` (`DISPLACEMENT.launches`): one DICL level's
+  (B, S2, 2C, h, w) displacement stack of x and y warped by the level's
+  flow, in one pass. Plain version `models/dicl.py::
+  displacement_volume_plain` (`shifted_pairs` of `warp_flow`);
+  `models/dicl.py::displacement_volume` sends CUDA tensors here.
 - `plane_sweep_volume_cuda` (`VOLUME.launches`): PSNet's whole
   (B, D, H, W, 2C) [ref | warped] volume, coordinates computed inline. Plain
   version `ops/camera.py::plane_sweep_volume_plain`;
@@ -100,6 +105,65 @@ class SweepWarpKernel(CudaKernel):
         return out
 
 
+DISPLACEMENT_MAX_MD, DISPLACEMENT_MAX_C = 4, 64   # csrc/sweep_warp.cu: kDispMaxMd, kDispMaxC
+
+
+def check_displacement_args(x: torch.Tensor, y: torch.Tensor, flow: torch.Tensor | None,
+                            md: int) -> None:
+    """Raise on what the displacement-volume kernel does not take: an input
+    that needs a gradient under grad mode (the kernel has no backward), x and
+    y not of one float32 or bfloat16 dtype and one (B, C, h, w) shape with
+    1 <= C <= 64 and h w < 2^24, a flow not float32 (B, 2, h, w), md
+    outside 0..4, an input not contiguous or not on CUDA. Checked here, not
+    only in the operator, so that the CPU tests see every refusal."""
+    tensors = (x, y) if flow is None else (x, y, flow)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise NotImplementedError("the displacement volume has no backward yet; call it "
+                                  "under torch.no_grad()")
+    if x.dtype not in (torch.float32, torch.bfloat16) or y.dtype != x.dtype:
+        raise TypeError(f"displacement volume x {x.dtype}, y {y.dtype}; takes one of "
+                        "float32 or bfloat16")
+    if x.dim() != 4 or y.shape != x.shape or min(x.shape) < 1:
+        raise ValueError(f"displacement volume shapes x {tuple(x.shape)}, y {tuple(y.shape)}")
+    B, C, h, w = x.shape
+    if C > DISPLACEMENT_MAX_C or h * w >= 2**24:
+        raise ValueError(f"displacement volume x {tuple(x.shape)}; takes C <= "
+                         f"{DISPLACEMENT_MAX_C} and h w < 2^24")
+    if not (isinstance(md, int) and 0 <= md <= DISPLACEMENT_MAX_MD):
+        raise ValueError(f"displacement volume md = {md}; takes 0..{DISPLACEMENT_MAX_MD}")
+    if flow is not None:
+        if flow.dtype != torch.float32:
+            raise TypeError(f"displacement volume flow {flow.dtype}; takes float32")
+        if tuple(flow.shape) != (B, 2, h, w):
+            raise ValueError(f"displacement volume flow {tuple(flow.shape)}; takes "
+                             f"{(B, 2, h, w)}")
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError("the displacement volume takes contiguous inputs")
+    _cuda_only("displacement volume", *tensors)
+
+
+class DisplacementVolume:
+    """Launches DICL's displacement-volume kernel through `OPS`; owns its
+    launch count."""
+
+    def __init__(self):
+        self.launches = 0
+        self._op = None
+
+    def __call__(self, x: torch.Tensor, y: torch.Tensor, flow: torch.Tensor | None,
+                 md: int) -> torch.Tensor:
+        """x, y (B, C, h, w) f32/bf16, flow (B, 2, h, w) f32 or None ->
+        (B, (2md+1)^2, 2C, h, w) in x's dtype (`check_displacement_args`
+        says what it refuses)."""
+        check_displacement_args(x, y, flow, md)
+        op = self._op
+        if op is None:
+            op = self._op = OPS.build().displacement_volume.default
+        out = op(x, y, flow, md)
+        self.launches += 1
+        return out
+
+
 class PlaneSweepVolume:
     """Launches the sweep kernel through `OPS`; owns its launch count."""
 
@@ -185,11 +249,19 @@ BUILDS = (KERNEL, OPS)      # what chip_smoke.py's setup builds, in parallel wit
 VOLUME = PlaneSweepVolume()
 VOLUME_BACKWARD = PlaneSweepVolumeBackward()
 VOLUME_POSE_GRAD = PlaneSweepVolumePoseGrad()
+DISPLACEMENT = DisplacementVolume()
 
 
 def bilinear_sample_cuda(img: torch.Tensor, coords: torch.Tensor) -> torch.Tensor:
     """Launch the generic gather on the current stream (see `SweepWarpKernel.__call__`)."""
     return KERNEL(img, coords)
+
+
+def displacement_volume_cuda(x: torch.Tensor, y: torch.Tensor, flow: torch.Tensor | None,
+                             md: int) -> torch.Tensor:
+    """Launch DICL's displacement-volume kernel on the current stream (see
+    `DisplacementVolume.__call__`)."""
+    return DISPLACEMENT(x, y, flow, md)
 
 
 def plane_sweep_volume_cuda(ref: torch.Tensor, tgt: torch.Tensor, depths: torch.Tensor,

@@ -14,10 +14,10 @@ span, the device's busy time (the summed device time of the kernels, copies
 and fills in the span; one stream, so they do not overlap), the idle share
 and the number of kernels; per stage, the device time and count of the
 kernel groups that the cost volume's layout moves (cuDNN's NCHW<->NHWC
-layout transposes, BatchNorm, B1's sweep and gather kernels); the peak
-device memory of the profiled pair; then the kernels that take most device
-time, over the pair and in the depth stage. Writes one JSON summary and the
-Chrome trace into --out.
+layout transposes, BatchNorm, B1's sweep, gather and displacement-volume
+kernels); the peak device memory of the profiled pair; then the kernels
+that take most device time, over the pair and in the depth stage. Writes
+one JSON summary and the Chrome trace into --out.
 
 It runs against whatever package sits beside it, so a copy of this script
 placed in an earlier tree of the repository profiles that tree the same way.
@@ -40,7 +40,8 @@ import chip_smoke as smoke
 GROUPS = {"layout_transpose": ("nchwtonhwc", "nhwctonchw"),
           "batch_norm": ("batch_norm", "bn_fw", "bn_bw"),
           "sweep_kernel": ("plane_sweep_volume_kernel",),
-          "gather_kernel": ("bilinear_sample_kernel",)}
+          "gather_kernel": ("bilinear_sample_kernel",),
+          "displacement_volume_kernel": ("displacement_volume_kernel",)}
 
 
 def _groups(events):

@@ -1,6 +1,7 @@
-"""Tests that need an NVIDIA GPU: the port's kernels (B1's gather, plane
-sweep, sweep backward and sweep pose gradient, B2) against their plain versions, and the pose
-engine on the card against itself on the CPU.
+"""Tests that need an NVIDIA GPU: the port's kernels (B1's gather,
+displacement volume, plane sweep, sweep backward and sweep pose gradient,
+B2) against their plain versions, and the pose engine on the card against
+itself on the CPU.
 
 They skip where no card is present. This file imports no jax, so it also
 runs on a machine without JAX, from the repository root:
@@ -219,8 +220,11 @@ def test_sweep_backward_wrapper_refuses_what_the_kernel_does_not_take():
 
 
 # the sweep's pose gradient: the training shape, the odd shapes whose channel
-# chunks a pixel are a power of two, and the poses of the forward's cases
-POSE_GRAD_CASES = [case for case in BWD_CASES if case[0][-1] != 24]
+# chunks a pixel are a power of two, the poses of the forward's cases, and
+# plane counts that the kernel's groups of 16 planes do not divide (37 = 2 x
+# 16 + 5, and 7 in the odd shape above)
+POSE_GRAD_CASES = [case for case in BWD_CASES if case[0][-1] != 24] + [
+    ((2, 37, 20, 44, 32), "forward"), ((1, 21, 24, 40, 16), "behind")]
 
 
 def _pose_grad_close(got, want):
@@ -398,6 +402,104 @@ def test_gather_replays_in_a_cuda_graph(dtype):
     assert sweep_warp.KERNEL.launches == n + 1
     assert torch.equal(out, sweep_warp.bilinear_sample_cuda(img, coords))
     assert torch.equal(out, tcam.bilinear_sample_plain(img, coords))
+
+
+# DICL's displacement volume: slice 1's five level shapes (b = 1, 384x1280:
+# levels 6..2, C = 32, md = 3, no flow at level 6), a batch of two with odd
+# H and W and md = 2, and C = 5 on odd W (the two-pixel accesses fall back to
+# single ones)
+DISP_CASES = [((1, 32, 6, 20), 3, False), ((1, 32, 12, 40), 3, True),
+              ((1, 32, 24, 80), 3, True), ((1, 32, 48, 160), 3, True),
+              ((1, 32, 96, 320), 3, True), ((2, 16, 13, 27), 2, True),
+              ((1, 5, 9, 51), 3, True)]
+
+
+def _disp_inputs(shape, with_flow, dtype, seed=0):
+    """x, y (B, C, h, w) with an all-zero patch of y (warp holes) and a flow
+    (B, 2, h, w) of a few pixels that sends a band of samples off the frame,
+    or None."""
+    B, C, h, w = shape
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    x = torch.randn(shape, device="cuda", generator=g).to(dtype)
+    y = torch.randn(shape, device="cuda", generator=g)
+    y[:, :, h // 4:h // 2, w // 4:w // 2] = 0
+    y = y.to(dtype)
+    if not with_flow:
+        return x, y, None
+    flow = (torch.rand(B, 2, h, w, device="cuda", generator=g) - 0.5) * 6
+    flow[:, 0, :, -2:] = 2.0 * w
+    return x, y, flow
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape,md,with_flow", DISP_CASES)
+def test_displacement_volume_matches_plain_on_card(shape, md, with_flow, dtype):
+    """The displacement-volume kernel against its plain version (the
+    composition it replaced, with the gather's plain version), bit for bit
+    in f32 and bf16: the samples use B1's taps and blend, rounded op by op,
+    and the masks are 0 or 1. Two launches give the same bits."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from deep_sfm_revisited_tpu_torch.models import dicl as tdicl
+
+    x, y, flow = _disp_inputs(shape, with_flow, getattr(torch, dtype))
+    before = sweep_warp.DISPLACEMENT.launches
+    got = sweep_warp.displacement_volume_cuda(x, y, flow, md)
+    again = sweep_warp.displacement_volume_cuda(x, y, flow, md)
+    torch.cuda.synchronize()
+    assert sweep_warp.DISPLACEMENT.launches == before + 2
+    B, C, h, w = shape
+    assert got.shape == (B, (2 * md + 1) ** 2, 2 * C, h, w) and got.dtype == x.dtype
+    assert torch.equal(got, again)
+    want = tdicl.displacement_volume_plain(x, y, flow, md)
+    assert torch.equal(got, want)
+    assert torch.equal(tdicl.displacement_volume(x, y, flow, md), want)
+    holes = (want[:, :, C:] == 0).all(2) & ~_outside(h, w, md).permute(2, 0, 1)
+    assert bool(holes.any())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_displacement_volume_replays_in_a_cuda_graph(dtype):
+    """The volume kernel captured in a CUDA graph (after a warm-up on a side
+    stream) counts one launch at capture and none at replay, and a replay on
+    new inputs written in place equals an eager call bit for bit."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    td = getattr(torch, dtype)
+    x, y, flow = _disp_inputs((1, 32, 48, 160), True, td, seed=3)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        sweep_warp.displacement_volume_cuda(x, y, flow, 3)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    n = sweep_warp.DISPLACEMENT.launches
+    with torch.cuda.graph(graph):
+        out = sweep_warp.displacement_volume_cuda(x, y, flow, 3)
+    assert sweep_warp.DISPLACEMENT.launches == n + 1
+    for t, new in zip((x, y, flow), _disp_inputs((1, 32, 48, 160), True, td, seed=4)):
+        t.copy_(new)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert sweep_warp.DISPLACEMENT.launches == n + 1
+    assert torch.equal(out, sweep_warp.displacement_volume_cuda(x, y, flow, 3))
+
+
+@pytest.mark.cuda
+def test_displacement_volume_wrapper_refuses_what_the_kernel_does_not_take():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    x, y, flow = _disp_inputs((1, 8, 6, 10), True, torch.float32)
+    for args in ((x, y.bfloat16(), flow, 3), (x, y, flow.double(), 3), (x, y.cpu(), flow, 3),
+                 (x, y, flow.cpu(), 3), (x, y[:, :4], flow, 3), (x, y, flow[:, :1], 3),
+                 (x, y, flow, 5), (x.transpose(2, 3), y.transpose(2, 3), None, 3),
+                 (torch.zeros(1, 65, 6, 10, device="cuda"),) * 2 + (flow, 3)):
+        with torch.no_grad(), pytest.raises((ValueError, TypeError)):
+            sweep_warp.displacement_volume_cuda(*args)
+    with pytest.raises(NotImplementedError):
+        sweep_warp.displacement_volume_cuda(x.requires_grad_(), y, flow, 3)
 
 
 # PWC-DC's five level shapes (f0, f1 at levels 6..2 of a 384x1280 pair), a

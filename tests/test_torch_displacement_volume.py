@@ -1,0 +1,209 @@
+"""DICL's displacement volume in the port against the JAX package.
+
+`models/dicl.py::displacement_volume` builds one level's (B, S2, 2C, H, W)
+stack of [x | y warped by the level's flow] pairs; on CUDA tensors it is one
+launch of kernel B1's fused entry point (`dsfm_displacement_volume`), on the
+CPU its plain version, `shifted_pairs(x, warp_flow(y, flow), md)` with the
+gather's plain version. Here the CPU path is held against the JAX package's
+`shifted_pairs(x, warp_flow(y, flow), md)` (and `shifted_pairs(x, y, md)`
+without a flow) on inputs made with numpy from a seed: md 2 and 3, odd H and
+W, float32 and bfloat16, flows that push samples off the frame, and all-zero
+patches of y that open warp holes. The wrapper's refusals run here too (the
+kernel itself runs on the card: `tests/test_torch_cuda.py`).
+
+Tolerances: without a flow the stack is a copy and masks, so it is exact.
+With a flow, float32 to 1e-6 (values of order 1; the two frameworks' blends
+round alike, XLA may fuse differently) and bfloat16 to one bf16 rounding
+(2^-8 of the value, after the float32 blend), with the zero pattern (frame,
+warp holes) equal.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from deep_sfm_revisited_tpu.models import dicl as jdicl
+from deep_sfm_revisited_tpu_torch.config import SfMConfig as TConfig
+from deep_sfm_revisited_tpu_torch.models import dicl as tdicl
+from deep_sfm_revisited_tpu_torch.ops.cuda import sweep_warp
+
+torch.set_num_threads(1)
+
+# (B, C, H, W): odd H and W, a batch of two
+SHAPES = [(2, 8, 9, 11), (1, 5, 13, 7)]
+
+
+def _inputs(shape, seed, flow_kind):
+    """x, y (B, H, W, C) float32 with an all-zero patch of y (a warp hole),
+    and a flow (B, H, W, 2) or None: "flow" up to 3 px, "off" pushes a band
+    of samples several frames off and others just past the border."""
+    B, C, H, W = shape
+    rng = np.random.RandomState(seed)
+    x = rng.randn(B, H, W, C).astype(np.float32)
+    y = rng.randn(B, H, W, C).astype(np.float32)
+    y[:, 2:6, 1:5] = 0.0
+    if flow_kind == "none":
+        return x, y, None
+    flow = rng.uniform(-3, 3, (B, H, W, 2)).astype(np.float32)
+    flow[:, 3:5, 2:4] = rng.uniform(-0.4, 0.4, (B, 2, 2, 2))   # inside the zero patch
+    if flow_kind == "off":
+        flow[:, :, -2:, 0] = 3.0 * W
+        flow[:, -1, :, 1] = 1.5                                 # just below the last row
+        flow[:, 0, :, 0] = -np.arange(W, dtype=np.float32) - 1e-3
+    return x, y, flow
+
+
+def _jax_stack(x, y, flow, md, dtype):
+    jd = jnp.bfloat16 if dtype == torch.bfloat16 else jnp.float32
+    jx, jy = jnp.asarray(x, dtype=jd), jnp.asarray(y, dtype=jd)
+    if flow is not None:
+        jy = jdicl.warp_flow(jy, jnp.asarray(flow))
+    out = jdicl.shifted_pairs(jx, jy, md)                     # (B, S2, H, W, 2C)
+    return np.asarray(out.astype(jnp.float32))
+
+
+def _nchw(a, dtype=torch.float32):
+    return torch.from_numpy(np.ascontiguousarray(a)).permute(0, 3, 1, 2).contiguous().to(dtype)
+
+
+def _port_stack(x, y, flow, md, dtype):
+    with torch.no_grad():
+        out = tdicl.displacement_volume(_nchw(x, dtype), _nchw(y, dtype),
+                                        None if flow is None else _nchw(flow), md)
+    return out.permute(0, 1, 3, 4, 2).float().numpy()        # JAX's layout
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["float32", "bfloat16"])
+@pytest.mark.parametrize("flow_kind", ["none", "flow", "off"])
+@pytest.mark.parametrize("md", [2, 3])
+@pytest.mark.parametrize("shape", SHAPES, ids=["b2c8_9x11", "b1c5_13x7"])
+def test_displacement_volume_matches_jax(shape, md, flow_kind, dtype):
+    x, y, flow = _inputs(shape, 10 * md + len(flow_kind), flow_kind)
+    got = _port_stack(x, y, flow, md, dtype)
+    ref = _jax_stack(x, y, flow, md, dtype)
+    B, C, H, W = shape
+    assert got.shape == ref.shape == (B, (2 * md + 1) ** 2, H, W, 2 * C)
+    np.testing.assert_array_equal(got == 0, ref == 0)         # frame and holes alike
+    if flow is None:
+        np.testing.assert_array_equal(got, ref)
+    elif dtype == torch.float32:
+        np.testing.assert_allclose(got, ref, rtol=0, atol=1e-6)
+    else:
+        np.testing.assert_allclose(got, ref, rtol=2.0 ** -8, atol=0)
+
+
+@pytest.mark.parametrize("flow_kind", ["none", "flow"])
+def test_warp_holes_zero_whole_pairs(flow_kind):
+    """A pair whose shifted y is all-zero in the frame is zero in both
+    halves, and such pairs exist (the zero patch of y, with flows that keep
+    its samples inside it)."""
+    x, y, flow = _inputs((1, 4, 12, 10), 3, flow_kind)
+    got = _port_stack(x, y, flow, 3, torch.float32)
+    C = 4
+    y_zero = (got[..., C:] == 0).all(-1)
+    x_nonzero = (x != 0).all(-1)[:, None]                    # x has no zero channel
+    outside = _outside(12, 10, 3)[None]
+    holes = y_zero & ~outside
+    assert holes.any()
+    assert not (holes & x_nonzero & (got[..., :C] != 0).any(-1)).any()
+    assert ((got[..., :C] != 0).any(-1) == (~y_zero & ~outside)).all()
+
+
+def _outside(h, w, md):
+    """(S2, H, W) True where p + (du, dv) leaves the frame (dv outer)."""
+    d = np.arange(-md, md + 1)
+    dv, du = np.repeat(d, 2 * md + 1), np.tile(d, 2 * md + 1)
+    ys = np.arange(h)[None, :, None] + dv[:, None, None]
+    xs = np.arange(w)[None, None, :] + du[:, None, None]
+    return (ys < 0) | (ys >= h) | (xs < 0) | (xs >= w)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["float32", "bfloat16"])
+def test_cpu_dispatch_is_the_plain_composition(dtype):
+    """On CPU tensors the dispatcher is `shifted_pairs` of `warp_flow`, bit
+    for bit, and never reaches the kernel's wrapper."""
+    x, y, flow = (_nchw(a, dtype) if a is not None and a.shape[-1] != 2 else a
+                  for a in _inputs((2, 6, 9, 11), 5, "off"))
+    flow = _nchw(flow)
+    before = sweep_warp.DISPLACEMENT.launches
+    got = tdicl.displacement_volume(x, y, flow, 3)
+    want = tdicl.shifted_pairs(x, tdicl.warp_flow(y, flow), 3)
+    assert got.dtype == dtype and torch.equal(got, want)
+    assert torch.equal(tdicl.displacement_volume(x, y, None, 2), tdicl.shifted_pairs(x, y, 2))
+    assert sweep_warp.DISPLACEMENT.launches == before
+
+
+def test_dispatcher_refuses_other_devices():
+    x = torch.empty(1, 4, 6, 6, device="meta")
+    with pytest.raises(NotImplementedError):
+        tdicl.displacement_volume(x, x, None, 3)
+
+
+def _refused():
+    """Arguments the wrapper refuses, each with the error it raises."""
+    x = torch.zeros(1, 8, 6, 10)
+    f = torch.zeros(1, 2, 6, 10)
+    return [
+        ((x, x, f, 3), ValueError),                                # CPU tensors
+        ((x, x.bfloat16(), f, 3), TypeError),                      # two dtypes
+        ((x.double(), x.double(), f, 3), TypeError),               # float64
+        ((x, x, f.bfloat16(), 3), TypeError),                      # a bf16 flow
+        ((x, x[:, :, :5], f, 3), ValueError),                      # two shapes
+        ((x[0], x[0], None, 3), ValueError),                       # no batch axis
+        ((x, x, f[:, :1], 3), ValueError),                         # a flow of one channel
+        ((x, x, f, 5), ValueError),                                # md beyond 4
+        ((x, x, f, -1), ValueError),
+        ((torch.zeros(1, 65, 6, 10),) * 2 + (f, 3), ValueError),   # C beyond 64
+        ((x.transpose(2, 3), x.transpose(2, 3), None, 3), ValueError),   # not contiguous
+        ((x.transpose(2, 3).contiguous().transpose(2, 3), x, f, 3), ValueError),
+    ]
+
+
+@pytest.mark.parametrize("case", range(len(_refused())))
+def test_wrapper_refuses_what_the_kernel_does_not_take(case):
+    args, error = _refused()[case]
+    before = sweep_warp.DISPLACEMENT.launches
+    with torch.no_grad(), pytest.raises(error):
+        sweep_warp.displacement_volume_cuda(*args)
+    assert sweep_warp.DISPLACEMENT.launches == before
+
+
+def test_wrapper_refuses_inputs_that_need_a_gradient():
+    """No backward yet: an input that requires grad under grad mode raises;
+    under torch.no_grad() the same inputs pass the check (and then meet the
+    CUDA-only refusal on this CPU tensor)."""
+    x = torch.zeros(1, 8, 6, 10, requires_grad=True)
+    y = torch.zeros(1, 8, 6, 10)
+    with pytest.raises(NotImplementedError):
+        sweep_warp.displacement_volume_cuda(x, y, None, 3)
+    with pytest.raises(NotImplementedError):
+        sweep_warp.displacement_volume_cuda(y, y, torch.zeros(1, 2, 6, 10, requires_grad=True), 3)
+    with torch.no_grad(), pytest.raises(ValueError, match="CUDA"):
+        sweep_warp.displacement_volume_cuda(x, y, None, 3)
+
+
+def test_dicl_builds_one_volume_a_level(monkeypatch):
+    """DICLFlow's eval forward calls the dispatcher once a level, coarse to
+    fine: no flow at level 6, then each level's upsampled flow (float32,
+    the level's shape), with the configured md."""
+    cfg = TConfig.kitti().flow
+    net = tdicl.DICLFlow(cfg).eval()
+    calls = []
+    real = tdicl.displacement_volume
+
+    def recording(x, y, flow, md):
+        calls.append((tuple(x.shape), None if flow is None else (tuple(flow.shape), flow.dtype),
+                      md))
+        return real(x, y, flow, md)
+
+    monkeypatch.setattr(tdicl, "displacement_volume", recording)
+    pair = torch.from_numpy(np.random.RandomState(0).uniform(-1, 1, (1, 128, 128, 6))
+                            .astype(np.float32))
+    with torch.no_grad():
+        net(pair)
+    sizes = [128 // s for s in (64, 32, 16, 8, 4)]
+    assert [c[0] for c in calls] == [(1, 32, s, s) for s in sizes]
+    assert calls[0][1] is None
+    assert [c[1] for c in calls[1:]] == [((1, 2, s, s), torch.float32) for s in sizes[1:]]
+    assert [c[2] for c in calls] == list(cfg.dicl_search_range)[::-1]
