@@ -8,7 +8,7 @@ Phases, each of which raises on failure:
 1. setup: the card's name and power limit, TF32 off, kernels B1 (the
    generic gather, DICL's displacement volume, the plane-sweep cost volume
    and its two gradients, one source, and the PyTorch operators that
-   launch them) and B2 built with
+   launch them, DICL's displacement volume's backward among them) and B2 built with
    nvcc (in parallel) from `deep_sfm_revisited_tpu_torch/csrc/
    sweep_warp.cu`, `csrc/sweep_warp_ops.cpp` and `csrc/local_corr.cu`;
 2. pose on the card: rigid flow of a known (R, t) -> correspondence
@@ -119,6 +119,35 @@ Phases, each of which raises on failure:
    of the training step, device and events times, the bound and share, the
    plain version's time, and the device time and kernel count of the
    eager composition it replaced.
+
+15. a small-input flow-training reference: one DICL flow-pretraining step
+   (`train/flow_trainer.py::FlowTrainer`, float32, TF32 off) at 128x128 on
+   the card against the same step on the CPU from the same weights and
+   batch: loss and EPE, and DICL's clipped gradients at twice the CPU's own
+   sensitivity to a 1e-6 change of the input, 1 - cosine <= 1e-4; the card
+   launches the displacement volume and its backward 5 times each;
+16. slice 9's main path, through the entry point a user calls:
+   `cli.main(["--train-flow", "--flow-dataset", "kitti", "--flow-crop",
+   "256", "768", "-b", "4", "--epochs", "1", ...])` on a KITTI 2015 flow
+   tree of 24 pairs rendered at 375x1242 (exact flow of the analytic
+   scene, sparse valid mask, KITTI's 16-bit format), DICL at the recipe's
+   widths, bf16: one warm-up step (which records the displacement volume's
+   inputs and gradients), the launch counts reset, five timed steps, each
+   of which must launch the displacement volume and its backward 5 times
+   each and no other kernel, give a finite loss and EPE and move DICL's
+   parameters and BN statistics; ms/step, the stage split (feature net,
+   levels, loss + backward, optimizer), peak memory; the validation's EPE
+   and Fl-all over the 24 pairs at 384x1280, finite; the checkpoint, which
+   `--pretrained-flow` restores into an SFMNet with every DICL tensor equal
+   and PSNet untouched;
+17. the displacement volume's backward against its plain version on the
+   gradients and inputs of phase 16's five levels, in bf16 and float32, on
+   copies with out-of-frame samples and all-zero regions of y, at md 0 and
+   4; dx bit for bit, dy bit for bit without a flow and within one
+   float32-atomics rounding with one; two launches; per level device and
+   events times, the bound and share, the plain version's time, and the
+   yardsticks: autograd of the eager composition and
+   `grid_sampler_2d_backward`'s input gradient (the scatter half).
 
 `python3 chip_smoke.py --save-sweep-inputs PATH` also writes the sweep
 backward's depths, M and K t from slice 5 (a few hundred floats) to PATH,
@@ -2072,6 +2101,549 @@ def phase_pose_grad(cap_pose, sweep_warp, camera, old_source: str | None = None)
     return call, max_err
 
 
+# slice 9: DICL flow pretraining through `cli --train-flow` on a KITTI 2015
+# flow tree at KITTI's size, cropped to the depth recipe's 256x768 (both
+# sides multiples of 128: DICL pads its input to /128, the flow GT is not
+# padded, so KITTIFlow's default 288x960 crop is refused, as in JAX)
+FLOW_HW, FLOW_CROP, FLOW_STEPS = (375, 1242), (256, 768), 5
+FLOW_PAIRS = TRAIN_B * (FLOW_STEPS + 1)
+# gather, sweep, sweep backward, pose gradient, displacement volume, its backward
+FLOW_PER_STEP = (0, 0, 0, 0, DISP_PER_PAIR, DISP_PER_PAIR)
+DISP_BWD_REPLACES = "deep_sfm_revisited_tpu/models/dicl.py:160"
+# the displacement backward: one add per dout element it must read; per
+# (b, c, pixel) of a warped level whose hole flag is set the four weighted
+# taps (a weight product and a scaled add each, 3); per (b, pixel) the hole
+# flag's recomputed sample (the forward's blend per channel, at most C)
+DISP_BWD_FLOPS_PER_READ, DISP_BWD_FLOPS_PER_TAP = 1, 3
+
+
+@contextlib.contextmanager
+def dicl_relus(dicl, fn):
+    """Within the block, every ReLU of `models/dicl.py` (its modules call
+    `F.relu`) goes through fn(x), whose value is the ReLU's output."""
+    real = dicl.F
+    ns = type("F", (), {k: staticmethod(getattr(real, k)) for k in dir(real)
+                        if not k.startswith("__") and callable(getattr(real, k))})
+    ns.relu = staticmethod(fn)
+    dicl.F = ns
+    try:
+        yield
+    finally:
+        dicl.F = real
+
+
+def phase_small_flow_train_reference(dev) -> None:
+    """One DICL flow-pretraining step (`train/flow_trainer.py::FlowTrainer`,
+    the recipe's flow config, float32, TF32 off) at 128x128 on the card
+    against the same step on the CPU (plain versions, the displacement
+    volume's backward by autograd of its plain composition), from the same
+    weights and batch: the loss and EPE to 1e-4 relative; DICL's clipped
+    gradients, all tensors together, to twice the largest relative move
+    (L2) the CPU's own gradients make under rounding-sized changes of the
+    input, and 1 - cosine <= 1e-4. The input changes: the reference image
+    scaled by 1 + 1e-6, 1 - 1e-6 and 1 + 3e-6 (as phase 8), and plus +-1e-7
+    and +-3e-7 times a fixed noise image (about one float32 ulp: train-mode
+    BN normalizes a scaling away, not noise).
+
+    Tensor by tensor the card is held through the witness, as phase 8's: at
+    random weights a float32 ReLU within rounding of zero switches between
+    devices and moves a tensor's gradient by a sizeable share of its
+    largest element, and which units switch differs from one change of the
+    input to the next (a first run: context3's gradients 1.4e-1 apart on
+    the card, within 5e-4 at all seven CPU changes, 7.6e-6 with the card's
+    ReLU masks), so a per-tensor bound from the CPU's own moves does not
+    hold. The inputs of every ReLU are recorded on both devices; the units
+    of other sign must have inputs within 1e-4 of their tensor's largest,
+    and the CPU step rerun with the card's ReLU masks must give every
+    gradient within 1e-3 of its largest element of the card's (the scale
+    floored at 1e-3 of the largest element of all: the matching nets' last
+    biases have a zero true gradient, the softmax over displacements being
+    blind to a shift, and carry rounding alone). The per-tensor moves
+    against twice the CPU's are logged. The card's step must launch the
+    displacement volume and its backward 5 times each."""
+    from deep_sfm_revisited_tpu_torch.config import SfMConfig
+    from deep_sfm_revisited_tpu_torch.models import dicl
+    from deep_sfm_revisited_tpu_torch.ops.cuda import sweep_warp
+    from deep_sfm_revisited_tpu_torch.train.flow_trainer import FlowTrainer, build_flow_model
+
+    what = "small flow-train reference"
+    cfg = SfMConfig.kitti().override(**{"train.mixed_prec": False})
+    h = w = 128
+    g = torch.Generator().manual_seed(11)
+    ref = torch.rand((1, h, w, 3), generator=g) * 2 - 1
+    batch = {"ref": ref,
+             "target": torch.roll(ref, (2, 3), dims=(1, 2))
+             + 0.05 * torch.randn((1, h, w, 3), generator=g),
+             "flow_gt": torch.tensor([3.0, 2.0]) + torch.randn((1, h, w, 2), generator=g),
+             "flow_valid": torch.rand((1, h, w), generator=g) < 0.7}
+    noise = torch.randn((1, h, w, 3), generator=g)
+
+    def step(device, scale=1.0, eps=0.0, relu=F.relu):
+        t = FlowTrainer(build_flow_model(cfg.flow, seed=3).to(device), cfg, total_steps=40)
+        b = {k: v.to(device) for k, v in
+             dict(batch, ref=batch["ref"] * scale + eps * noise).items()}
+        with dicl_relus(dicl, relu):
+            m = t.train_step(b)
+        return ({k: float(v) for k, v in m.items()},
+                {k: p.grad.detach().cpu() for k, p in t.model.named_parameters()})
+
+    def recorder(out):
+        def relu(x):
+            out.append(x.detach().cpu())
+            return F.relu(x)
+        return relu
+
+    def report(got, want):
+        # _grad_report with each tensor's scale floored at 1e-3 of the
+        # largest element of all the gradients: the matching nets' last
+        # biases shift every displacement's cost alike, to which the
+        # softmax is blind, so their true gradient is zero and what either
+        # device computes is rounding (0 to 1e-9 against 2e-2 on the CPU;
+        # the smallest other tensor's largest element is 3e-3 of 2e-2)
+        floor = 1e-3 * max(float(w.abs().max()) for w in want.values())
+        errs = {k: float((got[k] - w).abs().max()) / max(float(w.abs().max()), floor)
+                for k, w in want.items()}
+        g = torch.cat([got[k].double().flatten() for k in want])
+        w = torch.cat([want[k].double().flatten() for k in want])
+        return errs, _grad_report(got, want)[1], float((g - w).norm() / w.norm())
+
+    counters = (sweep_warp.DISPLACEMENT, sweep_warp.DISPLACEMENT_BACKWARD)
+    before = _launches(*counters)
+    card_relu, cpu_relu = [], []
+    m_card, g_card = step(dev, relu=recorder(card_relu))
+    torch.cuda.synchronize()
+    n = tuple(a - b for a, b in zip(_launches(*counters), before))
+    check(n == (DISP_PER_PAIR, DISP_PER_PAIR), f"{what}: the displacement volume and its "
+          f"backward launched {n} times, expected {(DISP_PER_PAIR,) * 2}")
+    m_cpu, g_cpu = step("cpu", relu=recorder(cpu_relu))
+    self_errs, self_cos, self_l2 = {}, 0.0, 0.0
+    for kw in (dict(scale=1 + 1e-6), dict(scale=1 - 1e-6), dict(scale=1 + 3e-6),
+               dict(eps=1e-7), dict(eps=-1e-7), dict(eps=3e-7), dict(eps=-3e-7)):
+        e, c, l2 = report(step("cpu", **kw)[1], g_cpu)
+        self_errs = {k: max(v, self_errs.get(k, 0.0)) for k, v in e.items()}
+        self_cos, self_l2 = max(self_cos, c), max(self_l2, l2)
+    rel = {k: abs(m_card[k] - m_cpu[k]) / abs(m_cpu[k]) for k in ("loss", "epe")}
+    errs, cos_err, l2_err = report(g_card, g_cpu)
+    worst = max(errs, key=errs.get)
+    bounds = {k: max(1e-3, 2 * v) for k, v in self_errs.items()}
+    over = [k for k in errs if errs[k] > bounds[k]]
+    log(f"{what}: loss card {m_card['loss']:.7f} vs cpu {m_cpu['loss']:.7f} (relative "
+        f"{rel['loss']:.2e}), EPE {m_card['epe']:.6f} vs {m_cpu['epe']:.6f} (relative "
+        f"{rel['epe']:.2e}); DICL gradients: {sum(e <= 1e-3 for e in errs.values())}/"
+        f"{len(errs)} tensors within 1e-3 of their max, worst {errs[worst]:.2e} ({worst}), "
+        f"relative L2 {l2_err:.2e}, 1 - cosine {cos_err:.2e}; the CPU against itself at "
+        f"seven perturbed inputs: worst {max(self_errs.values()):.2e}, "
+        f"{sum(e > 1e-3 for e in self_errs.values())} tensors beyond 1e-3, relative L2 "
+        f"{self_l2:.2e}, 1 - cosine {self_cos:.2e}; tensors beyond twice the CPU's own move: "
+        f"{len(over)} ({', '.join(f'{k} {errs[k]:.2e} > {bounds[k]:.2e}' for k in over[:3])}); "
+        f"launches (volume, backward) {n}")
+    check(len(card_relu) == len(cpu_relu) and all(
+        a.shape == b.shape for a, b in zip(card_relu, cpu_relu)),
+        f"{what}: the ReLUs ran in another order on the card than on the CPU")
+    flips = []          # (call, units of other sign, largest such |input| / max |input|)
+    for i, (xc, xp) in enumerate(zip(card_relu, cpu_relu)):
+        other = (xc > 0) != (xp > 0)
+        if other.any():
+            near = torch.maximum(xc.abs(), xp.abs())[other].max()
+            flips.append((i, int(other.sum()), float(near / xp.abs().max())))
+    masks = iter([(x > 0).float() for x in card_relu])
+    _, g_forced = step("cpu", relu=lambda x: x * next(masks))
+    f_errs, f_cos, _ = report(g_card, g_forced)
+    f_worst = max(f_errs, key=f_errs.get)
+    log(f"{what}: ReLU units of other sign on the card than on the CPU: "
+        f"{sum(f[1] for f in flips)} in {len(flips)} of {len(card_relu)} ReLU calls, their "
+        f"largest input {max((f[2] for f in flips), default=0.0):.2e} of its tensor's max; "
+        f"the CPU step with the card's ReLU masks: worst {f_errs[f_worst]:.2e} ({f_worst}), "
+        f"{worst} {f_errs[worst]:.2e}, 1 - cosine {f_cos:.2e}")
+    check(all(math.isfinite(v) for v in m_card.values()), f"{what}: metrics {m_card}")
+    check(max(rel.values()) <= 1e-4, f"{what}: loss or EPE differs: {rel}")
+    check(all(f[2] <= 1e-4 for f in flips), f"{what}: a ReLU unit of other sign on the card "
+          f"has an input beyond 1e-4 of its tensor's max: "
+          f"{max(flips, key=lambda f: f[2], default=None)}")
+    check(f_errs[f_worst] <= 1e-3, f"{what}: with the card's ReLU masks the CPU gradient "
+          f"{f_worst} still differs by {f_errs[f_worst]} of its max, beyond 1e-3")
+    check(l2_err <= 2 * self_l2, f"{what}: the gradients differ by {l2_err} (relative L2), "
+          f"beyond twice the CPU's own {self_l2}")
+    check(cos_err <= 1e-4, f"{what}: 1 - cosine of the gradients {cos_err}")
+
+
+class FlowStageTimer:
+    """CUDA events around one flow-training step: the feature net (the
+    U-net's two calls, one per frame), the levels (the feature net's exit to
+    DICL's), the loss and backward (DICL's exit to the optimizer's step,
+    clipping and the schedule included) and the AdamW update."""
+
+    def __init__(self, trainer):
+        self.events, self._feature_calls = {}, 0
+        model = trainer.model
+        model.feature.register_forward_pre_hook(lambda m, a: self._feature(True))
+        model.feature.register_forward_hook(lambda m, a, o: self._feature(False))
+        model.register_forward_hook(lambda m, a, o: self._mark("flow_end"))
+        trainer.optimizer.register_step_pre_hook(lambda o, a, k: self._mark("opt_start"))
+        trainer.optimizer.register_step_post_hook(lambda o, a, k: self._mark("opt_end"))
+
+    def _feature(self, entry):
+        if entry and self._feature_calls % 2 == 0:
+            self._mark("feature_start")
+        if not entry:
+            self._feature_calls += 1
+            if self._feature_calls % 2 == 0:
+                self._mark("feature_end")
+
+    def _mark(self, key):
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        self.events[key] = ev
+
+    def stages_ms(self):
+        e = self.events
+        return {"feature": e["feature_start"].elapsed_time(e["feature_end"]),
+                "levels": e["feature_end"].elapsed_time(e["flow_end"]),
+                "loss_backward": e["flow_end"].elapsed_time(e["opt_start"]),
+                "optimizer": e["opt_start"].elapsed_time(e["opt_end"]),
+                "step": e["step_start"].elapsed_time(e["step_end"])}
+
+
+def phase_cli_train_flow(dev, sweep_warp):
+    """Slice 9 through `cli.main --train-flow` on a KITTI 2015 flow tree
+    rendered at 375x1242 (`data/synthetic.py::write_kitti_flow_tree`:
+    consecutive views of the analytic scene, their exact flow in KITTI's
+    16-bit format with a sparse valid mask), FLOW_PAIRS pairs, cropped to
+    256x768, b = 4, one epoch, DICL at the recipe's widths, bf16: one
+    warm-up step, which records the displacement volume's inputs and its
+    backward's gradients, then FLOW_STEPS timed steps with the launch
+    counts reset after the warm-up, each of which must launch the
+    displacement volume and its backward 5 times each and no other kernel,
+    give a finite loss and EPE, move DICL's parameters that got a gradient
+    and every BN running mean; ms/step, the stage split and peak memory;
+    then the epoch's validation (EPE and Fl-all, finite) and checkpoint,
+    which `--pretrained-flow` restores into an SFMNet with every DICL
+    tensor equal. Returns (launches over the timed steps and the
+    validation, [(dout, x, y, flow, md)] of the warm-up's five levels)."""
+    from deep_sfm_revisited_tpu_torch import cli
+    from deep_sfm_revisited_tpu_torch.config import SfMConfig
+    from deep_sfm_revisited_tpu_torch.data.synthetic import write_kitti_flow_tree
+    from deep_sfm_revisited_tpu_torch.models.sfmnet import SFMNet
+    from deep_sfm_revisited_tpu_torch.train.flow_trainer import FlowTrainer
+
+    what = "cli train-flow"
+    counters = (sweep_warp.KERNEL, sweep_warp.VOLUME, sweep_warp.VOLUME_BACKWARD,
+                sweep_warp.VOLUME_POSE_GRAD, sweep_warp.DISPLACEMENT,
+                sweep_warp.DISPLACEMENT_BACKWARD)
+    real_step = FlowTrainer.train_step
+    backward = sweep_warp.displacement_volume_backward_cuda
+    rows, grads, timer = [], [], []
+
+    def record_backward(dout, y, flow, md):
+        grads.append(dout.clone())
+        return backward(dout, y, flow, md)
+
+    def timed_step(trainer, *args, **kw):
+        warm = not timer
+        if warm:
+            timer.append(FlowStageTimer(trainer))
+            sweep_warp.displacement_volume_backward_cuda = record_backward
+        model = trainer.model
+        state = {k: v.clone() for k, v in model.state_dict().items()}
+        before = _launches(*counters)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        timer[0]._mark("step_start")
+        recording = recording_displacement(sweep_warp) if warm else contextlib.nullcontext([])
+        try:
+            with recording as calls:
+                metrics = real_step(trainer, *args, **kw)
+        finally:
+            sweep_warp.displacement_volume_backward_cuda = backward
+        timer[0]._mark("step_end")
+        torch.cuda.synchronize()
+        ms = 1e3 * (time.perf_counter() - t0)
+        n = tuple(a - b for a, b in zip(_launches(*counters), before))
+        i = len(rows) + (0 if warm else 1)
+        loss, epe = float(metrics["loss"]), float(metrics["epe"])
+        check(math.isfinite(loss) and math.isfinite(epe), f"{what} step {i}: loss {loss}, "
+              f"EPE {epe}")
+        check(n == FLOW_PER_STEP, f"{what} step {i}: gather, sweep, sweep backward, pose "
+              f"gradient, displacement volume, its backward launched {n} times, expected "
+              f"{FLOW_PER_STEP}")
+        got_grad = [k for k, p in model.named_parameters() if p.grad is not None and p.grad.any()]
+        params = dict(model.named_parameters())
+        still = [k for k in got_grad if torch.equal(params[k], state[k])]
+        check(len(got_grad) > 200 and not still, f"{what} step {i}: {len(got_grad)} DICL "
+              f"parameters got a gradient; unmoved: {still[:3]}")
+        now = model.state_dict()
+        stale = [k for k in now if k.endswith("running_mean") and torch.equal(now[k], state[k])]
+        check(not stale, f"{what} step {i}: DICL BN statistics did not move: {stale[:3]}")
+        if warm:
+            check(len(calls) == len(grads) == DISP_PER_PAIR, f"{what}: recorded "
+                  f"{len(calls)} volumes and {len(grads)} gradients")
+            by_shape = {tuple(d.shape[-2:]): d for d in grads}
+            captured.extend((by_shape[tuple(x.shape[-2:])], x, y, f, md) for x, y, f, md in calls)
+            for k in counters:
+                k.launches = 0
+            torch.cuda.reset_peak_memory_stats()
+            log(f"{what}: warm-up step {ms:.1f} ms, loss {loss:.4f}, EPE {epe:.4f}; "
+                f"displacement-volume inputs {_disp_shapes(calls)}, gradients "
+                f"{[tuple(d.shape) for d in grads]} {grads[0].dtype}")
+        else:
+            rows.append(dict(ms=ms, loss=loss, epe=epe, **timer[0].stages_ms()))
+            r = rows[-1]
+            log(f"{what}: step {i}: {ms:.1f} ms (feature net {r['feature']:.1f}, levels "
+                f"{r['levels']:.1f}, loss + backward {r['loss_backward']:.1f}, optimizer "
+                f"{r['optimizer']:.1f} ms device); loss {loss:.4f}, EPE {epe:.4f}; launches {n}")
+            if len(rows) == FLOW_STEPS:
+                rows.append(dict(peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+                                 launches=_launches(*counters)))
+        return metrics
+
+    captured = []
+    with tempfile.TemporaryDirectory() as tmp:
+        root = f"{tmp}/kitti_flow"
+        t0 = time.perf_counter()
+        write_kitti_flow_tree(root, n_pairs=FLOW_PAIRS, hw=FLOW_HW, focal=K_KITTI[0][0])
+        log(f"{what}: KITTI flow tree of {FLOW_PAIRS} {FLOW_HW[0]}x{FLOW_HW[1]} pairs rendered "
+            f"in {time.perf_counter() - t0:.2f} s")
+        argv = ["--data", root, "--cfg", "kitti", "--train-flow", "--flow-dataset", "kitti",
+                "--flow-crop", str(FLOW_CROP[0]), str(FLOW_CROP[1]), "-b", str(TRAIN_B),
+                "--epochs", "1", "--out", f"{tmp}/out", "--workers", "4"]
+        log(f"{what}: cli.main(" + json.dumps(argv).replace(tmp, "<tmp>") + ")")
+        for k in counters:
+            k.launches = 0
+        FlowTrainer.train_step = timed_step
+        try:
+            t0 = time.perf_counter()
+            history = cli.main(argv)
+            wall = time.perf_counter() - t0
+        finally:
+            FlowTrainer.train_step = real_step
+        launches = _launches(*counters)
+        ckpt = f"{tmp}/out/kitti_flow/ckpt"
+        check(os.path.exists(f"{ckpt}/0.pt") and os.path.exists(f"{ckpt}/model_best.pt"),
+              f"{what}: no checkpoint written")
+        # the flow checkpoint restores into the composite
+        model = SFMNet(SfMConfig.kitti(), device=dev, seed=5)
+        psnet = {k: v.clone() for k, v in model.depth_estimator.state_dict().items()}
+        cli.apply_pretrained(cli.build_parser().parse_args(
+            ["--data", root, "--pretrained-flow", ckpt]), model)
+        want = torch.load(f"{ckpt}/0.pt", map_location=dev, weights_only=True)["model"]
+        got = model.flow_estimator.state_dict()
+        check(set(got) == set(want) and all(torch.equal(got[k], v) for k, v in want.items()),
+              f"{what}: --pretrained-flow did not restore every DICL tensor")
+        check(all(torch.equal(v, psnet[k]) for k, v in model.depth_estimator.state_dict().items()),
+              f"{what}: --pretrained-flow touched PSNet")
+        del model, want, got, psnet
+    check(len(rows) == FLOW_STEPS + 1, f"{what}: {len(rows) - 1} timed steps, expected "
+          f"{FLOW_STEPS}")
+    tail = rows.pop()
+    check(tail["launches"] == tuple(FLOW_STEPS * n for n in FLOW_PER_STEP),
+          f"{what}: the timed steps launched {tail['launches']}")
+    rec = history[0] if len(history) == 1 else {}
+    check(all(math.isfinite(rec.get(k, math.nan)) for k in ("train_loss", "epe", "f1_all"))
+          and rec.get("n") == FLOW_PAIRS, f"{what}: epoch record {history}")
+    mean = {k: sum(r[k] for r in rows) / FLOW_STEPS for k in rows[0]}
+    log(f"{what}: mean over {FLOW_STEPS} steps at b = {TRAIN_B}, {FLOW_CROP[0]}x{FLOW_CROP[1]}: "
+        f"{mean['ms']:.2f} ms/step ({1e3 * TRAIN_B / mean['ms']:.3f} pairs/s); device stages "
+        f"feature net {mean['feature']:.2f}, levels {mean['levels']:.2f}, loss + backward "
+        f"{mean['loss_backward']:.2f}, optimizer {mean['optimizer']:.2f} ms (step "
+        f"{mean['step']:.2f}); peak memory {tail['peak_gib']:.2f} GiB; cli.main {wall:.2f} s; "
+        f"validation over {rec['n']} pairs at {-(-FLOW_HW[0] // 128) * 128}x"
+        f"{-(-FLOW_HW[1] // 128) * 128}: EPE {rec['epe']:.4f} px, Fl-all "
+        f"{rec['f1_all']:.2f}%; train loss {rec['train_loss']:.4f}; --pretrained-flow restored "
+        f"every DICL tensor into SFMNet, PSNet untouched; launches after the warm-up, "
+        f"validation included: {launches}")
+    log(f"{what} rows: " + json.dumps(rows))
+    return launches, captured
+
+
+def _disp_bwd_need(y, flow, md, dicl):
+    """(dout elements the backward must read, (b, c, pixel) elements that
+    scatter, (b, pixel) hole flags) at these inputs: an x-half element
+    (s, c, p) where q = p + d_s is in the frame and hole(q), a y-half one
+    where p = q - d_s is and hole(q) -- the same count; the scatter where
+    hole(q) and the sample is valid."""
+    B_, C_, h, w = y.shape
+    yw = y if flow is None else dicl.warp_flow(y, flow, dicl.bilinear_sample_plain)
+    hole = (yw != 0).any(dim=1)
+    r = torch.arange(h, device=y.device)
+    c = torch.arange(w, device=y.device)
+    ny = sum(((r - dv >= 0) & (r - dv < h)).long() for dv in range(-md, md + 1))
+    nx = sum(((c - du >= 0) & (c - du < w)).long() for du in range(-md, md + 1))
+    reads = 2 * C_ * int((hole.long() * ny[:, None] * nx[None, :]).sum())
+    if flow is None:
+        return reads, 0, B_ * h * w
+    fx = c[None, None, :] + flow[:, 0]
+    fy = r[None, :, None] + flow[:, 1]
+    valid = (fx >= 0) & (fx <= w - 1) & (fy >= 0) & (fy <= h - 1)
+    return reads, C_ * int((hole & valid).sum()), B_ * h * w
+
+
+def _disp_bwd_variants(dout, x, y, flow, md):
+    """The captured level, and copies whose flow sends a band of samples off
+    the frame and whose y holds all-zero regions (warp holes)."""
+    out = {"captured": (dout, x, y, flow, md)}
+    B_, C_, h, w = y.shape
+    holes = y.clone()
+    holes[:, :, h // 4:h // 2, w // 4:w // 2] = 0
+    holes[:, :, :, : max(w // 16, 1)] = 0
+    off = None
+    if flow is not None:
+        off = flow.clone()
+        off[:, 0, :, -max(w // 8, 1):] += 2.0 * w
+        off[:, 1, : max(h // 8, 1)] -= 1.5 * h
+    out["edges and holes"] = (dout, x, holes, off, md)
+    return out
+
+
+def phase_displacement_backward(captured, sweep_warp, dicl):
+    """The displacement volume's backward kernel against its plain version
+    (`models/dicl.py::displacement_volume_backward_plain`) on the gradients
+    and inputs the flow-training step gave it at its five levels, in bf16
+    and float32, on copies with out-of-frame samples and all-zero regions
+    of y, and at md 0 and 4 at the two finest levels' shapes (random
+    gradients); two launches on the same inputs. Then per level, as the
+    main path ran them: device time (torch.profiler, every kernel, fill and
+    cast of the call) and events time, the bound (the dout elements the
+    data needs, y, flow, dx and dy once) and share of it, the plain
+    version's time, and two yardsticks the port never calls: autograd of
+    the eager composition (`shifted_pairs` over the plain gather's warp,
+    its backward alone) and `grid_sampler_2d_backward`'s input gradient for
+    the scatter half.
+
+    Tolerances: dx bit for bit (the kernel and the plain version add the
+    same float32 terms in the same order, cast once); dy bit for bit
+    without a flow; with one, the scatter's float32 atomics add in another
+    order than `index_add_`, so within 1e-5 of the tensor's largest
+    element in float32 and one bf16 ulp there (2^-7 of it) in bf16; the
+    same between two launches (dx bit for bit)."""
+    worst = {"dx": 0.0, "dy": 0.0}
+    max_err = 0.0
+    g = torch.Generator(device=captured[0][0].device).manual_seed(12)
+    cases = []
+    for dout, x, y, flow, md in captured:
+        for name, args in _disp_bwd_variants(dout, x, y, flow, md).items():
+            cases.append((f"{name} {tuple(y.shape)} md {md}", args))
+    warped = sorted([c for c in captured if c[3] is not None], key=lambda c: -c[2].shape[-1])
+    for dout, x, y, flow, _ in warped[:2]:
+        for md in (0, 4):
+            S = 2 * md + 1
+            d = torch.randn((*y.shape[:1], S * S, 2 * y.shape[1], *y.shape[2:]), device=y.device,
+                            generator=g).to(y.dtype)
+            cases.append((f"random md {md} {tuple(y.shape)}", (d, x, y, flow, md)))
+    for name, (dout, x, y, flow, md) in cases:
+        for dtype in (torch.bfloat16, torch.float32):
+            d_, x_, y_ = dout.to(dtype), x.to(dtype), y.to(dtype)
+            dx, dy = sweep_warp.displacement_volume_backward_cuda(d_, y_, flow, md)
+            dx2, dy2 = sweep_warp.displacement_volume_backward_cuda(d_, y_, flow, md)
+            px, py = dicl.displacement_volume_backward_plain(d_, x_, y_, flow, md)
+            what = f"displacement backward {name} {str(dtype)[6:]}"
+            tol = 1e-5 if dtype == torch.float32 else 2.0 ** -7
+            check(torch.equal(dx, px), f"{what}: dx differs from plain by "
+                  f"{float((dx.float() - px.float()).abs().max())}")
+            check(torch.equal(dx, dx2), f"{what}: dx differs between two launches")
+            scale = float(py.float().abs().max())
+            err = float((dy.float() - py.float()).abs().max())
+            again = float((dy.float() - dy2.float()).abs().max())
+            max_err = max(max_err, err)
+            worst["dy"] = max(worst["dy"], err / scale if scale else err)
+            if flow is None:
+                check(torch.equal(dy, py) and torch.equal(dy, dy2), f"{what}: dy not exact")
+            else:
+                check(err <= tol * scale and again <= tol * scale, f"{what}: dy differs from "
+                      f"plain by {err}, between launches by {again}, beyond {tol} of {scale}")
+            del d_, x_, y_, dx, dy, dx2, dy2, px, py
+    log(f"displacement backward: {len(cases)} cases in bf16 and float32: dx == plain and "
+        f"bit-identical across launches; dy == plain without a flow, with one within "
+        f"tolerance, largest |kernel - plain| / max |plain| {worst['dy']:.2e}")
+
+    fmt = lambda v: "not measured" if v is None else f"{v:.4f} ms"   # noqa: E731
+    rows = []
+    for dout, x, y, flow, md in captured:
+        dx, dy = sweep_warp.displacement_volume_backward_cuda(dout, y, flow, md)
+
+        def run():
+            sweep_warp.displacement_volume_backward_cuda(dout, y, flow, md)
+
+        ms = cuda_ms(run, reps=20)
+        profile = device_profile(run, reps=20)
+        dev_ms = sum(v[0] for v in profile.values()) or None
+        kern_ms = sum(v[0] for n, v in profile.items() if "displacement_" in n) or None
+        plain_ms = cuda_ms(lambda: dicl.displacement_volume_backward_plain(dout, x, y, flow, md),
+                           reps=3, warmup=1)
+        # yardstick 1: autograd of the eager composition, its backward alone
+        xr, yr = x.detach().clone().requires_grad_(), y.detach().clone().requires_grad_()
+        with torch.enable_grad():
+            stack = dicl.shifted_pairs(xr, yr if flow is None else dicl.warp_flow(
+                yr, flow, dicl.bilinear_sample_plain), md)
+
+        def eager():
+            torch.autograd.grad(stack, (xr, yr), dout, retain_graph=True)
+
+        eager_ms = cuda_ms(eager, reps=3, warmup=1)
+        eager_dev = sum(v[0] for v in device_profile(eager, reps=3).values()) or None
+        del stack
+        # yardstick 2: grid_sampler_2d_backward's input gradient, the scatter half
+        grid_ms = grid_dev = None
+        if flow is not None:
+            B_, C_, h, w = y.shape
+            pg = torch.stack(torch.meshgrid(torch.arange(h, device=y.device),
+                                            torch.arange(w, device=y.device), indexing="ij")[::-1])
+            co = pg[None].float() + flow
+            grid = torch.stack([co[:, 0] / (w - 1) * 2 - 1, co[:, 1] / (h - 1) * 2 - 1],
+                               dim=-1).to(y.dtype)
+            gout = torch.randn(y.shape, device=y.device, generator=g).to(y.dtype)
+
+            def scatter():
+                torch.ops.aten.grid_sampler_2d_backward(gout, y, grid, 0, 0, True,
+                                                        [True, False])
+
+            grid_ms = cuda_ms(scatter, reps=20)
+            grid_dev = sum(v[0] for v in device_profile(scatter, reps=20).values()) or None
+        reads, taps, pixels = _disp_bwd_need(y, flow, md, dicl)
+        ins = (y,) if flow is None else (y, flow)
+        nbytes = (reads * dout.element_size()
+                  + sum(t.numel() * t.element_size() for t in ins + (dx, dy)))
+        flops = (DISP_BWD_FLOPS_PER_READ * reads + 4 * DISP_BWD_FLOPS_PER_TAP * taps
+                 + (0 if flow is None else B1_FLOPS_PER_OUTPUT * pixels))
+        t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / F32_FLOPS * 1e3
+        bound = max(t_bytes, t_ops)
+        rows.append(dict(name=f"level_{tuple(y.shape[-2:])}", dout=list(dout.shape), md=md,
+                         flow=flow is not None, dtype=str(dout.dtype).replace("torch.", ""),
+                         ms=ms, device_ms=dev_ms, kernels_device_ms=kern_ms, plain_ms=plain_ms,
+                         library_ms=None, eager_autograd_ms=eager_ms,
+                         eager_autograd_device_ms=eager_dev, grid_sampler_backward_ms=grid_ms,
+                         grid_sampler_backward_device_ms=grid_dev, bound_ms=bound,
+                         bound_by="bytes" if t_bytes >= t_ops else "operations",
+                         bound_share=None if dev_ms is None else bound / dev_ms, bytes=nbytes,
+                         flops=flops, dout_read_share=reads / dout.numel()))
+        r = rows[-1]
+        share = "not measured" if dev_ms is None else f"{100 * bound / dev_ms:.1f}%"
+        log(f"displacement backward dout {tuple(dout.shape)} {r['dtype']} "
+            f"{'with' if flow is not None else 'without'} flow: device {fmt(dev_ms)} (its two "
+            f"kernels {fmt(kern_ms)}), events {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+            f"{bound:.4f} ms ({r['bound_by']}, {nbytes / 1e6:.1f} MB, {100 * r['dout_read_share']:.1f}% "
+            f"of dout needed), share of bound {share}; yardsticks: eager autograd events "
+            f"{eager_ms:.4f} ms, device {fmt(eager_dev)}; grid_sampler_2d_backward input "
+            f"gradient events {fmt(grid_ms)}, device {fmt(grid_dev)}")
+        del dx, dy
+    total = _pair_sums(rows)
+    for key in ("eager_autograd_ms", "eager_autograd_device_ms", "kernels_device_ms"):
+        vals = [r[key] for r in rows]
+        total[key] = None if any(v is None for v in vals) else sum(vals)
+    grid_rows = [r for r in rows if r["flow"]]
+    total["grid_sampler_backward_ms"] = sum(r["grid_sampler_backward_ms"] for r in grid_rows)
+    total["grid_sampler_backward_device_ms"] = (
+        None if any(r["grid_sampler_backward_device_ms"] is None for r in grid_rows)
+        else sum(r["grid_sampler_backward_device_ms"] for r in grid_rows))
+    total["bound_share"] = (None if total["device_ms"] is None
+                            else total["bound_ms"] / total["device_ms"])
+    log(f"displacement backward per flow-training step: device {fmt(total['device_ms'])}, events "
+        f"{total['ms']:.4f} ms, bound {total['bound_ms']:.4f} ms, plain {total['plain_ms']:.4f} "
+        f"ms; eager autograd device {fmt(total['eager_autograd_device_ms'])}; "
+        f"grid_sampler_2d_backward (warped levels) device "
+        f"{fmt(total['grid_sampler_backward_device_ms'])}")
+    return dict(total, calls=rows), max_err
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -2128,11 +2700,20 @@ def main(argv=None) -> int:
         del cap_pose
         disp_calls, disp_err = phase_displacement(cap_disp, sweep_warp, dicl)
     del cap_disp
-    names = ("gather", "sweep", "backward", "pose_grad", "volume")
-    by_path = {"dicl_main_path": dict(zip(names, (0, sweep_dicl, 0, 0, disp_dicl))),
-               "pwc_cli_eval": dict(zip(names, (b1_pwc, sweep_pwc, 0, 0, disp_pwc))),
-               "cli_train": dict(zip(names, train_launches)),
-               **{k: dict(zip(names, v)) for k, v in pose_paths.items()}}
+    # no path before slice 9 trains DICL: none launched the volume's backward
+    check(sweep_warp.DISPLACEMENT_BACKWARD.launches == 0, "a frozen-flow path launched the "
+          f"displacement volume's backward {sweep_warp.DISPLACEMENT_BACKWARD.launches} times")
+    phase_small_flow_train_reference(dev)
+    flow_launches, cap_flow = phase_cli_train_flow(dev, sweep_warp)
+    with torch.no_grad():
+        dbwd_call, dbwd_err = phase_displacement_backward(cap_flow, sweep_warp, dicl)
+    del cap_flow
+    names = ("gather", "sweep", "backward", "pose_grad", "volume", "volume_backward")
+    by_path = {"dicl_main_path": dict(zip(names, (0, sweep_dicl, 0, 0, disp_dicl, 0))),
+               "pwc_cli_eval": dict(zip(names, (b1_pwc, sweep_pwc, 0, 0, disp_pwc, 0))),
+               "cli_train": dict(zip(names, train_launches + (0,))),
+               **{k: dict(zip(names, v + (0,))) for k, v in pose_paths.items()},
+               "cli_train_flow": dict(zip(names, flow_launches))}
 
     def launches(kernel):
         counts = {k: v[kernel] for k, v in by_path.items()}
@@ -2177,12 +2758,23 @@ def main(argv=None) -> int:
     pg = {"name": "plane_sweep_volume_pose_grad", "route": "cuda", "source": B1_SOURCE,
           "replaces": POSE_GRAD_REPLACES, **launches("pose_grad"), "max_abs_err": pg_err,
           **{k: v for k, v in pg_call.items() if k != "name"}}
-    kernels = [b1, disp, sweep, b2, bwd, pg]
+    # five launches per flow-training step (DICL's levels, largest first);
+    # it replaces the gradient XLA derives for the JAX stack, and no single
+    # PyTorch call computes it (the eager composition's autograd and
+    # grid_sampler_2d_backward are timed beside it)
+    dbwd = {"name": "displacement_volume_backward", "route": "cuda", "source": B1_SOURCE,
+            "replaces": DISP_BWD_REPLACES, "gradient_of": DISP_FUSES,
+            **launches("volume_backward"), "max_abs_err": dbwd_err,
+            **{k: v for k, v in dbwd_call.items() if k != "calls"}, "calls": dbwd_call["calls"]}
+    kernels = [b1, disp, sweep, b2, bwd, pg, dbwd]
     check(all(k["launches"] > 0 for k in kernels), "a kernel was launched no time on the "
           f"main paths: {[(k['name'], k['launches']) for k in kernels]}")
     check(pg["launches_by_path"]["cli_posenet_train"] > 0
           and disp["launches_by_path"]["cli_record_pose"] > 0,
           "the pose paths launched no pose gradient or no displacement volume")
+    check(dbwd["launches_by_path"]["cli_train_flow"] > 0
+          and disp["launches_by_path"]["cli_train_flow"] > 0,
+          "the flow-training path launched no displacement volume or no backward")
     for k in kernels:
         lib = "none" if k["library_ms"] is None else f"{k['library_ms']:.4f} ms"
         dev = "not measured" if k["device_ms"] is None else f"{k['device_ms']:.4f} ms"

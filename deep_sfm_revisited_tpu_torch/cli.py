@@ -15,7 +15,13 @@ The JAX CLI's flags (the reference's `main.py:66-115` surface plus
   segment errors);
 - `--save-pose`: the predicted poses of both splits, written into the
   dataset tree where the loaders read them back for training with
-  `--override pred_pose_online=False`.
+  `--override pred_pose_online=False`;
+- `--train-flow`: flow pretraining of DICL (`train/flow_trainer.py::
+  flow_fit`) over a flow benchmark (`--flow-dataset`, augmented and cropped
+  to `--flow-crop`), the per-epoch EPE / Fl-all validation, checkpoints
+  under `{out}/{tag}_flow/ckpt`, which `--pretrained-flow` restores into
+  the composite. DICL pads its input to /128 and the flow GT is not
+  padded, so the crop's sides must be multiples of 128 (as in JAX).
 
 Weights are random from `train.seed`, or restored: `--pretrained` (the
 port's checkpoint: model, optimizer and step in training, the model alone
@@ -23,8 +29,7 @@ with `-v`), `--pretrained-flow` / `--pretrained-depth` (one network of a
 port checkpoint) and `--pretrained-torch` (a reference-named state dict:
 what the weight tables cover is loaded, the counts of missing and unused
 keys are printed, as the JAX CLI does; the pose net is left untouched, as
-the JAX CLI's converter call leaves it). `--train-flow` is accepted and
-raises NotImplementedError.
+the JAX CLI's converter call leaves it).
 
     python -m deep_sfm_revisited_tpu_torch.cli --data /path/KITTI --cfg kitti -v \\
         [--override flow.estimator=PWC] [--pretrained-torch kitti.pth.tar]
@@ -33,6 +38,8 @@ raises NotImplementedError.
     python -m deep_sfm_revisited_tpu_torch.cli --data /path/KITTI_odometry --cfg kitti \\
         --dataset kitti_vo --record-pose [--override pose.estimator=POSENET]
     python -m deep_sfm_revisited_tpu_torch.cli --data /path/KITTI --cfg kitti --save-pose
+    python -m deep_sfm_revisited_tpu_torch.cli --data /path/data_scene_flow --cfg kitti \
+        --train-flow --flow-dataset kitti --flow-crop 256 768 -b 4 --epochs 1
 
 All run on the GPU; `main(argv, device="cpu")` asks for the CPU (the tests
 do). Without a GPU and without that argument it raises.
@@ -72,7 +79,13 @@ def build_parser() -> argparse.ArgumentParser:
                    help="state dict under the reference's module names "
                         "(a reference .pth.tar); loads what the weight tables cover")
     p.add_argument("--gt-depth-dir", default=None)
-    p.add_argument("--train-flow", action="store_true")
+    p.add_argument("--train-flow", action="store_true",
+                   help="flow pretraining of the flow net over a flow benchmark "
+                        "(the reference's cfg.TRAIN_FLOW path)")
+    p.add_argument("--flow-dataset", default="kitti",
+                   choices=["chairs", "things", "sintel", "kitti", "hd1k"])
+    p.add_argument("--flow-crop", type=int, nargs=2, default=None, metavar=("H", "W"),
+                   help="override the flow augmentor's crop size")
     p.add_argument("--record-pose", action="store_true")
     p.add_argument("--save-pose", action="store_true")
     p.add_argument("--out", default="output")
@@ -120,9 +133,35 @@ def config_from_args(args):
     return cfg.override(**over)
 
 
-def _check_ported(args) -> None:
-    if args.train_flow:
-        raise NotImplementedError("--train-flow is not ported yet")
+def build_flow_dataset(name: str, root: str, augment: bool, crop=None):
+    """One flow benchmark's dataset (JAX `build_flow_dataset`, `cli.py:252-265`),
+    with `crop` replacing the augmentor's default crop size."""
+    from deep_sfm_revisited_tpu_torch.data import flow_datasets as fd
+
+    kw = {"augment": augment}
+    if crop is not None:
+        kw["crop_size"] = tuple(crop)
+    builders = {"chairs": fd.FlyingChairs, "things": fd.FlyingThings3D, "sintel": fd.MpiSintel,
+                "kitti": fd.KITTIFlow, "hd1k": fd.HD1K}
+    return builders[name](root, **kw)
+
+
+def train_flow_main(args, cfg, dev):
+    """The `--train-flow` branch (JAX `train_flow_main`, `cli.py:268-296`):
+    the augmented train split and the plain validation split of
+    `--flow-dataset`, batches padded to /128 for DICL (/8 otherwise), and
+    `flow_fit` writing into `{out}/{tag}_flow`. Returns its epoch records."""
+    from deep_sfm_revisited_tpu_torch.data.loader import BatchLoader
+    from deep_sfm_revisited_tpu_torch.train.flow_trainer import flow_fit
+
+    train_ds = build_flow_dataset(args.flow_dataset, args.data, augment=True,
+                                  crop=args.flow_crop)
+    val_ds = build_flow_dataset(args.flow_dataset, args.data, augment=False)
+    pad = 128 if cfg.flow.estimator == "DICL" else 8
+    loader = BatchLoader(train_ds, cfg.train.batch_size, workers=cfg.data.workers,
+                         pad_multiple=pad, seed=cfg.train.seed)
+    return flow_fit(cfg, loader, f"{args.out}/{cfg.tag}_flow", val_dataset=val_ds, device=dev,
+                    eval_pad_multiple=pad)
 
 
 def build_val_loader(cfg, args):
@@ -280,7 +319,8 @@ def _pose_tools(args, cfg, dev, model):
 
 def main(argv=None, device: str | torch.device = "cuda"):
     """Run the CLI. `-v` returns the mean Eigen metrics {name: float};
-    training returns `fit`'s record of each epoch it ran; `--record-pose`
+    training returns `fit`'s record of each epoch it ran (`--train-flow`
+    `flow_fit`'s); `--record-pose`
     the pose errors {name: float} (with `odometry`: {seq: report} on
     kitti_vo); `--save-pose` what it wrote (file paths on the raw split,
     sequence numbers on VO)."""
@@ -290,9 +330,10 @@ def main(argv=None, device: str | torch.device = "cuda"):
     from deep_sfm_revisited_tpu_torch.utils.logging import MetricLogger
 
     args = build_parser().parse_args(argv)
-    _check_ported(args)
     cfg = config_from_args(args)
     dev = resolve_device(device)
+    if args.train_flow:
+        return train_flow_main(args, cfg, dev)
 
     if not (args.validate or args.record_pose or args.save_pose):
         from deep_sfm_revisited_tpu_torch.train.loop import fit

@@ -13,7 +13,7 @@
 // PyTorch versions of the port (ops/camera.py::bilinear_sample_plain and
 // ops/camera.py::plane_sweep_volume_plain).
 //
-// Five entry points share that rule (`Taps`, `SweepRay` and `blend` below):
+// Six entry points share that rule (`Taps`, `SweepRay` and `blend` below):
 //
 // dsfm_bilinear_sample -- the generic gather at given coordinates, used by
 // PWC-DC's flow warps. One thread per (query, 16-byte channel chunk), so
@@ -51,6 +51,26 @@
 // the coarse levels are a few items (PERF.md has the numbers).
 // m and hole are 0 or 1, so x m hole is x (m hole) bit for bit: the stack
 // is bit-identical to the plain composition in bf16 and float32.
+//
+// dsfm_displacement_volume_backward -- the displacement volume's gradient
+// with respect to x and y, for training DICL (flow pretraining). It
+// replaces the gradient XLA derives for the JAX package's stack
+// (models/dicl.py:160-188 of warp_flow, :231-239); DICL detaches the flow
+// it warps with (JAX models/dicl.py:348), so there is no flow gradient.
+// Given dout: dx[p] = sum_s keep_s(p) dout[s, c, p]; the gradient of the
+// warped y at q is hole(q) sum_s dout[s, C + c, q - d_s] over the p = q -
+// d_s in the frame; without a flow that is dy, with one it goes to the four
+// taps of q's sample with the forward's bilinear weights and validity
+// (`Taps`). Two launches: the first recomputes hole(q) with the forward's
+// own code (a few MB of y), the second is one thread per (b, c, pixel)
+// that walks the S2 displacements, summing both gathers in float32 in the
+// forward's order of s, and scatters the warped half with four float32
+// atomics into a float32 buffer, which the operator casts once.
+// What bounds it: device-memory bytes. At the flow-training step (b = 4,
+// 256x768, C = 32 bf16, md = 3) it must read the five levels' dout once,
+// ~411 MB (0.12 ms at 3.35 TB/s), against a few MB of maps and flows. A
+// warp reads 32 neighbouring pixels of one channel row a displacement (a
+// 64-byte stretch in bf16); the y half is skipped where hole(q) is 0.
 //
 // dsfm_plane_sweep_volume -- PSNet's whole cost volume in one pass, the
 // JAX package's (B, D, H, W, 2C) layout with [ref | warped] on the last
@@ -1217,6 +1237,127 @@ cudaError_t launch_displacement(const void* x, const void* y, const float* flow,
   return cudaGetLastError();
 }
 
+
+// ---------------------------------------------------------------------------
+// The displacement volume's backward.
+
+constexpr int kDispBwdThreads = 256;
+
+// hole[b, q]: some channel of y's sample at q (warped by B1's rule at
+// q + flow(q) and rounded to T, or y itself without a flow) is non-zero --
+// the forward's keep flag without its frame test, recomputed by the
+// forward's own code, so it equals the forward's bit for bit.
+template <typename T>
+__global__ void __launch_bounds__(kDispBwdThreads)
+displacement_hole_kernel(const void* __restrict__ y, const float* __restrict__ flow,
+                         unsigned char* __restrict__ hole, int B, int C, int h, int w) {
+  const int hw32 = h * w;
+  const int64_t hw = hw32;
+  const int64_t i = (int64_t)blockIdx.x * kDispBwdThreads + threadIdx.x;
+  if (i >= B * hw) return;
+  const int b = (int)(i / hw);
+  const int q = (int)(i - b * hw);
+  const int qy = q / w, qx = q - qy * w;
+  const char* yb = reinterpret_cast<const char*>(y) + (int64_t)b * C * hw * sizeof(typename T::Bits);
+  bool any = false;
+  if (flow != nullptr) {
+    const float* f = flow + (int64_t)b * 2 * hw + q;
+    const Taps t(__fadd_rn((float)qx, __ldg(f)), __fadd_rn((float)qy, __ldg(f + hw)), h, w);
+    const int i00 = t.yi * w + t.xi, i01 = i00 + (t.xi1 - t.xi);
+    const int i10 = i00 + (t.yi1 - t.yi) * w, i11 = i10 + (t.xi1 - t.xi);
+    for (int c = 0; c < C && !any; ++c) {
+      const int o = c * hw32;
+      const typename T::Bits v = T::from_float(blend(T::load1(yb, o + i00), T::load1(yb, o + i01),
+                                                     T::load1(yb, o + i10), T::load1(yb, o + i11),
+                                                     t.wx, t.ax, t.wy, t.ay, t.valid));
+      any = T::to_float(v) != 0.f;
+    }
+  } else {
+    for (int c = 0; c < C && !any; ++c) any = T::to_float(T::load_bits(yb, c * hw32 + q)) != 0.f;
+  }
+  hole[i] = any ? 1 : 0;
+}
+
+// One thread a (b, c, pixel), pixels fastest, so a warp's loads of one
+// displacement's channel row are one contiguous stretch. With s = (dv + md)
+// S + du + md in the forward's order:
+//   dx[p] = sum_s [q = p + d_s in the frame] hole(q) dout[s, c, p]
+//   dyh[q] = hole(q) sum_s [p = q - d_s in the frame] dout[s, C + c, p]
+// both summed in float32 in s order (the products with the 0/1 masks are
+// skips, so the plain version's sums are the same bits). Without a flow dy
+// is dyh in T. With one, dyh goes to the four taps of q's sample (the
+// forward's `Taps`) with their bilinear weights, float32 atomics into `acc`
+// (the order of those adds varies from launch to launch).
+template <typename T>
+__global__ void __launch_bounds__(kDispBwdThreads)
+displacement_backward_kernel(const void* __restrict__ dout, const float* __restrict__ flow,
+                             const unsigned char* __restrict__ hole, void* __restrict__ dx,
+                             void* __restrict__ dy, float* __restrict__ acc, int B, int C,
+                             int h, int w, int md) {
+  const int hw32 = h * w;
+  const int64_t hw = hw32;
+  const int64_t i = (int64_t)blockIdx.x * kDispBwdThreads + threadIdx.x;
+  if (i >= (int64_t)B * C * hw) return;
+  const int64_t bc = i / hw;
+  const int pix = (int)(i - bc * hw);
+  const int c = (int)(bc % C), b = (int)(bc / C);
+  const int py = pix / w, px = pix - py * w;
+  const int S = 2 * md + 1;
+  const int64_t pair = 2 * C * hw;                 // one displacement's elements
+  const char* g = reinterpret_cast<const char*>(dout)
+                  + (int64_t)b * S * S * pair * sizeof(typename T::Bits);
+  const int64_t xo = (int64_t)c * hw + pix;        // this pixel's x-half element
+  const int64_t yo = (int64_t)(C + c) * hw;        // the y half's channel row
+  const unsigned char* hb = hole + (int64_t)b * hw;
+  const bool hq = hb[pix] != 0;
+  float sx = 0.f, sy = 0.f;
+  int64_t base = 0;
+  for (int dv = -md; dv <= md; ++dv) {
+    const int qy = py + dv, ry = py - dv;
+    const bool qrow = qy >= 0 && qy < h, rrow = hq && ry >= 0 && ry < h;
+    for (int du = -md; du <= md; ++du, base += pair) {
+      const int qx = px + du, rx = px - du;
+      if (qrow && qx >= 0 && qx < w && hb[qy * w + qx])
+        sx = __fadd_rn(sx, T::to_float(T::load_bits(g, base + xo)));
+      if (rrow && rx >= 0 && rx < w)
+        sy = __fadd_rn(sy, T::to_float(T::load_bits(g, base + yo + ry * w + rx)));
+    }
+  }
+  T::store1(dx, i, sx);
+  if (flow == nullptr) {
+    T::store1(dy, i, sy);
+    return;
+  }
+  if (sy == 0.f) return;
+  const float* f = flow + (int64_t)b * 2 * hw + pix;
+  const Taps t(__fadd_rn((float)px, __ldg(f)), __fadd_rn((float)py, __ldg(f + hw)), h, w);
+  if (t.valid == 0.f) return;
+  float* a = acc + bc * hw;
+  atomicAdd(a + t.i00, __fmul_rn(sy, __fmul_rn(t.ay, t.ax)));
+  atomicAdd(a + t.i01, __fmul_rn(sy, __fmul_rn(t.ay, t.wx)));
+  atomicAdd(a + t.i10, __fmul_rn(sy, __fmul_rn(t.wy, t.ax)));
+  atomicAdd(a + t.i11, __fmul_rn(sy, __fmul_rn(t.wy, t.wx)));
+}
+
+template <typename T>
+cudaError_t launch_displacement_backward(const void* dout, const void* y, const float* flow,
+                                         unsigned char* hole, void* dx, void* dy, float* acc,
+                                         int B, int C, int h, int w, int md,
+                                         cudaStream_t stream) {
+  if (md < 0 || md > kDispMaxMd || C < 1 || C > kDispMaxC) return cudaErrorInvalidValue;
+  const int64_t hw = (int64_t)h * w;
+  const int64_t hole_blocks = (B * hw + kDispBwdThreads - 1) / kDispBwdThreads;
+  const int64_t blocks = (B * C * hw + kDispBwdThreads - 1) / kDispBwdThreads;
+  if (blocks > 0x7fffffffLL) return cudaErrorInvalidConfiguration;
+  displacement_hole_kernel<T><<<(unsigned)hole_blocks, kDispBwdThreads, 0, stream>>>(
+      y, flow, hole, B, C, h, w);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  displacement_backward_kernel<T><<<(unsigned)blocks, kDispBwdThreads, 0, stream>>>(
+      dout, flow, hole, dx, dy, acc, B, C, h, w, md);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16. vector: 1 when C * itemsize is a
@@ -1341,5 +1482,26 @@ extern "C" int dsfm_displacement_volume(const void* x, const void* y, const void
     return launch_displacement<F32>(x, y, fp, out, B, C, h, w, md, pair_io, s);
   if (dtype == 1)
     return launch_displacement<BF16>(x, y, fp, out, B, C, h, w, md, pair_io, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+// The displacement volume's backward: given dout (B, S2, 2C, h, w) of
+// `dtype`, y (B, C, h, w) of `dtype` and flow (B, 2, h, w) float32 or null,
+// as the forward took them, writes hole (B, h, w) uint8 (scratch), dx
+// (B, C, h, w) of `dtype` and, without a flow, dy (B, C, h, w) of `dtype`;
+// with one, adds dy into acc (B, C, h, w) float32, zeroed by the caller.
+// The same rules as the forward.
+extern "C" int dsfm_displacement_volume_backward(const void* dout, const void* y,
+                                                 const void* flow, void* hole, void* dx,
+                                                 void* dy, void* acc, int B, int C, int h,
+                                                 int w, int md, int dtype, void* stream) {
+  cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
+  const float* fp = reinterpret_cast<const float*>(flow);
+  unsigned char* hp = reinterpret_cast<unsigned char*>(hole);
+  float* ap = reinterpret_cast<float*>(acc);
+  if (dtype == 0)
+    return launch_displacement_backward<F32>(dout, y, fp, hp, dx, dy, ap, B, C, h, w, md, s);
+  if (dtype == 1)
+    return launch_displacement_backward<BF16>(dout, y, fp, hp, dx, dy, ap, B, C, h, w, md, s);
   return (int)cudaErrorInvalidValue;
 }

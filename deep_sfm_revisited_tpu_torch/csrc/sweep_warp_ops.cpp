@@ -44,6 +44,9 @@ int dsfm_plane_sweep_volume_pose_grad(const void* dvol, const void* tgt, const v
                                       void* stream);
 int dsfm_displacement_volume(const void* x, const void* y, const void* flow, void* out, int B,
                              int C, int h, int w, int md, int dtype, int pair_io, void* stream);
+int dsfm_displacement_volume_backward(const void* dout, const void* y, const void* flow,
+                                      void* hole, void* dx, void* dy, void* acc, int B, int C,
+                                      int h, int w, int md, int dtype, void* stream);
 }
 
 namespace {
@@ -238,12 +241,13 @@ std::tuple<at::Tensor, at::Tensor> plane_sweep_volume_pose_grad(const at::Tensor
   return {dM, dKt};
 }
 
-// DICL's displacement volume: x, y (B, C, h, w) f32/bf16 NCHW, flow
-// (B, 2, h, w) f32 or None, md -> (B, (2md+1)^2, 2C, h, w) in x's dtype. The
-// same rules as ops/cuda/sweep_warp.py::check_displacement_args.
-at::Tensor displacement_volume(const at::Tensor& x, const at::Tensor& y,
-                               const std::optional<at::Tensor>& flow, int64_t md) {
-  const char* what = "displacement volume";
+// The displacement volume's common rules: x, y (B, C, h, w) CUDA tensors on
+// one device, contiguous, of one dtype, float32 or bfloat16, 1 <= C <= 64,
+// h w < 2^24; md 0..4; flow None or a contiguous float32 (B, 2, h, w) on
+// the same device (ops/cuda/sweep_warp.py::check_displacement_args).
+// Returns the dtype code.
+int check_displacement(const char* what, const at::Tensor& x, const at::Tensor& y,
+                       const std::optional<at::Tensor>& flow, int64_t md) {
   TORCH_CHECK_VALUE(x.is_cuda() && y.is_cuda(), "the ", what, " takes CUDA tensors only");
   TORCH_CHECK_VALUE(y.device() == x.device(), what, " inputs on ", x.device(), " and ",
                     y.device());
@@ -258,7 +262,6 @@ at::Tensor displacement_volume(const at::Tensor& x, const at::Tensor& y,
   TORCH_CHECK_VALUE(md >= 0 && md <= 4, what, " md ", md, "; takes 0 <= md <= 4");
   TORCH_CHECK_VALUE(x.is_contiguous() && y.is_contiguous(), "the ", what,
                     " takes contiguous x and y");
-  const void* fp = nullptr;
   if (flow.has_value()) {
     const at::Tensor& f = *flow;
     TORCH_CHECK_VALUE(f.is_cuda() && f.device() == x.device(), what, " flow on ", f.device());
@@ -267,17 +270,63 @@ at::Tensor displacement_volume(const at::Tensor& x, const at::Tensor& y,
     TORCH_CHECK_VALUE(f.dim() == 4 && f.size(0) == B && f.size(1) == 2 && f.size(2) == h &&
                           f.size(3) == w && f.is_contiguous(),
                       what, " flow ", f.sizes(), "; takes a contiguous (B, 2, h, w)");
-    fp = f.data_ptr();
   }
+  return code;
+}
+
+// DICL's displacement volume: x, y (B, C, h, w) f32/bf16 NCHW, flow
+// (B, 2, h, w) f32 or None, md -> (B, (2md+1)^2, 2C, h, w) in x's dtype.
+at::Tensor displacement_volume(const at::Tensor& x, const at::Tensor& y,
+                               const std::optional<at::Tensor>& flow, int64_t md) {
+  const int code = check_displacement("displacement volume", x, y, flow, md);
+  const int64_t B = x.size(0), C = x.size(1), h = x.size(2), w = x.size(3);
   const int64_t S = 2 * md + 1;
   c10::OptionalDeviceGuard guard(x.device());
   at::Tensor out = at::empty({B, S * S, 2 * C, h, w}, x.options());
   const int pair_io =
       w % 2 == 0 && reinterpret_cast<uintptr_t>(x.data_ptr()) % (2 * x.element_size()) == 0;
-  check_launch(dsfm_displacement_volume(x.data_ptr(), y.data_ptr(), fp, out.data_ptr(), B, C, h,
-                                        w, md, code, pair_io, current_stream(x.device())),
+  check_launch(dsfm_displacement_volume(x.data_ptr(), y.data_ptr(),
+                                        flow.has_value() ? flow->data_ptr() : nullptr,
+                                        out.data_ptr(), B, C, h, w, md, code, pair_io,
+                                        current_stream(x.device())),
                "displacement volume kernel");
   return out;
+}
+
+// The displacement volume's backward: dout (B, (2md+1)^2, 2C, h, w) and y
+// (B, C, h, w) of one dtype, flow (B, 2, h, w) f32 or None, md, as the
+// forward took them -> (dx, dy), each (B, C, h, w) in dout's dtype. With a
+// flow, dy is summed in a float32 buffer, then cast. The forward's rules,
+// and dout contiguous of the forward's output shape.
+std::tuple<at::Tensor, at::Tensor> displacement_volume_backward(
+    const at::Tensor& dout, const at::Tensor& y, const std::optional<at::Tensor>& flow,
+    int64_t md) {
+  const char* what = "displacement volume backward";
+  const int code = check_displacement(what, y, y, flow, md);
+  const int64_t B = y.size(0), C = y.size(1), h = y.size(2), w = y.size(3);
+  const int64_t S = 2 * md + 1;
+  TORCH_CHECK_VALUE(dout.is_cuda() && dout.device() == y.device(), what, " dout on ",
+                    dout.device());
+  TORCH_CHECK_TYPE(dout.scalar_type() == y.scalar_type(), what, " dout and y of dtypes ",
+                   dout.scalar_type(), " and ", y.scalar_type());
+  TORCH_CHECK_VALUE(dout.dim() == 5 && dout.size(0) == B && dout.size(1) == S * S &&
+                        dout.size(2) == 2 * C && dout.size(3) == h && dout.size(4) == w &&
+                        dout.is_contiguous(),
+                    what, " dout ", dout.sizes(), "; takes a contiguous (", B, ", ", S * S,
+                    ", ", 2 * C, ", ", h, ", ", w, ")");
+  c10::OptionalDeviceGuard guard(y.device());
+  at::Tensor hole = at::empty({B, h, w}, y.options().dtype(at::kByte));
+  at::Tensor dx = at::empty({B, C, h, w}, y.options());
+  const bool warped = flow.has_value();
+  at::Tensor dy = warped ? at::zeros({B, C, h, w}, y.options().dtype(at::kFloat))
+                         : at::empty({B, C, h, w}, y.options());
+  check_launch(dsfm_displacement_volume_backward(
+                   dout.data_ptr(), y.data_ptr(), warped ? flow->data_ptr() : nullptr,
+                   hole.data_ptr(), dx.data_ptr(), warped ? nullptr : dy.data_ptr(),
+                   warped ? dy.data_ptr() : nullptr, B, C, h, w, md, code,
+                   current_stream(y.device())),
+               "displacement volume backward kernel");
+  return {dx, warped ? dy.to(y.scalar_type()) : dy};
 }
 
 }  // namespace
@@ -292,6 +341,8 @@ TORCH_LIBRARY(dsfm, m) {
   m.def("plane_sweep_volume_pose_grad(Tensor dvol, Tensor tgt, Tensor depths, Tensor M, "
         "Tensor Kt) -> (Tensor, Tensor)");
   m.def("displacement_volume(Tensor x, Tensor y, Tensor? flow, int md) -> Tensor");
+  m.def("displacement_volume_backward(Tensor dout, Tensor y, Tensor? flow, int md) -> "
+        "(Tensor, Tensor)");
 }
 
 // Registered for every dispatch key: a CPU tensor reaches the checks, which
@@ -303,4 +354,5 @@ TORCH_LIBRARY_IMPL(dsfm, CompositeExplicitAutograd, m) {
   m.impl("plane_sweep_volume_backward_probe", &plane_sweep_volume_backward_probe);
   m.impl("plane_sweep_volume_pose_grad", &plane_sweep_volume_pose_grad);
   m.impl("displacement_volume", &displacement_volume);
+  m.impl("displacement_volume_backward", &displacement_volume_backward);
 }

@@ -1,10 +1,12 @@
-"""PNG decoder, size probe and uint16 writer on zlib + numpy (no image library).
+"""PNG decoder, size probe and uint16 writers on zlib + numpy (no image library).
 
-The port reads KITTI's frames (8-bit RGB) and its depth maps (16-bit gray,
-depth * 256) with this module, probes a frame's size from its header
-(`probe_png`, for the VO depth exporter) and writes 16-bit gray depth maps
-(`write_png_u16`): the JAX package's readers and writers go through a C++
-libpng library or imageio, neither of which the port may assume.
+The port reads KITTI's frames (8-bit RGB), its depth maps (16-bit gray,
+depth * 256) and its flow maps (16-bit RGB: u, v, valid) with this module,
+probes a frame's size from its header (`probe_png`, for the VO depth
+exporter) and writes 16-bit gray depth maps (`write_png_u16`) and 16-bit RGB
+flow maps (`write_png_rgb16`): the JAX package's readers and writers go
+through a C++ libpng library, imageio or cv2, none of which the port may
+assume.
 
 Decodes non-interlaced PNGs of bit depth 8 (gray, gray + alpha, RGB, RGBA)
 or 16 (gray, RGB, RGBA), with all five scanline filters. Sub and Up are
@@ -94,28 +96,47 @@ def probe_png(data: bytes):
     return h, w, _CHANNELS[color], depth
 
 
-def encode_png_u16(img: np.ndarray) -> bytes:
-    """(h, w) uint16 -> a 16-bit gray PNG stream: one zlib-compressed IDAT
-    of filter-type-0 scanlines, samples big-endian as the format stores
-    them."""
-    if img.dtype != np.uint16 or img.ndim != 2:
-        raise TypeError(f"encode_png_u16 wants a 2-D uint16 array, got {img.dtype} {img.shape}")
-    arr = np.ascontiguousarray(img).astype(">u2")
-    h, w = arr.shape
+def _encode(arr: np.ndarray, color: int) -> bytes:
+    """(h, w[, c]) uint16 samples -> a 16-bit PNG stream of `color` type: one
+    zlib-compressed IDAT of filter-type-0 scanlines, samples big-endian as
+    the format stores them."""
+    arr = np.ascontiguousarray(arr).astype(">u2")
+    h, w = arr.shape[:2]
     raw = b"".join(b"\x00" + arr[y].tobytes() for y in range(h))
 
     def chunk(kind: bytes, body: bytes) -> bytes:
         return (struct.pack(">I", len(body)) + kind + body
                 + struct.pack(">I", zlib.crc32(kind + body) & 0xFFFFFFFF))
 
-    ihdr = struct.pack(">IIBBBBB", w, h, 16, 0, 0, 0, 0)
+    ihdr = struct.pack(">IIBBBBB", w, h, 16, color, 0, 0, 0)
     return (_SIGNATURE + chunk(b"IHDR", ihdr) + chunk(b"IDAT", zlib.compress(raw))
             + chunk(b"IEND", b""))
+
+
+def encode_png_u16(img: np.ndarray) -> bytes:
+    """(h, w) uint16 -> a 16-bit gray PNG stream."""
+    if img.dtype != np.uint16 or img.ndim != 2:
+        raise TypeError(f"encode_png_u16 wants a 2-D uint16 array, got {img.dtype} {img.shape}")
+    return _encode(img, 0)
+
+
+def encode_png_rgb16(img: np.ndarray) -> bytes:
+    """(h, w, 3) uint16 -> a 16-bit RGB PNG stream, channels in R, G, B order
+    (KITTI's flow maps: u, v, valid)."""
+    if img.dtype != np.uint16 or img.ndim != 3 or img.shape[2] != 3:
+        raise TypeError(f"encode_png_rgb16 wants an (h, w, 3) uint16 array, got {img.dtype} "
+                        f"{img.shape}")
+    return _encode(img, 2)
 
 
 def write_png_u16(path: str, img: np.ndarray) -> None:
     with open(path, "wb") as f:
         f.write(encode_png_u16(img))
+
+
+def write_png_rgb16(path: str, img: np.ndarray) -> None:
+    with open(path, "wb") as f:
+        f.write(encode_png_rgb16(img))
 
 
 def decode_png(data: bytes) -> np.ndarray:

@@ -1,7 +1,8 @@
 """Analytic synthetic scenes with exact ground truth.
 
 The PyTorch port's copy of `deep_sfm_revisited_tpu/data/synthetic.py` (the
-port imports nothing of the JAX package); only its imports differ.
+port imports nothing of the JAX package); besides its imports it adds
+`write_kitti_flow_tree`, a KITTI 2015 flow training tree of the same scenes.
 
 The reference repo's only geometry test is a synthetic harness for the
 CUDA RANSAC solver (`essential_matrix_main.cu`); nothing upstream can
@@ -275,3 +276,38 @@ def write_kitti_raw_tree(
         f.write("\n".join(lines[n_test:]) + "\n")
     with open(os.path.join(root, "test_files.txt"), "w") as f:
         f.write("\n".join(lines[:n_test]) + "\n")
+
+
+def write_kitti_flow_tree(root: str, n_pairs: int = 4, hw: Tuple[int, int] = (64, 96),
+                          focal: float = 70.0, seed: int = 0) -> None:
+    """Miniature KITTI 2015 flow training tree (`training/image_2/
+    {i:06d}_10.png`, `_11.png`, `training/flow_occ/{i:06d}_10.png`) of
+    consecutive views of the analytic scene on `forward_trajectory`: the
+    flow is the exact one (`exact_flow`), a smooth field, written in KITTI's
+    16-bit format (`data/flow_io.py::write_flow_kitti`) with a sparse valid
+    mask, LiDAR-like rows, every second one below the top third, where the
+    point lands inside the second frame (KITTI's `flow_occ` is semi-dense).
+    The layout `data/flow_datasets.py::KITTIFlow` reads."""
+    from deep_sfm_revisited_tpu_torch.data.flow_io import write_flow_kitti
+
+    h, w = hw
+    K = np.asarray([[focal, 0, w / 2], [0, focal, h / 2], [0, 0, 1]])
+    planes = default_planes()
+    img_dir = os.path.join(root, "training", "image_2")
+    flow_dir = os.path.join(root, "training", "flow_occ")
+    os.makedirs(img_dir, exist_ok=True)
+    os.makedirs(flow_dir, exist_ok=True)
+    traj = forward_trajectory(n_pairs + 1)
+    img, _, X = render(K, traj[0], hw, planes, seed=seed)
+    rows = np.zeros((h, w), bool)
+    rows[h // 3::2] = True
+    for i in range(n_pairs):
+        nxt, _, X_nxt = render(K, traj[i + 1], hw, planes, seed=seed)
+        flow = exact_flow(K, traj[i], traj[i + 1], X)
+        ys, xs = np.mgrid[0:h, 0:w]
+        tx, ty = xs + flow[..., 0], ys + flow[..., 1]
+        valid = rows & (tx >= 0) & (tx <= w - 1) & (ty >= 0) & (ty <= h - 1)
+        _write_png_u8(os.path.join(img_dir, f"{i:06d}_10.png"), img)
+        _write_png_u8(os.path.join(img_dir, f"{i:06d}_11.png"), nxt)
+        write_flow_kitti(os.path.join(flow_dir, f"{i:06d}_10.png"), flow, valid)
+        img, X = nxt, X_nxt

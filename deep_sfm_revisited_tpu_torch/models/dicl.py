@@ -1,4 +1,4 @@
-"""DICL coarse-to-fine optical flow (port of `models/dicl.py`), eval and frozen-train forward.
+"""DICL coarse-to-fine optical flow (port of `models/dicl.py`), eval and train.
 
 `FeatureGA` U-net features at strides 4..64 -> per level 6..2: the
 (2md+1)^2-displacement stack of [x | shifted y] pairs with warp-hole
@@ -17,11 +17,14 @@ order and permutes it to the JAX order when it runs.
 
 In train mode the U-net runs once per frame (BN batch statistics per call,
 JAX `dicl.py:264-272`) and `all_iters=True` returns the per-level flow stack
-(`:356-361`). The port trains the recipe's depth network with DICL frozen
-(`train.fix_flownet`): DICL then runs in train mode under `torch.no_grad()`,
-so its BN running statistics update as JAX's `mutable=["batch_stats"]` step
-updates them. A gradient through DICL (the displacement volume's backward)
-is not ported: train mode with autograd on raises.
+(`:356-361`); BN running statistics update as JAX's `mutable=
+["batch_stats"]` step updates them. With autograd on (flow pretraining,
+`train/flow_trainer.py`, or depth training with `train.fix_flownet=False`)
+the gradient reaches the matching nets and the U-net through the
+displacement volume's backward (`DisplacementVolumeFn`: kernel B1's
+backward entry point on the GPU, autograd of the plain composition on the
+CPU). The flow each level warps with is detached, as in JAX (`:348`), so
+the volume has no flow gradient.
 
 Layouts: `DICLFlow.forward` takes and returns NHWC like the JAX module;
 the helpers below work on the internal NCHW tensors (features (B, C, H,
@@ -39,8 +42,8 @@ from torch import nn
 
 from deep_sfm_revisited_tpu_torch.config import FlowConfig
 from deep_sfm_revisited_tpu_torch.models.submodules import BatchNorm2d, _resize_nchw, no_autocast
-from deep_sfm_revisited_tpu_torch.ops.camera import (bilinear_sample, bilinear_sample_plain,
-                                                    pixel_grid)
+from deep_sfm_revisited_tpu_torch.ops.camera import (_taps, bilinear_sample,
+                                                    bilinear_sample_plain, pixel_grid)
 from deep_sfm_revisited_tpu_torch.ops.cuda import sweep_warp
 from deep_sfm_revisited_tpu_torch.utils.weights import disp_transpose_perm
 
@@ -235,14 +238,95 @@ def displacement_volume_plain(x: torch.Tensor, y: torch.Tensor, flow: Optional[t
     return shifted_pairs(x, y, md)
 
 
+def displacement_volume_backward_plain(dout: torch.Tensor, x: torch.Tensor, y: torch.Tensor,
+                                       flow: Optional[torch.Tensor],
+                                       md: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """The displacement volume's backward kernel's plain PyTorch version:
+    the explicit VJP of `displacement_volume_plain` with respect to x and y.
+
+    dout (B, S2, 2C, H, W), the stack's gradient; x, y, flow, md as the
+    forward took them. Returns (dx, dy), each (B, C, H, W) in dout's dtype,
+    summed in float32 (float64 for float64 inputs). With keep_s(p) the
+    forward's mask of displacement s = (dv + md) S + du + md at p (q = p + d_s
+    in the frame, and some channel of the warped y at q non-zero):
+    dx[p] = sum_s keep_s(p) dout[s, :C, p] and the warped y's gradient
+    dyh[q] = hole(q) sum_s dout[s, C:, q - d_s] over p = q - d_s in the
+    frame, both summed in s order, as the kernel sums them; without a flow
+    dy = dyh, with one each q adds dyh[q] times its sample's four bilinear
+    weights onto the taps the forward read (`index_add_`)."""
+    B, C, H, W = x.shape
+    S = 2 * md + 1
+    cdt = torch.promote_types(dout.dtype, torch.float32)
+    yw = y if flow is None else warp_flow(y, flow, bilinear_sample_plain)
+    hole = (yw != 0).any(dim=1)                                      # (B, H, W)
+    g = dout.to(cdt).reshape(B, S, S, 2, C, H, W)
+    dx = torch.zeros((B, C, H, W), dtype=cdt, device=dout.device)
+    dyh = torch.zeros((B, C, H, W), dtype=cdt, device=dout.device)
+
+    def span(lo, hi):          # empty where the shift exceeds the map
+        return slice(lo, max(lo, hi))
+
+    for i, dv in enumerate(range(-md, md + 1)):
+        py = span(max(0, -dv), H - max(0, dv))        # p rows whose q = p + d is in the frame
+        qy = span(max(0, dv), H - max(0, -dv))
+        for j, du in enumerate(range(-md, md + 1)):
+            px = span(max(0, -du), W - max(0, du))
+            qx = span(max(0, du), W - max(0, -du))
+            keep = hole[:, None, qy, qx].to(cdt)
+            dx[:, :, py, px] += g[:, i, j, 0, :, py, px] * keep
+            dyh[:, :, qy, qx] += g[:, i, j, 1, :, py, px]
+    dyh = dyh * hole[:, None].to(cdt)
+    if flow is None:
+        return dx.to(dout.dtype), dyh.to(dout.dtype)
+    grid = pixel_grid(H, W, torch.float32, dout.device)[:2]
+    coords = (grid[None] + flow.float()).reshape(B, 2, -1)
+    valid, (yi, xi, yi1, xi1), (wx, wy) = _taps(coords[:, 0], coords[:, 1], H, W)
+    # the weights' fractions as the forward's float32 blend rounds them
+    wx, wy, ax, ay = (v.to(cdt) for v in (wx, wy, 1 - wx, 1 - wy))
+    gw = dyh.reshape(B, C, -1) * valid[:, None].to(cdt)
+    base = (torch.arange(B, device=dout.device) * (H * W))[:, None]
+    acc = torch.zeros((B * H * W, C), dtype=cdt, device=dout.device)
+    for yy, xx, w in ((yi, xi, ay * ax), (yi, xi1, ay * wx), (yi1, xi, wy * ax),
+                      (yi1, xi1, wy * wx)):
+        acc.index_add_(0, (base + yy * W + xx).reshape(-1),
+                       (gw * w[:, None]).transpose(1, 2).reshape(-1, C))
+    dy = acc.reshape(B, H, W, C).permute(0, 3, 1, 2)
+    return dx.to(dout.dtype), dy.to(dout.dtype).contiguous()
+
+
+class DisplacementVolumeFn(torch.autograd.Function):
+    """Kernel B1's displacement volume (forward) and its backward kernel
+    (dx, dy) as one autograd function, for CUDA tensors. The flow gets no
+    gradient: a flow that requires one is refused, as both packages detach
+    it."""
+
+    @staticmethod
+    def forward(ctx, x, y, flow, md):
+        if flow is not None and flow.requires_grad:
+            raise NotImplementedError("the displacement volume has no flow gradient; detach "
+                                      "the flow it warps with, as DICL does")
+        ctx.md = md
+        ctx.save_for_backward(y, flow)
+        return sweep_warp.displacement_volume_cuda(x, y, flow, md)
+
+    @staticmethod
+    def backward(ctx, dout):
+        y, flow = ctx.saved_tensors
+        dx, dy = sweep_warp.displacement_volume_backward_cuda(dout.contiguous(), y, flow, ctx.md)
+        return dx, dy, None, None
+
+
 def displacement_volume(x: torch.Tensor, y: torch.Tensor, flow: Optional[torch.Tensor],
                         md: int) -> torch.Tensor:
     """One level's displacement stack (B, S2, 2C, H, W) of x and y
     (B, C, H, W) with y warped by flow (B, 2, H, W), or not warped where flow
-    is None. CUDA tensors go through kernel B1's fused entry point (one
-    launch), CPU tensors through `displacement_volume_plain`."""
+    is None; differentiable in x and y. CUDA tensors go through kernel B1's
+    fused entry point (one launch) and its backward (`DisplacementVolumeFn`),
+    CPU tensors through `displacement_volume_plain`, which autograd
+    differentiates. A flow that requires a gradient is refused."""
+    sweep_warp.refuse_flow_gradient(flow)
     if x.device.type == "cuda":
-        return sweep_warp.displacement_volume_cuda(
+        return DisplacementVolumeFn.apply(
             x.contiguous(), y.contiguous(), None if flow is None else flow.float().contiguous(),
             md)
     if x.device.type == "cpu":
@@ -287,10 +371,6 @@ class DICLFlow(nn.Module):
         with `all_iters`, (the (L, B, H, W, 2) stack of every level's flow at
         full resolution, coarse to fine, with the pre-context flows when
         `dicl_sup_raw_flow`, entropy)."""
-        if self.training and torch.is_grad_enabled() and any(
-                p.requires_grad for p in self.parameters()):
-            raise NotImplementedError("DICL training with gradients is not ported yet; "
-                                      "run it frozen, under torch.no_grad()")
         cfg = self.cfg
         B, H, W, _ = pair.shape
         x_img = pair[..., :3].permute(0, 3, 1, 2)

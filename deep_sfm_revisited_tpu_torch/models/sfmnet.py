@@ -15,15 +15,18 @@ returned for the pose loss); `use_gt_pose`; and pre-saved poses
 (`pred_pose_online=False`). Everything else the JAX composite offers raises
 NotImplementedError (ROADMAP.md lists what is still to port).
 
-Train mode (`model.train()`, JAX `train=True`, `sfmnet.py:163-170`) is the
-recipe's frozen-flow step: the flow net runs in train mode (BN batch
-statistics, its running statistics updated) without gradient, returns its
-per-level stack `flow_all` and `flow = flow_all[-1]`; RANSAC runs without
-gradient (JAX's stop_gradient); PoseNet and PSNet run in train mode with
-autograd on, and PoseNet's pose reaches PSNet's cost volume with its
-gradient (the plane sweep's pose gradient, `ops/camera.py::
-PlaneSweepVolumeFn`). Training the flow net (`train.fix_flownet=False`)
-raises.
+Train mode (`model.train()`, JAX `train=True`, `sfmnet.py:163-170`): the
+flow net runs in train mode (BN batch statistics, its running statistics
+updated) and returns its per-level stack `flow_all` and `flow =
+flow_all[-1]`; RANSAC runs without gradient (JAX's stop_gradient); PoseNet
+and PSNet run in train mode with autograd on, and PoseNet's pose reaches
+PSNet's cost volume with its gradient (the plane sweep's pose gradient,
+`ops/camera.py::PlaneSweepVolumeFn`). The recipe's step keeps the flow net
+frozen (`train.fix_flownet`): it runs without gradient. With
+`train.fix_flownet=False` DICL runs with autograd on, so its flow stack
+(the flow loss of a batch that carries `flow_gt`, `train/trainer.py`) and,
+on the POSENET route, PoseNet's flow and confidence inputs reach its
+parameters, as in JAX; PWC-DC's train mode is not ported, so that raises.
 """
 
 from __future__ import annotations
@@ -63,12 +66,13 @@ def _check_supported(cfg: SfMConfig) -> None:
 
 
 def check_trainable(cfg: SfMConfig, use_gt_pose: bool = False) -> None:
-    """Raise unless the training step is the ported one: a route that runs
-    the flow net trains with it frozen (`train.fix_flownet`)."""
+    """Raise unless the training step is a ported one: a route that runs
+    PWC-DC trains with it frozen (`train.fix_flownet`); DICL trains either
+    way."""
     if cfg.pred_pose_online and not (use_gt_pose or cfg.use_gt_pose) \
-            and not cfg.train.fix_flownet:
-        raise NotImplementedError("training the flow net (train.fix_flownet=False) "
-                                  "is not ported yet")
+            and not cfg.train.fix_flownet and cfg.flow.estimator != "DICL":
+        raise NotImplementedError(f"training the flow net {cfg.flow.estimator} "
+                                  "(train.fix_flownet=False) is not ported yet")
 
 
 def _get(cfg, dotted):
@@ -166,7 +170,8 @@ class SFMNet(nn.Module):
                 pose = self._gt_scaled(pred_pose.float(), pose_gt)
                 flow = torch.zeros(ref.shape[:3] + (2,), device=ref.device)
             else:
-                with self._autocast():
+                train_flow = train and grad and not cfg.train.fix_flownet
+                with torch.set_grad_enabled(train_flow), self._autocast():
                     pair = torch.cat([ref, target], dim=-1)
                     if train:
                         flow_all, conf = self.flow_estimator(pair, all_iters=True)
@@ -174,7 +179,7 @@ class SFMNet(nn.Module):
                         flow = flow_all[-1]
                     else:
                         flow, conf = self.flow_estimator(pair)
-                flow = flow.float()
+                    flow = flow.float()
                 if cfg.pose.estimator == "RANSAC":
                     conf_s = None    # the uniform grid
                     if cfg.pose.sampler == "entropy":

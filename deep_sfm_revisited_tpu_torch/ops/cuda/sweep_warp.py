@@ -3,8 +3,8 @@
 All replace `deep_sfm_revisited_tpu/ops/pallas/sweep_warp.py::
 bilinear_sample_pallas` (`pallas_call` at `:145`); the JAX package's PSNet
 reaches it through `plane_sweep_warp_pallas` (`:169`). One source,
-`csrc/sweep_warp.cu`, built at first use by `ops/cuda/build.py`, exports five
-kernels; `csrc/sweep_warp_ops.cpp` registers them as the PyTorch operators
+`csrc/sweep_warp.cu`, built at first use by `ops/cuda/build.py`, exports six
+entry points; `csrc/sweep_warp_ops.cpp` registers them as the PyTorch operators
 `torch.ops.dsfm.*` (`OPS`), through which each wrapper launches its kernel
 and adds one to its own launch count:
 
@@ -16,6 +16,10 @@ and adds one to its own launch count:
   flow, in one pass. Plain version `models/dicl.py::
   displacement_volume_plain` (`shifted_pairs` of `warp_flow`);
   `models/dicl.py::displacement_volume` sends CUDA tensors here.
+- `displacement_volume_backward_cuda` (`DISPLACEMENT_BACKWARD.launches`):
+  that stack's gradient with respect to x and y (DICL detaches the flow).
+  Plain version `models/dicl.py::displacement_volume_backward_plain`;
+  `models/dicl.py::DisplacementVolumeFn.backward` sends CUDA tensors here.
 - `plane_sweep_volume_cuda` (`VOLUME.launches`): PSNet's whole
   (B, D, H, W, 2C) [ref | warped] volume, coordinates computed inline. Plain
   version `ops/camera.py::plane_sweep_volume_plain`;
@@ -108,18 +112,25 @@ class SweepWarpKernel(CudaKernel):
 DISPLACEMENT_MAX_MD, DISPLACEMENT_MAX_C = 4, 64   # csrc/sweep_warp.cu: kDispMaxMd, kDispMaxC
 
 
+def refuse_flow_gradient(flow: torch.Tensor | None) -> None:
+    """Raise where the flow a displacement volume warps with would need a
+    gradient: DICL detaches it (JAX `models/dicl.py:348`), and neither the
+    kernel's backward nor the plain one computes dflow."""
+    if flow is not None and flow.requires_grad and torch.is_grad_enabled():
+        raise NotImplementedError("the displacement volume has no flow gradient; detach the "
+                                  "flow it warps with, as DICL does")
+
+
 def check_displacement_args(x: torch.Tensor, y: torch.Tensor, flow: torch.Tensor | None,
                             md: int) -> None:
-    """Raise on what the displacement-volume kernel does not take: an input
-    that needs a gradient under grad mode (the kernel has no backward), x and
-    y not of one float32 or bfloat16 dtype and one (B, C, h, w) shape with
-    1 <= C <= 64 and h w < 2^24, a flow not float32 (B, 2, h, w), md
-    outside 0..4, an input not contiguous or not on CUDA. Checked here, not
-    only in the operator, so that the CPU tests see every refusal."""
+    """Raise on what the displacement-volume kernels do not take: a flow that
+    needs a gradient (`refuse_flow_gradient`), x and y not of one float32 or
+    bfloat16 dtype and one (B, C, h, w) shape with 1 <= C <= 64 and
+    h w < 2^24, a flow not float32 (B, 2, h, w), md outside 0..4, an input
+    not contiguous or not on CUDA. Checked here, not only in the operator,
+    so that the CPU tests see every refusal."""
     tensors = (x, y) if flow is None else (x, y, flow)
-    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
-        raise NotImplementedError("the displacement volume has no backward yet; call it "
-                                  "under torch.no_grad()")
+    refuse_flow_gradient(flow)
     if x.dtype not in (torch.float32, torch.bfloat16) or y.dtype != x.dtype:
         raise TypeError(f"displacement volume x {x.dtype}, y {y.dtype}; takes one of "
                         "float32 or bfloat16")
@@ -162,6 +173,37 @@ class DisplacementVolume:
         out = op(x, y, flow, md)
         self.launches += 1
         return out
+
+
+class DisplacementVolumeBackward:
+    """Launches the displacement volume's backward kernel through `OPS`; owns
+    its launch count."""
+
+    def __init__(self):
+        self.launches = 0
+        self._op = None
+
+    def __call__(self, dout: torch.Tensor, y: torch.Tensor, flow: torch.Tensor | None,
+                 md: int) -> tuple[torch.Tensor, torch.Tensor]:
+        """dout (B, (2md+1)^2, 2C, h, w), the volume's gradient, and y
+        (B, C, h, w) of one dtype, f32/bf16; flow (B, 2, h, w) f32 or None,
+        as the forward took them -> (dx, dy), each (B, C, h, w) in dout's
+        dtype (with a flow, dy is summed in a float32 buffer, then cast)."""
+        check_displacement_args(y, y, flow, md)
+        S = 2 * md + 1
+        B, C, h, w = y.shape
+        if dout.dtype != y.dtype or tuple(dout.shape) != (B, S * S, 2 * C, h, w) \
+                or not dout.is_contiguous():
+            raise ValueError(f"displacement volume backward dout {tuple(dout.shape)} "
+                             f"{dout.dtype}; takes a contiguous {(B, S * S, 2 * C, h, w)} "
+                             f"{y.dtype}")
+        _cuda_only("displacement volume backward", dout)
+        op = self._op
+        if op is None:
+            op = self._op = OPS.build().displacement_volume_backward.default
+        dx, dy = op(dout, y, flow, md)
+        self.launches += 1
+        return dx, dy
 
 
 class PlaneSweepVolume:
@@ -250,6 +292,7 @@ VOLUME = PlaneSweepVolume()
 VOLUME_BACKWARD = PlaneSweepVolumeBackward()
 VOLUME_POSE_GRAD = PlaneSweepVolumePoseGrad()
 DISPLACEMENT = DisplacementVolume()
+DISPLACEMENT_BACKWARD = DisplacementVolumeBackward()
 
 
 def bilinear_sample_cuda(img: torch.Tensor, coords: torch.Tensor) -> torch.Tensor:
@@ -262,6 +305,13 @@ def displacement_volume_cuda(x: torch.Tensor, y: torch.Tensor, flow: torch.Tenso
     """Launch DICL's displacement-volume kernel on the current stream (see
     `DisplacementVolume.__call__`)."""
     return DISPLACEMENT(x, y, flow, md)
+
+
+def displacement_volume_backward_cuda(dout: torch.Tensor, y: torch.Tensor,
+                                      flow: torch.Tensor | None, md: int):
+    """Launch the displacement volume's backward kernel on the current stream
+    (see `DisplacementVolumeBackward.__call__`)."""
+    return DISPLACEMENT_BACKWARD(dout, y, flow, md)
 
 
 def plane_sweep_volume_cuda(ref: torch.Tensor, tgt: torch.Tensor, depths: torch.Tensor,

@@ -4,7 +4,9 @@ The reference's `train_epoch` step (`main.py:295-450`) as the JAX package
 builds it: random photometric noise, SFMNet in train mode, the masked
 smooth-L1 depth loss (plus the MSE pose loss on the PoseNet route), Adam with milestone decay (`main.py:212,245`), frozen
 subtrees left out of the optimizer (the effect of optax's `set_to_zero`,
-`--fix-flownet` / `--fix-depthnet`, `main.py:222-233`). Mixed precision is
+`--fix-flownet` / `--fix-depthnet`, `main.py:222-233`); with the flow net
+trained (`train.fix_flownet=False`, DICL), the flow loss of a batch that
+carries flow GT. Mixed precision is
 the model's bf16 autocast; parameters and the optimizer stay float32, and
 bf16's float32 exponent range needs no loss scaling (the JAX package's
 reasoning, `trainer.py:11-13`).
@@ -75,8 +77,8 @@ def loss_and_metrics(model, cfg: SfMConfig, batch: Dict[str, torch.Tensor],
                      generator: Optional[torch.Generator] = None,
                      draws: Optional[Dict[str, torch.Tensor]] = None):
     """One forward of the training objective (JAX `_build_loss_fn`,
-    `trainer.py:193-284`, the depth-loss, pose-loss and degenerate-pair
-    terms) ->
+    `trainer.py:193-284`: the depth-loss, flow-loss, pose-loss and
+    degenerate-pair terms) ->
     (loss, {metric: 0-d tensor}, model outputs)."""
     t, d = cfg.train, cfg.depth
     out = model(batch["ref"], batch["target"], batch["intrinsics"],
@@ -88,6 +90,15 @@ def loss_and_metrics(model, cfg: SfMConfig, batch: Dict[str, torch.Tensor],
         rescale_depth=t.rescale_depth, norm_target=t.norm_target,
         min_train_scale=t.min_train_scale, max_train_scale=t.max_train_scale,
         init_weight=t.depth_init_weight, remask=t.rescale_depth_remask)
+    if not t.fix_flownet and out.get("flow_all") is not None and "flow_gt" in batch:
+        # the flow loss of a batch with flow GT when the flow net trains
+        # (JAX `trainer.py:230-258`); KITTI depth batches carry none
+        from deep_sfm_revisited_tpu_torch.train.flow_trainer import flow_loss
+
+        fl = flow_loss(cfg.flow, out["flow_all"], batch["flow_gt"].float(),
+                       batch.get("flow_valid"))
+        loss = loss + fl
+        aux = dict(aux, flow_loss=fl)
     if out.get("num_matches") is not None:
         # degenerate-pair observability: mean confident-candidate count and
         # the share of frames that fell back to the uniform grid

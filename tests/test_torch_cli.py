@@ -108,14 +108,17 @@ def test_cli_metrics_equal_the_jax_eval_step(tree, tmp_path):
 
 @pytest.mark.parametrize("extra", [["--train-flow"]])
 def test_unported_modes_raise(tree, tmp_path, extra):
+    """Flow pretraining is ported for DICL; PWC-DC's raises."""
     with pytest.raises(NotImplementedError, match="not ported yet"):
-        cli.main(_argv(tree, tmp_path, TINY, *extra), device="cpu")
+        cli.main(_argv(tree, tmp_path, dict(TINY, **{"flow.estimator": "PWC"}), *extra),
+                 device="cpu")
 
 
 def test_training_raises(tree, tmp_path):
-    """Training runs the frozen-flow depth step; training the flow net
-    (`train.fix_flownet=False`) is not ported."""
-    over = dict(TINY, **{"train.fix_flownet": False})
+    """Training the flow net (`train.fix_flownet=False`) is ported for DICL;
+    on the PWC-DC route it is not and raises."""
+    over = dict(TINY, **{"train.fix_flownet": False, "flow.estimator": "PWC",
+                         "data.pad_multiple": 64})
     argv = [a for a in _argv(tree, tmp_path, over) if a != "-v"]
     with pytest.raises(NotImplementedError, match="not ported yet"):
         cli.main(argv, device="cpu")

@@ -487,6 +487,78 @@ def test_displacement_volume_replays_in_a_cuda_graph(dtype):
     assert torch.equal(out, sweep_warp.displacement_volume_cuda(x, y, flow, 3))
 
 
+# the flow-training step's five levels (b = 4, 256x768) and odd ones, md 0..4
+DISP_BWD_CASES = [((4, 32, 64, 192), 3, True), ((4, 32, 4, 12), 3, False),
+                  ((2, 16, 13, 27), 0, True), ((2, 16, 13, 27), 4, True),
+                  ((1, 5, 9, 51), 2, False)]
+
+
+def _tol(dtype):
+    """The scatter's float32 atomics add in another order than `index_add_`:
+    within 1e-5 of the largest element in float32, one bf16 ulp there
+    (2^-7) in bfloat16."""
+    return 1e-5 if dtype == torch.float32 else 2.0 ** -7
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape,md,with_flow", DISP_BWD_CASES)
+def test_displacement_backward_matches_plain_on_card(shape, md, with_flow, dtype):
+    """The displacement volume's backward kernel against its plain version:
+    dx bit for bit (the same float32 sums in the same order), dy bit for bit
+    without a flow and within `_tol` with one (atomics); two launches give
+    the same dx, and dy within the same tolerance."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from deep_sfm_revisited_tpu_torch.models import dicl as tdicl
+
+    td = getattr(torch, dtype)
+    x, y, flow = _disp_inputs(shape, with_flow, td, seed=5)
+    B, C, h, w = shape
+    S = 2 * md + 1
+    g = torch.Generator(device="cuda").manual_seed(6)
+    dout = torch.randn((B, S * S, 2 * C, h, w), device="cuda", generator=g).to(td)
+    before = sweep_warp.DISPLACEMENT_BACKWARD.launches
+    dx, dy = sweep_warp.displacement_volume_backward_cuda(dout, y, flow, md)
+    dx2, dy2 = sweep_warp.displacement_volume_backward_cuda(dout, y, flow, md)
+    torch.cuda.synchronize()
+    assert sweep_warp.DISPLACEMENT_BACKWARD.launches == before + 2
+    px, py = tdicl.displacement_volume_backward_plain(dout, x, y, flow, md)
+    assert dx.dtype == dy.dtype == td and dx.shape == dy.shape == shape
+    assert torch.equal(dx, px) and torch.equal(dx, dx2)
+    if flow is None:
+        assert torch.equal(dy, py) and torch.equal(dy, dy2)
+    else:
+        scale = float(py.float().abs().max())
+        assert float((dy.float() - py.float()).abs().max()) <= _tol(td) * scale
+        assert float((dy.float() - dy2.float()).abs().max()) <= _tol(td) * scale
+
+
+@pytest.mark.cuda
+def test_displacement_volume_function_trains_through_the_kernels():
+    """autograd through `models/dicl.py::displacement_volume` on the card:
+    one forward and one backward launch, and the gradients of the plain
+    composition (float32)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from deep_sfm_revisited_tpu_torch.models import dicl as tdicl
+
+    x, y, flow = _disp_inputs((2, 16, 24, 40), True, torch.float32, seed=7)
+    x.requires_grad_()
+    y.requires_grad_()
+    n = (sweep_warp.DISPLACEMENT.launches, sweep_warp.DISPLACEMENT_BACKWARD.launches)
+    out = tdicl.displacement_volume(x, y, flow, 3)
+    dout = torch.randn_like(out)
+    got = torch.autograd.grad(out, (x, y), dout)
+    assert (sweep_warp.DISPLACEMENT.launches - n[0],
+            sweep_warp.DISPLACEMENT_BACKWARD.launches - n[1]) == (1, 1)
+    want = torch.autograd.grad(tdicl.displacement_volume_plain(x, y, flow, 3), (x, y), dout)
+    for a, b in zip(got, want):
+        assert float((a - b).abs().max()) <= 1e-5 * float(b.abs().max())
+    with pytest.raises(NotImplementedError, match="flow gradient"):
+        tdicl.displacement_volume(x, y, flow.requires_grad_(), 3)
+
+
 @pytest.mark.cuda
 def test_displacement_volume_wrapper_refuses_what_the_kernel_does_not_take():
     if not torch.cuda.is_available():
@@ -498,8 +570,8 @@ def test_displacement_volume_wrapper_refuses_what_the_kernel_does_not_take():
                  (torch.zeros(1, 65, 6, 10, device="cuda"),) * 2 + (flow, 3)):
         with torch.no_grad(), pytest.raises((ValueError, TypeError)):
             sweep_warp.displacement_volume_cuda(*args)
-    with pytest.raises(NotImplementedError):
-        sweep_warp.displacement_volume_cuda(x.requires_grad_(), y, flow, 3)
+    with pytest.raises(NotImplementedError, match="flow gradient"):
+        sweep_warp.displacement_volume_cuda(x, y, flow.requires_grad_(), 3)
 
 
 # PWC-DC's five level shapes (f0, f1 at levels 6..2 of a 384x1280 pair), a

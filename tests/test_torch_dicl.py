@@ -67,9 +67,15 @@ def test_dicl_entropy_matches_jax(dicl_pair):
 
 
 def test_dicl_raises_in_train_mode():
-    net = tdicl.DICLFlow(TConfig.kitti().flow)
-    with pytest.raises(NotImplementedError):
-        net(torch.from_numpy(_pair()))
+    """Train mode with autograd on no longer raises: the flow and its entropy
+    carry a graph, and the flow's gradient reaches the U-net's first
+    convolution through the five displacement volumes."""
+    net = tdicl.DICLFlow(TConfig.kitti().flow).train()
+    flow, ent = net(torch.from_numpy(_pair()))
+    assert flow.requires_grad and ent.requires_grad
+    flow.square().sum().backward()
+    g = net.feature.conv_start[0].conv.weight.grad
+    assert g is not None and torch.isfinite(g).all() and g.abs().max() > 0
 
 
 def _nchw(x):

@@ -170,17 +170,19 @@ def test_wrapper_refuses_what_the_kernel_does_not_take(case):
 
 
 def test_wrapper_refuses_inputs_that_need_a_gradient():
-    """No backward yet: an input that requires grad under grad mode raises;
-    under torch.no_grad() the same inputs pass the check (and then meet the
-    CUDA-only refusal on this CPU tensor)."""
+    """The volume has a backward for x and y but none for the flow: a flow
+    that requires grad under grad mode raises; x that requires grad passes
+    the check (and then meets the CUDA-only refusal on this CPU tensor), as
+    does the flow under torch.no_grad()."""
     x = torch.zeros(1, 8, 6, 10, requires_grad=True)
     y = torch.zeros(1, 8, 6, 10)
-    with pytest.raises(NotImplementedError):
+    flow = torch.zeros(1, 2, 6, 10, requires_grad=True)
+    with pytest.raises(NotImplementedError, match="flow gradient"):
+        sweep_warp.displacement_volume_cuda(y, y, flow, 3)
+    with pytest.raises(ValueError, match="CUDA"):
         sweep_warp.displacement_volume_cuda(x, y, None, 3)
-    with pytest.raises(NotImplementedError):
-        sweep_warp.displacement_volume_cuda(y, y, torch.zeros(1, 2, 6, 10, requires_grad=True), 3)
     with torch.no_grad(), pytest.raises(ValueError, match="CUDA"):
-        sweep_warp.displacement_volume_cuda(x, y, None, 3)
+        sweep_warp.displacement_volume_cuda(y, y, flow, 3)
 
 
 def test_dicl_builds_one_volume_a_level(monkeypatch):

@@ -116,7 +116,10 @@ def test_validate_restores_the_checkpoint(runs, tmp_path):
 
 
 def test_training_the_flow_net_raises(runs, tmp_path):
+    """`train.fix_flownet=False` trains DICL (tests/test_torch_flow_train_depth.py);
+    PWC-DC's train mode is not ported, so on its route it raises."""
     _, _, _, root = runs
     with pytest.raises(NotImplementedError, match="not ported yet"):
         cli.main(_argv(root, tmp_path, "--epochs", "1",
-                       over=dict(TINY, **{"train.fix_flownet": False})), device="cpu")
+                       over=dict(TINY, **{"train.fix_flownet": False, "flow.estimator": "PWC",
+                                          "data.pad_multiple": 64})), device="cpu")

@@ -86,9 +86,13 @@ def test_train_batch_statistics_match_jax(train_forward):
 
 
 def test_train_mode_with_gradients_raises():
-    """A gradient through DICL (the gather's backward) is not ported: train
-    mode with autograd on raises; frozen under no_grad it runs."""
+    """Train mode with autograd on (flow pretraining) no longer raises: it
+    gives the stack a frozen forward under no_grad gives, now with a graph
+    (its gradients against JAX: tests/test_torch_flow_train.py)."""
     net = tdicl.DICLFlow(TConfig.kitti().flow).train()
-    x = torch.zeros(B, H, W, 6)
-    with pytest.raises(NotImplementedError, match="not ported"):
-        net(x, all_iters=True)
+    x = torch.from_numpy(np.random.RandomState(3).uniform(-1, 1, (B, H, W, 6)).astype(np.float32))
+    with torch.no_grad():
+        frozen, _ = net(x, all_iters=True)
+    stack, _ = net(x, all_iters=True)
+    assert stack.requires_grad and not frozen.requires_grad
+    assert torch.equal(stack.detach(), frozen)

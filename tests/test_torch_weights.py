@@ -184,7 +184,9 @@ def test_port_imports_no_jax():
         "import chip_smoke\n"
         "need = ['cli', 'models.pwcnet', 'ops.correlation', 'ops.cuda.local_corr',\n"
         "        'data.png', 'data.kitti', 'train.evaluate', 'train.metrics',\n"
-        "        'models.posenet', 'train.odometry', 'train.pose_eval', 'data.velodyne']\n"
+        "        'models.posenet', 'train.odometry', 'train.pose_eval', 'data.velodyne',\n"
+        "        'data.flow_io', 'data.flow_augment', 'data.flow_datasets',\n"
+        "        'train.flow_trainer', 'train.flow_eval']\n"
         "missing = [m for m in need if p.__name__ + '.' + m not in sys.modules]\n"
         "assert not missing, missing\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'flax',"
