@@ -15,8 +15,9 @@ CUDA events over back-to-back calls. Checks that the two agree within
 1e-5 max|old| + 1e-6. With --sweep it times, at each level, the device
 ms (torch.profiler, and per launch of a CUDA graph of 50 launches) of
 every mapping the source takes (pixels per thread 1, 2, 4 x cluster
-1, 2, 4, 8), for the current source and for each --variant (a source with
-the current C entry point). Prints the card line, one line per level and,
+1, 2, 4, 8), for the current source through its operator
+`torch.ops.dsfm_corr.local_correlation` and for each --variant (a source
+with the current C entry point, called with ctypes). Prints the card line, one line per level and,
 as the last line, one JSON object; writes the same object to --out.
 """
 
@@ -62,6 +63,39 @@ def old_kernel(path: Path):
     return OldKernel()
 
 
+def variant_launcher(path: Path):
+    """`launch(f0, f1, out, md, px, cluster)` of another source with the
+    current C entry point, built by `ops/cuda/build.py`."""
+    from deep_sfm_revisited_tpu_torch.ops.cuda.build import CudaKernel
+
+    class Variant(CudaKernel):
+        source = str(path.resolve())   # an absolute path replaces csrc/
+
+        def _bind(self, lib):
+            fn = lib.dsfm_local_correlation
+            fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+            fn.restype = ctypes.c_int
+
+    lib = Variant().build()
+
+    def launch(f0, f1, out, md, px, cluster):
+        err = lib.dsfm_local_correlation(f0.data_ptr(), f1.data_ptr(), out.data_ptr(),
+                                         *f0.shape, md, px, cluster,
+                                         torch.cuda.current_stream().cuda_stream)
+        smoke.check(err == 0, f"{path} {tuple(f0.shape)} px {px} cluster {cluster}: "
+                    f"cudaError {err}")
+
+    return launch
+
+
+def current_launcher():
+    """The same call of the current source, through its operator."""
+    from deep_sfm_revisited_tpu_torch.ops.cuda import local_corr
+
+    op = local_corr.OPS.build().local_correlation.default
+    return lambda f0, f1, out, md, px, cluster: op(f0, f1, md, px, cluster)
+
+
 def graph_ms(call, reps: int = 50) -> float:
     """ms per launch of `reps` launches captured in one CUDA graph, replayed
     with CUDA events around it (no host cost per launch; the graph's gaps
@@ -87,8 +121,9 @@ def graph_ms(call, reps: int = 50) -> float:
     return sorted(times)[2]
 
 
-def sweep(lib, md: int, generator) -> list[dict]:
-    """Device ms of every (px, cluster) mapping of `lib` at each level."""
+def sweep(launch, md: int, generator) -> list[dict]:
+    """Device ms of every (px, cluster) mapping at each level, `launch` as
+    `variant_launcher` or `current_launcher` give it."""
     from deep_sfm_revisited_tpu_torch.ops.cuda import local_corr
 
     rows = []
@@ -102,10 +137,7 @@ def sweep(lib, md: int, generator) -> list[dict]:
                     continue
 
                 def call(px=px, cluster=cluster):
-                    err = lib.dsfm_local_correlation(
-                        f0.data_ptr(), f1.data_ptr(), out.data_ptr(), *shape, md, px, cluster,
-                        torch.cuda.current_stream().cuda_stream)
-                    smoke.check(err == 0, f"{shape} px {px} cluster {cluster}: cudaError {err}")
+                    launch(f0, f1, out, md, px, cluster)
 
                 key = f"px{px}_cluster{cluster}"
                 times[key] = smoke.device_ms(call, "local_corr_kernel", reps=50)
@@ -138,12 +170,10 @@ def main() -> int:
     g = torch.Generator(device="cuda").manual_seed(0)
     summary = {"card": card}
     if args.sweep:
-        summary["sweep"] = {"current": sweep(local_corr.KERNEL.build(), md, g)}
+        summary["sweep"] = {"current": sweep(current_launcher(), md, g)}
         for path in args.variant:
-            k = local_corr.LocalCorrKernel()
-            k.source = str(Path(path).resolve())   # an absolute path replaces csrc/
             smoke.log(f"b2_compare: variant {path}")
-            summary["sweep"][path] = sweep(k.build(), md, g)
+            summary["sweep"][path] = sweep(variant_launcher(Path(path)), md, g)
     if args.old:
         summary.update(compare(Path(args.old), local_corr, md, g))
     out = Path(args.out)

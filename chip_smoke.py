@@ -6,11 +6,13 @@
 Phases, each of which raises on failure:
 
 1. setup: the card's name and power limit, TF32 off, kernels B1 (the
-   generic gather, DICL's displacement volume, the plane-sweep cost volume
-   and its two gradients, one source, and the PyTorch operators that
-   launch them, DICL's displacement volume's backward among them) and B2 built with
-   nvcc (in parallel) from `deep_sfm_revisited_tpu_torch/csrc/
-   sweep_warp.cu`, `csrc/sweep_warp_ops.cpp` and `csrc/local_corr.cu`;
+   generic gather, DICL's displacement volume and its backward, the
+   plane-sweep cost volume and its two gradients, one source, and the
+   PyTorch operators that launch them) and B2 (the windowed correlation and
+   PWC-DC's warped correlation, and their operators) built with nvcc (in
+   parallel) from `deep_sfm_revisited_tpu_torch/csrc/sweep_warp.cu`,
+   `csrc/sweep_warp_ops.cpp`, `csrc/local_corr.cu` and
+   `csrc/local_corr_ops.cpp`;
 2. pose on the card: rigid flow of a known (R, t) -> correspondence
    sampler -> five-point RANSAC in float64 recovers the pose, the
    zero-parallax probe gives a finite pose, and with noise and outliers
@@ -32,14 +34,16 @@ Phases, each of which raises on failure:
    `cli.main([... "-v", "--override", "flow.estimator=PWC", ...])` (PWC-DC
    flow -> uniform sampler -> the same RANSAC -> PSNet, padded to 384x1280,
    bf16) on the card. The launch counts go to 0 before it; the warm-up
-   pair records B1's and B2's inputs, the counts go to 0 again, and each of
-   the three test pairs after it must launch B2 five times (PWC-DC's
-   correlation at levels 6..2), the generic gather four times (its warps at
-   levels 5..2), the sweep kernel once and the displacement volume no
-   time; the result must be the 9 Eigen metrics, finite;
+   pair records the inputs of B1's sweep, of B2 and of the warped
+   correlation, the counts go to 0 again, and each of the three test pairs
+   after it must launch the warped correlation four times (PWC-DC's flow
+   warp and correlation at levels 5..2, one kernel a level), B2 once (level
+   6), the sweep kernel once and the generic gather and the displacement
+   volume no time; the result must be the 9 Eigen metrics, finite;
 6. B1 against its plain PyTorch versions on the inputs both main paths
-   gave it, in bf16 and float32, bit for bit: the generic gather on
-   PWC-DC's flow warps, with out-of-range and behind-the-camera coordinates added,
+   gave it, in bf16 and float32, bit for bit: the generic gather on the
+   warps PWC-DC's warped correlation computes (its f2 and coordinates), with
+   out-of-range and behind-the-camera coordinates added,
    its time (CUDA events, and on the device from torch.profiler) beside the
    plain version's, `F.grid_sample`'s (both ways) and the bound; the sweep kernel on
    PSNet's inputs and on copies with a bordered target map, a pose that
@@ -53,12 +57,22 @@ Phases, each of which raises on failure:
    operator),
    its events time per pair against `F.grid_sample`'s, and the four flow
    warps captured in a CUDA graph, whose replay must equal eager calls;
-7. B2 against its plain PyTorch version on the inputs slice 2 gave it, on
-   a copy whose frame border holds large values, and on two odd shapes
+7. B2 against its plain PyTorch version on the inputs slice 2 gave it at
+   level 6 and, at levels 5..2, on those the composition the warped
+   correlation replaced would give it (f1 and the gathered f2 in float32),
+   on a copy whose frame border holds large values, and on two odd shapes
    (C = 40 split across a cluster, C = 3 on the scalar staging path);
    two launches on the same inputs bit-identical; per level the work
    mapping, the device and events times, the plain version's time, the
-   bound and the share of the bound reached;
+   bound and the share of the bound reached; then the warped correlation
+   on slice 2's inputs at levels 5..2, in bf16 and float32 and with flows
+   sending samples off the frame: bit for bit against the CUDA composition
+   it replaced (gather, cast, B2), within B2's tolerance of its plain
+   version, two launches bit-identical; per level device and events times,
+   bound and share, the plain version's time, and the device time and
+   kernel count of the span PWC-DC ran before (coordinates, permutes, the
+   gather, casts, B2) beside the same span now; and PWC-DC's five
+   correlations of a pair replayed from a CUDA graph, equal to eager calls;
 8. a small-input training reference: one train step at 128x128 (nlabel 8,
    float32, TF32 off) on the card against the same step on the CPU (plain
    versions) with the same weights, batch, noise and RANSAC draws, at the
@@ -145,14 +159,16 @@ Phases, each of which raises on failure:
    copies with out-of-frame samples and all-zero regions of y, at md 0 and
    4; dx bit for bit, dy bit for bit without a flow and within one
    float32-atomics rounding with one; two launches; per level device and
-   events times, the bound and share, the plain version's time, and the
-   yardsticks: autograd of the eager composition and
-   `grid_sampler_2d_backward`'s input gradient (the scatter half).
+   events times, the device operations a call puts on the card, the bound
+   and share, the plain version's time, and the yardsticks: autograd of the
+   eager composition and `grid_sampler_2d_backward`'s input gradient (the
+   scatter half); with `--old-b1` naming a source whose backward takes a
+   hole buffer (the first kernel), that kernel timed in turns per level.
 
 `python3 chip_smoke.py --save-sweep-inputs PATH` also writes the sweep
 backward's depths, M and K t from slice 5 (a few hundred floats) to PATH,
 for `b1_compare.py --pose PATH`; `--old-b1 PATH` names the earlier source
-phase 13 compares with.
+phases 13 and 17 compare with.
 
 The line before the last is the kernel table as one JSON object; the last
 is {"ok": true, "device": {...}}. Without a CUDA device, or without the
@@ -184,10 +200,11 @@ PAIRS = 3
 K_KITTI = [[718.856, 0.0, 607.19], [0.0, 718.856, 185.2], [0.0, 0.0, 1.0]]
 BENCH_OVERRIDES = {"pose.num_hypotheses": 512, "pose.ransac_iter": 5,
                    "pose.num_correspondences": 1024, "pose.polish_iters": 5}
-B1_PER_PAIR = 4  # the generic gather: PWC-DC's warps at levels 5..2 (DICL's are fused)
+B1_PER_PAIR = 0  # the generic gather: PWC-DC's warps are fused into B2, DICL's into its volume
 DISP_PER_PAIR = 5  # the displacement volume: DICL's levels 6..2, warp included
 SWEEP_PER_PAIR = 1  # the sweep kernel: PSNet's cost volume (one target)
-B2_PER_PAIR = 5  # PWC-DC's correlation at levels 6..2
+B2_PER_PAIR = 1  # PWC-DC's correlation at level 6 (no flow to warp with)
+WARPED_PER_PAIR = 4  # PWC-DC's warped correlation at levels 5..2 (warp and correlation fused)
 EIGEN_KEYS = {"abs_rel", "sq_rel", "rmse", "rmse_log", "a1", "a2", "a3", "l1_inv", "sc_inv"}
 
 # the small-input reference: two-stage vote on, float64 candidates so the
@@ -548,26 +565,27 @@ def phase_cli_pwc(dev, sweep_warp, local_corr):
     `SFMNet.forward` is wrapped for the run: it times each pair (host clock
     around the forward and a synchronize; stage times by CUDA events),
     counts each kernel's launches per pair, and on the warm-up pair records
-    the inputs of B1's gather and sweep kernels and of B2. Returns the launch
-    counts over the three pairs after the warm-up (gather, sweep, B2, and
-    B1's displacement volume, which PWC-DC never launches) and the inputs
-    (gather, sweep, B2).
+    the inputs of B1's sweep kernel, of B2 (level 6) and of the warped
+    correlation (levels 5..2). Returns the launch counts over the three
+    pairs after the warm-up (gather, sweep, B2, B1's displacement volume and
+    the warped correlation; PWC-DC launches neither the gather nor the
+    volume) and the inputs (warped correlation, sweep, B2).
     """
     from deep_sfm_revisited_tpu_torch import cli
     from deep_sfm_revisited_tpu_torch.data.synthetic import write_kitti_raw_tree
     from deep_sfm_revisited_tpu_torch.models.sfmnet import SFMNet
 
-    rows, cap1, cap_sweep, cap2, timer = [], [], [], [], []
-    real_forward, launch1, launch2 = (SFMNet.forward, sweep_warp.bilinear_sample_cuda,
-                                      local_corr.local_correlation_cuda)
+    rows, cap_w, cap_sweep, cap2, timer = [], [], [], [], []
+    real_forward, launch_w, launch2 = (SFMNet.forward, local_corr.warped_correlation_cuda,
+                                       local_corr.local_correlation_cuda)
     sweep = sweep_warp.plane_sweep_volume_cuda
     counters = (sweep_warp.KERNEL, sweep_warp.VOLUME, local_corr.KERNEL,
-                sweep_warp.DISPLACEMENT)
-    per_pair = (B1_PER_PAIR, SWEEP_PER_PAIR, B2_PER_PAIR, 0)
+                sweep_warp.DISPLACEMENT, local_corr.WARPED)
+    per_pair = (B1_PER_PAIR, SWEEP_PER_PAIR, B2_PER_PAIR, 0, WARPED_PER_PAIR)
 
-    def record1(img, coords):
-        cap1.append((img.clone(), coords.clone()))
-        return launch1(img, coords)
+    def record_w(f1, f2, flow, scale, md):
+        cap_w.append((f1.clone(), f2.clone(), flow.clone(), scale, md))
+        return launch_w(f1, f2, flow, scale, md)
 
     def record_sweep(*args):
         cap_sweep.append(tuple(a.clone() for a in args))
@@ -581,7 +599,7 @@ def phase_cli_pwc(dev, sweep_warp, local_corr):
         warm = not timer
         if warm:
             timer.append(StageTimer(model))
-            sweep_warp.bilinear_sample_cuda, local_corr.local_correlation_cuda = record1, record2
+            local_corr.warped_correlation_cuda, local_corr.local_correlation_cuda = record_w, record2
             sweep_warp.plane_sweep_volume_cuda = record_sweep
         before = _launches(*counters)
         torch.cuda.synchronize()
@@ -590,28 +608,28 @@ def phase_cli_pwc(dev, sweep_warp, local_corr):
             out = real_forward(model, *args, **kw)
             torch.cuda.synchronize()
         finally:
-            sweep_warp.bilinear_sample_cuda, local_corr.local_correlation_cuda = launch1, launch2
+            local_corr.warped_correlation_cuda, local_corr.local_correlation_cuda = launch_w, launch2
             sweep_warp.plane_sweep_volume_cuda = sweep
         ms = 1e3 * (time.perf_counter() - t0)
         n = tuple(a - b for a, b in zip(_launches(*counters), before))
         i = len(rows) + (0 if warm else 1)
         _check_pair(out, i)
         check(out["num_matches"] is None, f"PWC pair {i}: the sampler reported confidences")
-        check(n == per_pair, f"PWC pair {i}: gather, sweep, B2, displacement volume launched "
-              f"{n} times, expected {per_pair}")
+        check(n == per_pair, f"PWC pair {i}: gather, sweep, B2, displacement volume, warped "
+              f"correlation launched {n} times, expected {per_pair}")
         if warm:
             for k in counters:
                 k.launches = 0
-            log(f"cli PWC: warm-up pair {ms:.1f} ms; gather inputs "
-                f"{[tuple(c.shape) for _, c in cap1]}, sweep inputs "
-                f"{[tuple(a[0].shape) + (len(a[2]),) for a in cap_sweep]}, B2 inputs "
-                f"{[tuple(f.shape) for f, _ in cap2]}")
+            log(f"cli PWC: warm-up pair {ms:.1f} ms; warped correlation inputs "
+                f"{[(tuple(f.shape), str(f.dtype)[6:], sc) for _, f, _, sc, _ in cap_w]}, "
+                f"sweep inputs {[tuple(a[0].shape) + (len(a[2]),) for a in cap_sweep]}, B2 "
+                f"inputs {[tuple(f.shape) for f, _ in cap2]}")
         else:
             rows.append(dict(ms=ms, **timer[0].stages_ms(), inliers=int(out["inliers"][0])))
             log(f"cli PWC: pair {i}: {ms:.1f} ms (flow {rows[-1]['flow']:.1f}, pose "
                 f"{rows[-1]['pose']:.1f}, depth {rows[-1]['depth']:.1f} ms device); inliers "
                 f"{rows[-1]['inliers']}/{BENCH_OVERRIDES['pose.num_correspondences']}; "
-                f"gather, sweep, B2, displacement volume launches {n}")
+                f"gather, sweep, B2, displacement volume, warped correlation launches {n}")
         return out
 
     with tempfile.TemporaryDirectory() as tmp:
@@ -638,8 +656,8 @@ def phase_cli_pwc(dev, sweep_warp, local_corr):
         launches = _launches(*counters)
     check(len(rows) == PAIRS, f"cli PWC: {len(rows)} test pairs after the warm-up, expected {PAIRS}")
     check(launches == tuple(PAIRS * n for n in per_pair),
-          f"cli PWC: gather, sweep, B2, displacement volume launched {launches} times in the "
-          "main path")
+          f"cli PWC: gather, sweep, B2, displacement volume, warped correlation launched "
+          f"{launches} times in the main path")
     check(set(results) == EIGEN_KEYS, f"cli PWC: metrics {sorted(results)}")
     check(all(math.isfinite(v) for v in results.values()), f"cli PWC: metrics {results}")
     mean = {k: sum(r[k] for r in rows) / PAIRS for k in ("ms", "flow", "pose", "depth")}
@@ -649,13 +667,36 @@ def phase_cli_pwc(dev, sweep_warp, local_corr):
         f"{mean['depth']:.2f} ms; cli.main {wall:.2f} s for {PAIRS + 1} pairs; peak memory "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     log("cli PWC rows: " + json.dumps(rows))
-    return launches, (cap1, cap_sweep, cap2)
+    return launches, (cap_w, cap_sweep, cap2)
+
+
+def _warp_coords(f2, flow, scale):
+    """The coordinates PWC-DC's warp samples f2 (B, H, W, C) at: grid +
+    flow * scale, (B, H, W, 2), as `warp_flow` builds them."""
+    from deep_sfm_revisited_tpu_torch.ops.camera import pixel_grid
+
+    B_, H_, W_, _ = f2.shape
+    grid = pixel_grid(H_, W_, torch.float32, f2.device)[:2]
+    return (grid[None] + flow * scale).permute(0, 2, 3, 1).contiguous()
+
+
+def pwc_warp_inputs(cap_w, cap2, sweep_warp):
+    """From the warped correlation's captured inputs, what the composition it
+    replaced gave B1's gather (f2, the coordinates) and B2 (f1 and the
+    warped f2 cast to float32, through the gather), levels 5..2, after B2's
+    own level-6 inputs: phases 6 and 7 hold both kernels on them."""
+    gathers = [(f2, _warp_coords(f2, flow, sc)) for _, f2, flow, sc, _ in cap_w]
+    corr = list(cap2) + [(f1, sweep_warp.bilinear_sample_cuda(f2, c).float().contiguous())
+                         for (f1, _, _, _, _), (f2, c) in zip(cap_w, gathers)]
+    return gathers, corr
 
 
 def device_profile(fn, reps: int = 20) -> dict:
     """{name: [ms, count]} per call of `fn` of every kernel, copy and fill
     that `reps` calls put on the card, from a torch.profiler trace (no host
-    launch cost)."""
+    launch cost). Late in a long process a trace now and then lacks some of
+    its events, or all of them: `_full_profile` and `device_ms` refuse such
+    traces."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -673,15 +714,10 @@ def device_profile(fn, reps: int = 20) -> dict:
     return by_name
 
 
-def device_ms(fn, kernel_name: str, reps: int = 20, tries: int = 3) -> float | None:
+def device_ms(fn, kernel_name: str, reps: int = 20, tries: int = 10) -> float | None:
     """Device time in ms per call of `fn` of the kernels whose names contain
-    `kernel_name`; None if `tries` traces show none (a trace now and then
-    comes back without the kernel's events)."""
-    for _ in range(tries):
-        ms = sum(v[0] for n, v in device_profile(fn, reps).items() if kernel_name in n)
-        if ms:
-            return ms
-    return None
+    `kernel_name`, from a trace `_full_profile` accepts; None if none is."""
+    return _profile_sums(_full_profile(fn, reps=reps, tries=tries, name=kernel_name))[0]
 
 
 def _edged_features(f1):
@@ -761,6 +797,166 @@ def phase_b2(captured, local_corr, correlation):
             f"{nbytes / 1e6:.2f} MB, {flops / 1e6:.1f} MFLOP), share of bound {share}; "
             f"mapping {mapping}")
     return calls, max_err
+
+
+WARPED_FUSES = ("deep_sfm_revisited_tpu/ops/pallas/sweep_warp.py:145 (the gather of PWC-DC's "
+                "flow warps, deep_sfm_revisited_tpu/models/pwcnet.py:125)")
+
+
+def _off_frame(flow, scale):
+    """A copy of the flow whose last columns' samples land a frame width to
+    the right and whose first rows' samples land above the frame."""
+    off = flow.clone()
+    W_, H_ = flow.shape[-1], flow.shape[-2]
+    off[:, 0, :, -max(W_ // 8, 1):] += 2.0 * W_ / scale
+    off[:, 1, : max(H_ // 8, 1)] -= 1.5 * H_ / scale
+    return off
+
+
+def warped_graph_check(cap_w, level6, local_corr) -> dict:
+    """PWC-DC's five correlations of a pair -- B2 at level 6 and the warped
+    correlation at levels 5..2 -- captured in one CUDA graph (after a warm-up
+    on a side stream): the capture counts one launch each and builds
+    nothing, and a replay on fresh inputs written in place equals eager
+    calls bit for bit."""
+    static6 = [t.clone() for t in level6]
+    static = [(f1.clone(), f2.clone(), flow.clone(), sc, md) for f1, f2, flow, sc, md in cap_w]
+
+    def run():
+        return ([local_corr.local_correlation_cuda(*static6, B2_MD)]
+                + [local_corr.warped_correlation_cuda(*a) for a in static])
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        run()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    before = (local_corr.KERNEL.launches, local_corr.WARPED.launches)
+    with torch.cuda.graph(graph):
+        outs = run()
+    captured = (local_corr.KERNEL.launches - before[0], local_corr.WARPED.launches - before[1])
+    g = torch.Generator(device="cuda").manual_seed(22)
+    for t in static6 + [t for a in static for t in a[:3]]:
+        t.copy_(torch.randn(t.shape, device="cuda", generator=g).to(t.dtype))
+    before = (local_corr.KERNEL.launches, local_corr.WARPED.launches)
+    graph.replay()
+    torch.cuda.synchronize()
+    replayed = (local_corr.KERNEL.launches - before[0], local_corr.WARPED.launches - before[1])
+    equal = all(torch.equal(o, e) for o, e in zip(outs, run()))
+    check(captured == (1, len(static)) and replayed == (0, 0),
+          f"graph: B2, warped launches {captured} counted in capture, {replayed} in replay")
+    check(equal, "PWC-DC's correlations replayed from a CUDA graph differ from eager calls")
+    log(f"B2 and the warped correlation under CUDA graph capture: {1 + len(static)} "
+        "correlations captured, replay on new inputs bit-identical to eager calls")
+    return {"captured": 1 + len(static), "replay_equals_eager": equal}
+
+
+def phase_warped(cap_w, cap2, local_corr, correlation, dicl):
+    """The warped correlation against the CUDA composition it replaced (B1's
+    gather, the float32 cast, B2) and its plain version, on the inputs slice
+    2 gave it (levels 5..2), in bf16 and float32, and on copies whose flow
+    sends bands of samples off the frame; two launches. Per level: device
+    and events time, bound and share, the plain version's time; the device
+    time and kernel count of what PWC-DC ran before at a level (coordinates,
+    permutes, the gather, the casts, B2: from the NCHW features to the NHWC
+    correlation) beside the same span now (the NHWC copies and the kernel);
+    then the five correlations of a pair replayed from a CUDA graph.
+
+    Tolerances: bit for bit against the composition (the stage holds the
+    values the composition staged, and B2's sums run in the same order);
+    |kernel - plain| <= 1e-5 max|plain| + 1e-6 (B2's: float32 sums in
+    another order); two launches bit for bit."""
+    calls, max_err = [], 0.0
+    for f1, f2, flow, scale, md in cap_w:
+        _, h, w, c = f1.shape
+        name = f"pwc_warped_corr_{h}x{w}"
+        for dtype in (torch.bfloat16, torch.float32):
+            for what, fl in (("main path", flow), ("off the frame", _off_frame(flow, scale))):
+                x = f2.to(dtype)
+                got = local_corr.warped_correlation_cuda(f1, x, fl, scale, md)
+                again = local_corr.warped_correlation_cuda(f1, x, fl, scale, md)
+                comp = local_corr.local_correlation_cuda(
+                    f1, dicl.bilinear_sample(x, _warp_coords(x, fl, scale)).float().contiguous(),
+                    md)
+                ref = correlation.warped_correlation_plain(f1, x, fl, scale, md)
+                tag = f"warped correlation {name} {str(dtype)[6:]} {what}"
+                check(torch.equal(got, again), f"{tag}: two launches differ")
+                check(torch.equal(got, comp), f"{tag}: differs from gather + cast + B2 by "
+                      f"{float((got - comp).abs().max())}")
+                err = float((got - ref).abs().max())
+                tol = 1e-5 * float(ref.abs().max()) + 1e-6
+                max_err = max(max_err, err)
+                check(err <= tol, f"{tag}: max |kernel - plain| = {err} > {tol}")
+        # as PWC-DC holds them: NCHW features of the network's dtype, the
+        # up-sampled flow in float32
+        f1n = f1.permute(0, 3, 1, 2).to(f2.dtype).contiguous()
+        f2n = f2.permute(0, 3, 1, 2).contiguous()
+
+        def before():
+            warped = dicl.warp_flow(f2n, flow * scale)
+            return correlation.local_correlation(f1n.permute(0, 2, 3, 1).float().contiguous(),
+                                                 warped.permute(0, 2, 3, 1).float().contiguous(),
+                                                 md)
+
+        def now():
+            return correlation.warped_correlation(f1n.permute(0, 2, 3, 1).float().contiguous(),
+                                                  f2n.permute(0, 2, 3, 1).contiguous(), flow,
+                                                  scale, md)
+
+        check(torch.equal(before(), now()), f"warped correlation {name}: the span before and now "
+              "differ")
+        run = lambda: local_corr.warped_correlation_cuda(f1, f2, flow, scale, md)  # noqa: E731
+        ms = cuda_ms(run, reps=50)
+        dev_ms = device_ms(run, "local_corr_kernel")
+        plain_ms = cuda_ms(lambda: correlation.warped_correlation_plain(f1, f2, flow, scale, md),
+                           reps=5, warmup=1)
+        before_ms, before_n = _profile_sums(_full_profile(before))
+        now_ms, now_n = _profile_sums(_full_profile(now))
+        s2 = (2 * md + 1) ** 2
+        pix = f1.numel() // c
+        nbytes = (f1.numel() * 4 + f2.numel() * f2.element_size() + flow.numel() * 4
+                  + pix * s2 * 4)
+        flops = (2 * c + 1) * s2 * pix + B1_FLOPS_PER_OUTPUT * c * pix
+        t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / F32_FLOPS * 1e3
+        bound = max(t_bytes, t_ops)
+        p = local_corr.plan(*f1.shape, md)
+        calls.append(dict(name=name, f1=list(f1.shape), f2_dtype=str(f2.dtype)[6:], md=md,
+                          scale=scale, ms=ms, device_ms=dev_ms, plain_ms=plain_ms,
+                          library_ms=None, bound_ms=bound,
+                          bound_by="bytes" if t_bytes >= t_ops else "operations",
+                          bound_share=None if dev_ms is None else bound / dev_ms, bytes=nbytes,
+                          flops=flops,
+                          replaced_device_ms=before_ms, replaced_kernels=before_n,
+                          span_now_device_ms=now_ms, span_now_kernels=now_n,
+                          mapping=dict(px=p.px, cluster=p.cluster, grid=list(p.grid),
+                                       block=list(p.block), warps=p.warps)))
+        r = calls[-1]
+        share = "not measured" if dev_ms is None else f"{100 * bound / dev_ms:.1f}%"
+        log(f"warped correlation {name}: f1 {tuple(f1.shape)} float32, f2 {r['f2_dtype']}, "
+            f"scale {scale}: device {_fmt_ms(dev_ms)}, events {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+            f"bound {bound:.5f} ms ({r['bound_by']}, {nbytes / 1e6:.2f} MB), share of bound "
+            f"{share}; the span PWC-DC ran before {_fmt_ms(before_ms)} in {before_n} kernels, now "
+            f"{_fmt_ms(now_ms)} in {now_n}; mapping px {p.px}, cluster {p.cluster}")
+    graph = warped_graph_check(cap_w, cap2[0], local_corr)
+    pair = _pair_sums(calls)
+    for key in ("replaced_device_ms", "replaced_kernels", "span_now_device_ms", "span_now_kernels"):
+        pair[key] = _sum_or_none(c[key] for c in calls)
+    pair["bound_share"] = None if pair["device_ms"] is None else pair["bound_ms"] / pair["device_ms"]
+    log(f"warped correlation per pair (levels 5..2): device {_fmt_ms(pair['device_ms'])}, events "
+        f"{pair['ms']:.4f} ms, bound {pair['bound_ms']:.4f} ms; the span PWC-DC ran before "
+        f"{_fmt_ms(pair['replaced_device_ms'])} in {pair['replaced_kernels']} kernels, now "
+        f"{_fmt_ms(pair['span_now_device_ms'])} in {pair['span_now_kernels']}")
+    return dict(pair, graph=graph, calls=calls), max_err
+
+
+def _fmt_ms(v):
+    return "not measured" if v is None else f"{v:.4f} ms"
+
+
+def _sum_or_none(vals):
+    vals = list(vals)
+    return None if None in vals else sum(vals)
 
 
 def _pair_sums(calls):
@@ -952,7 +1148,7 @@ def phase_kernel(captured, sweep_warp, camera):
                           align_corners=True)
 
         library_ms = cuda_ms(library, reps=20)
-        library_dev_ms = sum(v[0] for v in device_profile(library).values()) or None
+        library_dev_ms = _profile_sums(_full_profile(library))[0]
         nbytes = (img.numel() * img.element_size() + coords.numel() * coords.element_size()
                   + out.numel() * out.element_size())
         flops = B1_FLOPS_PER_OUTPUT * out.numel()
@@ -1061,9 +1257,8 @@ def phase_sweep(captured, sweep_warp, camera):
     plain_ms = cuda_ms(lambda: camera.plane_sweep_volume_plain(ref, tgt, depths, M, Kt),
                        reps=3, warmup=1)
     old_ms = cuda_ms(old_composition, reps=10)
-    old_profile = device_profile(old_composition, reps=10)
-    old_dev_ms = sum(ms for ms, _ in old_profile.values()) or None
-    old_kernels = sum(n for _, n in old_profile.values())
+    old_profile = _full_profile(old_composition, reps=10)
+    old_dev_ms, old_kernels = _profile_sums(old_profile)
     nbytes = sum(t.numel() * t.element_size() for t in (ref, tgt, depths, M, Kt, out))
     flops = (B1_FLOPS_PER_OUTPUT * out.numel() // 2
              + SWEEP_FLOPS_PER_SAMPLE * out.numel() // (2 * C))
@@ -1077,14 +1272,14 @@ def phase_sweep(captured, sweep_warp, camera):
                 flops=flops, old_composition_ms=old_ms, old_composition_device_ms=old_dev_ms,
                 old_composition_kernels=old_kernels,
                 old_composition_top={n: v[0] for n, v in sorted(
-                    old_profile.items(), key=lambda kv: -kv[1][0])[:6]})
+                    (old_profile or {}).items(), key=lambda kv: -kv[1][0])[:6]})
     share = "not measured" if dev_ms is None else f"{100 * bound / dev_ms:.1f}%"
     fmt = lambda v: "not measured" if v is None else f"{v:.4f} ms"   # noqa: E731
     log(f"sweep kernel: ref/tgt {tuple(ref.shape)} {call['dtype']}, {D} planes -> "
         f"{tuple(out.shape)}: device {fmt(dev_ms)}, events {ms:.4f} ms, plain "
         f"{plain_ms:.4f} ms, bound {bound:.4f} ms ({call['bound_by']}, {nbytes / 1e6:.1f} MB), "
         f"share of bound {share}; old composition device {fmt(old_dev_ms)} in "
-        f"{old_kernels:.0f} kernels, events {old_ms:.4f} ms; its largest: "
+        f"{old_kernels} kernels, events {old_ms:.4f} ms; its largest: "
         + "; ".join(f"{ms:.4f} ms {n[:70]}" for n, ms in call["old_composition_top"].items()))
     return call, max_err
 
@@ -1605,7 +1800,7 @@ def backward_yardstick(dvol, depths, M, Kt, camera) -> dict:
         dvol[..., :C_].sum(dim=1)
 
     def dev_ms(fn):
-        return sum(v[0] for v in device_profile(fn, reps=10).values()) or None
+        return _profile_sums(_full_profile(fn, reps=10))[0]
 
     return {"ms": cuda_ms(both, reps=10), "device_ms": dev_ms(both),
             "tgt_half_ms": cuda_ms(tgt_half, reps=10), "tgt_half_device_ms": dev_ms(tgt_half)}
@@ -1891,9 +2086,7 @@ def phase_displacement(captured, sweep_warp, dicl):
             plain_ms = cuda_ms(lambda: dicl.displacement_volume_plain(x, y, flow, md), reps=3,
                                warmup=1)
             old_ms = cuda_ms(old, reps=5)
-            old_profile = device_profile(old, reps=5)
-            old_dev_ms = sum(v[0] for v in old_profile.values()) or None
-            old_kernels = sum(v[1] for v in old_profile.values())
+            old_dev_ms, old_kernels = _profile_sums(_full_profile(old, reps=5))
             ins = (x, y) if flow is None else (x, y, flow)
             nbytes = sum(t.numel() * t.element_size() for t in ins + (vol,))
             flops = DISP_FLOPS_PER_OUTPUT * vol.numel() + (0 if flow is None else (
@@ -1915,14 +2108,12 @@ def phase_displacement(captured, sweep_warp, dicl):
                 f"{rows[-1]['dtype']}: device {fmt(dev_ms)}, events {ms:.4f} ms, plain "
                 f"{plain_ms:.4f} ms, bound {bound:.4f} ms ({rows[-1]['bound_by']}, "
                 f"{nbytes / 1e6:.1f} MB), share of bound {share}; the replaced composition "
-                f"device {fmt(old_dev_ms)} in {old_kernels:.0f} kernels, events {old_ms:.4f} ms")
+                f"device {fmt(old_dev_ms)} in {old_kernels} kernels, events {old_ms:.4f} ms")
             del vol
         total = _pair_sums(rows)
-        for key in ("old_composition_ms", "old_composition_kernels"):
-            total[key] = sum(r[key] for r in rows)
-        total["old_composition_device_ms"] = (
-            None if any(r["old_composition_device_ms"] is None for r in rows)
-            else sum(r["old_composition_device_ms"] for r in rows))
+        for key in ("old_composition_ms", "old_composition_kernels",
+                    "old_composition_device_ms"):
+            total[key] = _sum_or_none(r[key] for r in rows)
         total["bound_share"] = (None if total["device_ms"] is None
                                 else total["bound_ms"] / total["device_ms"])
         out[path] = dict(total, calls=rows)
@@ -1930,7 +2121,7 @@ def phase_displacement(captured, sweep_warp, dicl):
             f"({path}): device {fmt(total['device_ms'])}, events {total['ms']:.4f} ms, bound "
             f"{total['bound_ms']:.4f} ms, plain {total['plain_ms']:.4f} ms; the replaced "
             f"composition device {fmt(total['old_composition_device_ms'])} in "
-            f"{total['old_composition_kernels']:.0f} kernels")
+            f"{total['old_composition_kernels']} kernels")
     return out, max_err
 
 
@@ -1983,6 +2174,46 @@ def old_pose_grad_kernel(path: Path):
             return dM, dKt
 
     return OldPoseGrad()
+
+
+def old_displacement_backward(path: Path):
+    """The displacement volume's backward of an earlier `sweep_warp.cu` whose
+    entry point takes a hole buffer (the first kernel, two launches), built
+    by `ops/cuda/build.py` beside the current source and called through its
+    plain C entry point with ctypes, with the scratch, the zero fill and the
+    cast its operator made."""
+    import ctypes
+
+    from deep_sfm_revisited_tpu_torch.ops.cuda.build import CudaKernel
+
+    check("void* hole" in path.read_text(),
+          f"{path} has no displacement backward that takes a hole buffer")
+
+    class OldDispBackward(CudaKernel):
+        source = str(path.resolve())   # an absolute path replaces csrc/
+
+        def _bind(self, lib):
+            fn = lib.dsfm_displacement_volume_backward
+            fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+            fn.restype = ctypes.c_int
+
+        def __call__(self, dout, y, flow, md):
+            lib = self.build()
+            B_, C_, h, w = y.shape
+            code = {torch.float32: 0, torch.bfloat16: 1}[y.dtype]
+            hole = torch.empty((B_, h, w), dtype=torch.uint8, device=y.device)
+            dx = torch.empty_like(y)
+            acc = None if flow is None else torch.zeros(y.shape, device=y.device)
+            dy = torch.empty_like(y) if flow is None else None
+            err = lib.dsfm_displacement_volume_backward(
+                dout.data_ptr(), y.data_ptr(), None if flow is None else flow.data_ptr(),
+                hole.data_ptr(), dx.data_ptr(), None if dy is None else dy.data_ptr(),
+                None if acc is None else acc.data_ptr(), B_, C_, h, w, md, code,
+                torch.cuda.current_stream().cuda_stream)
+            check(err == 0, f"the earlier displacement backward's launch failed: cudaError {err}")
+            return dx, (dy if acc is None else acc.to(y.dtype))
+
+    return OldDispBackward()
 
 
 def phase_pose_grad(cap_pose, sweep_warp, camera, old_source: str | None = None):
@@ -2055,7 +2286,7 @@ def phase_pose_grad(cap_pose, sweep_warp, camera, old_source: str | None = None)
                                                 [False, True])
 
     lib_ms = cuda_ms(yardstick, reps=10)
-    lib_dev = sum(v[0] for v in device_profile(yardstick, reps=10).values()) or None
+    lib_dev = _profile_sums(_full_profile(yardstick, reps=10))[0]
     del grid, gout, tgt_nchw, x, y
     in_turns = None
     if old_source:
@@ -2455,6 +2686,54 @@ def phase_cli_train_flow(dev, sweep_warp):
     return launches, captured
 
 
+def _whole(profile: dict, reps: int) -> bool:
+    """Every operation of the trace came `reps` times over (a whole number a
+    call): a trace that lost or gained events shows a fraction. A trace
+    that is not is logged, operation by operation."""
+    if all(round(v[1] * reps) % reps == 0 for v in profile.values()):
+        return True
+    log(f"trace refused, events of {reps} calls: "
+        + ", ".join(f"{n[:48]} {round(v[1] * reps)}" for n, v in profile.items()))
+    return False
+
+
+def _full_profile(fn, ops: int | None = None, reps: int = 20, tries: int = 10,
+                  name: str | None = None) -> dict | None:
+    """`device_profile` of `fn` (its kernels whose names contain `name`,
+    where given) from a trace that holds every device operation of its
+    calls. A trace now and then lacks events, some calls' or every one of
+    a kernel, so of up to `tries` traces, each with every operation a whole
+    number of times a call: with `ops`, the first that shows at least
+    `ops` operations a call; with `ops` None, the first whose operations
+    and counts an earlier one shows too. None when no trace qualifies: its
+    times are then not measured, never summed from a partial trace."""
+    seen = []
+    for _ in range(tries):
+        profile = device_profile(fn, reps)
+        if name is not None:
+            profile = {n: v for n, v in profile.items() if name in n}
+        if not profile or not _whole(profile, reps):
+            continue
+        counts = {n: round(v[1] * reps) for n, v in profile.items()}
+        if ops is not None:
+            n = round(sum(v[1] for v in profile.values()))
+            if n >= ops:
+                return profile
+            log(f"trace refused: {n} operations a call, {ops} expected")
+        elif counts in seen:
+            return profile
+        seen.append(counts)
+    return None
+
+
+def _profile_sums(profile: dict | None) -> tuple:
+    """(device ms, device operations) a call of a `_full_profile`; (None,
+    None) where it was not measured."""
+    if profile is None:
+        return None, None
+    return sum(v[0] for v in profile.values()), round(sum(v[1] for v in profile.values()))
+
+
 def _disp_bwd_need(y, flow, md, dicl):
     """(dout elements the backward must read, (b, c, pixel) elements that
     scatter, (b, pixel) hole flags) at these inputs: an x-half element
@@ -2494,7 +2773,7 @@ def _disp_bwd_variants(dout, x, y, flow, md):
     return out
 
 
-def phase_displacement_backward(captured, sweep_warp, dicl):
+def phase_displacement_backward(captured, sweep_warp, dicl, old_source: str | None = None):
     """The displacement volume's backward kernel against its plain version
     (`models/dicl.py::displacement_volume_backward_plain`) on the gradients
     and inputs the flow-training step gave it at its five levels, in bf16
@@ -2507,7 +2786,11 @@ def phase_displacement_backward(captured, sweep_warp, dicl):
     version's time, and two yardsticks the port never calls: autograd of
     the eager composition (`shifted_pairs` over the plain gather's warp,
     its backward alone) and `grid_sampler_2d_backward`'s input gradient for
-    the scatter half.
+    the scatter half; the device operations a call puts on the card (the
+    buffer's memset, the kernel, the cast). With `old_source`, an earlier
+    `sweep_warp.cu`'s backward (the first kernel, with its hole launch)
+    checked against the current one and timed with it in turns per level
+    (old, new, new, old: events and device time).
 
     Tolerances: dx bit for bit (the kernel and the plain version add the
     same float32 terms in the same order, cast once); dy bit for bit
@@ -2556,6 +2839,8 @@ def phase_displacement_backward(captured, sweep_warp, dicl):
         f"tolerance, largest |kernel - plain| / max |plain| {worst['dy']:.2e}")
 
     fmt = lambda v: "not measured" if v is None else f"{v:.4f} ms"   # noqa: E731
+    old = (old_displacement_backward(Path(old_source))
+           if old_source and "void* hole" in Path(old_source).read_text() else None)
     rows = []
     for dout, x, y, flow, md in captured:
         dx, dy = sweep_warp.displacement_volume_backward_cuda(dout, y, flow, md)
@@ -2564,9 +2849,30 @@ def phase_displacement_backward(captured, sweep_warp, dicl):
             sweep_warp.displacement_volume_backward_cuda(dout, y, flow, md)
 
         ms = cuda_ms(run, reps=20)
-        profile = device_profile(run, reps=20)
-        dev_ms = sum(v[0] for v in profile.values()) or None
-        kern_ms = sum(v[0] for n, v in profile.items() if "displacement_" in n) or None
+        # the memset of the float32 buffer and, in bf16, the cast beside the kernel
+        ops = 1 if flow is None else 2 + (dout.dtype != torch.float32)
+        profile = _full_profile(run, ops)
+        dev_ms, device_ops = _profile_sums(profile)
+        kern_ms = (None if profile is None
+                   else sum(v[0] for n, v in profile.items() if "displacement_" in n))
+        turns = None
+        if old is not None:
+            ox, oy = old(dout, y, flow, md)
+            check(torch.equal(ox, dx), "displacement backward: the earlier kernel's dx differs")
+            scale = float(dy.float().abs().max())
+            check(float((oy.float() - dy.float()).abs().max()) <= 2.0 ** -7 * scale,
+                  "displacement backward: the earlier kernel's dy differs beyond a bf16 ulp")
+            turns = {"old": {"events_ms": [], "device_ms": []},
+                     "new": {"events_ms": [], "device_ms": []}}
+            fns = {"old": lambda: old(dout, y, flow, md), "new": run}
+            # the earlier operator: its hole launch and kernel, with a flow
+            # the zero fill and the cast
+            n_ops = {"old": 2 if flow is None else 4, "new": ops}
+            for who in ("old", "new", "new", "old"):
+                turns[who]["events_ms"].append(cuda_ms(fns[who], reps=20))
+                turns[who]["device_ms"].append(
+                    _profile_sums(_full_profile(fns[who], n_ops[who]))[0])
+            del ox, oy
         plain_ms = cuda_ms(lambda: dicl.displacement_volume_backward_plain(dout, x, y, flow, md),
                            reps=3, warmup=1)
         # yardstick 1: autograd of the eager composition, its backward alone
@@ -2579,7 +2885,7 @@ def phase_displacement_backward(captured, sweep_warp, dicl):
             torch.autograd.grad(stack, (xr, yr), dout, retain_graph=True)
 
         eager_ms = cuda_ms(eager, reps=3, warmup=1)
-        eager_dev = sum(v[0] for v in device_profile(eager, reps=3).values()) or None
+        eager_dev = _profile_sums(_full_profile(eager, reps=3))[0]
         del stack
         # yardstick 2: grid_sampler_2d_backward's input gradient, the scatter half
         grid_ms = grid_dev = None
@@ -2597,7 +2903,7 @@ def phase_displacement_backward(captured, sweep_warp, dicl):
                                                         [True, False])
 
             grid_ms = cuda_ms(scatter, reps=20)
-            grid_dev = sum(v[0] for v in device_profile(scatter, reps=20).values()) or None
+            grid_dev = _profile_sums(_full_profile(scatter))[0]
         reads, taps, pixels = _disp_bwd_need(y, flow, md, dicl)
         ins = (y,) if flow is None else (y, flow)
         nbytes = (reads * dout.element_size()
@@ -2614,16 +2920,23 @@ def phase_displacement_backward(captured, sweep_warp, dicl):
                          grid_sampler_backward_device_ms=grid_dev, bound_ms=bound,
                          bound_by="bytes" if t_bytes >= t_ops else "operations",
                          bound_share=None if dev_ms is None else bound / dev_ms, bytes=nbytes,
-                         flops=flops, dout_read_share=reads / dout.numel()))
+                         flops=flops, dout_read_share=reads / dout.numel(),
+                         device_ops_per_call=device_ops, turns=turns))
         r = rows[-1]
         share = "not measured" if dev_ms is None else f"{100 * bound / dev_ms:.1f}%"
         log(f"displacement backward dout {tuple(dout.shape)} {r['dtype']} "
-            f"{'with' if flow is not None else 'without'} flow: device {fmt(dev_ms)} (its two "
-            f"kernels {fmt(kern_ms)}), events {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+            f"{'with' if flow is not None else 'without'} flow: device {fmt(dev_ms)} in "
+            f"{device_ops} device operations (the kernel {fmt(kern_ms)}), events {ms:.4f} ms, "
+            f"plain {plain_ms:.4f} ms, bound "
             f"{bound:.4f} ms ({r['bound_by']}, {nbytes / 1e6:.1f} MB, {100 * r['dout_read_share']:.1f}% "
             f"of dout needed), share of bound {share}; yardsticks: eager autograd events "
             f"{eager_ms:.4f} ms, device {fmt(eager_dev)}; grid_sampler_2d_backward input "
             f"gradient events {fmt(grid_ms)}, device {fmt(grid_dev)}")
+        if turns is not None:
+            order = (("old", 0), ("new", 0), ("new", 1), ("old", 1))
+            log("  in turns (old, new, new, old): events "
+                + " / ".join(_fmt_ms(turns[w]["events_ms"][i]) for w, i in order)
+                + "; device " + " / ".join(_fmt_ms(turns[w]["device_ms"][i]) for w, i in order))
         del dx, dy
     total = _pair_sums(rows)
     for key in ("eager_autograd_ms", "eager_autograd_device_ms", "kernels_device_ms"):
@@ -2636,7 +2949,20 @@ def phase_displacement_backward(captured, sweep_warp, dicl):
         else sum(r["grid_sampler_backward_device_ms"] for r in grid_rows))
     total["bound_share"] = (None if total["device_ms"] is None
                             else total["bound_ms"] / total["device_ms"])
-    log(f"displacement backward per flow-training step: device {fmt(total['device_ms'])}, events "
+    total["device_ops_per_step"] = _sum_or_none(r["device_ops_per_call"] for r in rows)
+    if old is not None:
+        total["turns"] = {w: {k: [_sum_or_none(r["turns"][w][k][i] for r in rows)
+                                  for i in (0, 1)]
+                              for k in ("events_ms", "device_ms")} for w in ("old", "new")}
+        t = total["turns"]
+        two = lambda w, k: " / ".join(_fmt_ms(v) for v in t[w][k])   # noqa: E731
+        log(f"displacement backward per step in turns with {old_source}: old device "
+            f"{two('old', 'device_ms')}, new {two('new', 'device_ms')}; events old "
+            f"{two('old', 'events_ms')}, new {two('new', 'events_ms')}")
+    share = ("not measured" if total["bound_share"] is None
+             else f"{100 * total['bound_share']:.1f}%")
+    log(f"displacement backward per flow-training step: device {fmt(total['device_ms'])} in "
+        f"{total['device_ops_per_step']} device operations, share of bound {share}, events "
         f"{total['ms']:.4f} ms, bound {total['bound_ms']:.4f} ms, plain {total['plain_ms']:.4f} "
         f"ms; eager autograd device {fmt(total['eager_autograd_device_ms'])}; "
         f"grid_sampler_2d_backward (warped levels) device "
@@ -2652,7 +2978,8 @@ def main(argv=None) -> int:
                     help="write slice 5's sweep depths, M and K t to this .pt file")
     ap.add_argument("--old-b1", default=None,
                     help="an earlier csrc/sweep_warp.cu whose sweep pose gradient phase 13 "
-                         "times in turns with the current one")
+                         "(and, where it takes a hole buffer, whose displacement backward "
+                         "phase 17) times in turns with the current one")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's smoke run needs one", file=sys.stderr)
@@ -2675,11 +3002,14 @@ def main(argv=None) -> int:
         phase_small_reference(dev, "PWC")
         sweep_dicl, disp_dicl, cap_sweep, cap_disp["dicl_main_path"] = phase_main_path(
             dev, sweep_warp)
-        (b1_pwc, sweep_pwc, b2_pwc, disp_pwc), (cap1, cap_sweep_pwc, cap2) = phase_cli_pwc(
-            dev, sweep_warp, local_corr)
+        (b1_pwc, sweep_pwc, b2_pwc, disp_pwc, warped_pwc), (cap_w, cap_sweep_pwc, cap2) = \
+            phase_cli_pwc(dev, sweep_warp, local_corr)
+        cap1, cap2_all = pwc_warp_inputs(cap_w, cap2, sweep_warp)
         calls1, err1, gather_extras = phase_kernel(cap1, sweep_warp, camera)
         sweep_call, sweep_err = phase_sweep(cap_sweep + cap_sweep_pwc, sweep_warp, camera)
-        calls2, err2 = phase_b2(cap2, local_corr, correlation)
+        calls2, err2 = phase_b2(cap2_all, local_corr, correlation)
+        warped_call, warped_err = phase_warped(cap_w, cap2, local_corr, correlation, dicl)
+        del cap1, cap2_all, cap_w
     phase_small_train_reference(dev)
     phase_small_train_reference(dev, posenet=True)
     train_launches, cap_bwd, _, cap_disp["cli_train"] = phase_cli_train(dev, sweep_warp)
@@ -2706,21 +3036,23 @@ def main(argv=None) -> int:
     phase_small_flow_train_reference(dev)
     flow_launches, cap_flow = phase_cli_train_flow(dev, sweep_warp)
     with torch.no_grad():
-        dbwd_call, dbwd_err = phase_displacement_backward(cap_flow, sweep_warp, dicl)
+        dbwd_call, dbwd_err = phase_displacement_backward(cap_flow, sweep_warp, dicl, args.old_b1)
     del cap_flow
-    names = ("gather", "sweep", "backward", "pose_grad", "volume", "volume_backward")
-    by_path = {"dicl_main_path": dict(zip(names, (0, sweep_dicl, 0, 0, disp_dicl, 0))),
-               "pwc_cli_eval": dict(zip(names, (b1_pwc, sweep_pwc, 0, 0, disp_pwc, 0))),
-               "cli_train": dict(zip(names, train_launches + (0,))),
-               **{k: dict(zip(names, v + (0,))) for k, v in pose_paths.items()},
-               "cli_train_flow": dict(zip(names, flow_launches))}
+    names = ("gather", "sweep", "backward", "pose_grad", "volume", "volume_backward", "warped")
+    by_path = {"dicl_main_path": dict(zip(names, (0, sweep_dicl, 0, 0, disp_dicl, 0, 0))),
+               "pwc_cli_eval": dict(zip(names, (b1_pwc, sweep_pwc, 0, 0, disp_pwc, 0,
+                                                warped_pwc))),
+               "cli_train": dict(zip(names, train_launches + (0, 0))),
+               **{k: dict(zip(names, v + (0, 0))) for k, v in pose_paths.items()},
+               "cli_train_flow": dict(zip(names, flow_launches + (0,)))}
 
     def launches(kernel):
         counts = {k: v[kernel] for k, v in by_path.items()}
         return {"launches": sum(counts.values()), "launches_by_path": counts}
 
-    # per frame pair: PWC-DC's four flow warps (DICL's are fused into its
-    # displacement volume)
+    # on no main path: PWC-DC's four flow warps are fused into the warped
+    # correlation, DICL's into its displacement volume; its times are per
+    # PWC-DC pair, on the warps the warped correlation computes
     b1 = {"name": "bilinear_sample", "route": "cuda", "source": B1_SOURCE,
           "replaces": B1_REPLACES, **launches("gather"), "max_abs_err": err1,
           **_pair_sums(calls1), **gather_extras, "calls": calls1}
@@ -2766,9 +3098,17 @@ def main(argv=None) -> int:
             "replaces": DISP_BWD_REPLACES, "gradient_of": DISP_FUSES,
             **launches("volume_backward"), "max_abs_err": dbwd_err,
             **{k: v for k, v in dbwd_call.items() if k != "calls"}, "calls": dbwd_call["calls"]}
-    kernels = [b1, disp, sweep, b2, bwd, pg, dbwd]
-    check(all(k["launches"] > 0 for k in kernels), "a kernel was launched no time on the "
-          f"main paths: {[(k['name'], k['launches']) for k in kernels]}")
+    # per frame pair: PWC-DC's levels 5..2, one launch each; no single
+    # PyTorch call warps and correlates, so there is no library time (the span
+    # PWC-DC ran before is timed beside it)
+    warped = {"name": "warped_correlation", "route": "cuda", "source": B2_SOURCE,
+              "replaces": B2_REPLACES, "fuses": WARPED_FUSES, **launches("warped"),
+              "max_abs_err": warped_err, **warped_call}
+    kernels = [b1, disp, sweep, b2, bwd, pg, dbwd, warped]
+    check(b1["launches"] == 0, f"a main path launched the standalone gather {b1['launches']} "
+          "times")
+    check(all(k["launches"] > 0 for k in kernels if k is not b1), "a kernel was launched no "
+          f"time on the main paths: {[(k['name'], k['launches']) for k in kernels]}")
     check(pg["launches_by_path"]["cli_posenet_train"] > 0
           and disp["launches_by_path"]["cli_record_pose"] > 0,
           "the pose paths launched no pose gradient or no displacement volume")

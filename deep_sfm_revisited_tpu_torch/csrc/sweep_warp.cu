@@ -13,7 +13,7 @@
 // PyTorch versions of the port (ops/camera.py::bilinear_sample_plain and
 // ops/camera.py::plane_sweep_volume_plain).
 //
-// Six entry points share that rule (`Taps`, `SweepRay` and `blend` below):
+// Six entry points share that rule (`Taps` and `blend` in bilinear.cuh, `SweepRay` below):
 //
 // dsfm_bilinear_sample -- the generic gather at given coordinates, used by
 // PWC-DC's flow warps. One thread per (query, 16-byte channel chunk), so
@@ -61,16 +61,30 @@
 // warped y at q is hole(q) sum_s dout[s, C + c, q - d_s] over the p = q -
 // d_s in the frame; without a flow that is dy, with one it goes to the four
 // taps of q's sample with the forward's bilinear weights and validity
-// (`Taps`). Two launches: the first recomputes hole(q) with the forward's
-// own code (a few MB of y), the second is one thread per (b, c, pixel)
-// that walks the S2 displacements, summing both gathers in float32 in the
-// forward's order of s, and scatters the warped half with four float32
-// atomics into a float32 buffer, which the operator casts once.
+// (`Taps`), float32 atomics into a float32 buffer cast once.
 // What bounds it: device-memory bytes. At the flow-training step (b = 4,
-// 256x768, C = 32 bf16, md = 3) it must read the five levels' dout once,
-// ~411 MB (0.12 ms at 3.35 TB/s), against a few MB of maps and flows. A
-// warp reads 32 neighbouring pixels of one channel row a displacement (a
-// 64-byte stretch in bf16); the y half is skipped where hole(q) is 0.
+// 256x768, C = 32 bf16, md = 3) it must read the dout elements the data
+// needs once, ~389 MB over the five levels (0.116 ms at 3.35 TB/s), against
+// a few MB of maps and flows. The first design (one thread a pixel, 98
+// dependent 2-byte loads behind a byte load and a branch on a hole array a
+// separate launch wrote) kept too few bytes in flight: 21% of the bound.
+// This one changes what a load carries: a warp owns 4 rows x 8 runs of V =
+// 16 / itemsize pixels of one channel, so each lane reads its x half as one
+// 16-byte vector a displacement and its y half, shifted by -du, as two
+// (its own run and a neighbour's, shifted in registers), with du unrolled
+// so a lane issues a displacement row's 3 S loads together; the hole flags
+// of the tile and its md halo are computed once by the block (the
+// forward's code) into shared-memory bits, so a mask is a bit test and a
+// select, not a load and a branch, and there is no hole launch. With a
+// flow, a memset zeroes the float32 buffer first, and in bfloat16 a cast
+// follows. `nvcc -Xptxas -v` (sm_90a): the training step's instantiation
+// (bf16, md 3, vectors) takes 149 registers, no spills, 160 bytes of shared
+// memory (the flag bits), one 256-thread block an SM (its launch bound);
+// the scalar path (w not a multiple of the run) up to 255, no spills. What
+// bounds it now: memory latency, not bytes -- the coarse levels are one
+// wave of blocks that each wait 7 rows in series behind the prologue, and
+// level 2 reaches 54% of its byte bound (the step 45%); with a flow, a
+// memset and, in bf16, a cast per level add ~0.015 ms a step (PERF.md).
 //
 // dsfm_plane_sweep_volume -- PSNet's whole cost volume in one pass, the
 // JAX package's (B, D, H, W, 2C) layout with [ref | warped] on the last
@@ -177,6 +191,8 @@
 #include <cuda_bf16.h>
 #include <stdint.h>
 
+#include "bilinear.cuh"   // Taps, blend: the sampling rule B2's warped entry shares
+
 namespace {
 
 // 16-byte chunk <-> floats, by bits, for each storage type.
@@ -270,44 +286,6 @@ struct BF16 {
     const __nv_bfloat162 v = __floats2bfloat162_rn(a, b);   // a at the lower address
     __stcs(reinterpret_cast<unsigned int*>(reinterpret_cast<unsigned short*>(p) + i),
            *reinterpret_cast<const unsigned int*>(&v));
-  }
-};
-
-__device__ __forceinline__ float blend(float v00, float v01, float v10, float v11,
-                                       float wx, float ax, float wy, float ay,
-                                       float valid) {
-  // ((v00 (1-wx) + v01 wx) (1-wy) + (v10 (1-wx) + v11 wx) wy) * valid,
-  // rounded op by op exactly as the plain version's separate tensor ops
-  float top = __fadd_rn(__fmul_rn(v00, ax), __fmul_rn(v01, wx));
-  float bot = __fadd_rn(__fmul_rn(v10, ax), __fmul_rn(v11, wx));
-  return __fmul_rn(__fadd_rn(__fmul_rn(top, ay), __fmul_rn(bot, wy)), valid);
-}
-
-// Taps and weights of one sample, by B1's rule: zero (valid = 0) where the
-// pre-clip (x, y) lies outside the frame, the clamped +1 taps where their
-// weight is 0. Offsets are in pixels from the image's origin.
-struct Taps {
-  int64_t i00, i01, i10, i11;
-  int xi, yi, xi1, yi1;
-  float wx, ax, wy, ay, valid;
-  __device__ __forceinline__ Taps(float x, float y, int H, int W) {
-    const float wm1 = (float)(W - 1), hm1 = (float)(H - 1);
-    valid = (x >= 0.f && x <= wm1 && y >= 0.f && y <= hm1) ? 1.f : 0.f;
-    x = fminf(fmaxf(x, 0.f), wm1);
-    y = fminf(fmaxf(y, 0.f), hm1);
-    const float x0 = floorf(x), y0 = floorf(y);
-    wx = __fsub_rn(x, x0);
-    wy = __fsub_rn(y, y0);
-    ax = __fsub_rn(1.f, wx);
-    ay = __fsub_rn(1.f, wy);
-    xi = min(max((int)x0, 0), W - 1);
-    yi = min(max((int)y0, 0), H - 1);
-    xi1 = min(xi + 1, W - 1);
-    yi1 = min(yi + 1, H - 1);
-    i00 = (int64_t)yi * W + xi;
-    i01 = (int64_t)yi * W + xi1;
-    i10 = (int64_t)yi1 * W + xi;
-    i11 = (int64_t)yi1 * W + xi1;
   }
 };
 
@@ -1242,119 +1220,401 @@ cudaError_t launch_displacement(const void* x, const void* y, const float* flow,
 // The displacement volume's backward.
 
 constexpr int kDispBwdThreads = 256;
+constexpr int kDispBwdWarps = kDispBwdThreads / 32;   // a block's channels, a warp each
+constexpr int kDispBwdRows = 4;       // tile rows: a warp is 4 rows x 8 chunks of a channel
+constexpr int kDispBwdChunks = 8;     // 16-byte chunks (T::kVec pixels) along a tile row
+constexpr int kDispBwdWords = 4;      // 32-bit flag words a halo row (64 + 2 md <= 72 bits)
+constexpr int kCastThreads = 256;
 
-// hole[b, q]: some channel of y's sample at q (warped by B1's rule at
-// q + flow(q) and rounded to T, or y itself without a flow) is non-zero --
-// the forward's keep flag without its frame test, recomputed by the
-// forward's own code, so it equals the forward's bit for bit.
+// y's sample at batch item b's pixel q = (qx, qy), channel by channel:
+// warped by B1's rule at q + (fx, fy) -- the flow there -- and rounded to T,
+// or y itself without a flow: the forward's own code, so each value is the
+// forward's bit for bit. The taps are computed once a pixel.
 template <typename T>
-__global__ void __launch_bounds__(kDispBwdThreads)
-displacement_hole_kernel(const void* __restrict__ y, const float* __restrict__ flow,
-                         unsigned char* __restrict__ hole, int B, int C, int h, int w) {
-  const int hw32 = h * w;
-  const int64_t hw = hw32;
-  const int64_t i = (int64_t)blockIdx.x * kDispBwdThreads + threadIdx.x;
-  if (i >= B * hw) return;
-  const int b = (int)(i / hw);
-  const int q = (int)(i - b * hw);
-  const int qy = q / w, qx = q - qy * w;
-  const char* yb = reinterpret_cast<const char*>(y) + (int64_t)b * C * hw * sizeof(typename T::Bits);
-  bool any = false;
-  if (flow != nullptr) {
-    const float* f = flow + (int64_t)b * 2 * hw + q;
-    const Taps t(__fadd_rn((float)qx, __ldg(f)), __fadd_rn((float)qy, __ldg(f + hw)), h, w);
-    const int i00 = t.yi * w + t.xi, i01 = i00 + (t.xi1 - t.xi);
-    const int i10 = i00 + (t.yi1 - t.yi) * w, i11 = i10 + (t.xi1 - t.xi);
-    for (int c = 0; c < C && !any; ++c) {
-      const int o = c * hw32;
-      const typename T::Bits v = T::from_float(blend(T::load1(yb, o + i00), T::load1(yb, o + i01),
-                                                     T::load1(yb, o + i10), T::load1(yb, o + i11),
-                                                     t.wx, t.ax, t.wy, t.ay, t.valid));
-      any = T::to_float(v) != 0.f;
-    }
-  } else {
-    for (int c = 0; c < C && !any; ++c) any = T::to_float(T::load_bits(yb, c * hw32 + q)) != 0.f;
+struct DispSampler {
+  int i00, i01, i10, i11;
+  float wx, ax, wy, ay, valid;
+  DispSampler() = default;
+  __device__ __forceinline__ DispSampler(int qx, int qy, int h, int w) {   // no flow
+    i00 = i01 = i10 = i11 = qy * w + qx;
+    wx = ax = wy = ay = 0.f;
+    valid = 1.f;
   }
-  hole[i] = any ? 1 : 0;
+  __device__ __forceinline__ DispSampler(int qx, int qy, float fx, float fy, int h, int w) {
+    const Taps t(__fadd_rn((float)qx, fx), __fadd_rn((float)qy, fy), h, w);
+    i00 = t.yi * w + t.xi;
+    i01 = i00 + (t.xi1 - t.xi);
+    i10 = i00 + (t.yi1 - t.yi) * w;
+    i11 = i10 + (t.xi1 - t.xi);
+    wx = t.wx; ax = t.ax; wy = t.wy; ay = t.ay; valid = t.valid;
+  }
+  __device__ __forceinline__ float operator()(const char* yb, bool warped, int c,
+                                              int hw32) const {
+    const int o = c * hw32;
+    if (!warped) return T::to_float(T::load_bits(yb, o + i00));
+    return T::to_float(T::from_float(blend(T::load1(yb, o + i00), T::load1(yb, o + i01),
+                                           T::load1(yb, o + i10), T::load1(yb, o + i11),
+                                           wx, ax, wy, ay, valid)));
+  }
+};
+
+// 32 flags of a halo row from bit `bit` on (the row's words are padded by one)
+__device__ __forceinline__ uint32_t flag_window(const uint32_t* row, int bit) {
+  return __funnelshift_r(row[bit >> 5], row[(bit >> 5) + 1], bit & 31);
 }
 
-// One thread a (b, c, pixel), pixels fastest, so a warp's loads of one
-// displacement's channel row are one contiguous stretch. With s = (dv + md)
-// S + du + md in the forward's order:
-//   dx[p] = sum_s [q = p + d_s in the frame] hole(q) dout[s, c, p]
-//   dyh[q] = hole(q) sum_s [p = q - d_s in the frame] dout[s, C + c, p]
-// both summed in float32 in s order (the products with the 0/1 masks are
-// skips, so the plain version's sums are the same bits). Without a flow dy
-// is dyh in T. With one, dyh goes to the four taps of q's sample (the
-// forward's `Taps`) with their bilinear weights, float32 atomics into `acc`
-// (the order of those adds varies from launch to launch).
-template <typename T>
-__global__ void __launch_bounds__(kDispBwdThreads)
-displacement_backward_kernel(const void* __restrict__ dout, const float* __restrict__ flow,
-                             const unsigned char* __restrict__ hole, void* __restrict__ dx,
-                             void* __restrict__ dy, float* __restrict__ acc, int B, int C,
-                             int h, int w, int md) {
+template <typename T, bool VEC>
+__device__ __forceinline__ void store_run(void* p, int64_t i, int col0, int w, const float* v) {
+  constexpr int V = T::kVec;
+  if constexpr (VEC) {
+    *reinterpret_cast<uint4*>(reinterpret_cast<char*>(p) + i * (int64_t)sizeof(typename T::Bits)) =
+        T::pack16(v);
+  } else {
+#pragma unroll
+    for (int j = 0; j < V; ++j)
+      if (col0 + j < w) T::store1(p, i + j, v[j]);
+  }
+}
+
+// A block owns one batch item b, kDispBwdWarps channels (a warp each) and a
+// tile of kDispBwdRows rows x TW = kDispBwdChunks V pixels; block = ((b
+// cgroups + cg) tiles_y + ty) tiles_x + tx. Lane l of a warp owns row l / 8
+// and the V-pixel run (chunk) l % 8 of its channel's tile: one 16-byte
+// vector of dout per half and displacement.
+// 1. Prologue: the flags of the tile plus an md halo, computed once per
+//    block into shared memory as bits (a thread a pixel, shared atomic
+//    ORs): bit set where the pixel is in the frame and some channel of y's
+//    sample there is non-zero -- the forward's keep flag, by its code, for
+//    finite y (an invalid sample is not flagged, which the forward does
+//    where a tap is NaN or Inf). No separate launch, no hole array.
+// 2. Sums, dv outer (a loop), du inner (unrolled: MD is a template
+//    argument), in the forward's order of s:
+//      dx[p]  += keep(p + d_s) ? dout[s, c, p] : 0
+//      dyh[q] += dout[s, C + c, q - d_s] where q - d_s is in the frame
+//    in float32. The x half is the lane's own aligned run; the y half is
+//    the run shifted by -du, which lies in two aligned runs of row q_y -
+//    dv: the lane's own column and its left (du > 0) or right (du < 0)
+//    neighbour's (an L1 hit: the neighbouring lane loads it too), shifted
+//    in registers by the compile-time du. A dv row's 3 S loads are issued
+//    together before any is added (one block an SM, so up to 255
+//    registers), so a lane waits on one memory latency a row, not one a
+//    displacement. keep comes from one funnel shift of the flag bits
+//    per dv and a bit test per (du, pixel): a select, not a branch. The
+//    plain version multiplies by 0/1 masks and adds; adding +0 where it
+//    adds a masked term or nothing gives the same bits (a sum that starts
+//    at +0 never becomes -0), so dx is bit-identical to it.
+// 3. dx is stored in T. dyh is multiplied by hole(q) (the plain version's
+//    dyh * hole, bit for bit); without a flow that is dy, stored in T. With
+//    one, each pixel's dyh goes to the four taps of its sample (`Taps`,
+//    the forward's) times their bilinear weights, float32 atomics into acc,
+//    in an order that varies from launch to launch; where neighbouring
+//    pixels of a run share taps, their two terms are added in registers
+//    first (left pixel's plus right pixel's); zero terms and invalid
+//    samples add nothing.
+// VEC: w % V == 0 and dout, dx, dy 16-byte aligned, so every run is one
+// aligned vector; otherwise the same sums with scalar loads and stores.
+template <typename T, int MD, bool VEC>
+__global__ void __launch_bounds__(kDispBwdThreads, 1)
+displacement_backward_kernel(const void* __restrict__ dout, const void* __restrict__ y,
+                             const float* __restrict__ flow, void* __restrict__ dx,
+                             void* __restrict__ dy, float* __restrict__ acc, int C, int h,
+                             int w, int cgroups, int tiles_x, int tiles_y) {
+  constexpr int S = 2 * MD + 1, V = T::kVec;
+  constexpr int HR = kDispBwdRows + 2 * MD;          // halo rows
+  constexpr int HWp = kDispBwdChunks * V + 2 * MD;   // halo row width in pixels
+  static_assert(HWp + V <= 32 * (kDispBwdWords - 1), "flag words");
+  __shared__ uint32_t flags[HR][kDispBwdWords];
+  constexpr int kBytes = sizeof(typename T::Bits);
+
+  int item = blockIdx.x;
+  const int tx = item % tiles_x; item /= tiles_x;
+  const int ty = item % tiles_y; item /= tiles_y;
+  const int cg = item % cgroups;
+  const int b = item / cgroups;
+  const int x0 = tx * kDispBwdChunks * V, y0 = ty * kDispBwdRows;
+  const int64_t hw = (int64_t)h * w;
+  const char* yb = reinterpret_cast<const char*>(y) + (int64_t)b * C * hw * kBytes;
+  const float* fb = flow == nullptr ? nullptr : flow + (int64_t)b * 2 * hw;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int c = cg * kDispBwdWarps + warp;           // the warp's channel
+  const int rr = lane / kDispBwdChunks, kk = lane % kDispBwdChunks;
+  const int r = y0 + rr, col0 = x0 + kk * V;         // the lane's run
+  const int64_t pair = 2 * (int64_t)C * hw;          // one displacement's elements
+  const char* gb = reinterpret_cast<const char*>(dout) + (int64_t)b * S * S * pair * kBytes;
+
+  // 1. the flags of the tile and its halo: hole(q), some channel of y's
+  //    sample at q non-zero (the forward's keep flag), as bits set with
+  //    shared atomic ORs, thread t taking halo pixels t, t + 256, ... Each
+  //    thread fetches its pixels' flows together, then channel 0 of their
+  //    samples together (addresses clamped into the frame, branch-free),
+  //    and walks the other channels only where that one is zero and the
+  //    sample is valid (for finite y an invalid one is zero).
+  constexpr int R = (HR * HWp + kDispBwdThreads - 1) / kDispBwdThreads;
+  uint32_t* const fw = &flags[0][0];
+  for (int u = threadIdx.x; u < HR * kDispBwdWords; u += kDispBwdThreads) fw[u] = 0u;
   const int hw32 = h * w;
-  const int64_t hw = hw32;
-  const int64_t i = (int64_t)blockIdx.x * kDispBwdThreads + threadIdx.x;
-  if (i >= (int64_t)B * C * hw) return;
-  const int64_t bc = i / hw;
-  const int pix = (int)(i - bc * hw);
-  const int c = (int)(bc % C), b = (int)(bc / C);
-  const int py = pix / w, px = pix - py * w;
-  const int S = 2 * md + 1;
-  const int64_t pair = 2 * C * hw;                 // one displacement's elements
-  const char* g = reinterpret_cast<const char*>(dout)
-                  + (int64_t)b * S * S * pair * sizeof(typename T::Bits);
-  const int64_t xo = (int64_t)c * hw + pix;        // this pixel's x-half element
-  const int64_t yo = (int64_t)(C + c) * hw;        // the y half's channel row
-  const unsigned char* hb = hole + (int64_t)b * hw;
-  const bool hq = hb[pix] != 0;
-  float sx = 0.f, sy = 0.f;
-  int64_t base = 0;
-  for (int dv = -md; dv <= md; ++dv) {
-    const int qy = py + dv, ry = py - dv;
-    const bool qrow = qy >= 0 && qy < h, rrow = hq && ry >= 0 && ry < h;
-    for (int du = -md; du <= md; ++du, base += pair) {
-      const int qx = px + du, rx = px - du;
-      if (qrow && qx >= 0 && qx < w && hb[qy * w + qx])
-        sx = __fadd_rn(sx, T::to_float(T::load_bits(g, base + xo)));
-      if (rrow && rx >= 0 && rx < w)
-        sy = __fadd_rn(sy, T::to_float(T::load_bits(g, base + yo + ry * w + rx)));
+  const bool warped = fb != nullptr;
+  int qxs[R], qys[R];
+  DispSampler<T> smp[R];
+#pragma unroll
+  for (int i = 0; i < R; ++i) {
+    const int u = threadIdx.x + i * kDispBwdThreads;
+    qxs[i] = min(max(x0 - MD + u % HWp, 0), w - 1);
+    qys[i] = min(max(y0 - MD + min(u / HWp, HR - 1), 0), h - 1);
+    smp[i] = DispSampler<T>(qxs[i], qys[i], h, w);
+  }
+  if (warped) {
+    float fx[R], fy[R];
+#pragma unroll
+    for (int i = 0; i < R; ++i) {
+      fx[i] = __ldg(fb + qys[i] * w + qxs[i]);
+      fy[i] = __ldg(fb + hw32 + qys[i] * w + qxs[i]);
+    }
+#pragma unroll
+    for (int i = 0; i < R; ++i) smp[i] = DispSampler<T>(qxs[i], qys[i], fx[i], fy[i], h, w);
+  }
+  float first[R];
+#pragma unroll
+  for (int i = 0; i < R; ++i) first[i] = smp[i](yb, warped, 0, hw32);
+  __syncthreads();                                   // the words are zeroed
+#pragma unroll
+  for (int i = 0; i < R; ++i) {
+    const int u = threadIdx.x + i * kDispBwdThreads, hr = u / HWp, hc = u % HWp;
+    const int qy = y0 - MD + hr, qx = x0 - MD + hc;
+    const bool in = u < HR * HWp && qy >= 0 && qy < h && qx >= 0 && qx < w;
+    // an invalid sample is zero in every channel for finite y (blend
+    // multiplies by its validity, 0), so only a valid one walks the
+    // channels, four at a time. Where y holds NaN or Inf on a tap of an
+    // invalid sample, the forward's blend is NaN there and keeps the
+    // sample; this flag does not (finite y is the backward's precondition,
+    // as `displacement_volume_backward_plain` states)
+    bool keep = in && smp[i].valid != 0.f && first[i] != 0.f;
+    for (int ch = 1; in && smp[i].valid != 0.f && !keep && ch < C; ch += 4) {
+      float v[4];
+#pragma unroll
+      for (int k = 0; k < 4; ++k) v[k] = smp[i](yb, warped, min(ch + k, C - 1), hw32);
+#pragma unroll
+      for (int k = 0; k < 4; ++k) keep |= v[k] != 0.f;
+    }
+    if (keep) atomicOr(&flags[hr][hc >> 5], 1u << (hc & 31));
+  }
+  __syncthreads();
+
+  // 2. the sums of the lane's run
+  if (c >= C || r >= h || col0 >= w) return;
+  const int64_t xo = (int64_t)c * hw + (int64_t)r * w + col0;   // the run's x-half element
+  float sx[V], sy[V];
+#pragma unroll
+  for (int j = 0; j < V; ++j) sx[j] = sy[j] = 0.f;
+
+#pragma unroll 1
+  for (int dvi = 0; dvi < S; ++dvi) {
+    // bit i: the flag of halo column kk V + i of row r + dv, i.e. of
+    // q = p + (du, dv) for pixel j of the run at i = j + du + MD
+    const uint32_t fbits = flag_window(flags[rr + dvi], kk * V);
+    if constexpr (VEC) {
+      // a displacement row at once: all its loads (the x half's S runs, the
+      // y half's S own and S neighbour runs; addresses clamped into the
+      // frame, so the loads are unconditional and the masks are selects)
+      // before any add
+      const int ry = r - (dvi - MD);                 // the y half's source row q_y - dv
+      const bool yrow = ry >= 0 && ry < h;
+      const int64_t yo = (int64_t)(C + c) * hw + (int64_t)(yrow ? ry : 0) * w;
+      const char* gv = gb + (int64_t)dvi * S * pair * kBytes;
+      uint4 xr[S];
+#pragma unroll
+      for (int dui = 0; dui < S; ++dui)
+        xr[dui] = __ldcs(reinterpret_cast<const uint4*>(gv + ((int64_t)dui * pair + xo) * kBytes));
+      // the y half: dout[s, C + c, ry, col0 + j - du] lies in the own run
+      // and the left (du > 0) or right (du < 0) one
+      uint4 own[S], nb[S];
+#pragma unroll
+      for (int dui = 0; dui < S; ++dui) {
+        const int du = dui - MD;
+        const char* g = gv + (int64_t)dui * pair * kBytes;
+        const int ncol = min(max(du > 0 ? col0 - V : col0 + V, 0), w - V);
+        own[dui] = __ldg(reinterpret_cast<const uint4*>(g + (yo + col0) * kBytes));
+        nb[dui] = __ldg(reinterpret_cast<const uint4*>(g + (yo + ncol) * kBytes));
+      }
+#pragma unroll
+      for (int dui = 0; dui < S; ++dui) {
+        float v[V];
+        T::unpack16(xr[dui], v);
+#pragma unroll
+        for (int j = 0; j < V; ++j)
+          sx[j] = __fadd_rn(sx[j], (fbits >> (dui + j)) & 1u ? v[j] : 0.f);
+      }
+#pragma unroll
+      for (int dui = 0; dui < S; ++dui) {
+        const int du = dui - MD;
+        const bool nok = yrow && (du > 0 ? col0 - V >= 0 : col0 + V < w);
+        float ov[V], nv[V];
+        T::unpack16(own[dui], ov);
+        T::unpack16(nb[dui], nv);
+#pragma unroll
+        for (int j = 0; j < V; ++j) {
+          const int k = j - du;                        // index into the own run
+          float v;
+          bool ok;
+          if (k < 0) { v = nv[V + k]; ok = nok; }
+          else if (k >= V) { v = nv[k - V]; ok = nok; }
+          else { v = ov[k]; ok = yrow; }
+          sy[j] = __fadd_rn(sy[j], ok ? v : 0.f);
+        }
+      }
+    } else {
+      // without vectors: a displacement row in two phases, each of which
+      // issues all its loads before it adds any (the x half's S V elements,
+      // then the y half's); every address is clamped into the frame, so the
+      // loads are unconditional and the masks are selects
+      const int ry = r - (dvi - MD);                 // the y half's source row q_y - dv
+      const bool yrow = ry >= 0 && ry < h;
+      const int64_t yo = (int64_t)(C + c) * hw + (int64_t)(yrow ? ry : 0) * w;
+      const char* gv = gb + (int64_t)dvi * S * pair * kBytes;
+      float xv[S][V];
+#pragma unroll
+      for (int dui = 0; dui < S; ++dui)
+#pragma unroll
+        for (int j = 0; j < V; ++j)
+          xv[dui][j] = T::load1(gv + (int64_t)dui * pair * kBytes, xo + min(j, w - 1 - col0));
+#pragma unroll
+      for (int dui = 0; dui < S; ++dui)
+#pragma unroll
+        for (int j = 0; j < V; ++j)
+          sx[j] = __fadd_rn(sx[j], (fbits >> (dui + j)) & 1u ? xv[dui][j] : 0.f);
+      float yv[S][V];
+#pragma unroll
+      for (int dui = 0; dui < S; ++dui)
+#pragma unroll
+        for (int j = 0; j < V; ++j)
+          yv[dui][j] = T::load1(gv + (int64_t)dui * pair * kBytes,
+                                yo + min(max(col0 + j - (dui - MD), 0), w - 1));
+#pragma unroll
+      for (int dui = 0; dui < S; ++dui)
+#pragma unroll
+        for (int j = 0; j < V; ++j) {
+          const int col = col0 + j - (dui - MD);
+          sy[j] = __fadd_rn(sy[j], yrow && col >= 0 && col < w ? yv[dui][j] : 0.f);
+        }
     }
   }
-  T::store1(dx, i, sx);
-  if (flow == nullptr) {
-    T::store1(dy, i, sy);
+
+  // 3. dx; dyh * hole(q); dy, or its scatter onto the taps
+  const int64_t out = (int64_t)b * C * hw + xo;
+  store_run<T, VEC>(dx, out, col0, w, sx);
+  const uint32_t hole = flag_window(flags[rr + MD], kk * V + MD);   // bit j: hole of pixel j
+#pragma unroll
+  for (int j = 0; j < V; ++j) sy[j] = __fmul_rn(sy[j], (hole >> j) & 1u ? 1.f : 0.f);
+  if (fb == nullptr) {
+    store_run<T, VEC>(dy, out, col0, w, sy);
     return;
   }
-  if (sy == 0.f) return;
-  const float* f = flow + (int64_t)b * 2 * hw + pix;
-  const Taps t(__fadd_rn((float)px, __ldg(f)), __fadd_rn((float)py, __ldg(f + hw)), h, w);
-  if (t.valid == 0.f) return;
-  float* a = acc + bc * hw;
-  atomicAdd(a + t.i00, __fmul_rn(sy, __fmul_rn(t.ay, t.ax)));
-  atomicAdd(a + t.i01, __fmul_rn(sy, __fmul_rn(t.ay, t.wx)));
-  atomicAdd(a + t.i10, __fmul_rn(sy, __fmul_rn(t.wy, t.ax)));
-  atomicAdd(a + t.i11, __fmul_rn(sy, __fmul_rn(t.wy, t.wx)));
+  float* a = acc + ((int64_t)b * C + c) * hw;
+  // Neighbouring pixels of a run whose samples share their taps (the left
+  // pixel's right taps are the right pixel's left taps, as where the flow
+  // is smooth) add those two terms in registers first, the left pixel's
+  // plus the right pixel's, and then atomically: 18 atomics for 8 such
+  // pixels, not 32. `pt`, `pb`: the pending right taps (top, bottom).
+  int64_t pt = -1, pb = -1;
+  float vt = 0.f, vb = 0.f;
+#pragma unroll
+  for (int j = 0; j < V; ++j) {
+    const int px = col0 + j;
+    if (px >= w || sy[j] == 0.f) continue;
+    const int q = r * w + px;
+    const Taps t(__fadd_rn((float)px, __ldg(fb + q)), __fadd_rn((float)r, __ldg(fb + hw32 + q)),
+                 h, w);
+    if (t.valid == 0.f) continue;
+    float t00 = __fmul_rn(sy[j], __fmul_rn(t.ay, t.ax));
+    float t10 = __fmul_rn(sy[j], __fmul_rn(t.wy, t.ax));
+    if (pt == t.i00 && pb == t.i10) {
+      t00 = __fadd_rn(vt, t00);
+      t10 = __fadd_rn(vb, t10);
+    } else if (pt >= 0) {
+      atomicAdd(a + pt, vt);
+      atomicAdd(a + pb, vb);
+    }
+    atomicAdd(a + t.i00, t00);
+    atomicAdd(a + t.i10, t10);
+    pt = t.i01;
+    pb = t.i11;
+    vt = __fmul_rn(sy[j], __fmul_rn(t.ay, t.wx));
+    vb = __fmul_rn(sy[j], __fmul_rn(t.wy, t.wx));
+  }
+  if (pt >= 0) {
+    atomicAdd(a + pt, vt);
+    atomicAdd(a + pb, vb);
+  }
 }
 
+// out[i] = in[i] rounded to T, four elements a thread where n % 4 == 0
+template <typename T>
+__global__ void __launch_bounds__(kCastThreads)
+cast_f32_kernel(const float* __restrict__ in, void* __restrict__ out, int64_t n) {
+  const int64_t stride = (int64_t)gridDim.x * kCastThreads;
+  if (n % 4 == 0) {
+    for (int64_t i = (int64_t)blockIdx.x * kCastThreads + threadIdx.x; i < n / 4; i += stride) {
+      const float4 v = __ldcs(reinterpret_cast<const float4*>(in) + i);
+      T::store1(out, 4 * i, v.x);
+      T::store1(out, 4 * i + 1, v.y);
+      T::store1(out, 4 * i + 2, v.z);
+      T::store1(out, 4 * i + 3, v.w);
+    }
+  } else {
+    for (int64_t i = (int64_t)blockIdx.x * kCastThreads + threadIdx.x; i < n; i += stride)
+      T::store1(out, i, in[i]);
+  }
+}
+
+template <typename T, int MD>
+cudaError_t launch_disp_bwd_md(bool vec, unsigned blocks, const void* dout, const void* y,
+                               const float* flow, void* dx, void* dy, float* acc, int C, int h,
+                               int w, int cgroups, int tiles_x, int tiles_y,
+                               cudaStream_t stream) {
+  if (vec)
+    displacement_backward_kernel<T, MD, true><<<blocks, kDispBwdThreads, 0, stream>>>(
+        dout, y, flow, dx, dy, acc, C, h, w, cgroups, tiles_x, tiles_y);
+  else
+    displacement_backward_kernel<T, MD, false><<<blocks, kDispBwdThreads, 0, stream>>>(
+        dout, y, flow, dx, dy, acc, C, h, w, cgroups, tiles_x, tiles_y);
+  return cudaGetLastError();
+}
+
+// With a flow: acc zeroed (a memset), the backward, and where dy is not acc
+// itself (T is bfloat16) the cast of acc into dy: three launches, two in
+// float32; without one, the backward alone.
 template <typename T>
 cudaError_t launch_displacement_backward(const void* dout, const void* y, const float* flow,
-                                         unsigned char* hole, void* dx, void* dy, float* acc,
-                                         int B, int C, int h, int w, int md,
-                                         cudaStream_t stream) {
+                                         void* dx, void* dy, float* acc, int B, int C, int h,
+                                         int w, int md, cudaStream_t stream) {
   if (md < 0 || md > kDispMaxMd || C < 1 || C > kDispMaxC) return cudaErrorInvalidValue;
-  const int64_t hw = (int64_t)h * w;
-  const int64_t hole_blocks = (B * hw + kDispBwdThreads - 1) / kDispBwdThreads;
-  const int64_t blocks = (B * C * hw + kDispBwdThreads - 1) / kDispBwdThreads;
+  constexpr int V = T::kVec;
+  const int tiles_x = (w + kDispBwdChunks * V - 1) / (kDispBwdChunks * V);
+  const int tiles_y = (h + kDispBwdRows - 1) / kDispBwdRows;
+  const int cgroups = (C + kDispBwdWarps - 1) / kDispBwdWarps;
+  const int64_t blocks = (int64_t)B * cgroups * tiles_y * tiles_x;
   if (blocks > 0x7fffffffLL) return cudaErrorInvalidConfiguration;
-  displacement_hole_kernel<T><<<(unsigned)hole_blocks, kDispBwdThreads, 0, stream>>>(
-      y, flow, hole, B, C, h, w);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  displacement_backward_kernel<T><<<(unsigned)blocks, kDispBwdThreads, 0, stream>>>(
-      dout, flow, hole, dx, dy, acc, B, C, h, w, md);
+  const int64_t n = (int64_t)B * C * h * w;
+  cudaError_t err;
+  if (flow != nullptr) {
+    err = cudaMemsetAsync(acc, 0, n * sizeof(float), stream);
+    if (err != cudaSuccess) return err;
+  }
+  const uintptr_t align = reinterpret_cast<uintptr_t>(dout) | reinterpret_cast<uintptr_t>(dx) |
+                          (flow == nullptr ? reinterpret_cast<uintptr_t>(dy) : 0);
+  const bool vec = w % V == 0 && (align & 15) == 0;
+  const unsigned grid = (unsigned)blocks;
+  switch (md) {
+    case 0: err = launch_disp_bwd_md<T, 0>(vec, grid, dout, y, flow, dx, dy, acc, C, h, w, cgroups, tiles_x, tiles_y, stream); break;
+    case 1: err = launch_disp_bwd_md<T, 1>(vec, grid, dout, y, flow, dx, dy, acc, C, h, w, cgroups, tiles_x, tiles_y, stream); break;
+    case 2: err = launch_disp_bwd_md<T, 2>(vec, grid, dout, y, flow, dx, dy, acc, C, h, w, cgroups, tiles_x, tiles_y, stream); break;
+    case 3: err = launch_disp_bwd_md<T, 3>(vec, grid, dout, y, flow, dx, dy, acc, C, h, w, cgroups, tiles_x, tiles_y, stream); break;
+    default: err = launch_disp_bwd_md<T, 4>(vec, grid, dout, y, flow, dx, dy, acc, C, h, w, cgroups, tiles_x, tiles_y, stream); break;
+  }
+  if (err != cudaSuccess || flow == nullptr || dy == acc) return err;
+  const int64_t cast_blocks = (n / 4 + kCastThreads - 1) / kCastThreads;
+  const unsigned cast_grid = (unsigned)(cast_blocks < 1 ? 1 : (cast_blocks < 1024 ? cast_blocks : 1024));
+  cast_f32_kernel<T><<<cast_grid, kCastThreads, 0, stream>>>(acc, dy, n);
   return cudaGetLastError();
 }
 
@@ -1487,21 +1747,21 @@ extern "C" int dsfm_displacement_volume(const void* x, const void* y, const void
 
 // The displacement volume's backward: given dout (B, S2, 2C, h, w) of
 // `dtype`, y (B, C, h, w) of `dtype` and flow (B, 2, h, w) float32 or null,
-// as the forward took them, writes hole (B, h, w) uint8 (scratch), dx
-// (B, C, h, w) of `dtype` and, without a flow, dy (B, C, h, w) of `dtype`;
-// with one, adds dy into acc (B, C, h, w) float32, zeroed by the caller.
-// The same rules as the forward.
+// as the forward took them, writes dx (B, C, h, w) of `dtype` and dy
+// (B, C, h, w) of `dtype`. With a flow, dy is summed in acc (B, C, h, w)
+// float32, which the launch zeroes itself, then cast into dy; in float32 dy
+// may be acc itself, and then there is no cast. Without a flow acc is not
+// read. The same rules as the forward.
 extern "C" int dsfm_displacement_volume_backward(const void* dout, const void* y,
-                                                 const void* flow, void* hole, void* dx,
-                                                 void* dy, void* acc, int B, int C, int h,
-                                                 int w, int md, int dtype, void* stream) {
+                                                 const void* flow, void* dx, void* dy,
+                                                 void* acc, int B, int C, int h, int w, int md,
+                                                 int dtype, void* stream) {
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
   const float* fp = reinterpret_cast<const float*>(flow);
-  unsigned char* hp = reinterpret_cast<unsigned char*>(hole);
   float* ap = reinterpret_cast<float*>(acc);
   if (dtype == 0)
-    return launch_displacement_backward<F32>(dout, y, fp, hp, dx, dy, ap, B, C, h, w, md, s);
+    return launch_displacement_backward<F32>(dout, y, fp, dx, dy, ap, B, C, h, w, md, s);
   if (dtype == 1)
-    return launch_displacement_backward<BF16>(dout, y, fp, hp, dx, dy, ap, B, C, h, w, md, s);
+    return launch_displacement_backward<BF16>(dout, y, fp, dx, dy, ap, B, C, h, w, md, s);
   return (int)cudaErrorInvalidValue;
 }

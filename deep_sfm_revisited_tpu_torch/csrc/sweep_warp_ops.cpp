@@ -45,8 +45,8 @@ int dsfm_plane_sweep_volume_pose_grad(const void* dvol, const void* tgt, const v
 int dsfm_displacement_volume(const void* x, const void* y, const void* flow, void* out, int B,
                              int C, int h, int w, int md, int dtype, int pair_io, void* stream);
 int dsfm_displacement_volume_backward(const void* dout, const void* y, const void* flow,
-                                      void* hole, void* dx, void* dy, void* acc, int B, int C,
-                                      int h, int w, int md, int dtype, void* stream);
+                                      void* dx, void* dy, void* acc, int B, int C, int h, int w,
+                                      int md, int dtype, void* stream);
 }
 
 namespace {
@@ -296,7 +296,8 @@ at::Tensor displacement_volume(const at::Tensor& x, const at::Tensor& y,
 // The displacement volume's backward: dout (B, (2md+1)^2, 2C, h, w) and y
 // (B, C, h, w) of one dtype, flow (B, 2, h, w) f32 or None, md, as the
 // forward took them -> (dx, dy), each (B, C, h, w) in dout's dtype. With a
-// flow, dy is summed in a float32 buffer, then cast. The forward's rules,
+// flow, dy is summed in a float32 buffer that the launch zeroes and, in
+// bfloat16, casts into dy; in float32 the buffer is dy. The forward's rules,
 // and dout contiguous of the forward's output shape.
 std::tuple<at::Tensor, at::Tensor> displacement_volume_backward(
     const at::Tensor& dout, const at::Tensor& y, const std::optional<at::Tensor>& flow,
@@ -315,18 +316,16 @@ std::tuple<at::Tensor, at::Tensor> displacement_volume_backward(
                     what, " dout ", dout.sizes(), "; takes a contiguous (", B, ", ", S * S,
                     ", ", 2 * C, ", ", h, ", ", w, ")");
   c10::OptionalDeviceGuard guard(y.device());
-  at::Tensor hole = at::empty({B, h, w}, y.options().dtype(at::kByte));
   at::Tensor dx = at::empty({B, C, h, w}, y.options());
   const bool warped = flow.has_value();
-  at::Tensor dy = warped ? at::zeros({B, C, h, w}, y.options().dtype(at::kFloat))
-                         : at::empty({B, C, h, w}, y.options());
+  at::Tensor acc = warped ? at::empty({B, C, h, w}, y.options().dtype(at::kFloat)) : at::Tensor();
+  at::Tensor dy = warped && code == 0 ? acc : at::empty({B, C, h, w}, y.options());
   check_launch(dsfm_displacement_volume_backward(
                    dout.data_ptr(), y.data_ptr(), warped ? flow->data_ptr() : nullptr,
-                   hole.data_ptr(), dx.data_ptr(), warped ? nullptr : dy.data_ptr(),
-                   warped ? dy.data_ptr() : nullptr, B, C, h, w, md, code,
-                   current_stream(y.device())),
+                   dx.data_ptr(), dy.data_ptr(), warped ? acc.data_ptr() : nullptr, B, C, h, w,
+                   md, code, current_stream(y.device())),
                "displacement volume backward kernel");
-  return {dx, warped ? dy.to(y.scalar_type()) : dy};
+  return {dx, dy};
 }
 
 }  // namespace

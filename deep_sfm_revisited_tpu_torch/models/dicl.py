@@ -253,7 +253,13 @@ def displacement_volume_backward_plain(dout: torch.Tensor, x: torch.Tensor, y: t
     dyh[q] = hole(q) sum_s dout[s, C:, q - d_s] over p = q - d_s in the
     frame, both summed in s order, as the kernel sums them; without a flow
     dy = dyh, with one each q adds dyh[q] times its sample's four bilinear
-    weights onto the taps the forward read (`index_add_`)."""
+    weights onto the taps the forward read (`index_add_`).
+
+    Precondition of the kernel's agreement with it: y is finite. Where y
+    holds NaN or Inf on a tap of a sample that leaves the frame, that
+    sample's warped value is NaN (the tap times the validity 0), so this
+    version and the forward keep it; the kernel does not, and its dx then
+    lacks those terms (`tests/test_torch_cuda.py` shows the difference)."""
     B, C, H, W = x.shape
     S = 2 * md + 1
     cdt = torch.promote_types(dout.dtype, torch.float32)

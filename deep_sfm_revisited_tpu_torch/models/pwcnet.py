@@ -1,10 +1,12 @@
 """PWC-DC optical flow (port of `models/pwcnet.py`), eval forward.
 
 A shared 6-level pyramid encoder (16/32/64/96/128/196 channels, stride 2
-per level, leaky ReLU 0.1) -> per level 6..2: the target features warped by
-the scaled up-sampled flow (`warp_flow`, kernel B1 on the GPU), the md=4
-windowed correlation on float32 features (`local_correlation`, kernel B2 on
-the GPU), a DenseNet-connected decoder and its flow head, and 4x4 stride-2
+per level, leaky ReLU 0.1) -> per level 6..2: the md=4 windowed correlation
+on float32 features of the reference features with the target features
+warped by the scaled up-sampled flow (levels 5..2: `warped_correlation`, one
+kernel a level on the GPU, B2's warped entry point; level 6 has no flow:
+`local_correlation`, kernel B2), a DenseNet-connected decoder and its flow
+head, and 4x4 stride-2
 deconvolutions for the next level's up-flow and up-feature -> a dilated
 context net refining the level-2 flow -> x20 at full resolution.
 
@@ -26,9 +28,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from deep_sfm_revisited_tpu_torch.config import FlowConfig
-from deep_sfm_revisited_tpu_torch.models.dicl import warp_flow
 from deep_sfm_revisited_tpu_torch.models.submodules import _resize_nchw
-from deep_sfm_revisited_tpu_torch.ops.correlation import local_correlation
+from deep_sfm_revisited_tpu_torch.ops.correlation import local_correlation, warped_correlation
 from deep_sfm_revisited_tpu_torch.utils.weights import pwc_encoder_names
 
 _LRELU = 0.1
@@ -55,6 +56,17 @@ def _correlate(f1: torch.Tensor, f2: torch.Tensor, md: int) -> torch.Tensor:
     NHWC copies and cast back to the features' dtype."""
     corr = local_correlation(f1.permute(0, 2, 3, 1).float().contiguous(),
                              f2.permute(0, 2, 3, 1).float().contiguous(), md)
+    return corr.permute(0, 3, 1, 2).to(f1.dtype)
+
+
+def _warped_correlate(f1: torch.Tensor, f2: torch.Tensor, up_flow: torch.Tensor, scale: float,
+                      md: int) -> torch.Tensor:
+    """NCHW features and up-sampled flow (B, 2, h, w) -> NCHW correlation of
+    f1 with f2 warped by the flow times `scale` (JAX `warp_flow`, then the
+    correlation of float32 casts), cast back to the features' dtype; f2 is
+    read in its own dtype."""
+    corr = warped_correlation(f1.permute(0, 2, 3, 1).float().contiguous(),
+                              f2.permute(0, 2, 3, 1).contiguous(), up_flow.float(), scale, md)
     return corr.permute(0, 3, 1, 2).to(f1.dtype)
 
 
@@ -113,8 +125,7 @@ class PWCDCNet(nn.Module):
             if up_flow is None:
                 inp = F.leaky_relu(_correlate(f1, f2, self.md), _LRELU)
             else:
-                warped = warp_flow(f2, up_flow.float() * _WARP_SCALE[lvl])
-                corr = _correlate(f1, warped, self.md)
+                corr = _warped_correlate(f1, f2, up_flow, _WARP_SCALE[lvl], self.md)
                 inp = torch.cat([corr, f1, up_flow, up_feat], dim=1)
             feat, flow = self.decode(inp, lvl)
             if lvl > 2:

@@ -3,9 +3,11 @@
 `local_correlation` has a hand-written kernel: on CUDA tensors it launches
 kernel B2 (`ops/cuda/local_corr.py`, source `csrc/local_corr.cu`); on CPU
 tensors it runs `local_correlation_plain`, the kernel's plain PyTorch
-version. There is no fallback from one to the other. Layout NHWC, as in
-the JAX function. `epipolar_correlation` is not ported (no eval route
-reaches it).
+version. `warped_correlation` is PWC-DC's flow warp and correlation of one
+level (JAX `models/pwcnet.py:125-131`) as one kernel on CUDA tensors, with
+`warped_correlation_plain` on CPU tensors. There is no fallback from a
+kernel to its plain version. Layout NHWC, as in the JAX function.
+`epipolar_correlation` is not ported (no eval route reaches it).
 """
 
 from __future__ import annotations
@@ -13,6 +15,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from deep_sfm_revisited_tpu_torch.ops.camera import bilinear_sample_plain, pixel_grid
 from deep_sfm_revisited_tpu_torch.ops.cuda import local_corr
 
 
@@ -45,3 +48,36 @@ def local_correlation(f0: torch.Tensor, f1: torch.Tensor, md: int = 4) -> torch.
     if f0.device.type == "cpu":
         return local_correlation_plain(f0, f1, md)
     raise NotImplementedError(f"local_correlation on {f0.device.type}")
+
+
+def warped_correlation_plain(f1: torch.Tensor, f2: torch.Tensor, flow: torch.Tensor,
+                             scale: float, md: int = 4) -> torch.Tensor:
+    """The warped correlation's plain PyTorch version.
+
+    f1, f2 (B, H, W, C), flow (B, 2, H, W) -> (B, H, W, (2md+1)^2) float32:
+    `local_correlation_plain` of f1 and of f2 warped by flow * scale (B1's
+    gather's plain version at grid + flow * scale, in f2's dtype), both cast
+    to float32, as PWC-DC's `warp_flow` and correlation compute them.
+    """
+    B, H, W, C = f2.shape
+    grid = pixel_grid(H, W, torch.float32, f2.device)[:2]            # (2, H, W): x, y
+    coords = (grid[None] + flow.float() * scale).permute(0, 2, 3, 1)  # (B, H, W, 2)
+    warped = bilinear_sample_plain(f2, coords)
+    return local_correlation_plain(f1.float(), warped.float(), md)
+
+
+def warped_correlation(f1: torch.Tensor, f2: torch.Tensor, flow: torch.Tensor, scale: float,
+                       md: int = 4) -> torch.Tensor:
+    """Correlation of f1 (B, H, W, C) float32 with f2 (B, H, W, C) warped by
+    flow (B, 2, H, W) * scale -> (B, H, W, (2md+1)^2) float32.
+
+    CUDA tensors go through B2's warped entry point (one kernel; f2 float32
+    or bfloat16, no warped map in device memory), CPU tensors through
+    `warped_correlation_plain`.
+    """
+    if f1.device.type == "cuda":
+        return local_corr.warped_correlation_cuda(f1.contiguous(), f2.contiguous(),
+                                                  flow.float().contiguous(), scale, md)
+    if f1.device.type == "cpu":
+        return warped_correlation_plain(f1, f2, flow, scale, md)
+    raise NotImplementedError(f"warped_correlation on {f1.device.type}")

@@ -3,7 +3,9 @@
 Each source under `csrc/` exports plain C functions, so it compiles with
 `nvcc` alone (no PyTorch headers) in a few seconds, for `sm_90a`, into
 `_build/` at first use. The library's file name carries a hash of its
-source, so an edited source is rebuilt and a stale library is never loaded.
+source and of the headers under `csrc/` (`*.cuh`, on the include path of
+every build), so an edited source or header is rebuilt and a stale library
+is never loaded.
 
 `CudaKernel` owns one library and its launch count: a wrapper adds one to
 `launches` right after each launch and nowhere else, so a run can prove
@@ -30,7 +32,15 @@ _PKG = Path(__file__).resolve().parents[2]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", f"-I{CSRC}"]
+
+
+def source_digest(src: Path) -> str:
+    """Hash of a source and of every header it may include from `csrc/`."""
+    h = hashlib.sha256(src.read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.read_bytes())
+    return h.hexdigest()[:12]
 
 
 def _nvcc() -> str:
@@ -71,8 +81,7 @@ class CudaKernel:
             if self._lib is not None:
                 return self._lib
             src = CSRC / self.source
-            digest = hashlib.sha256(src.read_bytes()).hexdigest()[:12]
-            lib_path = BUILD_DIR / f"lib{src.stem}_{digest}.so"
+            lib_path = BUILD_DIR / f"lib{src.stem}_{source_digest(src)}.so"
             if not lib_path.exists():
                 self.build_log = _compile([_nvcc(), *NVCC_FLAGS, str(src)], lib_path, src)
             lib = ctypes.CDLL(str(lib_path))

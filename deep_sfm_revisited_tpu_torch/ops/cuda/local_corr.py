@@ -1,26 +1,36 @@
-"""Kernel B2: the PWC-style windowed correlation, as a CUDA kernel for Hopper.
+"""Kernel B2: the PWC-style windowed correlation, and PWC-DC's warp fused into it, as CUDA kernels for Hopper.
 
-Replaces `deep_sfm_revisited_tpu/ops/pallas/local_corr.py::
-local_correlation_pallas` (`pallas_call` at `:80`). Its plain PyTorch
-version is `ops/correlation.py::local_correlation_plain`;
-`ops/correlation.py::local_correlation` sends CUDA tensors here and CPU
-tensors there.
+Both replace `deep_sfm_revisited_tpu/ops/pallas/local_corr.py::
+local_correlation_pallas` (`pallas_call` at `:80`); the warped one also
+replaces B1's gather (`ops/pallas/sweep_warp.py::bilinear_sample_pallas`)
+on PWC-DC's flow warps. One source, `csrc/local_corr.cu`, built at first use
+by `ops/cuda/build.py`; `csrc/local_corr_ops.cpp` registers its two entry
+points as the PyTorch operators `torch.ops.dsfm_corr.*` (`OPS`), through
+which each wrapper launches and adds one to its own count:
 
-Source `csrc/local_corr.cu`, built at first use by `ops/cuda/build.py`. The
-source's header says what bounds the kernel and how its design answers that.
-`plan` picks the kernel's work mapping from the shape; it needs no card, so
-the CPU tests reach it. `KERNEL.launches` counts launches.
+- `local_correlation_cuda` (`KERNEL.launches`): the windowed correlation.
+  Plain version `ops/correlation.py::local_correlation_plain`;
+  `ops/correlation.py::local_correlation` sends CUDA tensors here (PWC-DC's
+  level 6).
+- `warped_correlation_cuda` (`WARPED.launches`): the correlation of f1 with
+  f2 sampled at q + scale flow(q) by B1's rule, with no warped map in device
+  memory. Plain version `ops/correlation.py::warped_correlation_plain`;
+  `ops/correlation.py::warped_correlation` sends CUDA tensors here (PWC-DC's
+  levels 5..2).
+
+The source's header says what bounds the kernels and how their design
+answers that. `plan` picks the work mapping both take from the shape; it
+needs no card, so the CPU tests reach it.
 """
 
 from __future__ import annotations
 
-import ctypes
 import functools
 from dataclasses import dataclass
 
 import torch
 
-from deep_sfm_revisited_tpu_torch.ops.cuda.build import CudaKernel
+from deep_sfm_revisited_tpu_torch.ops.cuda.build import CudaKernel, TorchOps
 
 MAX_MD = 4           # the source instantiates md = 1..4 (PWC-DC uses 4)
 TILE_H = 4           # output rows per block (`kTileH`)
@@ -96,51 +106,100 @@ def plan(B: int, H: int, W: int, C: int, md: int) -> Plan:
                 block=(THREAD_COLS, TILE_H, s), shares=channel_shares(C, cluster))
 
 
+def check_correlation_args(what: str, f0: torch.Tensor, f1: torch.Tensor, md: int,
+                           f1_dtypes=(torch.float32,)) -> None:
+    """Raise on what B2's kernels do not take: f0 not float32, f1 not of
+    `f1_dtypes`, not one (B, H, W, C) shape with every size >= 1, not
+    contiguous, md outside 1..4, a tensor not on CUDA or the two on two
+    devices. Checked here, not only in the operators, so the CPU tests see
+    every refusal."""
+    if not (f0.is_cuda and f1.is_cuda):
+        raise ValueError(f"{what} takes CUDA tensors only")
+    if f0.device != f1.device:
+        raise ValueError(f"f0 on {f0.device}, f1 on {f1.device}")
+    if f0.dtype != torch.float32 or f1.dtype not in f1_dtypes:
+        raise TypeError(f"{what} dtypes {f0.dtype}, {f1.dtype}; takes float32 and "
+                        f"{' or '.join(str(d) for d in f1_dtypes)}")
+    if f0.dim() != 4 or f0.shape != f1.shape:
+        raise ValueError(f"{what} shapes f0 {tuple(f0.shape)}, f1 {tuple(f1.shape)}")
+    if not (f0.is_contiguous() and f1.is_contiguous()):
+        raise ValueError(f"{what} takes contiguous NHWC f0 and f1")
+    if not 1 <= md <= MAX_MD:
+        raise ValueError(f"{what} max displacement {md}; takes 1..{MAX_MD}")
+    if min(f0.shape) < 1:
+        raise ValueError(f"{what} feature shape {tuple(f0.shape)} out of range")
+
+
 class LocalCorrKernel(CudaKernel):
-    """Builds, loads and launches B2; owns its launch count."""
+    """B2's library (plain C launchers, linked by `OPS`); launches the
+    windowed correlation and owns its launch count."""
 
     source = "local_corr.cu"
 
-    def _bind(self, lib: ctypes.CDLL) -> None:
-        fn = lib.dsfm_local_correlation
-        fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                       *[ctypes.c_int] * 7, ctypes.c_void_p]
-        fn.restype = ctypes.c_int
+    def __init__(self):
+        super().__init__()
+        self._op = None
+
+    def _bind(self, lib) -> None:
+        """Nothing to bind: the operators of `OPS` call the launchers."""
 
     def __call__(self, f0: torch.Tensor, f1: torch.Tensor, md: int) -> torch.Tensor:
         """f0, f1 (B, H, W, C) float32 -> (B, H, W, (2md+1)^2) float32."""
-        if not (f0.is_cuda and f1.is_cuda):
-            raise ValueError("B2 takes CUDA tensors only")
-        if f0.device != f1.device:
-            raise ValueError(f"f0 on {f0.device}, f1 on {f1.device}")
-        if f0.dtype != torch.float32 or f1.dtype != torch.float32:
-            raise TypeError(f"B2 dtypes {f0.dtype}, {f1.dtype}; takes float32")
-        if f0.dim() != 4 or f0.shape != f1.shape:
-            raise ValueError(f"B2 shapes f0 {tuple(f0.shape)}, f1 {tuple(f1.shape)}")
-        if not (f0.is_contiguous() and f1.is_contiguous()):
-            raise ValueError("B2 takes contiguous NHWC f0 and f1")
-        if not 1 <= md <= MAX_MD:
-            raise ValueError(f"B2 max displacement {md}; takes 1..{MAX_MD}")
-        B, H, W, C = f0.shape
-        if min(B, H, W, C) < 1:
-            raise ValueError(f"B2 feature shape {tuple(f0.shape)} out of range")
-        p = plan(B, H, W, C, md)
-        out = torch.empty((B, H, W, (2 * md + 1) ** 2), dtype=torch.float32,
-                          device=f0.device)
-        lib = self.build()
-        with torch.cuda.device(f0.device):
-            stream = torch.cuda.current_stream(f0.device).cuda_stream
-            err = lib.dsfm_local_correlation(f0.data_ptr(), f1.data_ptr(), out.data_ptr(),
-                                             B, H, W, C, md, p.px, p.cluster, stream)
-        if err != 0:
-            raise RuntimeError(f"B2 launch failed: cudaError {err}")
+        check_correlation_args("B2", f0, f1, md)
+        p = plan(*f0.shape, md)
+        op = self._op
+        if op is None:
+            op = self._op = OPS.build().local_correlation.default
+        out = op(f0, f1, md, p.px, p.cluster)
+        self.launches += 1
+        return out
+
+
+class WarpedCorrelation:
+    """Launches the warped correlation through `OPS`; owns its launch count."""
+
+    def __init__(self):
+        self.launches = 0
+        self._op = None
+
+    def __call__(self, f1: torch.Tensor, f2: torch.Tensor, flow: torch.Tensor, scale: float,
+                 md: int) -> torch.Tensor:
+        """f1 (B, H, W, C) float32, f2 (B, H, W, C) float32 or bfloat16, flow
+        (B, 2, H, W) float32, all contiguous on one device -> (B, H, W,
+        (2md+1)^2) float32. It has no backward: inputs that need a gradient
+        are refused while grad mode is on."""
+        check_correlation_args("the warped correlation", f1, f2, md,
+                               (torch.float32, torch.bfloat16))
+        B, H, W, _ = f1.shape
+        if flow.dtype != torch.float32 or tuple(flow.shape) != (B, 2, H, W) \
+                or not flow.is_contiguous() or flow.device != f1.device:
+            raise ValueError(f"the warped correlation's flow {tuple(flow.shape)} {flow.dtype} "
+                             f"on {flow.device}; takes a contiguous float32 {(B, 2, H, W)} "
+                             f"on {f1.device}")
+        if torch.is_grad_enabled() and any(t.requires_grad for t in (f1, f2, flow)):
+            raise NotImplementedError("the warped correlation has no backward")
+        p = plan(*f1.shape, md)
+        op = self._op
+        if op is None:
+            op = self._op = OPS.build().warped_correlation.default
+        out = op(f1, f2, flow, float(scale), md, p.px, p.cluster)
         self.launches += 1
         return out
 
 
 KERNEL = LocalCorrKernel()
+OPS = TorchOps("local_corr_ops.cpp", KERNEL, "dsfm_corr")
+BUILDS = (KERNEL, OPS)      # what chip_smoke.py's setup builds, in parallel with B1
+WARPED = WarpedCorrelation()
 
 
 def local_correlation_cuda(f0: torch.Tensor, f1: torch.Tensor, md: int) -> torch.Tensor:
     """Launch B2 on the current stream (see `LocalCorrKernel.__call__`)."""
     return KERNEL(f0, f1, md)
+
+
+def warped_correlation_cuda(f1: torch.Tensor, f2: torch.Tensor, flow: torch.Tensor,
+                            scale: float, md: int) -> torch.Tensor:
+    """Launch the warped correlation on the current stream (see
+    `WarpedCorrelation.__call__`)."""
+    return WARPED(f1, f2, flow, scale, md)

@@ -8,9 +8,11 @@ entry points; `csrc/sweep_warp_ops.cpp` registers them as the PyTorch operators
 `torch.ops.dsfm.*` (`OPS`), through which each wrapper launches its kernel
 and adds one to its own launch count:
 
-- `bilinear_sample_cuda` (`KERNEL.launches`): the generic gather, for
-  PWC-DC's flow warps. Plain version `ops/camera.py::bilinear_sample_plain`;
-  `ops/camera.py::bilinear_sample` sends CUDA tensors here.
+- `bilinear_sample_cuda` (`KERNEL.launches`): the generic gather. Plain
+  version `ops/camera.py::bilinear_sample_plain`;
+  `ops/camera.py::bilinear_sample` sends CUDA tensors here. No main path
+  reaches it: PWC-DC's flow warps are fused into B2's warped correlation
+  (`ops/cuda/local_corr.py`), DICL's into its displacement volume.
 - `displacement_volume_cuda` (`DISPLACEMENT.launches`): one DICL level's
   (B, S2, 2C, h, w) displacement stack of x and y warped by the level's
   flow, in one pass. Plain version `models/dicl.py::
@@ -20,6 +22,8 @@ and adds one to its own launch count:
   that stack's gradient with respect to x and y (DICL detaches the flow).
   Plain version `models/dicl.py::displacement_volume_backward_plain`;
   `models/dicl.py::DisplacementVolumeFn.backward` sends CUDA tensors here.
+  Its work mapping (tiles, channel groups, 16-byte runs) is
+  `displacement_backward_plan`.
 - `plane_sweep_volume_cuda` (`VOLUME.launches`): PSNet's whole
   (B, D, H, W, 2C) [ref | warped] volume, coordinates computed inline. Plain
   version `ops/camera.py::plane_sweep_volume_plain`;
@@ -52,6 +56,8 @@ in a CUDA graph.
 
 from __future__ import annotations
 
+from dataclasses import dataclass
+
 import torch
 
 from deep_sfm_revisited_tpu_torch.ops.cuda.build import CudaKernel, TorchOps
@@ -74,6 +80,47 @@ def backward_plan(C: int, itemsize: int) -> tuple[int, int, int, int]:
         w *= 2
     w = min(w, ppt)
     return ppt // w, w, BWD_PLANES, BWD_SMEM_BYTES
+
+
+# the displacement backward's work mapping (csrc/sweep_warp.cu: kDispBwdThreads,
+# kDispBwdRows, kDispBwdChunks, kDispBwdWords)
+DISP_BWD_THREADS, DISP_BWD_ROWS, DISP_BWD_CHUNKS, DISP_BWD_WORDS = 256, 4, 8, 4
+
+
+@dataclass(frozen=True)
+class DisplacementBackwardPlan:
+    """The displacement backward kernel's work mapping for one level (see
+    `displacement_backward_kernel` in `csrc/sweep_warp.cu`).
+
+    A block owns one batch item, `DISP_BWD_THREADS // 32` channels (a warp
+    each) and a tile of `DISP_BWD_ROWS` rows x `tile_w` pixels; block =
+    ((b cgroups + cg) tiles_y + ty) tiles_x + tx. Lane l of a warp sums the
+    `run` pixels of run l % `DISP_BWD_CHUNKS` of tile row l // `DISP_BWD_CHUNKS`
+    (16 bytes of the dtype: one vector load a half and displacement where
+    `vector`).
+    """
+
+    run: int
+    tile_w: int
+    tiles_x: int
+    tiles_y: int
+    cgroups: int
+    blocks: int
+    vector: bool
+
+
+def displacement_backward_plan(B: int, C: int, h: int, w: int, itemsize: int,
+                               aligned: bool = True) -> DisplacementBackwardPlan:
+    """The mapping the kernel launches with for (B, C, h, w) of `itemsize`
+    bytes; `aligned`: dout, dx and dy start on 16 bytes (the launcher's
+    test), which with w a multiple of the run makes every run one vector."""
+    run = 16 // itemsize
+    tile_w = DISP_BWD_CHUNKS * run
+    tiles_x, tiles_y = -(-w // tile_w), -(-h // DISP_BWD_ROWS)
+    cgroups = -(-C // (DISP_BWD_THREADS // 32))
+    return DisplacementBackwardPlan(run=run, tile_w=tile_w, tiles_x=tiles_x, tiles_y=tiles_y,
+                                    cgroups=cgroups, blocks=B * cgroups * tiles_y * tiles_x,
+                                    vector=w % run == 0 and aligned)
 
 
 def _cuda_only(what: str, *tensors: torch.Tensor) -> None:
@@ -188,7 +235,8 @@ class DisplacementVolumeBackward:
         """dout (B, (2md+1)^2, 2C, h, w), the volume's gradient, and y
         (B, C, h, w) of one dtype, f32/bf16; flow (B, 2, h, w) f32 or None,
         as the forward took them -> (dx, dy), each (B, C, h, w) in dout's
-        dtype (with a flow, dy is summed in a float32 buffer, then cast)."""
+        dtype (with a flow, dy is summed in a float32 buffer, then cast in
+        bfloat16)."""
         check_displacement_args(y, y, flow, md)
         S = 2 * md + 1
         B, C, h, w = y.shape

@@ -3,19 +3,23 @@
 
     python3 disp_backward_probe.py      # from the repository root
 
-Builds B1's source and operators, then at the five levels of a DICL
-flow-training step (b = 4, 256x768: 64x192 down to 4x12, C = 32; no flow at
-the coarsest) and at md 0 and 4 on the two finest, with random gradients,
-features holding an all-zero patch and random flows of a few pixels: the
-kernel's dx and dy against `models/dicl.py::displacement_volume_backward_plain`
-(equality and the largest |kernel - plain| over the plain tensor's max),
-two launches against each other, and in bf16 at md 3 the mean time of 20
-launches by CUDA events. Then one DICL train forward and backward at that
-shape in bf16 autocast, counting the backward's launches and the peak
+Builds B1's source and operators and prints `nvcc -Xptxas -v`'s registers
+and spills for the backward's instantiations, then at the five levels of a
+DICL flow-training step (b = 4, 256x768: 64x192 down to 4x12, C = 32; no
+flow at the coarsest) and at md 0 and 4 on the two finest, with random
+gradients, features holding an all-zero patch and random flows of a few
+pixels: the kernel's dx and dy against
+`models/dicl.py::displacement_volume_backward_plain` (equality and the
+largest |kernel - plain| over the plain tensor's max), two launches against
+each other, and in bf16 at md 3 the mean time of 20 launches by CUDA events,
+summed over the five levels. Then one DICL train forward and backward at
+that shape in bf16 autocast, counting the backward's launches and the peak
 memory. `chip_smoke.py` phase 17 checks and times the kernel on the inputs
-the real training step gives it; this script needs no training run.
+the real training step gives it (with `--old-b1`, an earlier kernel in
+turns); this script needs no training run.
 """
 
+import re
 import sys
 import time
 from pathlib import Path
@@ -44,6 +48,18 @@ def events_ms(fn, reps=20, warmup=3):
     return start.elapsed_time(end) / reps
 
 
+def backward_registers(build_log: str) -> list:
+    """(instantiation, registers, stack bytes, spill store bytes, spill load
+    bytes) of each `displacement_backward_kernel` in `nvcc -Xptxas -v`'s
+    output; the instantiation is the tail of its mangled name (T, MD,
+    VEC)."""
+    pat = (r"Compiling entry function '(\S*displacement_backward_kernel\S*)'.*?(\d+) bytes "
+           r"stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads.*?Used (\d+) "
+           r"registers")
+    return [(m[1][-40:], int(m[5]), int(m[2]), int(m[3]), int(m[4]))
+            for m in re.finditer(pat, build_log, re.S)]
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("disp_backward_probe: needs a CUDA device", file=sys.stderr)
@@ -52,6 +68,10 @@ def main() -> int:
     for b in sweep_warp.BUILDS:
         b.build()
     print(f"built in {time.time() - t0:.1f} s")
+    for name, regs, stack, spill_st, spill_ld in backward_registers(sweep_warp.KERNEL.build_log):
+        print(f"  nvcc: {name} registers {regs}, stack {stack} B, spill stores {spill_st} B, "
+              f"loads {spill_ld} B")
+    step_ms = 0.0
     dev = "cuda"
     g = torch.Generator(device=dev).manual_seed(0)
     for md in (3, 0, 4):
@@ -77,7 +97,9 @@ def main() -> int:
                 if md == 3 and dt == torch.bfloat16:
                     ms = events_ms(lambda: sweep_warp.displacement_volume_backward_cuda(
                         dout, y, flow, md))
+                    step_ms += ms
                     print(f"   {ms:.4f} ms by events, dout {dout.numel() * 2 / 1e6:.1f} MB")
+    print(f"per flow-training step (five levels, md 3, bf16): {step_ms:.4f} ms by events")
     net = dicl.DICLFlow(SfMConfig.kitti().flow).to(dev).train()
     pair = torch.randn((4, 256, 768, 6), device=dev, generator=g)
     n0 = sweep_warp.DISPLACEMENT_BACKWARD.launches

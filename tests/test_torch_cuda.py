@@ -1,7 +1,7 @@
 """Tests that need an NVIDIA GPU: the port's kernels (B1's gather,
-displacement volume, plane sweep, sweep backward and sweep pose gradient,
-B2) against their plain versions, and the pose engine on the card against
-itself on the CPU.
+displacement volume and its backward, plane sweep, sweep backward and sweep
+pose gradient, B2 and its warped correlation) against their plain versions,
+and the pose engine on the card against itself on the CPU.
 
 They skip where no card is present. This file imports no jax, so it also
 runs on a machine without JAX, from the repository root:
@@ -487,10 +487,15 @@ def test_displacement_volume_replays_in_a_cuda_graph(dtype):
     assert torch.equal(out, sweep_warp.displacement_volume_cuda(x, y, flow, 3))
 
 
-# the flow-training step's five levels (b = 4, 256x768) and odd ones, md 0..4
+# the flow-training step's five levels (b = 4, 256x768) and odd ones, md 0..4:
+# w not a multiple of the 8-pixel bf16 run (27, 51, 20 -- a multiple of the
+# 4-pixel float32 run -- and 33), h smaller than a tile of 4 rows (3), a
+# multiple of 8 with odd h
 DISP_BWD_CASES = [((4, 32, 64, 192), 3, True), ((4, 32, 4, 12), 3, False),
                   ((2, 16, 13, 27), 0, True), ((2, 16, 13, 27), 4, True),
-                  ((1, 5, 9, 51), 2, False)]
+                  ((1, 5, 9, 51), 2, False), ((2, 8, 3, 40), 1, True),
+                  ((1, 16, 9, 64), 4, False), ((1, 8, 6, 20), 3, True),
+                  ((2, 12, 5, 33), 2, True), ((1, 40, 7, 24), 1, False)]
 
 
 def _tol(dtype):
@@ -532,6 +537,84 @@ def test_displacement_backward_matches_plain_on_card(shape, md, with_flow, dtype
         scale = float(py.float().abs().max())
         assert float((dy.float() - py.float()).abs().max()) <= _tol(td) * scale
         assert float((dy.float() - dy2.float()).abs().max()) <= _tol(td) * scale
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", [(2, 8, 9, 20), (1, 16, 8, 24)])
+def test_displacement_backward_needs_finite_y_off_the_frame(shape, dtype):
+    """Finite y is the backward kernel's precondition. Where y holds NaN or
+    Inf on the frame's border and the flow sends samples off the frame,
+    such a sample's warped value is NaN (the tap times its validity 0): the
+    plain version keeps it, the kernel does not. So the kernel's dx equals
+    the plain version's on y with its non-finite values zeroed (which flags
+    every valid sample as y does, checked here) and differs from the plain
+    version's on y; dy (which reads no value of y) is within `_tol` of it."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from deep_sfm_revisited_tpu_torch.models import dicl as tdicl
+
+    td = getattr(torch, dtype)
+    B, C, h, w = shape
+    md, S = 3, 7
+    x, y, flow = _disp_inputs(shape, True, td, seed=13)
+    flow[:, 1, :2] = -2.0 * h                 # the top rows' samples above the frame
+    y[:, 3, 2, w - 1] = float("nan")          # read by the right band's clamped taps
+    y[:, 5, h - 1, w - 1] = float("inf")
+    y[:, C - 1, 0, 4] = float("nan")          # read by the top rows' clamped taps
+    y0 = torch.nan_to_num(y, nan=0.0, posinf=0.0, neginf=0.0)
+    g = torch.Generator(device="cuda").manual_seed(14)
+    dout = torch.randn((B, S * S, 2 * C, h, w), device="cuda", generator=g).to(td)
+    dx, dy = sweep_warp.displacement_volume_backward_cuda(dout, y, flow, md)
+    px, py = tdicl.displacement_volume_backward_plain(dout, x, y, flow, md)
+    px0, _ = tdicl.displacement_volume_backward_plain(dout, x, y0, flow, md)
+    gx = torch.arange(w, device="cuda") + flow[:, 0]
+    gy = torch.arange(h, device="cuda")[:, None] + flow[:, 1]
+    valid = (gx >= 0) & (gx <= w - 1) & (gy >= 0) & (gy <= h - 1)
+    yw = tdicl.warp_flow(y, flow, tdicl.bilinear_sample_plain)
+    yw0 = tdicl.warp_flow(y0, flow, tdicl.bilinear_sample_plain)
+    assert ((~valid) & yw.isnan().any(dim=1)).any()        # the case is exercised
+    assert torch.equal(valid & (yw != 0).any(dim=1), valid & (yw0 != 0).any(dim=1))
+    assert torch.equal(dx, px0) and not torch.equal(dx, px)
+    scale = float(py.float().abs().max())
+    assert float((dy.float() - py.float()).abs().max()) <= _tol(td) * scale
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_displacement_backward_replays_in_a_cuda_graph(dtype):
+    """The backward (with a flow: the buffer's memset, the kernel and, in
+    bfloat16, the cast) captured in a CUDA graph counts one launch at
+    capture and none at replay; a replay on new inputs written in place
+    gives an eager call's dx bit for bit and its dy within `_tol`."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    td = getattr(torch, dtype)
+    shape, md = (2, 32, 32, 96), 3
+    _, y, flow = _disp_inputs(shape, True, td, seed=9)
+    g = torch.Generator(device="cuda").manual_seed(10)
+    dout = torch.randn((2, 49, 64, 32, 96), device="cuda", generator=g).to(td)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        sweep_warp.displacement_volume_backward_cuda(dout, y, flow, md)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    n = sweep_warp.DISPLACEMENT_BACKWARD.launches
+    with torch.cuda.graph(graph):
+        dx, dy = sweep_warp.displacement_volume_backward_cuda(dout, y, flow, md)
+    assert sweep_warp.DISPLACEMENT_BACKWARD.launches == n + 1
+    _, y2, flow2 = _disp_inputs(shape, True, td, seed=11)
+    y.copy_(y2)
+    flow.copy_(flow2)
+    dout.copy_(torch.randn(dout.shape, device="cuda", generator=g).to(td))
+    graph.replay()
+    torch.cuda.synchronize()
+    assert sweep_warp.DISPLACEMENT_BACKWARD.launches == n + 1
+    ex, ey = sweep_warp.displacement_volume_backward_cuda(dout, y, flow, md)
+    assert torch.equal(dx, ex)
+    scale = float(ey.float().abs().max())
+    assert scale > 0 and float((dy.float() - ey.float()).abs().max()) <= _tol(td) * scale
 
 
 @pytest.mark.cuda
@@ -658,6 +741,116 @@ def test_b2_wrapper_refuses_what_the_kernel_does_not_take():
                  (f.permute(0, 2, 1, 3), f, 4), (f, f.cpu(), 4)):
         with pytest.raises((ValueError, TypeError)):
             local_corr.local_correlation_cuda(*args)
+
+
+# PWC-DC's warped levels 5..2 (b = 1, 384x1280) at their flow scales, a
+# batch of 2 with odd H and W split across a cluster (C = 40) at md 4 and 2,
+# and C = 3 on the scalar path
+WARPED_CASES = [((1, 12, 40, 128), 4, 0.625), ((1, 24, 80, 96), 4, 1.25),
+                ((1, 48, 160, 64), 4, 2.5), ((1, 96, 320, 32), 4, 5.0),
+                ((2, 13, 27, 40), 4, 1.0), ((2, 13, 27, 40), 2, 1.0), ((1, 5, 7, 3), 1, 1.0)]
+
+
+def _warped_inputs(shape, dtype, seed):
+    """f1 (B, H, W, C) float32, f2 of `dtype` and a flow (B, 2, H, W) of a
+    few pixels with a band of samples sent off the frame."""
+    B, H, W, C = shape
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    f1 = torch.randn(shape, device="cuda", generator=g)
+    f2 = torch.randn(shape, device="cuda", generator=g).to(dtype)
+    flow = (torch.rand(B, 2, H, W, device="cuda", generator=g) - 0.5) * 4
+    flow[:, 0, :, -2:] = 2.0 * W
+    return f1, f2, flow
+
+
+def _warped_composition(f1, f2, flow, scale, md):
+    """What PWC-DC launched before the fusion: coordinates, the gather, the
+    float32 cast, B2."""
+    B, H, W, _ = f2.shape
+    grid = tcam.pixel_grid(H, W, torch.float32, f2.device)[:2]
+    coords = (grid[None] + flow * scale).permute(0, 2, 3, 1).contiguous()
+    warped = sweep_warp.bilinear_sample_cuda(f2, coords).float().contiguous()
+    return local_corr.local_correlation_cuda(f1, warped, md)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape,md,scale", WARPED_CASES)
+def test_warped_correlation_matches_composition_and_plain_on_card(shape, md, scale, dtype):
+    """The warped correlation against the CUDA composition it replaces (the
+    gather, the cast, B2) bit for bit -- the stage holds the same values and
+    B2's sums run in the same order -- and against its plain version within
+    B2's tolerance, |kernel - plain| <= 1e-5 max|plain| + 1e-6; two
+    launches give the same bits."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    f1, f2, flow = _warped_inputs(shape, getattr(torch, dtype), seed=12)
+    before = local_corr.WARPED.launches
+    got = tcorr.warped_correlation(f1, f2, flow, scale, md)
+    again = local_corr.warped_correlation_cuda(f1, f2, flow, scale, md)
+    torch.cuda.synchronize()
+    assert local_corr.WARPED.launches == before + 2
+    assert got.shape == shape[:3] + ((2 * md + 1) ** 2,) and got.dtype == torch.float32
+    assert torch.equal(got, again)
+    assert torch.equal(got, _warped_composition(f1, f2, flow, scale, md))
+    ref = tcorr.warped_correlation_plain(f1, f2, flow, scale, md)
+    assert float((got - ref).abs().max()) <= 1e-5 * float(ref.abs().max()) + 1e-6
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_pwc_flow_correlations_replay_in_a_cuda_graph(dtype):
+    """PWC-DC's five correlations of a pair -- B2 at level 6 and the warped
+    correlation at levels 5..2, all through operators -- captured in one
+    CUDA graph count one launch each at capture and none at replay; a
+    replay on new inputs written in place equals eager calls bit for bit."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    td = getattr(torch, dtype)
+    level6 = list(_b2_inputs((1, 6, 20, 196), seed=13))
+    warped = [list(_warped_inputs(s, td, seed=14 + i)) + [sc]
+              for i, (s, _, sc) in enumerate(WARPED_CASES[:4])]
+
+    def run():
+        return ([local_corr.local_correlation_cuda(*level6, 4)]
+                + [local_corr.warped_correlation_cuda(f1, f2, fl, sc, 4)
+                   for f1, f2, fl, sc in warped])
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        run()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    n = (local_corr.KERNEL.launches, local_corr.WARPED.launches)
+    with torch.cuda.graph(graph):
+        outs = run()
+    assert (local_corr.KERNEL.launches - n[0], local_corr.WARPED.launches - n[1]) == (1, 4)
+    for t, new in zip(level6, _b2_inputs((1, 6, 20, 196), seed=20)):
+        t.copy_(new)
+    for i, args in enumerate(warped):
+        for t, new in zip(args[:3], _warped_inputs(WARPED_CASES[i][0], td, seed=21 + i)):
+            t.copy_(new)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert (local_corr.KERNEL.launches - n[0], local_corr.WARPED.launches - n[1]) == (1, 4)
+    assert all(torch.equal(o, e) for o, e in zip(outs, run()))
+
+
+@pytest.mark.cuda
+def test_warped_correlation_wrapper_refuses_what_the_kernel_does_not_take():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    f1, f2, flow = _warped_inputs((1, 8, 8, 4), torch.bfloat16, seed=15)
+    for args in ((f1.bfloat16(), f2, flow, 1.0, 4), (f1, f2.double(), flow, 1.0, 4),
+                 (f1, f2[:, :4], flow, 1.0, 4), (f1, f2, flow[:, :1], 1.0, 4),
+                 (f1, f2, flow.bfloat16(), 1.0, 4), (f1, f2, flow.cpu(), 1.0, 4),
+                 (f1, f2.cpu(), flow, 1.0, 4), (f1.permute(0, 2, 1, 3), f2, flow, 1.0, 4),
+                 (f1, f2, flow, 1.0, 5), (f1, f2, flow, 1.0, 0)):
+        with pytest.raises((ValueError, TypeError)):
+            local_corr.warped_correlation_cuda(*args)
+    with torch.enable_grad(), pytest.raises(NotImplementedError, match="no backward"):
+        local_corr.warped_correlation_cuda(f1.requires_grad_(), f2, flow, 1.0, 4)
 
 
 def _rigid_correspondences(seed):

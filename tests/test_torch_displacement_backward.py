@@ -21,6 +21,9 @@ bf16 values, cast once, to one bf16 ulp at the largest element (2^-7 of it:
 two float32 sums a few ulps apart may round to neighbouring bf16 values).
 """
 
+import re
+from pathlib import Path
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -166,3 +169,103 @@ def test_backward_wrapper_refuses_what_the_kernel_does_not_take():
         with pytest.raises(error):
             sweep_warp.displacement_volume_backward_cuda(*args)
     assert sweep_warp.DISPLACEMENT_BACKWARD.launches == before
+
+
+# the flow-training step's five levels (b = 4, 256x768; level 2 with one
+# batch item, whose blocks repeat per item), odd shapes, a map smaller than a
+# tile, and one whose width is not a multiple of the run
+PLAN_SHAPES = [(1, 32, 64, 192), (4, 32, 32, 96), (4, 32, 16, 48), (4, 32, 8, 24),
+               (4, 32, 4, 12), (2, 16, 13, 27), (1, 5, 9, 51), (2, 3, 2, 2), (1, 64, 7, 200)]
+
+
+def _kernel_constant(name):
+    src = (Path(sweep_warp.__file__).resolve().parents[2] / "csrc" / "sweep_warp.cu").read_text()
+    return int(re.search(rf"constexpr int {name} = (\d+);", src).group(1))
+
+
+@pytest.mark.parametrize("itemsize", [2, 4], ids=["bfloat16", "float32"])
+@pytest.mark.parametrize("shape", PLAN_SHAPES)
+def test_backward_plan_covers_every_element(shape, itemsize):
+    """The backward kernel's work mapping (`sweep_warp.displacement_backward_plan`),
+    replayed with the kernel's index arithmetic for md 0..4: every (b, c, p)
+    of dx and dy is written by exactly one lane, ragged tiles included; every
+    flag a lane reads (q = p + d for its pixels, and its own pixels' holes)
+    lies in its block's halo rows and flag words, and is the flag of that
+    very q, zero off the frame; and the y half's two runs (its own and the
+    neighbour the sign of du picks) give dout at q - d, zero exactly where
+    that column leaves the frame."""
+    B, C, h, w = shape
+    assert (sweep_warp.DISP_BWD_THREADS, sweep_warp.DISP_BWD_ROWS, sweep_warp.DISP_BWD_CHUNKS,
+            sweep_warp.DISP_BWD_WORDS) == tuple(_kernel_constant(n) for n in (
+                "kDispBwdThreads", "kDispBwdRows", "kDispBwdChunks", "kDispBwdWords"))
+    rows, chunks, words = (sweep_warp.DISP_BWD_ROWS, sweep_warp.DISP_BWD_CHUNKS,
+                           sweep_warp.DISP_BWD_WORDS)
+    for md in range(5):
+        p = sweep_warp.displacement_backward_plan(B, C, h, w, itemsize)
+        run, S = p.run, 2 * md + 1
+        assert p.vector == (w % run == 0) and p.tile_w == chunks * run
+        assert not sweep_warp.displacement_backward_plan(B, C, h, w, itemsize, False).vector
+        halo_rows, halo_w = rows + 2 * md, p.tile_w + 2 * md
+        assert halo_w + run <= 32 * (words - 1)            # the kernel's static_assert
+
+        # every lane of every block, as the kernel decodes them
+        blk, tid = np.meshgrid(np.arange(p.blocks), np.arange(sweep_warp.DISP_BWD_THREADS),
+                               indexing="ij")
+        blk, tid = blk.ravel(), tid.ravel()
+        tx, rest = blk % p.tiles_x, blk // p.tiles_x
+        ty, rest = rest % p.tiles_y, rest // p.tiles_y
+        cg, b = rest % p.cgroups, rest // p.cgroups
+        warp, lane = tid // 32, tid % 32
+        c = cg * (sweep_warp.DISP_BWD_THREADS // 32) + warp
+        rr, kk = lane // chunks, lane % chunks
+        x0, y0 = tx * p.tile_w, ty * rows
+        r, col0 = y0 + rr, x0 + kk * run
+        act = (c < C) & (r < h) & (col0 < w)
+        b, c, rr, kk, r, col0, x0, y0 = (a[act] for a in (b, c, rr, kk, r, col0, x0, y0))
+        assert (b < B).all()
+
+        written = np.zeros((B, C, h, w), np.int64)
+        for j in range(run):
+            m = col0 + j < w
+            np.add.at(written, (b[m], c[m], r[m], col0[m] + j), 1)
+        assert (written == 1).all()
+
+        start = kk * run                                   # the window's first flag bit
+        assert ((start >> 5) + 1 < words).all()
+        for dvi in range(S):
+            hr = rr + dvi                                  # the halo row of q = p + d
+            assert ((hr >= 0) & (hr < halo_rows)).all()
+            qy = y0 - md + hr
+            assert (qy == r + dvi - md).all()
+            for dui in range(S):
+                du = dui - md
+                for j in range(run):
+                    own = col0 + j < w
+                    bit = j + dui
+                    assert bit < 32
+                    hc = start + bit                       # the halo column of q
+                    assert ((hc >= 0) & (hc < halo_w)).all()
+                    qx = x0 - md + hc
+                    assert (qx == col0 + j + du).all()
+                    # the flag the prologue wrote there: in the frame (and hole)
+                    in_frame = (qy >= 0) & (qy < h) & (qx >= 0) & (qx < w)
+                    assert (in_frame == ((r + dvi - md >= 0) & (r + dvi - md < h)
+                                         & (col0 + j + du >= 0) & (col0 + j + du < w))).all()
+                    # the y half: dout[s, C + c, r - dv, col0 + j - du]
+                    src = col0 + j - du
+                    if p.vector:
+                        k = j - du
+                        # the staged y row holds runs -1..chunks of the tile
+                        assert ((kk - (du > 0) + (du < 0) >= -1)
+                                & (kk - (du > 0) + (du < 0) <= chunks)).all()
+                        ncol = col0 - run if du > 0 else col0 + run
+                        if k < 0:
+                            got, zero = ncol + run + k, ncol < 0
+                        elif k >= run:
+                            got, zero = ncol + k - run, ncol >= w
+                        else:
+                            got, zero = col0 + k, np.zeros_like(own)
+                        assert (got == src).all()
+                        assert (zero[own] == ((src < 0) | (src >= w))[own]).all()
+        # the own pixels' holes: halo row rr + md, bits from start + md
+        assert ((start + md + run - 1) < halo_w).all()
