@@ -27,23 +27,30 @@ CUDA events in turns; with --variant, each beside the same mapping of
 another source that has the current probe entry point.
 
     python3 b1_compare.py --pose-grad [--pose <saved inputs>] [--sources a.cu,b.cu]
-    python3 b1_compare.py --volume --sources a.cu,b.cu
+    python3 chip_smoke.py --save-disp-inputs local/disp_inputs.pt     # optional
+    python3 b1_compare.py --volume [--inputs local/disp_inputs.pt] --sources a.cu,b.cu
+    python3 b1_compare.py --volume-plans [--inputs local/disp_inputs.pt]
 
 --pose-grad times the sweep pose gradient at the POSENET step's shape (the
-same dvol, a target map of unit normals, the --pose or synthetic pose) and
---volume DICL's displacement volume at slice 1's five level shapes and the
-training step's level 2 (bf16 unit normals, flows of a few pixels): the
+same dvol, a target map of unit normals, the --pose or synthetic pose): the
 current source and each of --sources (earlier or variant sources of
 `sweep_warp.cu` with the same C entry points), each held to the plain
-version (the pose gradient to 1e-5 of its largest value, the volume bit
-for bit), then timed by torch.profiler in turns, in the order given and
-back.
+version to 1e-5 of its largest value, then timed by torch.profiler in
+turns, in the order given and back. --volume does the same for DICL's
+displacement volume (bit for bit) with earlier sources whose entry point
+takes `pair_io` (`chip_smoke.old_displacement_volume`), at slice 1's five
+levels and the training step's five: on the inputs `chip_smoke.py
+--save-disp-inputs` saved (`--inputs`), or on bf16 unit normals and flows
+of a few pixels at those shapes. --volume-plans times a grid of the current
+kernel's work mappings per level beside `displacement_plan`'s choice and a
+fill of the stack's size (the card's write rate).
 """
 
 from __future__ import annotations
 
 import argparse
 import ctypes
+import dataclasses
 import json
 import sys
 from pathlib import Path
@@ -240,33 +247,6 @@ def compare(path: Path, dvol, depths, M, Kt, sweep_warp, camera) -> dict:
     return row
 
 
-def volume_kernel(path: Path):
-    """Another source's displacement volume, built beside the current one and
-    called through its plain C entry point with ctypes."""
-    from deep_sfm_revisited_tpu_torch.ops.cuda.build import CudaKernel
-
-    class Volume(CudaKernel):
-        source = str(path.resolve())
-
-        def _bind(self, lib):
-            fn = lib.dsfm_displacement_volume
-            fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
-            fn.restype = ctypes.c_int
-
-        def __call__(self, x, y, flow, md):
-            B, C, h, w = x.shape
-            out = torch.empty((B, (2 * md + 1) ** 2, 2 * C, h, w), dtype=x.dtype, device=x.device)
-            err = self.build().dsfm_displacement_volume(
-                x.data_ptr(), y.data_ptr(), None if flow is None else flow.data_ptr(),
-                out.data_ptr(), B, C, h, w, md, {torch.float32: 0, torch.bfloat16: 1}[x.dtype],
-                int(w % 2 == 0), torch.cuda.current_stream().cuda_stream)
-            if err != 0:
-                raise RuntimeError(f"{path}: displacement volume launch failed: cudaError {err}")
-            return out
-
-    return Volume()
-
-
 def in_turns(runs: dict, kernel_name: str, reps: int = 20) -> dict:
     """Device ms of each run by torch.profiler, in the order given and back."""
     order = list(runs) + list(runs)[::-1]
@@ -300,35 +280,113 @@ def pose_grad_turns(sources, pose, sweep_warp, camera, generator) -> dict:
     return {"shape": list(dvol.shape), "valid_share": valid, "device_ms": times}
 
 
-# slice 1's five DICL levels (b = 1, 384x1280) and the training step's level 2
+# slice 1's five DICL levels (b = 1, 384x1280) and the training step's five
+# (b = 4, 256x768)
 VOLUME_SHAPES = [(1, 6, 20), (1, 12, 40), (1, 24, 80), (1, 48, 160), (1, 96, 320),
-                 (4, 64, 192)]
+                 (4, 4, 12), (4, 8, 24), (4, 16, 48), (4, 32, 96), (4, 64, 192)]
 
 
-def volume_turns(sources, sweep_warp, dicl, generator) -> list[dict]:
-    """The displacement volume of the current source and of each other
-    source at each of VOLUME_SHAPES (C = 32, md = 3, bf16; a flow but at
-    level 6), bit for bit against the plain version, timed in turns."""
-    kernels = {src: volume_kernel(Path(src)) for src in sources}
+def volume_inputs(saved: str | None, generator) -> list[tuple]:
+    """(x, y, flow or None, md) of each level: those `chip_smoke.py
+    --save-disp-inputs` saved from slice 1's pair and a training step, or at
+    VOLUME_SHAPES C = 32, md = 3, bf16 unit normals and flows of a few
+    pixels (none at level 6)."""
+    if saved:
+        stored = torch.load(saved, weights_only=True)
+        return [tuple(t.cuda() if torch.is_tensor(t) else t for t in call)
+                for path in ("dicl_main_path", "cli_train") for call in stored[path]]
+    calls = []
+    for B, h, w in VOLUME_SHAPES:
+        x = torch.randn((B, 32, h, w), device="cuda", generator=generator).bfloat16()
+        y = torch.randn((B, 32, h, w), device="cuda", generator=generator).bfloat16()
+        flow = (None if h * 64 in (384, 256) else
+                torch.randn((B, 2, h, w), device="cuda", generator=generator) * 3)
+        calls.append((x, y, flow, 3))
+    return calls
+
+
+def _bound_ms(x, y, flow, out) -> float:
+    ins = (x, y) if flow is None else (x, y, flow)
+    return sum(t.numel() * t.element_size() for t in ins + (out,)) / smoke.HBM_BYTES_PER_S * 1e3
+
+
+def volume_turns(sources, sweep_warp, dicl, calls) -> list[dict]:
+    """The displacement volume of the current source and of each earlier
+    source (`chip_smoke.old_displacement_volume`) at each level of `calls`,
+    bit for bit against the plain version, device ms in turns (the
+    sample and store kernels together for the current one)."""
+    kernels = {src: smoke.old_displacement_volume(Path(src)) for src in sources}
     rows = []
     with torch.no_grad():
-        for B, h, w in VOLUME_SHAPES:
-            x = torch.randn((B, 32, h, w), device="cuda", generator=generator).bfloat16()
-            y = torch.randn((B, 32, h, w), device="cuda", generator=generator).bfloat16()
-            flow = (None if h == 6 else
-                    torch.randn((B, 2, h, w), device="cuda", generator=generator) * 3)
-            want = dicl.displacement_volume_plain(x, y, flow, 3)
-            runs = {"current": lambda: sweep_warp.displacement_volume_cuda(x, y, flow, 3)}
-            runs.update({src: (lambda k=k: k(x, y, flow, 3)) for src, k in kernels.items()})
+        for x, y, flow, md in calls:
+            want = dicl.displacement_volume_plain(x, y, flow, md)
+            runs = {"current": lambda: sweep_warp.displacement_volume_cuda(x, y, flow, md)}
+            runs.update({src: (lambda k=k: k(x, y, flow, md)) for src, k in kernels.items()})
             for name, run in runs.items():
                 smoke.check(torch.equal(run(), want), f"{name}: the volume differs from plain")
-            nbytes = sum(t.numel() * t.element_size() for t in (x, y, want)) + (
-                0 if flow is None else flow.numel() * 4)
-            row = {"shape": [B, 32, h, w], "bound_ms": nbytes / smoke.HBM_BYTES_PER_S * 1e3,
-                   "device_ms": in_turns(runs, "displacement_volume_kernel")}
+            row = {"shape": list(x.shape), "flow": flow is not None,
+                   "bound_ms": _bound_ms(x, y, flow, want),
+                   "device_ms": in_turns(runs, "displacement_volume")}
             smoke.log(f"b1_compare displacement volume {tuple(x.shape)}: bound "
                       f"{row['bound_ms']:.4f} ms, device ms in turns: "
                       f"{json.dumps(row['device_ms'])}")
+            rows.append(row)
+    return rows
+
+
+def volume_plans(sweep_warp, dicl, calls) -> list[dict]:
+    """Every work mapping of a small grid at each level of `calls` --
+    bands of 1, 2, 4 rows x 1, 2, 4, 8 tiles a row, each at its persistent
+    grid, twice it and a block an item, with a flow each with and without
+    the sampling fused into the store kernel -- bit for bit against the plain
+    version, device ms each, which the default `displacement_plan` picks
+    (and its device ms kernel by kernel), and the device ms of filling a
+    tensor of the stack's size (`fill_`: the card's write rate)."""
+    rows = []
+    with torch.no_grad():
+        for x, y, flow, md in calls:
+            B, C, h, w = x.shape
+            want = dicl.displacement_volume_plain(x, y, flow, md)
+            default = sweep_warp.DISPLACEMENT.plan(x, y, md)
+            plans = [default]
+            for bh in (1, 2, 4):
+                for n in (1, 2, 4, 8):
+                    try:
+                        p = sweep_warp.displacement_plan(
+                            B, C, h, w, md, x.element_size(),
+                            aligned=min(sweep_warp.address_alignment(x),
+                                        sweep_warp.address_alignment(y)),
+                            sms=sweep_warp.device_sms(x.device), band_h=min(bh, h),
+                            tiles_x=min(n, w))
+                    except ValueError:
+                        continue
+                    plans += [dataclasses.replace(p, grid=g, fused=f)
+                              for g in (p.grid, 2 * p.grid, p.items)
+                              for f in ((False, True) if flow is not None else (False,))]
+            seen, times = set(), []
+            for p in plans:
+                if p in seen:
+                    continue
+                seen.add(p)
+
+                def run(p=p):
+                    return sweep_warp.displacement_volume_cuda(x, y, flow, md, p)
+
+                smoke.check(torch.equal(run(), want), f"plan {p}: differs from plain")
+                times.append({**vars(p), "device_ms": smoke.device_ms(
+                    run, "displacement_volume", reps=20)})
+            best = min((t for t in times if t["device_ms"] is not None),
+                       key=lambda t: t["device_ms"])
+            by_kernel = smoke._full_profile(
+                lambda: sweep_warp.displacement_volume_cuda(x, y, flow, md), reps=20)
+            times[0]["by_kernel"] = by_kernel and {n[:60]: v[0] for n, v in by_kernel.items()}
+            fill_ms = smoke.device_ms(lambda: want.fill_(1.0), "", reps=20)
+            row = {"shape": list(x.shape), "flow": flow is not None,
+                   "bound_ms": _bound_ms(x, y, flow, want), "fill_ms": fill_ms,
+                   "default": times[0], "best": best, "plans": times}
+            smoke.log(f"b1_compare volume plans {tuple(x.shape)}: bound {row['bound_ms']:.4f} ms, "
+                      f"fill_ {smoke._fmt_ms(fill_ms)}; default {json.dumps(times[0])}; "
+                      f"best {json.dumps(best)}")
             rows.append(row)
     return rows
 
@@ -350,6 +408,10 @@ def main() -> int:
                     help="time DICL's displacement volume beside --sources in turns")
     ap.add_argument("--sources", default="",
                     help="comma-separated sweep_warp.cu files for --pose-grad and --volume")
+    ap.add_argument("--inputs", help="the volume's inputs saved by chip_smoke.py "
+                                     "--save-disp-inputs, for --volume and --volume-plans")
+    ap.add_argument("--volume-plans", action="store_true",
+                    help="time a grid of the displacement volume's work mappings per level")
     ap.add_argument("--out", help="also write the JSON object here")
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -362,12 +424,15 @@ def main() -> int:
     card = smoke.phase_setup(sweep_warp)
     g = torch.Generator(device="cuda").manual_seed(0)
     sources = [p for p in args.sources.split(",") if p]
-    if args.pose_grad or args.volume:
+    if args.pose_grad or args.volume or args.volume_plans:
         summary = {"card": card}
         if args.pose_grad:
             summary["pose_grad"] = pose_grad_turns(sources, args.pose, sweep_warp, camera, g)
+        calls = volume_inputs(args.inputs, g) if args.volume or args.volume_plans else []
         if args.volume:
-            summary["volume"] = volume_turns(sources, sweep_warp, dicl, g)
+            summary["volume"] = volume_turns(sources, sweep_warp, dicl, calls)
+        if args.volume_plans:
+            summary["volume_plans"] = volume_plans(sweep_warp, dicl, calls)
         return _emit(summary, args.out)
     dvol, depths, M, Kt = inputs(args.pose, g)
     summary = {"card": card, "shape": list(dvol.shape), "pose": args.pose or "synthetic",

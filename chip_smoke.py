@@ -130,9 +130,11 @@ Phases, each of which raises on failure:
    of `warp_flow` with the gather's plain version) on the inputs slice 1,
    the training step and `--record-pose` gave it, in bf16 and float32, bit
    for bit, and two launches bit for bit; per level of slice 1's pair and
-   of the training step, device and events times, the bound and share, the
-   plain version's time, and the device time and kernel count of the
-   eager composition it replaced.
+   of the training step, the work mapping (`displacement_plan`), device
+   and events times, the bound and share, the plain version's time, and
+   the device time and kernel count of the eager composition it replaced;
+   with `--old-b1 PATH`, an earlier `sweep_warp.cu`'s displacement volume
+   timed beside it level by level in turns (old, new, new, old);
 
 15. a small-input flow-training reference: one DICL flow-pretraining step
    (`train/flow_trainer.py::FlowTrainer`, float32, TF32 off) at 128x128 on
@@ -163,12 +165,21 @@ Phases, each of which raises on failure:
    and share, the plain version's time, and the yardsticks: autograd of the
    eager composition and `grid_sampler_2d_backward`'s input gradient (the
    scatter half); with `--old-b1` naming a source whose backward takes a
-   hole buffer (the first kernel), that kernel timed in turns per level.
+   hole buffer (the first kernel), that kernel timed in turns per level;
+18. the frozen-flow depth-training step on the PWC-DC route through
+   `cli.main` in training mode (`--override flow.estimator=PWC` on slice
+   5's rendered tree, 256x768 crops, b = 4, bf16, full width): a warm-up
+   and two timed steps, each with a finite loss, PWC-DC's parameters
+   bit-identical, PSNet's moved, and B2 once, the warped correlation four
+   times, the sweep and its backward once and no other kernel launched;
+   ms per step by the host clock and peak memory; the epoch's validation.
 
 `python3 chip_smoke.py --save-sweep-inputs PATH` also writes the sweep
 backward's depths, M and K t from slice 5 (a few hundred floats) to PATH,
-for `b1_compare.py --pose PATH`; `--old-b1 PATH` names the earlier source
-phases 13 and 17 compare with.
+for `b1_compare.py --pose PATH`; `--save-disp-inputs PATH` the
+displacement volume's inputs of slice 1's pair and a training step, for
+`b1_compare.py --volume --inputs PATH`; `--old-b1 PATH` names the earlier
+source phases 13, 14 and 17 compare with.
 
 The line before the last is the kernel table as one JSON object; the last
 is {"ok": true, "device": {...}}. Without a CUDA device, or without the
@@ -2036,16 +2047,20 @@ DISP_FLOPS_PER_OUTPUT, DISP_FLOPS_PER_SAMPLE = 2, 2
 DISP_FUSES = "deep_sfm_revisited_tpu/models/dicl.py:160 (shifted_pairs), :231 (warp_flow)"
 
 
-def phase_displacement(captured, sweep_warp, dicl):
+def phase_displacement(captured, sweep_warp, dicl, old_source: str | None = None):
     """B1's displacement-volume kernel against its plain version (the
     composition it replaced, `shifted_pairs` of `warp_flow`, with the
     gather's plain version) on the inputs that slice 1's pair, the training
     step and the `--record-pose` pair gave it (`captured`: {path: [(x, y,
     flow or None, md)]}), in bf16 and float32, and two launches on the same
     inputs; then per level of slice 1's pair and of the training step, as
-    the main path ran them: device and events ms, the bound and share of
-    it, the plain version's time, and the device time and kernel count of
-    the composition it replaced (the card's gather, then the eager stack).
+    the main path ran them: the work mapping, device and events ms, the
+    bound and share of it, the plain version's time, and the device time
+    and kernel count of the composition it replaced (the card's gather,
+    then the eager stack). With `old_source`, an earlier `sweep_warp.cu`
+    (`old_displacement_volume`), held to the plain version too, is timed
+    beside it level by level in turns (old, new, new, old), device and
+    events ms.
 
     Tolerance: exact -- the samples take B1's taps and blend rounded op by
     op, and the masks are 0 or 1, so the stack equals the composition's bit
@@ -2069,6 +2084,7 @@ def phase_displacement(captured, sweep_warp, dicl):
             "plain in bf16 and float32, bit-identical across launches")
 
     fmt = lambda v: "not measured" if v is None else f"{v:.4f} ms"   # noqa: E731
+    old_kernel = None if old_source is None else old_displacement_volume(Path(old_source))
     out = {}
     for path in ("dicl_main_path", "cli_train"):
         rows = []
@@ -2082,7 +2098,7 @@ def phase_displacement(captured, sweep_warp, dicl):
             vol = run()
             check(torch.equal(old(), vol), f"{path}: the replaced composition differs")
             ms = cuda_ms(run, reps=20)
-            dev_ms = device_ms(run, "displacement_volume_kernel")
+            dev_ms = device_ms(run, "displacement_volume")
             plain_ms = cuda_ms(lambda: dicl.displacement_volume_plain(x, y, flow, md), reps=3,
                                warmup=1)
             old_ms = cuda_ms(old, reps=5)
@@ -2093,8 +2109,20 @@ def phase_displacement(captured, sweep_warp, dicl):
                 DISP_FLOPS_PER_SAMPLE * flow[:, 0].numel() + B1_FLOPS_PER_OUTPUT * y.numel()))
             t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / F32_FLOPS * 1e3
             bound = max(t_bytes, t_ops)
+            turns = None
+            if old_kernel is not None:
+                check(torch.equal(old_kernel(x, y, flow, md), vol),
+                      f"{path}: the earlier source's volume differs")
+                runs = {"old": lambda: old_kernel(x, y, flow, md), "new": run}
+                turns = {f"{who}_{k}": [] for who in runs for k in ("device_ms", "events_ms")}
+                for who in ("old", "new", "new", "old"):
+                    turns[f"{who}_device_ms"].append(
+                        device_ms(runs[who], "displacement_volume", reps=20))
+                    turns[f"{who}_events_ms"].append(cuda_ms(runs[who], reps=20))
+            plan = sweep_warp.DISPLACEMENT.plan(x, y, md)
             rows.append(dict(name=f"{path}_level_{tuple(x.shape[-2:])}", x=list(x.shape), md=md,
-                             flow=flow is not None, out=list(vol.shape),
+                             plan=vars(plan), in_turns=turns, flow=flow is not None,
+                             out=list(vol.shape),
                              dtype=str(x.dtype).replace("torch.", ""), ms=ms, device_ms=dev_ms,
                              plain_ms=plain_ms, library_ms=None, bound_ms=bound,
                              bound_by="bytes" if t_bytes >= t_ops else "operations",
@@ -2108,7 +2136,9 @@ def phase_displacement(captured, sweep_warp, dicl):
                 f"{rows[-1]['dtype']}: device {fmt(dev_ms)}, events {ms:.4f} ms, plain "
                 f"{plain_ms:.4f} ms, bound {bound:.4f} ms ({rows[-1]['bound_by']}, "
                 f"{nbytes / 1e6:.1f} MB), share of bound {share}; the replaced composition "
-                f"device {fmt(old_dev_ms)} in {old_kernels} kernels, events {old_ms:.4f} ms")
+                f"device {fmt(old_dev_ms)} in {old_kernels} kernels, events {old_ms:.4f} ms; "
+                f"plan {vars(plan)}"
+                + ("" if turns is None else f"; in turns with {old_source}: {json.dumps(turns)}"))
             del vol
         total = _pair_sums(rows)
         for key in ("old_composition_ms", "old_composition_kernels",
@@ -2116,6 +2146,11 @@ def phase_displacement(captured, sweep_warp, dicl):
             total[key] = _sum_or_none(r[key] for r in rows)
         total["bound_share"] = (None if total["device_ms"] is None
                                 else total["bound_ms"] / total["device_ms"])
+        if old_kernel is not None:   # per pair or step, turn by turn
+            total["in_turns"] = {k: [_sum_or_none(r["in_turns"][k][t] for r in rows)
+                                     for t in range(2)] for k in rows[0]["in_turns"]}
+            log(f"displacement volume per {'pair' if path == 'dicl_main_path' else 'step'} in "
+                f"turns (old, new, new, old) with {old_source}: {json.dumps(total['in_turns'])}")
         out[path] = dict(total, calls=rows)
         log(f"displacement volume per {'pair' if path == 'dicl_main_path' else 'step'} "
             f"({path}): device {fmt(total['device_ms'])}, events {total['ms']:.4f} ms, bound "
@@ -2214,6 +2249,42 @@ def old_displacement_backward(path: Path):
             return dx, (dy if acc is None else acc.to(y.dtype))
 
     return OldDispBackward()
+
+
+def old_displacement_volume(path: Path):
+    """DICL's displacement volume of an earlier `sweep_warp.cu` whose entry
+    point chooses its own mapping (`..., int dtype, int pair_io, void*
+    stream`), built by `ops/cuda/build.py` beside the current source and
+    called through its plain C entry point with ctypes, with the output its
+    operator allocated. Phase 14 and `b1_compare.py --volume` time it."""
+    import ctypes
+
+    from deep_sfm_revisited_tpu_torch.ops.cuda.build import CudaKernel
+
+    check("int dtype, int pair_io, void* stream" in path.read_text(),
+          f"{path} has no displacement volume that takes pair_io")
+
+    class OldVolume(CudaKernel):
+        source = str(path.resolve())   # an absolute path replaces csrc/
+
+        def _bind(self, lib):
+            fn = lib.dsfm_displacement_volume
+            fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+            fn.restype = ctypes.c_int
+
+        def __call__(self, x, y, flow, md):
+            B_, C_, h, w = x.shape
+            out = torch.empty((B_, (2 * md + 1) ** 2, 2 * C_, h, w), dtype=x.dtype,
+                              device=x.device)
+            pair_io = int(w % 2 == 0 and x.data_ptr() % (2 * x.element_size()) == 0)
+            err = self.build().dsfm_displacement_volume(
+                x.data_ptr(), y.data_ptr(), None if flow is None else flow.data_ptr(),
+                out.data_ptr(), B_, C_, h, w, md, {torch.float32: 0, torch.bfloat16: 1}[x.dtype],
+                pair_io, torch.cuda.current_stream().cuda_stream)
+            check(err == 0, f"{path}'s displacement volume launch failed: cudaError {err}")
+            return out
+
+    return OldVolume()
 
 
 def phase_pose_grad(cap_pose, sweep_warp, camera, old_source: str | None = None):
@@ -2686,6 +2757,104 @@ def phase_cli_train_flow(dev, sweep_warp):
     return launches, captured
 
 
+PWC_TRAIN_STEPS = 2
+# gather, sweep, sweep backward, sweep pose gradient, displacement volume,
+# its backward, warped correlation, B2: the frozen PWC-DC step's flow is
+# PWC-DC's five correlations (no gradient reaches it), its depth PSNet's
+PWC_TRAIN_PER_STEP = (0, SWEEP_PER_PAIR, 1, 0, 0, 0, WARPED_PER_PAIR, 1)
+
+
+def phase_cli_train_pwc(dev, sweep_warp, local_corr):
+    """The frozen-flow depth-training step on the PWC-DC route through
+    `cli.main` in training mode (`--override flow.estimator=PWC`; PWC-DC runs
+    in train mode under no gradient, JAX's `flow_net(pair, train=True,
+    all_iters=True)`), on slice 5's rendered tree: 370x1224 cropped to
+    256x768, b = 4, nlabel 128, bf16, full width. One warm-up step, the
+    launch counts reset, PWC_TRAIN_STEPS timed steps, the epoch's
+    validation. Each step must give a finite loss, leave PWC-DC's
+    parameters bit-identical, move PSNet's, and launch B2 once, the warped
+    correlation four times, the sweep and its backward once and no other
+    kernel. Reports ms per step by the host clock around a synchronised
+    step and the peak memory of the timed steps. Returns the launches after
+    the warm-up, validation included (gather, sweep, sweep backward, pose
+    gradient, displacement volume, its backward, warped correlation, B2)."""
+    from deep_sfm_revisited_tpu_torch import cli
+    from deep_sfm_revisited_tpu_torch.data.synthetic import write_kitti_raw_tree
+    from deep_sfm_revisited_tpu_torch.train.trainer import Trainer
+
+    what = "cli train (PWC-DC)"
+    counters = (sweep_warp.KERNEL, sweep_warp.VOLUME, sweep_warp.VOLUME_BACKWARD,
+                sweep_warp.VOLUME_POSE_GRAD, sweep_warp.DISPLACEMENT,
+                sweep_warp.DISPLACEMENT_BACKWARD, local_corr.WARPED, local_corr.KERNEL)
+    real_step = Trainer.train_step
+    steps = []
+
+    def timed_step(trainer, *args, **kw):
+        model = trainer.model
+        flow_net = {k: p.detach().clone() for k, p in model.flow_estimator.named_parameters()}
+        psnet = {k: p.detach().clone() for k, p in model.depth_estimator.named_parameters()}
+        before = _launches(*counters)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        metrics = real_step(trainer, *args, **kw)
+        torch.cuda.synchronize()
+        ms = 1e3 * (time.perf_counter() - t0)
+        n = tuple(a - b for a, b in zip(_launches(*counters), before))
+        i = len(steps)
+        loss = float(metrics["loss"])
+        check(math.isfinite(loss), f"{what} step {i}: loss {loss}")
+        check(n == PWC_TRAIN_PER_STEP, f"{what} step {i}: gather, sweep, sweep backward, pose "
+              f"gradient, displacement volume, its backward, warped correlation, B2 launched "
+              f"{n} times, expected {PWC_TRAIN_PER_STEP}")
+        for k, p in model.flow_estimator.named_parameters():
+            check(torch.equal(p, flow_net[k]) and p.grad is None,
+                  f"{what} step {i}: PWC-DC parameter {k} moved or got a gradient")
+        moved = [k for k, p in model.depth_estimator.named_parameters()
+                 if not torch.equal(p, psnet[k])]
+        check(moved, f"{what} step {i}: no PSNet parameter moved")
+        if i == 0:
+            for k in counters:
+                k.launches = 0
+            torch.cuda.reset_peak_memory_stats()
+            log(f"{what}: warm-up step {ms:.1f} ms, loss {loss:.4f}")
+        else:
+            log(f"{what}: step {i}: {ms:.1f} ms, loss {loss:.4f}; launches {n}")
+        steps.append(dict(ms=ms, loss=loss, peak_gib=torch.cuda.max_memory_allocated() / 2**30))
+        return metrics
+
+    with tempfile.TemporaryDirectory() as tmp:
+        root = f"{tmp}/kitti_raw"
+        n_test = 2
+        write_kitti_raw_tree(root, n_frames=n_test + TRAIN_B * (PWC_TRAIN_STEPS + 1),
+                             hw=(370, 1224), focal=K_KITTI[0][0], n_test=n_test)
+        argv = ["--data", root, "--cfg", "kitti", "--gt-depth-dir", f"{root}/gt_depth",
+                "--out", f"{tmp}/out", "--workers", "4", "-b", str(TRAIN_B), "--epochs", "1",
+                "--override", f"data.train_size={TRAIN_HW}", "flow.estimator=PWC",
+                "data.pad_multiple=64", *[f"{k}={v}" for k, v in BENCH_OVERRIDES.items()]]
+        log(f"{what}: cli.main(" + json.dumps(argv).replace(tmp, "<tmp>") + ")")
+        for k in counters:
+            k.launches = 0
+        Trainer.train_step = timed_step
+        try:
+            history = cli.main(argv)
+        finally:
+            Trainer.train_step = real_step
+        launches = _launches(*counters)
+        check(os.path.exists(f"{tmp}/out/kitti/ckpt/0.pt"), f"{what}: no checkpoint written")
+    check(len(steps) == PWC_TRAIN_STEPS + 1, f"{what}: {len(steps) - 1} timed steps, expected "
+          f"{PWC_TRAIN_STEPS}")
+    check(len(history) == 1 and all(math.isfinite(history[0][k]) for k in EIGEN_KEYS),
+          f"{what}: validation {history}")
+    timed = steps[1:]
+    log(f"{what}: mean over {PWC_TRAIN_STEPS} steps at b = {TRAIN_B}, {TRAIN_HW[0]}x"
+        f"{TRAIN_HW[1]}: {sum(r['ms'] for r in timed) / len(timed):.2f} ms/step "
+        f"({json.dumps([round(r['ms'], 2) for r in timed])}); peak memory "
+        f"{timed[-1]['peak_gib']:.2f} GiB; launches after the warm-up, validation included "
+        f"(gather, sweep, sweep backward, pose gradient, displacement volume, its backward, "
+        f"warped correlation, B2): {launches}")
+    return launches
+
+
 def _whole(profile: dict, reps: int) -> bool:
     """Every operation of the trace came `reps` times over (a whole number a
     call): a trace that lost or gained events shows a fraction. A trace
@@ -2976,10 +3145,14 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description="the port's smoke run on one CUDA device")
     ap.add_argument("--save-sweep-inputs", default=None,
                     help="write slice 5's sweep depths, M and K t to this .pt file")
+    ap.add_argument("--save-disp-inputs", default=None,
+                    help="write the displacement volume's inputs of slice 1's pair and of a "
+                         "training step to this .pt file")
     ap.add_argument("--old-b1", default=None,
-                    help="an earlier csrc/sweep_warp.cu whose sweep pose gradient phase 13 "
-                         "(and, where it takes a hole buffer, whose displacement backward "
-                         "phase 17) times in turns with the current one")
+                    help="an earlier csrc/sweep_warp.cu whose sweep pose gradient phase 13, "
+                         "whose displacement volume phase 14 (and, where it takes a hole "
+                         "buffer, whose displacement backward phase 17) time in turns with "
+                         "the current one")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's smoke run needs one", file=sys.stderr)
@@ -3028,7 +3201,11 @@ def main(argv=None) -> int:
     with torch.no_grad():
         pg_call, pg_err = phase_pose_grad(cap_pose, sweep_warp, camera, args.old_b1)
         del cap_pose
-        disp_calls, disp_err = phase_displacement(cap_disp, sweep_warp, dicl)
+        if args.save_disp_inputs:
+            torch.save({k: [tuple(t.cpu() if torch.is_tensor(t) else t for t in c)
+                            for c in cap_disp[k][:DISP_PER_PAIR]]
+                        for k in ("dicl_main_path", "cli_train")}, args.save_disp_inputs)
+        disp_calls, disp_err = phase_displacement(cap_disp, sweep_warp, dicl, args.old_b1)
     del cap_disp
     # no path before slice 9 trains DICL: none launched the volume's backward
     check(sweep_warp.DISPLACEMENT_BACKWARD.launches == 0, "a frozen-flow path launched the "
@@ -3038,13 +3215,16 @@ def main(argv=None) -> int:
     with torch.no_grad():
         dbwd_call, dbwd_err = phase_displacement_backward(cap_flow, sweep_warp, dicl, args.old_b1)
     del cap_flow
-    names = ("gather", "sweep", "backward", "pose_grad", "volume", "volume_backward", "warped")
-    by_path = {"dicl_main_path": dict(zip(names, (0, sweep_dicl, 0, 0, disp_dicl, 0, 0))),
+    pwc_train = phase_cli_train_pwc(dev, sweep_warp, local_corr)
+    names = ("gather", "sweep", "backward", "pose_grad", "volume", "volume_backward", "warped",
+             "b2")
+    by_path = {"dicl_main_path": dict(zip(names, (0, sweep_dicl, 0, 0, disp_dicl, 0, 0, 0))),
                "pwc_cli_eval": dict(zip(names, (b1_pwc, sweep_pwc, 0, 0, disp_pwc, 0,
-                                                warped_pwc))),
-               "cli_train": dict(zip(names, train_launches + (0, 0))),
-               **{k: dict(zip(names, v + (0, 0))) for k, v in pose_paths.items()},
-               "cli_train_flow": dict(zip(names, flow_launches + (0,)))}
+                                                warped_pwc, b2_pwc))),
+               "cli_train": dict(zip(names, train_launches + (0, 0, 0))),
+               **{k: dict(zip(names, v + (0, 0, 0))) for k, v in pose_paths.items()},
+               "cli_train_flow": dict(zip(names, flow_launches + (0, 0))),
+               "cli_train_pwc": dict(zip(names, pwc_train))}
 
     def launches(kernel):
         counts = {k: v[kernel] for k, v in by_path.items()}
@@ -3073,9 +3253,7 @@ def main(argv=None) -> int:
              "replaces": B1_REPLACES, **launches("sweep"), "max_abs_err": sweep_err,
              **{k: v for k, v in sweep_call.items() if k != "name"}}
     b2 = {"name": "local_correlation", "route": "cuda", "source": B2_SOURCE,
-          "replaces": B2_REPLACES, "launches": b2_pwc,
-          "launches_by_path": {k: b2_pwc if k == "pwc_cli_eval" else 0 for k in by_path},
-          "max_abs_err": err2,
+          "replaces": B2_REPLACES, **launches("b2"), "max_abs_err": err2,
           # per frame pair: PWC-DC's five levels; no single PyTorch call
           # computes a windowed correlation, so there is no library time
           **_pair_sums(calls2), "calls": calls2}
@@ -3115,6 +3293,9 @@ def main(argv=None) -> int:
     check(dbwd["launches_by_path"]["cli_train_flow"] > 0
           and disp["launches_by_path"]["cli_train_flow"] > 0,
           "the flow-training path launched no displacement volume or no backward")
+    check(b2["launches_by_path"]["cli_train_pwc"] > 0
+          and warped["launches_by_path"]["cli_train_pwc"] > 0,
+          "the PWC-DC training path launched no B2 or no warped correlation")
     for k in kernels:
         lib = "none" if k["library_ms"] is None else f"{k['library_ms']:.4f} ms"
         dev = "not measured" if k["device_ms"] is None else f"{k['device_ms']:.4f} ms"

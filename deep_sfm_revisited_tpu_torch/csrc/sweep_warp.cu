@@ -23,32 +23,46 @@
 // through PyTorch operators (sweep_warp_ops.cpp), not from Python.
 //
 // dsfm_displacement_volume -- DICL's (B, S2, 2C, h, w) displacement stack
-// of one pyramid level in one pass, S = 2 md + 1: per ref pixel p and
-// displacement d = (du, dv) (dv outer), the pair [x m hole | ys m hole],
-// where ys is y warped by the level's flow (B1's gather at q + flow(q),
-// q = p + d, rounded to y's dtype) or y itself at the coarsest level, m is
-// 1 where q lies in the frame and hole is 1 where some channel of ys is
-// non-zero (models/dicl.py::shifted_pairs of warp_flow, JAX
-// models/dicl.py:160-188, :231-239; the TPU ran that stack as XLA-fused
-// jnp around bilinear_sample). It replaces ~500 eager launches a level.
+// of one pyramid level, S = 2 md + 1: per ref pixel p and displacement
+// d = (du, dv) (dv outer), the pair [x m hole | ys m hole], where ys is y
+// warped by the level's flow (B1's gather at q + flow(q), q = p + d,
+// rounded to y's dtype) or y itself at the coarsest level, m is 1 where q
+// lies in the frame and hole is 1 where some channel of ys is non-zero
+// (models/dicl.py::shifted_pairs of warp_flow, JAX models/dicl.py:160-188,
+// :231-239; the TPU ran that stack as XLA-fused jnp around
+// bilinear_sample). It replaces ~500 eager launches a level.
 // What bounds it: device-memory bytes. At slice 1 (b = 1, 384x1280, C = 32
 // bf16, md = 3) the level-2 stack is 49 x 64 x 96 x 320 x 2 B = 192.7 MB,
-// ~257 MB over the five levels (0.077 ms at 3.35 TB/s), against ~2 MB of
-// maps that stay in L2, so every choice serves the store stream:
-// - a work item is one dv and a tile of 4 rows x 64 pixels; its block
-//   samples the target rows it needs (md columns beyond each side) once
-//   into shared memory, taps computed once a sample and 8-channel chunk
-//   (32 loads in flight a thread), each sample's hole flag reduced over its
-//   channels as it is written;
-// - a thread stores a pixel pair's 8-channel chunk for all S displacements
-//   of the item's dv, its x channels held in registers, neighbouring threads
-//   on neighbouring pairs: every warp store is one coalesced 128-byte
-//   (bf16) or 256-byte (float32) stretch, a streaming store (st.global.cs);
-// - the work of a block is spread over all its threads at every level (the
-//   coarse levels are a few small items), and the grid is persistent (as
-//   many blocks as the occupancy allows; level 2 of one pair is 840 items).
-// Its time is latency more than bytes: each item samples, then stores, and
-// the coarse levels are a few items (PERF.md has the numbers).
+// ~262 MB over the five levels (0.078 ms at 3.35 TB/s), against ~2 MB of
+// maps, so every choice serves the store stream. The pair at (s, p) is
+// [x(p) K(q) | ys(q)] with one flag map K (q in the frame and ys(q) not
+// all zero): the y half of the centre displacement is ys itself, and every
+// other plane is x or ys shifted by d and masked by K. So:
+// - with a flow, a first launch (displacement_volume_sample) samples ys
+//   once, a pixel and 8 channels a thread, into the centre displacement's
+//   y half, where it belongs; the store kernel reads it back from L2;
+// - the store kernel's item is (b, dv, a band of rows, a tile -- the whole
+//   width where it fits): cp.async stages the band's ys rows (every
+//   channel, 8 elements of halo each side) into shared memory, double
+//   buffered, so the next item's rows arrive while this one stores; the K
+//   words of the band come from those rows (8 lanes a word, OR-ed
+//   magnitude bits, shuffles); then all 2C planes x 2 md + 1 du of the band
+//   are stored as 16-byte streaming stores, neighbouring threads on
+//   neighbouring chunks, so a plane's band is one contiguous run;
+// - the ys window of each du comes from three aligned 16-byte shared loads
+//   a unit, shifted in registers (du unrolled), not from 2-byte loads;
+// - the work mapping is chosen in Python per level shape
+//   (ops/cuda/sweep_warp.py::displacement_plan, measured by
+//   b1_compare.py --volume-plans): bands of 1-4 rows keep items within
+//   384 KB of output and the level at half a round of resident blocks or
+//   more; at the coarse levels, where one item a block samples as fast as a
+//   second launch could, the store kernel samples y itself (`fused`).
+// `nvcc -Xptxas -v` (sm_90a): the store kernel's 16-byte instantiations 128
+// registers (their launch bound: two 256-thread blocks an SM) with 8-24
+// bytes of spills, the sample kernel 40 registers; shared memory per level
+// 4-66 KB. What bounds it now (PERF.md): at level 2 the store kernel runs
+// at ~82% of a plain fill of the same bytes, and the sample launch adds
+// ~7.6 us; the coarse levels are one round of blocks behind a launch.
 // m and hole are 0 or 1, so x m hole is x (m hole) bit for bit: the stack
 // is bit-identical to the plain composition in bf16 and float32.
 //
@@ -191,6 +205,8 @@
 #include <cuda_bf16.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 #include "bilinear.cuh"   // Taps, blend: the sampling rule B2's warped entry shares
 
 namespace {
@@ -235,6 +251,10 @@ struct F32 {
   }
   __device__ __forceinline__ static void store2cs(void* p, int64_t i, float a, float b) {
     __stcs(reinterpret_cast<float2*>(reinterpret_cast<float*>(p) + i), make_float2(a, b));
+  }
+  // the bits of an element's value times 0
+  __device__ __forceinline__ static uint32_t times_zero(uint32_t b) {
+    return __float_as_uint(__fmul_rn(__uint_as_float(b), 0.f));
   }
 };
 
@@ -286,6 +306,9 @@ struct BF16 {
     const __nv_bfloat162 v = __floats2bfloat162_rn(a, b);   // a at the lower address
     __stcs(reinterpret_cast<unsigned int*>(reinterpret_cast<unsigned short*>(p) + i),
            *reinterpret_cast<const unsigned int*>(&v));
+  }
+  __device__ __forceinline__ static uint32_t times_zero(uint32_t b) {
+    return bits(__fmul_rn(__uint_as_float(b << 16), 0.f));
   }
 };
 
@@ -1001,235 +1024,19 @@ cudaError_t launch_pose_grad(const void* dvol, const void* tgt, const float* dep
 // DICL's displacement volume.
 
 constexpr int kDispThreads = 256;
-constexpr int kDispTileW = 64;         // a tile: 4 rows of 64 pixels at most
-constexpr int kDispTileH = 4;
-constexpr int kDispChunk = 8;          // channels a thread moves at a time
+constexpr int kDispBlocksPerSm = 2;    // the store kernel's launch bound
+constexpr int kDispMaxTileW = 1024;    // pixels a tile at most
+constexpr int kDispPad = 8;            // shared-row elements left of a tile (>= md)
+constexpr int kDispChunk = 8;          // channels a sampling task walks at once
 constexpr int kDispMaxMd = 4;
 constexpr int kDispMaxC = 64;
 constexpr int kDispSmemMax = 200 * 1024;
-constexpr int kDispCacheSize = 8;      // shared-memory sizes whose occupancy is kept
-
-// A work item's tile: kDispTileH x kDispTileW pixels, or the whole map where
-// it is smaller.
-__host__ inline void disp_tile(int h, int w, int* th, int* tw) {
-  *th = h < kDispTileH ? h : kDispTileH;
-  *tw = w < kDispTileW ? w : kDispTileW;
-}
-
-// The shared rows of a work item: C x th x (tw + 2 md + 1) sampled target
-// values in T (md columns beyond the tile on each side, and one spare that
-// the last pixel pair of an odd row reads and never stores), then one keep
-// flag a halo pixel, padded to 16 bytes.
-__host__ inline int disp_smem_bytes(int C, int md, int th, int tw, int elem_bytes) {
-  const int halo = th * (tw + 2 * md + 1);
-  return (C * halo * elem_bytes + halo + 15) / 16 * 16;
-}
-
-// x, y (B, C, h, w) NCHW in T; flow (B, 2, h, w) float32, or null for none;
-// out (B, S2, 2C, h, w), S = 2 md + 1, displacement s = (dv + md) S + du +
-// md. A work item is (b, dv, tile) of a tile of th x tw pixels: item =
-// ((b S + dv + md) tiles_y + ty) tiles_x + tx. Phase 1 samples the target
-// rows y0 + dv .. y0 + dv + th - 1, md columns beyond the tile on each
-// side, into shared memory (a thread a halo pixel and 8-channel chunk,
-// neighbouring threads on neighbouring pixels) and sets each halo pixel's
-// keep flag where it lies in the frame and some channel of its sample is
-// non-zero. Phase 2 stores the S displacements (dv, du) of the item: a
-// thread a (channel chunk, row, pixel pair), pairs fastest, so a warp's
-// stores of one channel row are one contiguous stretch; it holds its pair's
-// 8 x channels in registers across the S du. `pair_io`: w is even and x is
-// aligned for two-pixel loads, so every pair access is one load or store.
-// Three blocks an SM (<= 85 registers): the fastest of the mappings timed
-// at slice 1's five levels and the training step's level 2.
-template <typename T>
-__global__ void __launch_bounds__(kDispThreads, 3)
-displacement_volume_kernel(const void* __restrict__ x, const void* __restrict__ y,
-                           const float* __restrict__ flow, void* __restrict__ out, int C,
-                           int h, int w, int md, int th, int tw, int tiles_x, int tiles_y,
-                           int pair_io, int64_t items) {
-  extern __shared__ float4 disp_smem[];
-  using Bits = typename T::Bits;
-  const int S = 2 * md + 1;
-  const int halo_w = tw + 2 * md + 1;
-  const int halo = th * halo_w;
-  const int chunks = (C + kDispChunk - 1) / kDispChunk;
-  Bits* const ys = reinterpret_cast<Bits*>(disp_smem);            // [C][th][halo_w]
-  unsigned char* const keep = reinterpret_cast<unsigned char*>(ys + C * halo);
-  const int64_t hw = (int64_t)h * w;
-  const int64_t item_elems = 2 * C * hw;                          // one displacement's pair
-  const int hw32 = h * w;   // offsets inside one displacement's pair fit an int
-
-  for (int64_t item = blockIdx.x; item < items; item += gridDim.x) {
-    int64_t r = item;
-    const int tx = (int)(r % tiles_x); r /= tiles_x;
-    const int ty = (int)(r % tiles_y); r /= tiles_y;
-    const int dvi = (int)(r % S);
-    const int b = (int)(r / S);
-    const int dv = dvi - md;
-    const int x0 = tx * tw, y0 = ty * th;
-    const int rows = min(th, h - y0), cols = min(tw, w - x0);
-    const char* yb = reinterpret_cast<const char*>(y) + (int64_t)b * C * hw * sizeof(Bits);
-
-    __syncthreads();   // the previous item's reads of the shared rows are done
-    for (int i = threadIdx.x; i < halo; i += kDispThreads) keep[i] = 0;
-    __syncthreads();
-    // 1. the sampled rows: by B1's rule at q + flow(q), rounded to T before
-    //    anything reads them; without a flow, y at q
-    const int hcols = cols + 2 * md, hpix = rows * hcols;
-    for (int u = threadIdx.x; u < hpix * chunks; u += kDispThreads) {
-      const int i = u % hpix, c0 = (u / hpix) * kDispChunk;
-      const int hr = i / hcols, hc = i - hr * hcols;
-      const int qy = y0 + hr + dv, qx = x0 - md + hc;
-      Bits* const dst = ys + hr * halo_w + hc;
-      bool any = false;
-      if (qy >= 0 && qy < h && qx >= 0 && qx < w) {
-        const int q = qy * w + qx;
-        if (flow != nullptr) {
-          const float* f = flow + (int64_t)b * 2 * hw + q;
-          // the coordinate as grid + flow.float() rounds it
-          const Taps t(__fadd_rn((float)qx, __ldg(f)), __fadd_rn((float)qy, __ldg(f + hw)), h, w);
-          const int i00 = t.yi * w + t.xi, i01 = i00 + (t.xi1 - t.xi);
-          const int i10 = i00 + (t.yi1 - t.yi) * w, i11 = i10 + (t.xi1 - t.xi);
-#pragma unroll
-          for (int k = 0; k < kDispChunk; ++k) {
-            const int c = c0 + k;
-            if (c >= C) continue;
-            const int o = c * hw32;
-            const Bits v = T::from_float(blend(T::load1(yb, o + i00), T::load1(yb, o + i01),
-                                               T::load1(yb, o + i10), T::load1(yb, o + i11),
-                                               t.wx, t.ax, t.wy, t.ay, t.valid));
-            dst[c * halo] = v;
-            any |= T::to_float(v) != 0.f;
-          }
-        } else {
-#pragma unroll
-          for (int k = 0; k < kDispChunk; ++k) {
-            const int c = c0 + k;
-            if (c >= C) continue;
-            const Bits v = T::load_bits(yb, c * hw32 + q);
-            dst[c * halo] = v;
-            any |= T::to_float(v) != 0.f;
-          }
-        }
-      } else {
-#pragma unroll
-        for (int k = 0; k < kDispChunk; ++k)
-          if (c0 + k < C) dst[(c0 + k) * halo] = Bits(0);
-      }
-      if (any) keep[hr * halo_w + hc] = 1;   // benign: every writer writes 1
-    }
-    __syncthreads();
-
-    // 2. the pairs [x m hole | ys m hole] of the item's S displacements
-    const int pairs = (cols + 1) / 2;
-    const char* xb = reinterpret_cast<const char*>(x) + (int64_t)b * C * hw * sizeof(Bits);
-    char* const ob = reinterpret_cast<char*>(out)
-                     + ((int64_t)b * S + dvi) * S * item_elems * sizeof(Bits);
-    for (int u = threadIdx.x; u < chunks * rows * pairs; u += kDispThreads) {
-      const int pr = u % pairs, rr = (u / pairs) % rows, c0 = (u / (pairs * rows)) * kDispChunk;
-      const int px = x0 + 2 * pr, py = y0 + rr;
-      const bool two = px + 1 < w;
-      const bool vec = two && pair_io;
-      const int pix = py * w + px;
-      float xa[kDispChunk], xn[kDispChunk];   // channels c0.. of pixels px, px + 1
-#pragma unroll
-      for (int k = 0; k < kDispChunk; ++k) {
-        xa[k] = xn[k] = 0.f;
-        if (c0 + k >= C) continue;
-        const int o = (c0 + k) * hw32 + pix;
-        if (vec) {
-          T::load2(xb, o, xa[k], xn[k]);
-        } else {
-          xa[k] = T::load1(xb, o);
-          if (two) xn[k] = T::load1(xb, o + 1);
-        }
-      }
-      const unsigned char* krow = keep + rr * halo_w + 2 * pr;   // + du index
-      const Bits* yrow = ys + rr * halo_w + 2 * pr;               // + c rows + du index
-      for (int du = 0; du < S; ++du) {
-        // m hole of each pixel: 0 or 1, so x m hole = x (m hole) bit for bit
-        const float k0 = krow[du] ? 1.f : 0.f, k1 = krow[du + 1] ? 1.f : 0.f;
-        char* const o = ob + du * item_elems * sizeof(Bits);
-#pragma unroll
-        for (int k = 0; k < kDispChunk; ++k) {
-          const int c = c0 + k;
-          if (c >= C) continue;
-          const Bits* yc = yrow + c * halo;
-          const float ya = T::to_float(yc[du]), yn = T::to_float(yc[du + 1]);
-          const int ix = c * hw32 + pix, iy = (C + c) * hw32 + pix;
-          if (vec) {
-            T::store2cs(o, ix, __fmul_rn(xa[k], k0), __fmul_rn(xn[k], k1));
-            T::store2cs(o, iy, __fmul_rn(ya, k0), __fmul_rn(yn, k1));
-          } else {
-            T::store1cs(o, ix, __fmul_rn(xa[k], k0));
-            T::store1cs(o, iy, __fmul_rn(ya, k0));
-            if (two) {
-              T::store1cs(o, ix + 1, __fmul_rn(xn[k], k1));
-              T::store1cs(o, iy + 1, __fmul_rn(yn, k1));
-            }
-          }
-        }
-      }
-    }
-  }
-}
-
-template <typename T>
-cudaError_t launch_displacement(const void* x, const void* y, const float* flow, void* out,
-                                int B, int C, int h, int w, int md, int pair_io,
-                                cudaStream_t stream) {
-  if (md < 0 || md > kDispMaxMd || C < 1 || C > kDispMaxC) return cudaErrorInvalidValue;
-  int th = 0, tw = 0;
-  disp_tile(h, w, &th, &tw);
-  const int smem = disp_smem_bytes(C, md, th, tw, (int)sizeof(typename T::Bits));
-  if (smem > kDispSmemMax) return cudaErrorInvalidValue;
-  // the persistent grid: as many blocks as fit on the card at once, looked
-  // up once per device and shared-memory size (a pyramid has a few sizes)
-  static int cache_smem[kMaxDevices][kDispCacheSize], cache_blocks[kMaxDevices][kDispCacheSize];
-  static bool opted_in[kMaxDevices];
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return err;
-  if (dev >= kMaxDevices) return cudaErrorInvalidDevice;
-  if (!opted_in[dev]) {   // shared rows above 48 KB, once per device
-    err = cudaFuncSetAttribute(displacement_volume_kernel<T>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize, kDispSmemMax);
-    if (err != cudaSuccess) return err;
-    opted_in[dev] = true;
-  }
-  const int slot = (smem / 16) % kDispCacheSize;
-  if (cache_smem[dev][slot] != smem) {
-    int sms = 0, per_sm = 0;
-    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    if (err != cudaSuccess) return err;
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &per_sm, displacement_volume_kernel<T>, kDispThreads, smem);
-    if (err != cudaSuccess) return err;
-    cache_blocks[dev][slot] = sms * (per_sm > 0 ? per_sm : 1);
-    cache_smem[dev][slot] = smem;
-  }
-  const int tiles_x = (w + tw - 1) / tw, tiles_y = (h + th - 1) / th;
-  const int64_t items = (int64_t)B * (2 * md + 1) * tiles_y * tiles_x;
-  const int64_t grid = items < cache_blocks[dev][slot] ? items : cache_blocks[dev][slot];
-  displacement_volume_kernel<T><<<(unsigned)grid, kDispThreads, smem, stream>>>(
-      x, y, flow, out, C, h, w, md, th, tw, tiles_x, tiles_y, pair_io, items);
-  return cudaGetLastError();
-}
-
-
-// ---------------------------------------------------------------------------
-// The displacement volume's backward.
-
-constexpr int kDispBwdThreads = 256;
-constexpr int kDispBwdWarps = kDispBwdThreads / 32;   // a block's channels, a warp each
-constexpr int kDispBwdRows = 4;       // tile rows: a warp is 4 rows x 8 chunks of a channel
-constexpr int kDispBwdChunks = 8;     // 16-byte chunks (T::kVec pixels) along a tile row
-constexpr int kDispBwdWords = 4;      // 32-bit flag words a halo row (64 + 2 md <= 72 bits)
-constexpr int kCastThreads = 256;
 
 // y's sample at batch item b's pixel q = (qx, qy), channel by channel:
 // warped by B1's rule at q + (fx, fy) -- the flow there -- and rounded to T,
-// or y itself without a flow: the forward's own code, so each value is the
-// forward's bit for bit. The taps are computed once a pixel.
+// or y itself without a flow. The forward and the backward both read y
+// through it, so the backward's flags are the forward's bit for bit. The
+// taps are computed once a pixel.
 template <typename T>
 struct DispSampler {
   int i00, i01, i10, i11;
@@ -1248,15 +1055,495 @@ struct DispSampler {
     i11 = i10 + (t.xi1 - t.xi);
     wx = t.wx; ax = t.ax; wy = t.wy; ay = t.ay; valid = t.valid;
   }
+  __device__ __forceinline__ typename T::Bits bits(const char* yb, bool warped, int c,
+                                                   int hw32) const {
+    const int o = c * hw32;
+    if (!warped) return T::load_bits(yb, o + i00);
+    return T::from_float(blend(T::load1(yb, o + i00), T::load1(yb, o + i01),
+                               T::load1(yb, o + i10), T::load1(yb, o + i11),
+                               wx, ax, wy, ay, valid));
+  }
   __device__ __forceinline__ float operator()(const char* yb, bool warped, int c,
                                               int hw32) const {
-    const int o = c * hw32;
-    if (!warped) return T::to_float(T::load_bits(yb, o + i00));
-    return T::to_float(T::from_float(blend(T::load1(yb, o + i00), T::load1(yb, o + i01),
-                                           T::load1(yb, o + i10), T::load1(yb, o + i11),
-                                           wx, ax, wy, ay, valid)));
+    return T::to_float(bits(yb, warped, c, hw32));
+  }
+  // channels ca .. cb - 1 (at most kDispChunk), their loads issued
+  // together, each stored at dst[(c - ca) pitch]. True where one of them is
+  // non-zero (a NaN counts: NaN != 0).
+  __device__ __forceinline__ bool chunk(const char* yb, bool warped, int ca, int cb,
+                                        typename T::Bits* dst, int pitch, int hw32) const {
+    bool any = false;
+#pragma unroll
+    for (int k = 0; k < kDispChunk; ++k) {
+      if (ca + k < cb) {
+        const typename T::Bits v = bits(yb, warped, ca + k, hw32);
+        dst[k * pitch] = v;
+        any |= T::to_float(v) != 0.f;
+      }
+    }
+    return any;
   }
 };
+
+// One thread's store unit: VB bytes (16, 8, 4, or one bf16 element) of
+// consecutive pixels of one channel row, as 32-bit words (the low half of
+// v[0] for a bf16 element).
+template <int VB>
+struct Chunk {
+  static constexpr int kWords = VB >= 4 ? VB / 4 : 1;
+  uint32_t v[kWords];
+  __device__ __forceinline__ void load(const char* p) {
+    if constexpr (VB == 16) {
+      const uint4 r = __ldg(reinterpret_cast<const uint4*>(p));
+      v[0] = r.x; v[1] = r.y; v[2] = r.z; v[3] = r.w;
+    } else if constexpr (VB == 8) {
+      const uint2 r = __ldg(reinterpret_cast<const uint2*>(p));
+      v[0] = r.x; v[1] = r.y;
+    } else if constexpr (VB == 4) {
+      v[0] = __ldg(reinterpret_cast<const unsigned int*>(p));
+    } else {
+      v[0] = __ldg(reinterpret_cast<const unsigned short*>(p));
+    }
+  }
+  // a streaming store (st.global.cs): the stack is written once and read
+  // by the next kernel, so it should not evict the maps the samples read
+  __device__ __forceinline__ void store_cs(char* p) const {
+    if constexpr (VB == 16) {
+      __stcs(reinterpret_cast<uint4*>(p), make_uint4(v[0], v[1], v[2], v[3]));
+    } else if constexpr (VB == 8) {
+      __stcs(reinterpret_cast<uint2*>(p), make_uint2(v[0], v[1]));
+    } else if constexpr (VB == 4) {
+      __stcs(reinterpret_cast<unsigned int*>(p), v[0]);
+    } else {
+      __stcs(reinterpret_cast<unsigned short*>(p), (unsigned short)v[0]);
+    }
+  }
+};
+
+// The VB bytes of a shared row from element e on (e of any alignment): the
+// aligned words that hold them, funnel-shifted; bits beyond them are
+// dropped.
+template <typename T, int VB>
+__device__ __forceinline__ Chunk<VB> row_window(const unsigned char* row, int e) {
+  constexpr int kBytes = sizeof(typename T::Bits);
+  Chunk<VB> out;
+  if constexpr (VB == kBytes && kBytes == 2) {
+    out.v[0] = reinterpret_cast<const unsigned short*>(row)[e];
+  } else {
+    const int byte = e * kBytes, sh = (byte & 3) * 8;
+    const uint32_t* wp = reinterpret_cast<const uint32_t*>(row) + (byte >> 2);
+    if (sh == 0) {
+#pragma unroll
+      for (int i = 0; i < Chunk<VB>::kWords; ++i) out.v[i] = wp[i];
+    } else {
+#pragma unroll
+      for (int i = 0; i < Chunk<VB>::kWords; ++i) out.v[i] = __funnelshift_r(wp[i], wp[i + 1], sh);
+    }
+  }
+  return out;
+}
+
+// x m hole of a chunk where some pixel's flag is 0: that element times 0
+// (-0 for a negative x, NaN for a NaN or infinite one, as the plain
+// version's product gives); elements whose flag is 1 keep their bits.
+template <typename T, int VB>
+__device__ __forceinline__ Chunk<VB> times_keep(Chunk<VB> c, uint32_t keep) {
+  constexpr int kBytes = sizeof(typename T::Bits), V = VB / kBytes;
+#pragma unroll
+  for (int e = 0; e < V; ++e) {
+    if ((keep >> e) & 1u) continue;
+    if constexpr (kBytes == 4) {
+      c.v[e] = T::times_zero(c.v[e]);
+    } else {
+      const int wi = e >> 1, sh = (e & 1) * 16;
+      const uint32_t old = (c.v[wi] >> sh) & 0xffffu;
+      c.v[wi] = (c.v[wi] & ~(0xffffu << sh)) | (T::times_zero(old) << sh);
+    }
+  }
+  return c;
+}
+
+// cp.async of VB bytes (4, 8 or 16) from global to shared memory; where
+// `bytes` is 0 nothing is read and the VB bytes become zeros.
+template <int VB>
+__device__ __forceinline__ void copy_async(void* smem, const void* gmem, int bytes) {
+  const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  if constexpr (VB == 16) {
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(gmem),
+                 "r"(bytes));
+  } else {
+    asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;\n" ::"r"(dst), "l"(gmem),
+                 "n"(VB), "r"(bytes));
+  }
+}
+
+__device__ __forceinline__ void copy_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+__device__ __forceinline__ void copy_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+// Shared memory of the store kernel: two buffers of C x band_h rows of
+// `pitch` elements (a tile and kDispPad elements each side, rounded up to
+// 32 elements so each row's keep flags are whole words), then two buffers
+// of band_h rows of `kwords` keep-flag words (pitch / 32 and a spare one,
+// which a thread's funnel shift may read and drops).
+struct DispSmem {
+  int pitch, kwords, rows_bytes;
+  __host__ __device__ DispSmem(int C, int band_h, int tile_w, int elem_bytes) {
+    pitch = (tile_w + 2 * kDispPad + 31) / 32 * 32;
+    kwords = pitch / 32 + 1;
+    rows_bytes = C * band_h * pitch * elem_bytes;
+  }
+  __host__ __device__ int bytes(int band_h) const {
+    return 2 * rows_bytes + 2 * band_h * kwords * 4;
+  }
+};
+
+// ys into the centre displacement's y half: out[b, s0, C + c, q] = y's
+// sample at q + flow(q) by B1's rule, rounded to T, s0 = md S + md (d = 0).
+// That plane of the stack is ys itself (see displacement_volume_kernel), so
+// the sample is stored once, where it belongs, and the store kernel reads it
+// back from L2. A thread a pixel and 8 channels, pixels fastest (each
+// channel's stores coalesce), 32 loads in flight.
+template <typename T>
+__global__ void __launch_bounds__(kDispThreads)
+displacement_volume_sample(const void* __restrict__ y, const float* __restrict__ flow,
+                           void* __restrict__ out, int B, int C, int h, int w, int md) {
+  using Bits = typename T::Bits;
+  const int S = 2 * md + 1, s0 = md * S + md;
+  const int64_t hw = (int64_t)h * w;
+  const int hw32 = h * w;
+  const int chunks = (C + kDispChunk - 1) / kDispChunk;
+  const int64_t total = (int64_t)B * chunks * hw;
+  for (int64_t t = (int64_t)blockIdx.x * kDispThreads + threadIdx.x; t < total;
+       t += (int64_t)gridDim.x * kDispThreads) {
+    const int q = (int)(t % hw);
+    const int64_t rest = t / hw;
+    const int ca = (int)(rest % chunks) * kDispChunk, b = (int)(rest / chunks);
+    const int qx = q % w, qy = q / w;
+    const float* f = flow + (int64_t)b * 2 * hw + q;
+    const DispSampler<T> smp(qx, qy, __ldg(f), __ldg(f + hw), h, w);
+    const char* yb = reinterpret_cast<const char*>(y) + (int64_t)b * C * hw * sizeof(Bits);
+    Bits* const dst = reinterpret_cast<Bits*>(out) + ((int64_t)b * S * S + s0) * 2 * C * hw +
+                      (int64_t)C * hw + q;
+    smp.chunk(yb, true, ca, min(C, ca + kDispChunk), dst + (int64_t)ca * hw, hw32, hw32);
+  }
+}
+
+// The stack from ys: x, ys (B, C, h, w) NCHW in T (ys: y itself without a
+// flow, with one the centre displacement's y half that
+// displacement_volume_sample wrote, at batch stride ys_bstride elements);
+// out (B, S2, 2C, h, w), S = 2 md + 1, displacement s = (dv + md) S + du +
+// md. The pair at (s, p) is [x(p) K(q) | ys(q)], q = p + (du, dv), ys(q) 0
+// off the frame, K(q) 1 where q is in the frame and some channel of ys(q)
+// is non-zero: x m hole and ys m hole of the plain version, bit for bit
+// (ys m hole is ys itself in the frame: where hole is 0 every channel is
+// +-0, and +-0 x 0 keeps its sign).
+// An item (ops/cuda/sweep_warp.py::DisplacementPlan) is (b, dv, a band of
+// band_h rows, a tile of tile_w pixels); item = ((b S + dv + md) bands +
+// ty) tiles_x + tx. Its block
+//   1. stages the ys rows py + dv of its band, every channel, the tile and
+//      kDispPad elements each side, into shared memory by cp.async (zeros
+//      off the frame), the next item's while it stores this one; or, with
+//      `flow` (a plan that fuses the sampling: one item a block at the
+//      coarse levels, where a second launch costs more than sampling a row
+//      again for each dv), samples them itself from y;
+//   2. computes the keep flags of those rows from shared memory: 8 lanes a
+//      32-pixel word, each OR-ing the magnitude bits of C / 8 channels,
+//      then OR-ed across the lanes by shuffles;
+//   3. stores, for each channel and du, the band of both halves: a thread
+//      a VB-byte chunk of a row and a channel at a time (units spread
+//      evenly over the threads), neighbouring threads on neighbouring
+//      chunks, so with whole-width tiles a warp writes 32 consecutive
+//      chunks and a plane's band is one contiguous run; its x chunk loaded
+//      once a unit (the next unit's ahead), its ys chunk of a du read from
+//      shared memory at offset du (with 16-byte stores the three aligned
+//      chunks around it once a unit and the windows shifted in registers,
+//      du unrolled; else the funnel-shifted words of each window),
+//      K by one funnel shift a thread and a shift a du; where K is 1 for
+//      every pixel of the chunk the x chunk is stored as it is. With a
+//      flow the centre's y half is already in place and not stored again.
+template <typename T, int VB>
+__global__ void __launch_bounds__(kDispThreads, kDispBlocksPerSm)
+displacement_volume_kernel(const void* __restrict__ x, const void* __restrict__ ys,
+                           int64_t ys_bstride, const float* __restrict__ flow,
+                           void* __restrict__ out, int C, int h, int w, int md, int tile_w,
+                           int tiles_x, int band_h, int bands, int skip_centre,
+                           int64_t items) {
+  using Bits = typename T::Bits;
+  constexpr int kBytes = sizeof(Bits), V = VB / kBytes;
+  constexpr uint32_t kFull = (1u << V) - 1u;
+  extern __shared__ float4 disp_smem[];
+  const int S = 2 * md + 1, s0 = md * S + md;
+  const DispSmem lay(C, band_h, tile_w, kBytes);
+  unsigned char* const rows_smem = reinterpret_cast<unsigned char*>(disp_smem);
+  uint32_t* const flags = reinterpret_cast<uint32_t*>(rows_smem + 2 * lay.rows_bytes);
+  const int64_t hw = (int64_t)h * w;
+  const int tc = tile_w / V, positions = band_h * tc;     // store phase: (row, chunk)
+  const int units = positions * C;                        // ... and channel
+  const int staged_chunks = (tile_w + 2 * kDispPad) / V;   // chunks a staged row
+
+  // the item's rows into buffer `buf`: chunk m of row i of channel c is
+  // pixels x0 - kDispPad + m V .. of ys row y0 + i + dv
+  auto stage = [&](int64_t item, int buf) {
+    int64_t rem = item;
+    const int tx = (int)(rem % tiles_x); rem /= tiles_x;
+    const int ty = (int)(rem % bands); rem /= bands;
+    const int dv = (int)(rem % S) - md, b = (int)(rem / S);
+    const int x0 = tx * tile_w, y0 = ty * band_h;
+    const char* src = reinterpret_cast<const char*>(ys) + b * ys_bstride * kBytes;
+    unsigned char* const dst = rows_smem + buf * lay.rows_bytes;
+    if (flow != nullptr) {   // sampled here: a task a pixel and 8 channels
+      const int staged = tile_w + 2 * kDispPad, chunks = (C + kDispChunk - 1) / kDispChunk;
+      const float* fb = flow + (int64_t)b * 2 * hw;
+      for (int u = threadIdx.x; u < chunks * band_h * staged; u += kDispThreads) {
+        const int ca = (u / (band_h * staged)) * kDispChunk, rest = u % (band_h * staged);
+        const int i = rest / staged, m = rest - i * staged;
+        const int r = y0 + i + dv, col = x0 - kDispPad + m;
+        Bits* const d = reinterpret_cast<Bits*>(dst) + (ca * band_h + i) * lay.pitch + m;
+        if (r >= 0 && r < h && col >= 0 && col < w) {
+          const int q = r * w + col;
+          const DispSampler<T> smp(col, r, __ldg(fb + q), __ldg(fb + hw + q), h, w);
+          smp.chunk(src, true, ca, min(C, ca + kDispChunk), d, band_h * lay.pitch, (int)hw);
+        } else {
+          for (int c = ca; c < min(C, ca + kDispChunk); ++c)
+            d[(c - ca) * band_h * lay.pitch] = Bits(0);
+        }
+      }
+      return;
+    }
+    const int per_channel = band_h * staged_chunks;
+    for (int u = threadIdx.x; u < C * per_channel; u += kDispThreads) {
+      const int c = u / per_channel, rest = u - c * per_channel;
+      const int i = rest / staged_chunks, m = rest - i * staged_chunks;
+      const int r = y0 + i + dv, col = x0 - kDispPad + m * V;
+      const bool in = r >= 0 && r < h && col >= 0 && col < w;
+      unsigned char* const d = dst + ((c * band_h + i) * lay.pitch + m * V) * kBytes;
+      const char* s = src + (in ? (c * hw + (int64_t)r * w + col) * kBytes : 0);
+      if constexpr (VB >= 4) {
+        copy_async<VB>(d, s, in ? VB : 0);
+      } else {
+        *reinterpret_cast<Bits*>(d) = in ? *reinterpret_cast<const Bits*>(s) : Bits(0);
+      }
+    }
+    copy_async_commit();
+  };
+
+  int64_t item = blockIdx.x;
+  if (item < items) stage(item, 0);
+  for (int k = 0; item < items; item += gridDim.x, ++k) {
+    const int buf = k & 1;
+    copy_async_wait_all();
+    __syncthreads();   // this item's rows are in; every thread is past the last item's stores
+    if (item + gridDim.x < items) stage(item + gridDim.x, buf ^ 1);
+
+    int64_t rem = item;
+    const int tx = (int)(rem % tiles_x); rem /= tiles_x;
+    const int ty = (int)(rem % bands); rem /= bands;
+    const int dvi = (int)(rem % S), b = (int)(rem / S);
+    const int x0 = tx * tile_w, y0 = ty * band_h, tw = min(tile_w, w - x0);
+    const unsigned char* const rows = rows_smem + buf * lay.rows_bytes;
+    uint32_t* const keep = flags + buf * band_h * lay.kwords;
+
+    // 2. the keep flags: word wd of row i is staged elements 32 wd .. + 31
+    const int words = lay.kwords - 1;
+    for (int u = threadIdx.x; u < band_h * words * 8; u += kDispThreads) {
+      const int lane8 = u & 7, wi = u >> 3;
+      const int i = wi / words, wd = wi - i * words;
+      constexpr int kWords = 32 * kBytes / 4;   // 32-bit words of 32 elements
+      uint32_t acc[kWords];
+#pragma unroll
+      for (int m = 0; m < kWords; ++m) acc[m] = 0;
+      for (int c = lane8; c < C; c += 8) {
+        const uint4* p = reinterpret_cast<const uint4*>(
+            rows + ((c * band_h + i) * lay.pitch + 32 * wd) * kBytes);
+#pragma unroll
+        for (int m = 0; m < kWords / 4; ++m) {
+          const uint4 v = p[m];
+          acc[4 * m] |= v.x; acc[4 * m + 1] |= v.y; acc[4 * m + 2] |= v.z; acc[4 * m + 3] |= v.w;
+        }
+      }
+      uint32_t bits = 0;
+#pragma unroll
+      for (int e = 0; e < 32; ++e) {
+        if constexpr (kBytes == 2) {
+          bits |= ((acc[e >> 1] >> (16 * (e & 1))) & 0x7fffu ? 1u : 0u) << e;
+        } else {
+          bits |= (acc[e] & 0x7fffffffu ? 1u : 0u) << e;
+        }
+      }
+      // the 8 lanes of a word: lanes 8k .. 8k + 7 of a warp, all in the
+      // loop or all out of it (the bound is a multiple of 8)
+      const unsigned group = 0xffu << (threadIdx.x & 24);
+      bits |= __shfl_xor_sync(group, bits, 1);
+      bits |= __shfl_xor_sync(group, bits, 2);
+      bits |= __shfl_xor_sync(group, bits, 4);
+      if (lane8 == 0) keep[i * lay.kwords + wd] = bits;
+    }
+    __syncthreads();
+
+    // 3. both halves of every channel, every du: unit u = c positions +
+    //    (row, chunk), units t, t + kDispThreads, ... a thread, so every
+    //    thread has the same number of units, give or take one
+    const char* xb = reinterpret_cast<const char*>(x) + (int64_t)b * C * hw * kBytes;
+    char* const ob = reinterpret_cast<char*>(out) + ((int64_t)b * S + dvi) * S * 2 * C * hw * kBytes;
+    Chunk<VB> xv, xn;
+    int u = threadIdx.x;
+    const auto x_of = [&](int unit, Chunk<VB>& into) {
+      const int c = unit / positions, pos = unit - c * positions;
+      const int py = y0 + pos / tc, px = x0 + (pos % tc) * V;
+      if (py < h && px < x0 + tw) into.load(xb + (c * hw + (int64_t)py * w + px) * kBytes);
+    };
+    if (u < units) x_of(u, xv);
+    for (; u < units; u += kDispThreads) {
+      if (u + kDispThreads < units) x_of(u + kDispThreads, xn);
+      const int c = u / positions, pos = u - c * positions, pi = pos / tc, pj = pos % tc;
+      const int py = y0 + pi, px = x0 + pj * V;
+      if (py < h && pj * V < tw) {
+        const int bit = kDispPad - md + pj * V;   // pixel px - md
+        const uint32_t* krow = keep + pi * lay.kwords;
+        const uint32_t kw = __funnelshift_r(krow[bit >> 5], krow[(bit >> 5) + 1], bit & 31);
+        const unsigned char* yrow = rows + (c * band_h + pi) * lay.pitch * kBytes;
+        char* const op = ob + ((int64_t)c * hw + (int64_t)py * w + px) * kBytes;
+        const int64_t plane = (int64_t)2 * C * hw * kBytes, half = (int64_t)C * hw * kBytes;
+        if constexpr (VB == 16) {
+          // the three aligned chunks around the unit's, once (16-byte
+          // loads, consecutive lanes on consecutive chunks: no bank
+          // conflict); the window of du starts at element V + du of them
+          uint32_t r[12];
+          const uint4* cp =
+              reinterpret_cast<const uint4*>(yrow) + pj + kDispPad / V - 1;
+#pragma unroll
+          for (int k = 0; k < 3; ++k) {
+            const uint4 v = cp[k];
+            r[4 * k] = v.x; r[4 * k + 1] = v.y; r[4 * k + 2] = v.z; r[4 * k + 3] = v.w;
+          }
+#pragma unroll
+          for (int du = -kDispMaxMd; du <= kDispMaxMd; ++du) {
+            if (du < -md || du > md) continue;
+            const uint32_t kdu = (kw >> (du + md)) & kFull;
+            const int s = du + md;   // within the item's displacement row
+            char* const o = op + s * plane;
+            (kdu == kFull ? xv : times_keep<T, VB>(xv, kdu)).store_cs(o);
+            if (skip_centre && dvi * S + s == s0) continue;
+            Chunk<16> yv;
+            if constexpr (kBytes == 4) {
+#pragma unroll
+              for (int k = 0; k < 4; ++k) yv.v[k] = r[V + du + k];
+            } else {   // element e of r is half (e & 1) of word e >> 1
+#pragma unroll
+              for (int k = 0; k < 4; ++k) {
+                const int e = V + du + 2 * k;
+                yv.v[k] = (e & 1) ? __funnelshift_r(r[e >> 1], r[(e >> 1) + 1], 16) : r[e >> 1];
+              }
+            }
+            yv.store_cs(o + half);
+          }
+        } else {
+          for (int du = -md; du <= md; ++du) {
+            const uint32_t kdu = (kw >> (du + md)) & kFull;
+            const int s = du + md;   // within the item's displacement row
+            char* const o = op + s * plane;
+            (kdu == kFull ? xv : times_keep<T, VB>(xv, kdu)).store_cs(o);
+            if (!(skip_centre && dvi * S + s == s0))
+              row_window<T, VB>(yrow, kDispPad + pj * V + du).store_cs(o + half);
+          }
+        }
+      }
+      xv = xn;
+    }
+  }
+}
+
+template <typename T, int VB>
+cudaError_t launch_displacement_vb(const void* x, const void* ys, int64_t ys_bstride,
+                                   const float* flow, void* out, int B, int C, int h, int w,
+                                   int md, int tile_w, int band_h, int skip_centre, int grid,
+                                   cudaStream_t stream) {
+  const int S = 2 * md + 1;
+  const int tiles_x = (w + tile_w - 1) / tile_w, bands = (h + band_h - 1) / band_h;
+  const int64_t items = (int64_t)B * S * bands * tiles_x;
+  const int smem = DispSmem(C, band_h, tile_w, (int)sizeof(typename T::Bits)).bytes(band_h);
+  if (smem > kDispSmemMax) return cudaErrorInvalidValue;
+  static bool opted_in[kMaxDevices];
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev >= kMaxDevices) return cudaErrorInvalidDevice;
+  if (!opted_in[dev]) {   // shared rows above 48 KB, once per device
+    err = cudaFuncSetAttribute(displacement_volume_kernel<T, VB>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, kDispSmemMax);
+    if (err != cudaSuccess) return err;
+    opted_in[dev] = true;
+  }
+  displacement_volume_kernel<T, VB><<<(unsigned)grid, kDispThreads, smem, stream>>>(
+      x, ys, ys_bstride, flow, out, C, h, w, md, tile_w, tiles_x, band_h, bands, skip_centre,
+      items);
+  return cudaGetLastError();
+}
+
+// One level: with a flow, displacement_volume_sample writes ys into the
+// centre displacement's y half, and the store kernel reads it from there,
+// or, where the plan fuses the sampling, the store kernel samples y itself;
+// without a flow it reads y. The plan (ops/cuda/sweep_warp.py::
+// displacement_plan) is checked here too: vec_bytes one of 16, 8, 4 or the
+// element, dividing w's bytes and both addresses; tile_w a multiple of the
+// pixels it moves, at most kDispMaxTileW; the shared memory within
+// kDispSmemMax.
+template <typename T>
+cudaError_t launch_displacement(const void* x, const void* y, const float* flow, void* out,
+                                int B, int C, int h, int w, int md, int vec_bytes, int tile_w,
+                                int band_h, int fused, int grid, cudaStream_t stream) {
+  constexpr int kBytes = sizeof(typename T::Bits);
+  if (md < 0 || md > kDispMaxMd || C < 1 || C > kDispMaxC || B < 1 || h < 1 || w < 1)
+    return cudaErrorInvalidValue;
+  if ((vec_bytes != 16 && vec_bytes != 8 && vec_bytes != 4 && vec_bytes != kBytes) ||
+      (w * kBytes) % vec_bytes != 0 || reinterpret_cast<uintptr_t>(x) % vec_bytes != 0 ||
+      reinterpret_cast<uintptr_t>(y) % vec_bytes != 0 ||
+      reinterpret_cast<uintptr_t>(out) % vec_bytes != 0)
+    return cudaErrorInvalidValue;
+  const int V = vec_bytes / kBytes;
+  if (tile_w < V || tile_w % V != 0 || tile_w > kDispMaxTileW || band_h < 1 || grid < 1)
+    return cudaErrorInvalidValue;
+  const int S = 2 * md + 1;
+  const int64_t hw = (int64_t)h * w;
+  const void* ys = y;
+  int64_t ys_bstride = (int64_t)C * hw;
+  if (flow != nullptr && !fused) {
+    const int64_t total = (int64_t)B * ((C + kDispChunk - 1) / kDispChunk) * hw;
+    const int64_t blocks = (total + kDispThreads - 1) / kDispThreads;
+    displacement_volume_sample<T><<<(unsigned)(blocks < 65535 ? blocks : 65535), kDispThreads,
+                                    0, stream>>>(y, flow, out, B, C, h, w, md);
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+    ys = reinterpret_cast<const char*>(out) + ((int64_t)(md * S + md) * 2 * C + C) * hw * kBytes;
+    ys_bstride = (int64_t)S * S * 2 * C * hw;
+  }
+  const auto go = [&](auto vb) {
+    return launch_displacement_vb<T, decltype(vb)::value>(
+        x, ys, ys_bstride, fused ? flow : nullptr, out, B, C, h, w, md, tile_w, band_h,
+        flow != nullptr && !fused, grid, stream);
+  };
+  if (vec_bytes == 16) return go(std::integral_constant<int, 16>{});
+  if (vec_bytes == 8) return go(std::integral_constant<int, 8>{});
+  if (vec_bytes == 4) return go(std::integral_constant<int, 4>{});
+  if constexpr (kBytes == 2) return go(std::integral_constant<int, 2>{});
+  return cudaErrorInvalidValue;
+}
+
+
+// ---------------------------------------------------------------------------
+// The displacement volume's backward.
+
+constexpr int kDispBwdThreads = 256;
+constexpr int kDispBwdWarps = kDispBwdThreads / 32;   // a block's channels, a warp each
+constexpr int kDispBwdRows = 4;       // tile rows: a warp is 4 rows x 8 chunks of a channel
+constexpr int kDispBwdChunks = 8;     // 16-byte chunks (T::kVec pixels) along a tile row
+constexpr int kDispBwdWords = 4;      // 32-bit flag words a halo row (64 + 2 md <= 72 bits)
+constexpr int kCastThreads = 256;
 
 // 32 flags of a halo row from bit `bit` on (the row's words are padded by one)
 __device__ __forceinline__ uint32_t flag_window(const uint32_t* row, int bit) {
@@ -1730,18 +2017,22 @@ extern "C" int dsfm_plane_sweep_volume_pose_grad(const void* dvol, const void* t
 // DICL's displacement volume: out (B, S2, 2C, h, w), S = 2 md + 1, of x and
 // y (B, C, h, w) of `dtype` (0 = float32, 1 = bfloat16), NCHW, warped by
 // flow (B, 2, h, w) float32 on the device, or not warped where flow is
-// null. The wrapper checks 0 <= md <= 4, 1 <= C <= 64, B, h, w >= 1,
-// h w < 2^24 (offsets inside one displacement's pair fit an int), and
-// sets `pair_io` only where w is even and x is aligned to two elements.
+// null, under the work mapping vec_bytes, tile_w, band_h, fused, grid
+// (ops/cuda/sweep_warp.py::displacement_plan; launch_displacement says what
+// it refuses). The wrapper checks 0 <= md <= 4, 1 <= C <= 64, B, h, w >= 1
+// and h w < 2^24 (offsets inside one channel fit an int).
 extern "C" int dsfm_displacement_volume(const void* x, const void* y, const void* flow,
                                         void* out, int B, int C, int h, int w, int md,
-                                        int dtype, int pair_io, void* stream) {
+                                        int dtype, int vec_bytes, int tile_w, int band_h,
+                                        int fused, int grid, void* stream) {
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
   const float* fp = reinterpret_cast<const float*>(flow);
   if (dtype == 0)
-    return launch_displacement<F32>(x, y, fp, out, B, C, h, w, md, pair_io, s);
+    return launch_displacement<F32>(x, y, fp, out, B, C, h, w, md, vec_bytes, tile_w, band_h,
+                                     fused, grid, s);
   if (dtype == 1)
-    return launch_displacement<BF16>(x, y, fp, out, B, C, h, w, md, pair_io, s);
+    return launch_displacement<BF16>(x, y, fp, out, B, C, h, w, md, vec_bytes, tile_w,
+                                      band_h, fused, grid, s);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -43,7 +43,8 @@ int dsfm_plane_sweep_volume_pose_grad(const void* dvol, const void* tgt, const v
                                       void* dKt, int B, int D, int H, int W, int C, int dtype,
                                       void* stream);
 int dsfm_displacement_volume(const void* x, const void* y, const void* flow, void* out, int B,
-                             int C, int h, int w, int md, int dtype, int pair_io, void* stream);
+                             int C, int h, int w, int md, int dtype, int vec_bytes, int tile_w,
+                             int band_h, int fused, int grid, void* stream);
 int dsfm_displacement_volume_backward(const void* dout, const void* y, const void* flow,
                                       void* dx, void* dy, void* acc, int B, int C, int h, int w,
                                       int md, int dtype, void* stream);
@@ -275,20 +276,27 @@ int check_displacement(const char* what, const at::Tensor& x, const at::Tensor& 
 }
 
 // DICL's displacement volume: x, y (B, C, h, w) f32/bf16 NCHW, flow
-// (B, 2, h, w) f32 or None, md -> (B, (2md+1)^2, 2C, h, w) in x's dtype.
+// (B, 2, h, w) f32 or None, md, and the work mapping of
+// ops/cuda/sweep_warp.py::displacement_plan (vec_bytes, tile_w, band_h,
+// fused, grid; the launcher refuses one the kernel cannot run) ->
+// (B, (2md+1)^2, 2C, h, w) in x's dtype.
 at::Tensor displacement_volume(const at::Tensor& x, const at::Tensor& y,
-                               const std::optional<at::Tensor>& flow, int64_t md) {
+                               const std::optional<at::Tensor>& flow, int64_t md,
+                               int64_t vec_bytes, int64_t tile_w, int64_t band_h,
+                               int64_t fused, int64_t grid) {
   const int code = check_displacement("displacement volume", x, y, flow, md);
   const int64_t B = x.size(0), C = x.size(1), h = x.size(2), w = x.size(3);
   const int64_t S = 2 * md + 1;
+  TORCH_CHECK_VALUE(vec_bytes > 0 && tile_w > 0 && band_h > 0 && grid > 0 &&
+                        grid < (1 << 30) && tile_w < (1 << 20),
+                    "displacement volume plan ", vec_bytes, ", ", tile_w, ", ", band_h, ", ",
+                    grid);
   c10::OptionalDeviceGuard guard(x.device());
   at::Tensor out = at::empty({B, S * S, 2 * C, h, w}, x.options());
-  const int pair_io =
-      w % 2 == 0 && reinterpret_cast<uintptr_t>(x.data_ptr()) % (2 * x.element_size()) == 0;
   check_launch(dsfm_displacement_volume(x.data_ptr(), y.data_ptr(),
                                         flow.has_value() ? flow->data_ptr() : nullptr,
-                                        out.data_ptr(), B, C, h, w, md, code, pair_io,
-                                        current_stream(x.device())),
+                                        out.data_ptr(), B, C, h, w, md, code, vec_bytes, tile_w,
+                                        band_h, fused, grid, current_stream(x.device())),
                "displacement volume kernel");
   return out;
 }
@@ -339,7 +347,8 @@ TORCH_LIBRARY(dsfm, m) {
         "int tile_h, int tile_w, int planes, int smem_bytes) -> (Tensor, Tensor, Tensor)");
   m.def("plane_sweep_volume_pose_grad(Tensor dvol, Tensor tgt, Tensor depths, Tensor M, "
         "Tensor Kt) -> (Tensor, Tensor)");
-  m.def("displacement_volume(Tensor x, Tensor y, Tensor? flow, int md) -> Tensor");
+  m.def("displacement_volume(Tensor x, Tensor y, Tensor? flow, int md, int vec_bytes, "
+        "int tile_w, int band_h, int fused, int grid) -> Tensor");
   m.def("displacement_volume_backward(Tensor dout, Tensor y, Tensor? flow, int md) -> "
         "(Tensor, Tensor)");
 }

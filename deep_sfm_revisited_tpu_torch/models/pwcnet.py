@@ -1,4 +1,4 @@
-"""PWC-DC optical flow (port of `models/pwcnet.py`), eval forward.
+"""PWC-DC optical flow (port of `models/pwcnet.py`), forward without gradient.
 
 A shared 6-level pyramid encoder (16/32/64/96/128/196 channels, stride 2
 per level, leaky ReLU 0.1) -> per level 6..2: the md=4 windowed correlation
@@ -17,8 +17,14 @@ network departs from upstream the port follows JAX: the leaky ReLU is
 applied to the correlation at level 6 only (`pwcnet.py:133`).
 
 Layouts: `PWCDCNet.forward` takes (B, H, W, 6) NHWC, H and W multiples of
-64, and returns (flow (B, H, W, 2) float32, None), like the port's DICL;
-inside, features are NCHW.
+64, and returns (flow (B, H, W, 2) float32, None), like the port's DICL, or
+with `all_iters` JAX's (5, B, H, W, 2) stack of every level's flow; inside,
+features are NCHW.
+
+Train mode: PWC-DC has no BN and no dropout, so train and eval compute the
+same thing. The frozen-flow training step (`train.fix_flownet`) runs it in
+train mode under no gradient; where a gradient would reach it (training
+PWC-DC, ROADMAP A.5) it raises.
 """
 
 from __future__ import annotations
@@ -71,7 +77,7 @@ def _warped_correlate(f1: torch.Tensor, f2: torch.Tensor, up_flow: torch.Tensor,
 
 
 class PWCDCNet(nn.Module):
-    """PWC-DC flow network (eval). Returns (flow, None)."""
+    """PWC-DC flow network, without gradient. Returns (flow, None)."""
 
     def __init__(self, cfg: FlowConfig, md: int = 4, div_flow: float = 20.0):
         super().__init__()
@@ -113,13 +119,20 @@ class PWCDCNet(nn.Module):
             x = torch.cat([getattr(self, f"conv{lvl}_{k}")(x), x], dim=1)
         return x, getattr(self, f"predict_flow{lvl}")(x)
 
-    def forward(self, pair: torch.Tensor):
-        if self.training:
-            raise NotImplementedError("PWC-DC train mode is not ported")
+    def forward(self, pair: torch.Tensor, all_iters: bool = False):
+        """(B, H, W, 6) -> (flow (B, H, W, 2) float32, None); with `all_iters`
+        (JAX's `train=True, all_iters=True`) the (5, B, H, W, 2) float32 stack
+        of levels 6..2's flows, each times `div_flow` then resized to (H, W)
+        (JAX `pwcnet.py:151-161`), the refined level-2 flow last. That order
+        rounds the last entry apart from the eval flow `div_flow resize(flow)`,
+        as in JAX."""
+        if self.training and torch.is_grad_enabled():
+            raise NotImplementedError("training PWC-DC is not ported")
         B, H, W, _ = pair.shape
         x = pair.permute(0, 3, 1, 2)
         both = self.encode(torch.cat([x[:, :3], x[:, 3:]], dim=0))
         up_flow = up_feat = None
+        flows = []
         for lvl in (6, 5, 4, 3, 2):
             f1, f2 = both[lvl - 1][:B], both[lvl - 1][B:]
             if up_flow is None:
@@ -128,12 +141,16 @@ class PWCDCNet(nn.Module):
                 corr = _warped_correlate(f1, f2, up_flow, _WARP_SCALE[lvl], self.md)
                 inp = torch.cat([corr, f1, up_flow, up_feat], dim=1)
             feat, flow = self.decode(inp, lvl)
+            flows.append(flow)
             if lvl > 2:
                 up_flow = getattr(self, f"deconv{lvl}")(flow)
                 up_feat = getattr(self, f"upfeat{lvl}")(feat)
         h = feat
         for k in range(1, 7):
             h = getattr(self, f"dc_conv{k}")(h)
-        flow = flow + self.dc_conv7(h)
+        flow = flows[-1] = flow + self.dc_conv7(h)
+        if all_iters:
+            stack = [_resize_nchw(f.float() * self.div_flow, (H, W)) for f in flows]
+            return torch.stack(stack).permute(0, 1, 3, 4, 2), None
         full = self.div_flow * _resize_nchw(flow.float(), (H, W))
         return full.permute(0, 2, 3, 1), None

@@ -17,7 +17,9 @@ and adds one to its own launch count:
   (B, S2, 2C, h, w) displacement stack of x and y warped by the level's
   flow, in one pass. Plain version `models/dicl.py::
   displacement_volume_plain` (`shifted_pairs` of `warp_flow`);
-  `models/dicl.py::displacement_volume` sends CUDA tensors here.
+  `models/dicl.py::displacement_volume` sends CUDA tensors here. Its work
+  mapping (store width, tiles, bands, the persistent grid)
+  is `displacement_plan`.
 - `displacement_volume_backward_cuda` (`DISPLACEMENT_BACKWARD.launches`):
   that stack's gradient with respect to x and y (DICL detaches the flow).
   Plain version `models/dicl.py::displacement_volume_backward_plain`;
@@ -123,6 +125,101 @@ def displacement_backward_plan(B: int, C: int, h: int, w: int, itemsize: int,
                                     vector=w % run == 0 and aligned)
 
 
+# the displacement volume's work mapping (csrc/sweep_warp.cu: kDispThreads,
+# kDispBlocksPerSm, kDispMaxTileW, kDispPad, kDispSmemMax)
+DISP_THREADS, DISP_BLOCKS_PER_SM, DISP_MAX_TILE_W, DISP_PAD = 256, 2, 1024, 8
+DISP_SMEM_MAX = 200 * 1024
+DISP_SMEM_BUDGET = 96 * 1024      # a block's shared memory: two blocks an SM
+DISP_ITEM_BYTES = 384 * 1024      # output an item at most, where bands could be taller
+DISP_SMS = 132                    # the H100 SXM's SMs, where no device is asked
+
+
+@dataclass(frozen=True)
+class DisplacementPlan:
+    """The displacement-volume kernel's work mapping for one level (see
+    `displacement_volume_kernel` in `csrc/sweep_warp.cu`).
+
+    An item is (b, dv, a band of `band_h` rows, a tile of `tile_w` pixels):
+    item = ((b S + dv + md) bands + ty) tiles_x + tx. Its block stages the
+    ys rows py + dv of its band (every channel, the tile and DISP_PAD
+    pixels each side) and stores both halves of every channel for every du
+    of its band and tile. In the store phase a unit is a channel and a
+    `vec`-pixel chunk of the band, u = c band_h tile_w / vec + (row, chunk),
+    and thread t runs units t, t + DISP_THREADS, ...
+    """
+
+    vec: int          # pixels a thread stores at once: 16, 8, 4 bytes or one element
+    tile_w: int
+    tiles_x: int
+    band_h: int
+    bands: int
+    items: int
+    smem: int         # shared-memory bytes a block
+    fused: bool       # with a flow: the store kernel samples y itself, no sample launch
+    grid: int         # persistent blocks: min(items, sms DISP_BLOCKS_PER_SM)
+
+
+def displacement_smem(C: int, band_h: int, tile_w: int, itemsize: int) -> int:
+    """Shared-memory bytes of the store kernel (csrc/sweep_warp.cu: DispSmem)."""
+    pitch = -(-(tile_w + 2 * DISP_PAD) // 32) * 32
+    return 2 * C * band_h * pitch * itemsize + 2 * band_h * (pitch // 32 + 1) * 4
+
+
+def displacement_plan(B: int, C: int, h: int, w: int, md: int, itemsize: int,
+                      aligned: int = 16, sms: int = DISP_SMS, band_h: int | None = None,
+                      tiles_x: int | None = None, grid: int | None = None,
+                      fused: bool | None = None) -> DisplacementPlan:
+    """The mapping the kernel launches with for x, y (B, C, h, w) of
+    `itemsize` bytes and max displacement md on `sms` SMs; `aligned`: the
+    largest power of two up to 16 that x's and y's addresses are multiples
+    of.
+
+    Stores are the widest of 16, 8, 4 bytes that w itemsize and the
+    alignment allow, else one element. A tile is the whole width where its
+    rows fit the shared-memory budget (a plane's band is then one contiguous
+    run of the stack), else the fewest equal tiles that do. Bands are the
+    tallest of 4, 2, 1 rows whose item stays within DISP_ITEM_BYTES of
+    output while the level keeps half a round of resident blocks in items;
+    the rule that `b1_compare.py --volume-plans` found closest to the best
+    mapping at slice 1's and the training step's levels on an H100. Where an
+    item's samples are one task a thread (8 channels of a pixel), the store
+    kernel samples y itself (`fused`: no second launch). `band_h`,
+    `tiles_x`, `grid` and `fused` override the choice (for measurement)."""
+    S = 2 * md + 1
+    vb = next((b for b in (16, 8, 4) if (w * itemsize) % b == 0 and aligned % b == 0),
+              itemsize)
+    vec = vb // itemsize
+
+    def tile(n):
+        tw = -(-(-(-w // n)) // vec) * vec
+        return -(-w // tw), tw
+
+    def items_of(bh, n):
+        return B * S * -(-h // bh) * tile(n)[0]
+
+    slots = sms * DISP_BLOCKS_PER_SM
+    n = tiles_x or 1
+    while tiles_x is None and n < w and (
+            tile(n)[1] > DISP_MAX_TILE_W
+            or displacement_smem(C, 1, tile(n)[1], itemsize) > DISP_SMEM_BUDGET):
+        n += 1
+    tx, tw = tile(n)
+    bh = band_h or next(
+        (b for b in (4, 2) if b <= h
+         and displacement_smem(C, b, tw, itemsize) <= DISP_SMEM_BUDGET
+         and S * 2 * C * b * tw * itemsize <= DISP_ITEM_BYTES
+         and items_of(b, n) >= slots // 2), 1)
+    smem = displacement_smem(C, bh, tw, itemsize)
+    if not (1 <= bh and tw <= DISP_MAX_TILE_W and smem <= DISP_SMEM_MAX):
+        raise ValueError(f"displacement plan: bands of {bh} rows, tiles of {tw} pixels for "
+                         f"C = {C}, w = {w}")
+    items = items_of(bh, n)
+    if fused is None:
+        fused = -(-C // 8) * bh * (tw + 2 * DISP_PAD) <= DISP_THREADS
+    return DisplacementPlan(vec=vec, tile_w=tw, tiles_x=tx, band_h=bh, bands=-(-h // bh),
+                            items=items, smem=smem, fused=fused, grid=grid or min(items, slots))
+
+
 def _cuda_only(what: str, *tensors: torch.Tensor) -> None:
     """Refuse CPU tensors before anything is built (the operators check the
     rest)."""
@@ -200,24 +297,56 @@ def check_displacement_args(x: torch.Tensor, y: torch.Tensor, flow: torch.Tensor
     _cuda_only("displacement volume", *tensors)
 
 
+def address_alignment(t: torch.Tensor) -> int:
+    """The largest power of two up to 16 that t's address is a multiple of."""
+    p = t.data_ptr()
+    return next(a for a in (16, 8, 4, 2, 1) if p % a == 0)
+
+
+_SMS: dict[int, int] = {}
+
+
+def device_sms(device: torch.device) -> int:
+    """SMs of a CUDA device, asked once."""
+    i = device.index if device.index is not None else torch.cuda.current_device()
+    if i not in _SMS:
+        _SMS[i] = torch.cuda.get_device_properties(i).multi_processor_count
+    return _SMS[i]
+
+
 class DisplacementVolume:
-    """Launches DICL's displacement-volume kernel through `OPS`; owns its
-    launch count."""
+    """Launches DICL's displacement-volume kernel through `OPS` under
+    `displacement_plan`'s mapping; owns its launch count."""
 
     def __init__(self):
         self.launches = 0
         self._op = None
+        self._plans: dict[tuple, DisplacementPlan] = {}
+
+    def plan(self, x: torch.Tensor, y: torch.Tensor, md: int) -> DisplacementPlan:
+        """The mapping for x, y (B, C, h, w) on their device, made once a
+        shape and alignment."""
+        aligned = min(address_alignment(x), address_alignment(y))
+        key = (tuple(x.shape), md, x.element_size(), aligned, x.device)
+        p = self._plans.get(key)
+        if p is None:
+            B, C, h, w = x.shape
+            p = self._plans[key] = displacement_plan(B, C, h, w, md, x.element_size(),
+                                                     aligned=aligned, sms=device_sms(x.device))
+        return p
 
     def __call__(self, x: torch.Tensor, y: torch.Tensor, flow: torch.Tensor | None,
-                 md: int) -> torch.Tensor:
+                 md: int, plan: DisplacementPlan | None = None) -> torch.Tensor:
         """x, y (B, C, h, w) f32/bf16, flow (B, 2, h, w) f32 or None ->
         (B, (2md+1)^2, 2C, h, w) in x's dtype (`check_displacement_args`
-        says what it refuses)."""
+        says what it refuses); `plan` overrides the mapping (measurement)."""
         check_displacement_args(x, y, flow, md)
         op = self._op
         if op is None:
             op = self._op = OPS.build().displacement_volume.default
-        out = op(x, y, flow, md)
+        p = plan or self.plan(x, y, md)
+        out = op(x, y, flow, md, p.vec * x.element_size(), p.tile_w, p.band_h, int(p.fused),
+                 p.grid)
         self.launches += 1
         return out
 
@@ -349,10 +478,10 @@ def bilinear_sample_cuda(img: torch.Tensor, coords: torch.Tensor) -> torch.Tenso
 
 
 def displacement_volume_cuda(x: torch.Tensor, y: torch.Tensor, flow: torch.Tensor | None,
-                             md: int) -> torch.Tensor:
+                             md: int, plan: DisplacementPlan | None = None) -> torch.Tensor:
     """Launch DICL's displacement-volume kernel on the current stream (see
     `DisplacementVolume.__call__`)."""
-    return DISPLACEMENT(x, y, flow, md)
+    return DISPLACEMENT(x, y, flow, md, plan)
 
 
 def displacement_volume_backward_cuda(dout: torch.Tensor, y: torch.Tensor,

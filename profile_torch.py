@@ -41,7 +41,8 @@ GROUPS = {"layout_transpose": ("nchwtonhwc", "nhwctonchw"),
           "batch_norm": ("batch_norm", "bn_fw", "bn_bw"),
           "sweep_kernel": ("plane_sweep_volume_kernel",),
           "gather_kernel": ("bilinear_sample_kernel",),
-          "displacement_volume_kernel": ("displacement_volume_kernel",)}
+          "displacement_volume_kernel": ("displacement_volume_kernel",
+                                         "displacement_volume_sample")}
 
 
 def _groups(events):

@@ -9,6 +9,8 @@ runs on a machine without JAX, from the repository root:
     python -m pytest --noconftest -o addopts="" -m cuda tests/test_torch_cuda.py
 """
 
+import dataclasses
+
 import pytest
 import torch
 
@@ -405,13 +407,17 @@ def test_gather_replays_in_a_cuda_graph(dtype):
 
 
 # DICL's displacement volume: slice 1's five level shapes (b = 1, 384x1280:
-# levels 6..2, C = 32, md = 3, no flow at level 6), a batch of two with odd
-# H and W and md = 2, and C = 5 on odd W (the two-pixel accesses fall back to
-# single ones)
+# levels 6..2, C = 32, md = 3, no flow at level 6), the training step's
+# five (b = 4, 256x768), a batch of two with odd H and W and md = 2, C = 5
+# on odd W (one element a store), w = 36 (8-byte stores in bf16), and w = 6
+# at md 4 (4-byte stores in bf16, a tile narrower than the halo)
 DISP_CASES = [((1, 32, 6, 20), 3, False), ((1, 32, 12, 40), 3, True),
               ((1, 32, 24, 80), 3, True), ((1, 32, 48, 160), 3, True),
-              ((1, 32, 96, 320), 3, True), ((2, 16, 13, 27), 2, True),
-              ((1, 5, 9, 51), 3, True)]
+              ((1, 32, 96, 320), 3, True), ((4, 32, 4, 12), 3, False),
+              ((4, 32, 8, 24), 3, True), ((4, 32, 16, 48), 3, True),
+              ((4, 32, 32, 96), 3, True), ((4, 32, 64, 192), 3, True),
+              ((2, 16, 13, 27), 2, True), ((1, 5, 9, 51), 3, True),
+              ((2, 32, 10, 36), 3, True), ((1, 8, 5, 6), 4, True)]
 
 
 def _disp_inputs(shape, with_flow, dtype, seed=0):
@@ -485,6 +491,43 @@ def test_displacement_volume_replays_in_a_cuda_graph(dtype):
     torch.cuda.synchronize()
     assert sweep_warp.DISPLACEMENT.launches == n + 1
     assert torch.equal(out, sweep_warp.displacement_volume_cuda(x, y, flow, 3))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape,md", [((4, 32, 16, 48), 3), ((2, 16, 13, 27), 2),
+                                      ((1, 32, 12, 40), 4)])
+def test_displacement_volume_plans_agree_on_card(shape, md, dtype):
+    """Every work mapping of a grid (bands of 1, 2 and 3 rows, 1 to 3 tiles
+    a row, 16-byte or narrower stores from an x that starts 8 or 2 bytes
+    past a 16-byte boundary, a grid of one block, the sampling in its own
+    launch or fused into the store kernel) gives the plain version's stack
+    bit for bit, and so does the default mapping of a y that starts there."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from deep_sfm_revisited_tpu_torch.models import dicl as tdicl
+
+    B, C, h, w = shape
+    x, y, flow = _disp_inputs(shape, True, getattr(torch, dtype), seed=5)
+    want = tdicl.displacement_volume_plain(x, y, flow, md)
+    for offset in (0, 8, 2):
+        n = offset // x.element_size()
+        xo = torch.empty(x.numel() + n + 8, dtype=x.dtype, device="cuda")[n:n + x.numel()]
+        xo = xo.view(shape).copy_(x) if n else x
+        yo = torch.empty(y.numel() + n + 8, dtype=y.dtype, device="cuda")[n:n + y.numel()]
+        yo = yo.view(shape).copy_(y) if n else y
+        # the default mapping follows the alignment of x and of y
+        assert torch.equal(sweep_warp.displacement_volume_cuda(x, yo, flow, md), want)
+        for bh in (1, 2, 3):
+            for k in (1, 2, 3):
+                p = sweep_warp.displacement_plan(
+                    B, C, h, w, md, x.element_size(), aligned=sweep_warp.address_alignment(xo),
+                    band_h=bh, tiles_x=k)
+                for grid in (p.grid, 1):
+                    for fused in (False, True):
+                        q = dataclasses.replace(p, grid=grid, fused=fused)
+                        got = sweep_warp.displacement_volume_cuda(xo, y, flow, md, q)
+                        assert torch.equal(got, want), (offset, q)
 
 
 # the flow-training step's five levels (b = 4, 256x768) and odd ones, md 0..4:

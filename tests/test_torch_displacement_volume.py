@@ -18,6 +18,10 @@ round alike, XLA may fuse differently) and bfloat16 to one bf16 rounding
 warp holes) equal.
 """
 
+import dataclasses
+import re
+from pathlib import Path
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -209,3 +213,123 @@ def test_dicl_builds_one_volume_a_level(monkeypatch):
     assert calls[0][1] is None
     assert [c[1] for c in calls[1:]] == [((1, 2, s, s), torch.float32) for s in sizes[1:]]
     assert [c[2] for c in calls] == list(cfg.dicl_search_range)[::-1]
+
+
+def _kernel_constant(name):
+    """A `constexpr int` of csrc/sweep_warp.cu: a number or a product of two."""
+    src = (Path(sweep_warp.__file__).resolve().parents[2] / "csrc" / "sweep_warp.cu").read_text()
+    m = re.search(rf"constexpr int {name} = (\d+)(?: \* (\d+))?;", src)
+    return int(m.group(1)) * int(m.group(2) or 1)
+
+
+# slice 1's five levels (b = 1, 384x1280), the training step's five (b = 4,
+# 256x768), all C = 32, md 3; and the card tests' odd shapes (tests/
+# test_torch_cuda.py::DISP_CASES), at md 0..4
+PLAN_SHAPES = [((1, 32, 6, 20), 3), ((1, 32, 12, 40), 3), ((1, 32, 24, 80), 3),
+               ((1, 32, 48, 160), 3), ((1, 32, 96, 320), 3), ((4, 32, 4, 12), 3),
+               ((4, 32, 8, 24), 3), ((4, 32, 16, 48), 3), ((4, 32, 32, 96), 3),
+               ((4, 32, 64, 192), 3)] + [
+    (shape, md) for shape in ((2, 16, 13, 27), (1, 5, 9, 51), (2, 32, 10, 36), (1, 8, 5, 6))
+    for md in range(5)]
+
+
+def _replay(B, C, h, w, md, itemsize, p):
+    """Times each output element is written, with the index arithmetic of
+    `displacement_volume_sample` (with a flow: the centre displacement's y
+    half) and of `displacement_volume_kernel` (every item, every thread of
+    its store phase), counted over (B, S2, 2, h, w) -- x half and y half --
+    as difference arrays along w; the thread mapping of the channels and a
+    band's chunks is replayed on its own (it is the same for every item).
+    With `p.fused` the store kernel samples y itself and writes the centre
+    too. Also checks each staged chunk and each thread's shared-memory
+    window and keep-flag words against the kernel's buffers (DispSmem)."""
+    S, threads, pad = 2 * md + 1, sweep_warp.DISP_THREADS, sweep_warp.DISP_PAD
+    V, s0 = p.vec, md * S + md
+    assert p.tiles_x == -(-w // p.tile_w) and p.bands == -(-h // p.band_h)
+    assert p.items == B * S * p.bands * p.tiles_x
+    pitch = -(-(p.tile_w + 2 * pad) // 32) * 32
+    kwords = pitch // 32 + 1
+    assert p.smem == sweep_warp.displacement_smem(C, p.band_h, p.tile_w, itemsize)
+    assert p.smem == 2 * C * p.band_h * pitch * itemsize + 2 * p.band_h * kwords * 4
+    assert p.smem <= _kernel_constant("kDispSmemMax")
+    assert (p.tile_w + 2 * pad) % V == 0 and pad % V == 0 and pad >= md
+    item = np.arange(p.items)
+    tx, rem = item % p.tiles_x, item // p.tiles_x
+    ty, rem = rem % p.bands, rem // p.bands
+    dvi, b = rem % S, rem // S
+    x0, y0 = tx * p.tile_w, ty * p.band_h
+    tw = np.minimum(p.tile_w, w - x0)
+    starts = np.zeros((B, S * S, 2, h, w + 1), np.int64)
+    for with_flow in (False, True):
+        starts[:] = 0
+        with_flow = with_flow and not p.fused   # fused: the store kernel writes it
+        if with_flow:   # the sample kernel: every (b, q) of the centre's y half
+            starts[:, s0, 1, :, 0] += 1
+            starts[:, s0, 1, :, w] -= 1
+        for i in range(p.band_h):
+            py = y0 + i
+            m = py < h
+            for du in range(-md, md + 1):
+                s = dvi[m] * S + du + md
+                for half in (0, 1):
+                    keep = np.ones(s.shape, bool) if half == 0 or not with_flow else s != s0
+                    idx = (b[m][keep], s[keep], half, py[m][keep])
+                    np.add.at(starts, idx + (x0[m][keep],), 1)
+                    np.add.at(starts, idx + ((x0 + tw)[m][keep],), -1)
+        written = np.cumsum(starts, axis=-1)[..., :w]
+        assert (written == 1).all(), with_flow
+    # the store phase: thread t runs units t, t + threads, ..., unit u =
+    # channel u // positions, (row, chunk) u % positions; every unit once,
+    # and each unit's ys window and flag words inside the buffers
+    tc = p.tile_w // V
+    positions = p.band_h * tc
+    seen = np.zeros((C, positions), np.int64)
+    for t in range(threads):
+        for u in range(t, positions * C, threads):
+            seen[u // positions, u % positions] += 1
+    assert (seen == 1).all()
+    for pos in range(positions):
+        pj = pos % tc
+        # the ys window of du = -md .. md: from element pad + pj V - md, the
+        # words it lies in and the next, inside the row
+        last_word = ((pad + pj * V + md) * itemsize >> 2) + max(V * itemsize // 4, 1)
+        assert pad + pj * V - md >= 0 and last_word < pitch * itemsize // 4
+        bit = pad - md + pj * V                # K: one funnel shift of two words
+        assert (bit >> 5) + 1 < kwords and 2 * md + V <= 32
+
+
+@pytest.mark.parametrize("itemsize", [2, 4], ids=["bfloat16", "float32"])
+@pytest.mark.parametrize("shape,md", PLAN_SHAPES)
+def test_volume_plan_covers_every_element(shape, md, itemsize):
+    """The volume kernel's work mapping (`sweep_warp.displacement_plan`),
+    replayed with the kernels' index arithmetic: every output element, both
+    halves of every channel, is written exactly once, with and without a
+    flow (with one, the centre displacement's y half by the sample kernel
+    and never again); staged chunks, windows and flag words stay in their
+    buffers; stores are the widest of 16, 8, 4 bytes that w and the address
+    allow; a tile is the whole width where its rows fit the budget; a band
+    taller than a row keeps its item within DISP_ITEM_BYTES and the level
+    at half a round of resident blocks; the sampling is fused where an
+    item's samples are one task a thread. The plan's constants are the
+    kernel's."""
+    assert (sweep_warp.DISP_THREADS, sweep_warp.DISP_BLOCKS_PER_SM, sweep_warp.DISP_MAX_TILE_W,
+            sweep_warp.DISP_PAD, sweep_warp.DISP_SMEM_MAX) == tuple(_kernel_constant(n) for n in (
+                "kDispThreads", "kDispBlocksPerSm", "kDispMaxTileW", "kDispPad", "kDispSmemMax"))
+    B, C, h, w = shape
+    S = 2 * md + 1
+    slots = sweep_warp.DISP_SMS * sweep_warp.DISP_BLOCKS_PER_SM
+    for aligned in (16, 8, 2):
+        p = sweep_warp.displacement_plan(B, C, h, w, md, itemsize, aligned=aligned)
+        vb = p.vec * itemsize
+        assert vb == max([b for b in (16, 8, 4) if (w * itemsize) % b == 0 and aligned % b == 0],
+                         default=itemsize)
+        for fused in (False, True):
+            _replay(B, C, h, w, md, itemsize, dataclasses.replace(p, fused=fused))
+        assert p.grid == min(p.items, slots)
+        assert p.fused == (-(-C // 8) * p.band_h * (p.tile_w + 2 * sweep_warp.DISP_PAD)
+                           <= sweep_warp.DISP_THREADS)
+        assert p.tiles_x == 1 or sweep_warp.displacement_smem(
+            C, 1, w, itemsize) > sweep_warp.DISP_SMEM_BUDGET
+        assert p.band_h == 1 or (p.items >= slots // 2 and p.smem <= sweep_warp.DISP_SMEM_BUDGET
+                                 and S * 2 * C * p.band_h * p.tile_w * itemsize
+                                 <= sweep_warp.DISP_ITEM_BYTES)
