@@ -5,6 +5,7 @@ every work mapping of the current source, to check `plan`'s choice.
     git show <commit>:deep_sfm_revisited_tpu_torch/csrc/local_corr.cu > local/local_corr_old.cu
     python3 b2_compare.py --old local/local_corr_old.cu   # needs one CUDA device
     python3 b2_compare.py --sweep [--variant other.cu ...]
+    python3 b2_compare.py --warped-plans
 
 Builds the older source (its C entry point without the mapping arguments:
 `dsfm_local_correlation(f0, f1, out, B, H, W, C, md, stream)`) beside the
@@ -17,8 +18,18 @@ ms (torch.profiler, and per launch of a CUDA graph of 50 launches) of
 every mapping the source takes (pixels per thread 1, 2, 4 x cluster
 1, 2, 4, 8), for the current source through its operator
 `torch.ops.dsfm_corr.local_correlation` and for each --variant (a source
-with the current C entry point, called with ctypes). Prints the card line, one line per level and,
-as the last line, one JSON object; writes the same object to --out.
+with the current C entry point, called with ctypes). With --warped-plans
+it times, at PWC-DC's levels 5..2 of a slice-2 pair (b = 1, 384x1280) and
+of a training step (b = 4, 256x768), in bf16 and float32 (unit-normal
+channels-last features, a flow of up to 3 px at the level's scale, from a
+seed), every
+mapping the warped correlation takes (pixels per thread 1, 2 x cluster 1,
+2, 4, 8): device ms (torch.profiler), ms per launch
+of a CUDA graph of 50 launches, and the registers, shared memory and
+resident blocks of each; beside `warped_plan`'s choice. Its timing in
+turns against an earlier source is `chip_smoke.py --old-b2`'s. Prints the
+card line, one line per level and, as the last line, one JSON object;
+writes the same object to --out.
 """
 
 from __future__ import annotations
@@ -35,6 +46,11 @@ import chip_smoke as smoke
 
 LEVELS = [(1, 6, 20, 196), (1, 12, 40, 128), (1, 24, 80, 96), (1, 48, 160, 64),
           (1, 96, 320, 32)]
+# the warped correlation's (B, C, H, W) and flow scale at PWC-DC's levels
+# 5..2: a slice-2 pair (384x1280), then a training step (b = 4, 256x768)
+WARPED_LEVELS = [((1, 128, 12, 40), 0.625), ((1, 96, 24, 80), 1.25), ((1, 64, 48, 160), 2.5),
+                 ((1, 32, 96, 320), 5.0), ((4, 128, 8, 24), 0.625), ((4, 96, 16, 48), 1.25),
+                 ((4, 64, 32, 96), 2.5), ((4, 32, 64, 192), 5.0)]
 
 
 def old_kernel(path: Path):
@@ -96,31 +112,6 @@ def current_launcher():
     return lambda f0, f1, out, md, px, cluster: op(f0, f1, md, px, cluster)
 
 
-def graph_ms(call, reps: int = 50) -> float:
-    """ms per launch of `reps` launches captured in one CUDA graph, replayed
-    with CUDA events around it (no host cost per launch; the graph's gaps
-    between kernels included). Median of 5 replays."""
-    stream = torch.cuda.Stream()
-    stream.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(stream):
-        call()
-    torch.cuda.current_stream().wait_stream(stream)
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        for _ in range(reps):
-            call()
-    graph.replay()
-    times = []
-    for _ in range(5):
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        start.record()
-        graph.replay()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end) / reps)
-    return sorted(times)[2]
-
-
 def sweep(launch, md: int, generator) -> list[dict]:
     """Device ms of every (px, cluster) mapping at each level, `launch` as
     `variant_launcher` or `current_launcher` give it."""
@@ -141,7 +132,7 @@ def sweep(launch, md: int, generator) -> list[dict]:
 
                 key = f"px{px}_cluster{cluster}"
                 times[key] = smoke.device_ms(call, "local_corr_kernel", reps=50)
-                graph[key] = graph_ms(call)
+                graph[key] = smoke.graph_ms(call, reps=50)
         p = local_corr.plan(*shape, md)
         best = min(times, key=lambda k: float("inf") if times[k] is None else times[k])
         rows.append({"f0": list(shape), "device_ms": times, "graph_ms": graph, "best": best,
@@ -152,10 +143,65 @@ def sweep(launch, md: int, generator) -> list[dict]:
     return rows
 
 
+def warped_plans(md: int, generator) -> list[dict]:
+    """Device ms of every (px, cluster) mapping of the warped
+    correlation at each of `WARPED_LEVELS`, in bf16 and float32."""
+    from deep_sfm_revisited_tpu_torch.ops import correlation
+    from deep_sfm_revisited_tpu_torch.ops.cuda import local_corr
+
+    op = local_corr.OPS.build().warped_correlation.default
+    rows = []
+    for (B, C, H, W), scale in WARPED_LEVELS:
+        for dtype in (torch.bfloat16, torch.float32):
+            f1, f2 = (torch.randn((B, C, H, W), device="cuda", generator=generator).to(dtype)
+                      .contiguous(memory_format=torch.channels_last) for _ in range(2))
+            flow = ((torch.rand((B, 2, H, W), device="cuda", generator=generator) - 0.5)
+                    * (6.0 / scale)).to(dtype)
+            want = local_corr.warped_correlation_cuda(f1, f2, flow, scale, md)
+            ref = correlation.warped_correlation_nchw_plain(f1, f2, flow, scale, md).float()
+            tol = 1e-5 * float(ref.abs().max()) + 1e-6
+            if dtype == torch.bfloat16:
+                tol = tol + smoke._bf16_ulp(ref)
+            smoke.check(bool(((want.float() - ref).abs() <= tol).all()),
+                        f"{(B, C, H, W)} {dtype}: the plan's kernel against its plain version")
+            times, graph, res = {}, {}, {}
+            for px in local_corr.WARPED_PIXELS:
+                for cluster in (1, 2, 4, 8):
+                    if cluster > -(-C // 4):
+                        continue
+
+                    def call(px=px, cluster=cluster):
+                        return op(f1, f2, flow, scale, md, px, cluster)
+
+                    got = call()
+                    smoke.check(bool(((got.float() - ref).abs() <= tol).all()),
+                                f"{(B, C, H, W)} px {px} cluster {cluster}: "
+                                f"{float((got.float() - ref).abs().max())}")
+                    key = f"px{px}_cluster{cluster}"
+                    times[key] = smoke.device_ms(call, "warped_corr_kernel", reps=50)
+                    graph[key] = smoke.graph_ms(call, reps=50)
+                    res[key] = local_corr.WARPED.resources(
+                        local_corr.warped_mapping(B, C, H, W, md, px, cluster), dtype)
+            p = local_corr.warped_plan(B, C, H, W, md)
+            plan = f"px{p.px}_cluster{p.cluster}"
+            best = min(graph, key=graph.get)
+            rows.append({"f1": [B, C, H, W], "dtype": str(dtype)[6:], "scale": scale,
+                         "device_ms": times, "graph_ms": graph, "resources": res,
+                         "best_by_graph": best, "plan": plan})
+            smoke.log(f"b2_compare warped {(B, C, H, W)} {str(dtype)[6:]}: best {best} "
+                      f"{graph[best]:.5f} ms by graph (device {times[best]}), plan {plan} "
+                      f"{graph[plan]:.5f} (device {times[plan]}); "
+                      + ", ".join(f"{k} {v:.5f}" for k, v in sorted(graph.items(),
+                                                                   key=lambda kv: kv[1])))
+    return rows
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--old", help="the earlier local_corr.cu, timed in turns with the current")
     ap.add_argument("--sweep", action="store_true", help="time every mapping at each level")
+    ap.add_argument("--warped-plans", action="store_true",
+                    help="time every mapping of the warped correlation at PWC-DC's levels 5..2")
     ap.add_argument("--variant", action="append", default=[],
                     help="another source with the current C entry point, swept too")
     ap.add_argument("--out", default="b2_compare_out/b2_compare.json")
@@ -174,6 +220,8 @@ def main() -> int:
         for path in args.variant:
             smoke.log(f"b2_compare: variant {path}")
             summary["sweep"][path] = sweep(variant_launcher(Path(path)), md, g)
+    if args.warped_plans:
+        summary["warped_plans"] = warped_plans(md, g)
     if args.old:
         summary.update(compare(Path(args.old), local_corr, md, g))
     out = Path(args.out)

@@ -8,11 +8,11 @@ Phases, each of which raises on failure:
 1. setup: the card's name and power limit, TF32 off, kernels B1 (the
    generic gather, DICL's displacement volume and its backward, the
    plane-sweep cost volume and its two gradients, one source, and the
-   PyTorch operators that launch them) and B2 (the windowed correlation and
+   PyTorch operators that launch them) and B2 (the windowed correlation,
    PWC-DC's warped correlation, and their operators) built with nvcc (in
    parallel) from `deep_sfm_revisited_tpu_torch/csrc/sweep_warp.cu`,
-   `csrc/sweep_warp_ops.cpp`, `csrc/local_corr.cu` and
-   `csrc/local_corr_ops.cpp`;
+   `csrc/sweep_warp_ops.cpp`, `csrc/local_corr.cu`, `csrc/warped_corr.cu`
+   and `csrc/local_corr_ops.cpp`;
 2. pose on the card: rigid flow of a known (R, t) -> correspondence
    sampler -> five-point RANSAC in float64 recovers the pose, the
    zero-parallax probe gives a finite pose, and with noise and outliers
@@ -65,13 +65,20 @@ Phases, each of which raises on failure:
    two launches on the same inputs bit-identical; per level the work
    mapping, the device and events times, the plain version's time, the
    bound and the share of the bound reached; then the warped correlation
-   on slice 2's inputs at levels 5..2, in bf16 and float32 and with flows
-   sending samples off the frame: bit for bit against the CUDA composition
-   it replaced (gather, cast, B2), within B2's tolerance of its plain
-   version, two launches bit-identical; per level device and events times,
-   bound and share, the plain version's time, and the device time and
-   kernel count of the span PWC-DC ran before (coordinates, permutes, the
-   gather, casts, B2) beside the same span now; and PWC-DC's five
+   on slice 2's inputs at levels 5..2 as PWC-DC holds them (channels-last
+   features and the up-sampled flow in bf16), in bf16 and float32 and with
+   flows sending samples off the frame: within its plain version's
+   tolerance (plus one bf16 ulp of a bf16 output), two launches
+   bit-identical, and bit for bit against the CUDA composition it replaced
+   (gather, casts, B2, cast back) where both split the channels alike; per
+   level the
+   mapping with its registers, shared memory and resident blocks, device,
+   CUDA-graph and events times, the bound of this interface and of the
+   earlier NHWC float32 one with shares, the plain version's time, and
+   PWC-DC's span (`pwcnet._warped_correlate`, one kernel) with its device
+   time and kernel count; with `--old-b2 PATH` an earlier `local_corr.cu`'s
+   NHWC warped correlation and the span PWC-DC ran around it (permutes,
+   copies, casts) timed in turns with the current ones; and PWC-DC's five
    correlations of a pair replayed from a CUDA graph, equal to eager calls;
 8. a small-input training reference: one train step at 128x128 (nlabel 8,
    float32, TF32 off) on the card against the same step on the CPU (plain
@@ -172,14 +179,19 @@ Phases, each of which raises on failure:
    and two timed steps, each with a finite loss, PWC-DC's parameters
    bit-identical, PSNet's moved, and B2 once, the warped correlation four
    times, the sweep and its backward once and no other kernel launched;
-   ms per step by the host clock and peak memory; the epoch's validation.
+   ms per step by the host clock and peak memory; the epoch's validation;
+   the warm-up step records the warped correlation's inputs;
+19. the warped correlation on the inputs phase 18's step gave it (b = 4,
+   256x768, levels 5..2), as phase 7 holds it on slice 2's, with `--old-b2`
+   in turns too.
 
 `python3 chip_smoke.py --save-sweep-inputs PATH` also writes the sweep
 backward's depths, M and K t from slice 5 (a few hundred floats) to PATH,
 for `b1_compare.py --pose PATH`; `--save-disp-inputs PATH` the
 displacement volume's inputs of slice 1's pair and a training step, for
 `b1_compare.py --volume --inputs PATH`; `--old-b1 PATH` names the earlier
-source phases 13, 14 and 17 compare with.
+source phases 13, 14 and 17 compare with, `--old-b2 PATH` the earlier
+`local_corr.cu` (with its NHWC warped correlation) phases 7 and 19 do.
 
 The line before the last is the kernel table as one JSON object; the last
 is {"ok": true, "device": {...}}. Without a CUDA device, or without the
@@ -225,9 +237,11 @@ SMALL = {"depth.nlabel": 8, "pose.num_hypotheses": 16, "pose.ransac_iter": 1,
          "pose.score_topk": 64, "pose.polish_iters": 5, "pose.solve_dtype": "float64"}
 
 # H100 SXM published peaks (NVIDIA data sheet): HBM bytes/s, float32 FLOP/s
-# outside the tensor cores
+# outside the tensor cores, dense bfloat16 FLOP/s on the tensor cores
+# (bfloat16 products, float32 sums)
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS = 67e12
+BF16_FLOPS = 989e12
 B1_FLOPS_PER_OUTPUT = 10  # 6 tap products, 3 sums, the validity product
 SWEEP_FLOPS_PER_SAMPLE = 8  # ray d + K t (3 products, 3 sums) and the 2 divisions
 
@@ -632,7 +646,7 @@ def phase_cli_pwc(dev, sweep_warp, local_corr):
             for k in counters:
                 k.launches = 0
             log(f"cli PWC: warm-up pair {ms:.1f} ms; warped correlation inputs "
-                f"{[(tuple(f.shape), str(f.dtype)[6:], sc) for _, f, _, sc, _ in cap_w]}, "
+                f"{_warped_inputs_desc(cap_w)}, "
                 f"sweep inputs {[tuple(a[0].shape) + (len(a[2]),) for a in cap_sweep]}, B2 "
                 f"inputs {[tuple(f.shape) for f, _ in cap2]}")
         else:
@@ -691,13 +705,23 @@ def _warp_coords(f2, flow, scale):
     return (grid[None] + flow * scale).permute(0, 2, 3, 1).contiguous()
 
 
+def _warped_inputs_desc(cap_w):
+    """(f2's shape, its dtype, the flow's dtype, the scale) of each recorded
+    warped correlation."""
+    return [(tuple(f.shape), str(f.dtype)[6:], str(fl.dtype)[6:], sc) for _, f, fl, sc, _ in cap_w]
+
+
 def pwc_warp_inputs(cap_w, cap2, sweep_warp):
-    """From the warped correlation's captured inputs, what the composition it
-    replaced gave B1's gather (f2, the coordinates) and B2 (f1 and the
-    warped f2 cast to float32, through the gather), levels 5..2, after B2's
-    own level-6 inputs: phases 6 and 7 hold both kernels on them."""
-    gathers = [(f2, _warp_coords(f2, flow, sc)) for _, f2, flow, sc, _ in cap_w]
-    corr = list(cap2) + [(f1, sweep_warp.bilinear_sample_cuda(f2, c).float().contiguous())
+    """From the warped correlation's captured inputs (NCHW), what the
+    composition it replaced gave B1's gather (f2 NHWC, the coordinates) and
+    B2 (f1 and the warped f2 NHWC in float32, through the gather), levels
+    5..2, after B2's own level-6 inputs: phases 6 and 7 hold both kernels
+    on them."""
+    gathers = [(f2.permute(0, 2, 3, 1).contiguous(), flow.float(), sc)
+               for _, f2, flow, sc, _ in cap_w]
+    gathers = [(f2, _warp_coords(f2, flow, sc)) for f2, flow, sc in gathers]
+    corr = list(cap2) + [(f1.permute(0, 2, 3, 1).float().contiguous(),
+                          sweep_warp.bilinear_sample_cuda(f2, c).float().contiguous())
                          for (f1, _, _, _, _), (f2, c) in zip(cap_w, gathers)]
     return gathers, corr
 
@@ -810,6 +834,7 @@ def phase_b2(captured, local_corr, correlation):
     return calls, max_err
 
 
+WARPED_SOURCE = f"{PKG}/csrc/warped_corr.cu"
 WARPED_FUSES = ("deep_sfm_revisited_tpu/ops/pallas/sweep_warp.py:145 (the gather of PWC-DC's "
                 "flow warps, deep_sfm_revisited_tpu/models/pwcnet.py:125)")
 
@@ -822,6 +847,112 @@ def _off_frame(flow, scale):
     off[:, 0, :, -max(W_ // 8, 1):] += 2.0 * W_ / scale
     off[:, 1, : max(H_ // 8, 1)] -= 1.5 * H_ / scale
     return off
+
+
+def graph_ms(call, reps: int = 20) -> float:
+    """Device ms per call of `call`: `reps` calls captured in one CUDA graph,
+    replayed between CUDA events (no host cost per call; the graph's gaps
+    between kernels included). Median of 5 replays. Unlike a profiler trace
+    it cannot lose events late in a long process."""
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        call()
+    torch.cuda.current_stream().wait_stream(stream)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            call()
+    graph.replay()
+    times = []
+    for _ in range(5):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / reps)
+    del graph
+    return sorted(times)[2]
+
+
+def graph_kernels(call) -> int | None:
+    """Kernels one call of `call` launches: the kernel nodes of a CUDA graph
+    that captures it, read from the graph's debug dump (DOT). Unlike a
+    profiler trace it cannot lose events late in a long process. None where
+    the dump shows no node."""
+    import re
+
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        call()
+    torch.cuda.current_stream().wait_stream(stream)
+    try:   # kept, so that the dump has a graph to print (PyTorch 2.6 on)
+        graph = torch.cuda.CUDAGraph(keep_graph=True)
+    except TypeError:   # earlier PyTorch keeps it in debug mode
+        graph = torch.cuda.CUDAGraph()
+    graph.enable_debug_mode()
+    with torch.cuda.graph(graph):
+        call()
+    with tempfile.TemporaryDirectory() as tmp:
+        dot = Path(tmp) / "graph.dot"
+        graph.debug_dump(str(dot))
+        text = dot.read_text() if dot.exists() else ""
+    del graph
+    # a node's definition runs from its name and "[" to the next "];"
+    nodes = re.findall(r'"graph_\d+_node_\d+"\s*\[(.*?)\];', text, flags=re.S)
+    if not nodes:
+        return None
+    return sum(1 for n in nodes if re.search(r"kernel", n, flags=re.I))
+
+
+def old_warped_correlation(path: Path, local_corr):
+    """PWC-DC's warped correlation of an earlier `local_corr.cu` whose entry
+    point takes NHWC float32 f1, NHWC f2 of its dtype and a float32 flow
+    and writes NHWC float32 (`..., int md, int px, int cluster, int dtype,
+    void* stream`), with B2's mapping (`local_corr.plan`), built by
+    `ops/cuda/build.py` beside the current sources and called through its
+    plain C entry point with ctypes. Returns (kernel, span): the kernel on
+    NHWC inputs, and the span PWC-DC ran around it on NCHW features of the
+    network's dtype (the permutes and copies in, the flow's float32 cast
+    and copy, the kernel, the permute and cast back)."""
+    import ctypes
+
+    from deep_sfm_revisited_tpu_torch.ops.cuda.build import CudaKernel
+
+    check("int md, int px, int cluster, int dtype, void* stream" in path.read_text(),
+          f"{path} has no NHWC warped correlation")
+
+    class OldWarped(CudaKernel):
+        source = str(path.resolve())   # an absolute path replaces csrc/
+
+        def _bind(self, lib):
+            fn = lib.dsfm_warped_correlation
+            fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_float, ctypes.c_void_p]
+                           + [ctypes.c_int] * 8 + [ctypes.c_void_p])
+            fn.restype = ctypes.c_int
+
+        def __call__(self, f1, f2, flow, scale, md):
+            B_, H_, W_, C_ = f1.shape
+            p = local_corr.plan(B_, H_, W_, C_, md)
+            out = torch.empty((B_, H_, W_, (2 * md + 1) ** 2), device=f1.device)
+            err = self.build().dsfm_warped_correlation(
+                f1.data_ptr(), f2.data_ptr(), flow.data_ptr(), ctypes.c_float(scale),
+                out.data_ptr(), B_, H_, W_, C_, md, p.px, p.cluster,
+                {torch.float32: 0, torch.bfloat16: 1}[f2.dtype],
+                torch.cuda.current_stream().cuda_stream)
+            check(err == 0, f"{path}'s warped correlation launch failed: cudaError {err}")
+            return out
+
+    old = OldWarped()
+
+    def span(f1, f2, up_flow, scale, md):   # PWC-DC's _warped_correlate and dispatcher then
+        corr = old(f1.permute(0, 2, 3, 1).float().contiguous(),
+                   f2.permute(0, 2, 3, 1).contiguous(), up_flow.float().contiguous(), scale, md)
+        return corr.permute(0, 3, 1, 2).to(f1.dtype)
+
+    return old, span
 
 
 def warped_graph_check(cap_w, level6, local_corr) -> dict:
@@ -863,102 +994,196 @@ def warped_graph_check(cap_w, level6, local_corr) -> dict:
     return {"captured": 1 + len(static), "replay_equals_eager": equal}
 
 
-def phase_warped(cap_w, cap2, local_corr, correlation, dicl):
-    """The warped correlation against the CUDA composition it replaced (B1's
-    gather, the float32 cast, B2) and its plain version, on the inputs slice
-    2 gave it (levels 5..2), in bf16 and float32, and on copies whose flow
-    sends bands of samples off the frame; two launches. Per level: device
-    and events time, bound and share, the plain version's time; the device
-    time and kernel count of what PWC-DC ran before at a level (coordinates,
-    permutes, the gather, the casts, B2: from the NCHW features to the NHWC
-    correlation) beside the same span now (the NHWC copies and the kernel);
-    then the five correlations of a pair replayed from a CUDA graph.
+def _warped_composition(f1, f2, flow, scale, md, local_corr, dicl):
+    """The CUDA composition the warped correlation replaces, on NCHW inputs:
+    B1's gather of f2 at grid + flow * scale, the float32 casts, B2 and the
+    cast back to f1's dtype."""
+    f2h = f2.permute(0, 2, 3, 1).contiguous()
+    warped = dicl.bilinear_sample(f2h, _warp_coords(f2h, flow.float(), scale))
+    corr = local_corr.local_correlation_cuda(f1.permute(0, 2, 3, 1).float().contiguous(),
+                                             warped.float().contiguous(), md)
+    return corr.permute(0, 3, 1, 2).to(f1.dtype)
 
-    Tolerances: bit for bit against the composition (the stage holds the
-    values the composition staged, and B2's sums run in the same order);
-    |kernel - plain| <= 1e-5 max|plain| + 1e-6 (B2's: float32 sums in
-    another order); two launches bit for bit."""
+
+def _warped_bound(f1, flow, md, out_bytes: int, f1_bytes: int, flow_bytes: int):
+    """(bytes, flops, operations ms) of one level: f1 and f2 read once at
+    `f1_bytes` an element, the flow at `flow_bytes`, the (2md+1)^2 planes
+    written at `out_bytes`; C products and sums an output, at the tensor
+    cores' bfloat16 rate where the features are bfloat16 (`f1_bytes` 2)
+    and at the float32 rate where they are float32; one division an
+    output and B1's blend per warped element at the float32 rate."""
+    B_, c, h, w = f1.shape
+    s2, pix = (2 * md + 1) ** 2, B_ * h * w
+    nbytes = 2 * f1.numel() * f1_bytes + flow.numel() * flow_bytes + pix * s2 * out_bytes
+    sums, scalar = 2 * c * s2 * pix, s2 * pix + B1_FLOPS_PER_OUTPUT * c * pix
+    ops_ms = (sums / (BF16_FLOPS if f1_bytes == 2 else F32_FLOPS) + scalar / F32_FLOPS) * 1e3
+    return nbytes, sums + scalar, ops_ms
+
+
+def _bound_ms(nbytes, ops_ms):
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    return max(t_bytes, ops_ms), "bytes" if t_bytes >= ops_ms else "operations"
+
+
+def phase_warped(path, cap_w, local_corr, correlation, dicl, pwcnet, old_source=None):
+    """The warped correlation on the inputs one path gave it (PWC-DC's
+    levels 5..2 of a slice-2 pair, `path` "pwc_cli_eval", or of a frozen
+    PWC-DC training step, "cli_train_pwc"), in PWC-DC's layout: its
+    channels-last features of the network's dtype and up-sampled flow. In bf16 and
+    float32, with the main path's flow and one that sends bands of samples
+    off the frame: within its plain version's tolerance, two launches
+    bit-identical, and bit-identical to the CUDA composition it replaces
+    (B1's gather, the casts, B2, the cast back) where both split the
+    channels alike (the same cluster size: the same fmaf chains, the ranks'
+    partial sums added in the same order). Per level: the
+    mapping and its registers, shared memory and resident blocks; device
+    time (torch.profiler), ms a call from a CUDA graph, events ms, the
+    plain version's time; the bound of this interface and of the earlier
+    NHWC float32 one, with shares; PWC-DC's span (`pwcnet._warped_correlate`)
+    device time and kernel count (by the trace, and as the kernel nodes of
+    a CUDA graph that captures it, which must be the one correlation). With `old_source` (an earlier
+    `local_corr.cu`, `--old-b2`): its kernel and the span PWC-DC ran around
+    it, timed in turns with the current ones (old, new, new, old), by CUDA
+    graph and on the device.
+
+    Tolerances: |kernel - plain| <= 1e-5 max|plain| + 1e-6 (float32 sums in
+    another order), plus one bf16 ulp of the output in bf16 (the two sums
+    may round to neighbouring bf16 values); the rest bit for bit."""
+    old = None if old_source is None else old_warped_correlation(Path(old_source), local_corr)
     calls, max_err = [], 0.0
     for f1, f2, flow, scale, md in cap_w:
-        _, h, w, c = f1.shape
-        name = f"pwc_warped_corr_{h}x{w}"
+        B_, c, h, w = f1.shape
+        name = f"{path}_{h}x{w}"
+        p = local_corr.warped_plan(B_, c, h, w, md)
+        b2_split = local_corr.plan(B_, h, w, c, md).cluster
+
+        def chains(q):   # B2's channel split: each rank's fmaf chain, ranks in order
+            return q.cluster == b2_split
+
+        one_block = chains(p)
         for dtype in (torch.bfloat16, torch.float32):
             for what, fl in (("main path", flow), ("off the frame", _off_frame(flow, scale))):
-                x = f2.to(dtype)
-                got = local_corr.warped_correlation_cuda(f1, x, fl, scale, md)
-                again = local_corr.warped_correlation_cuda(f1, x, fl, scale, md)
-                comp = local_corr.local_correlation_cuda(
-                    f1, dicl.bilinear_sample(x, _warp_coords(x, fl, scale)).float().contiguous(),
-                    md)
-                ref = correlation.warped_correlation_plain(f1, x, fl, scale, md)
+                a, b, fl = f1.to(dtype), f2.to(dtype), fl.to(dtype)
+                got = local_corr.warped_correlation_cuda(a, b, fl, scale, md)
+                again = local_corr.warped_correlation_cuda(a, b, fl, scale, md)
+                ref = correlation.warped_correlation_nchw_plain(a, b, fl, scale, md)
+                comp = _warped_composition(a, b, fl, scale, md, local_corr, dicl)
                 tag = f"warped correlation {name} {str(dtype)[6:]} {what}"
+                check(got.dtype == dtype and got.shape == (B_, (2 * md + 1) ** 2, h, w),
+                      f"{tag}: {got.dtype} {tuple(got.shape)}")
                 check(torch.equal(got, again), f"{tag}: two launches differ")
-                check(torch.equal(got, comp), f"{tag}: differs from gather + cast + B2 by "
-                      f"{float((got - comp).abs().max())}")
-                err = float((got - ref).abs().max())
-                tol = 1e-5 * float(ref.abs().max()) + 1e-6
-                max_err = max(max_err, err)
-                check(err <= tol, f"{tag}: max |kernel - plain| = {err} > {tol}")
-        # as PWC-DC holds them: NCHW features of the network's dtype, the
-        # up-sampled flow in float32
-        f1n = f1.permute(0, 3, 1, 2).to(f2.dtype).contiguous()
-        f2n = f2.permute(0, 3, 1, 2).contiguous()
+                check(torch.equal(got, comp) or not one_block, f"{tag}: differs from gather + "
+                      f"cast + B2 + cast by {float((got.float() - comp.float()).abs().max())}")
+                err = (got.float() - ref.float()).abs()
+                tol = 1e-5 * float(ref.float().abs().max()) + 1e-6
+                if dtype == torch.bfloat16:
+                    tol = tol + _bf16_ulp(ref)
+                max_err = max(max_err, float(err.max()))
+                check(bool((err <= tol).all()), f"{tag}: max |kernel - plain| = "
+                      f"{float(err.max())} beyond tolerance")
+        res = local_corr.WARPED.resources(p, f1.dtype)
 
-        def before():
-            warped = dicl.warp_flow(f2n, flow * scale)
-            return correlation.local_correlation(f1n.permute(0, 2, 3, 1).float().contiguous(),
-                                                 warped.permute(0, 2, 3, 1).float().contiguous(),
-                                                 md)
+        def run():
+            return local_corr.warped_correlation_cuda(f1, f2, flow, scale, md)
 
-        def now():
-            return correlation.warped_correlation(f1n.permute(0, 2, 3, 1).float().contiguous(),
-                                                  f2n.permute(0, 2, 3, 1).contiguous(), flow,
-                                                  scale, md)
+        def span():
+            return pwcnet._warped_correlate(f1, f2, flow, scale, md)
 
-        check(torch.equal(before(), now()), f"warped correlation {name}: the span before and now "
-              "differ")
-        run = lambda: local_corr.warped_correlation_cuda(f1, f2, flow, scale, md)  # noqa: E731
         ms = cuda_ms(run, reps=50)
-        dev_ms = device_ms(run, "local_corr_kernel")
-        plain_ms = cuda_ms(lambda: correlation.warped_correlation_plain(f1, f2, flow, scale, md),
+        plain_ms = cuda_ms(lambda: correlation.warped_correlation_nchw_plain(f1, f2, flow, scale,
+                                                                             md),
                            reps=5, warmup=1)
-        before_ms, before_n = _profile_sums(_full_profile(before))
-        now_ms, now_n = _profile_sums(_full_profile(now))
-        s2 = (2 * md + 1) ** 2
-        pix = f1.numel() // c
-        nbytes = (f1.numel() * 4 + f2.numel() * f2.element_size() + flow.numel() * 4
-                  + pix * s2 * 4)
-        flops = (2 * c + 1) * s2 * pix + B1_FLOPS_PER_OUTPUT * c * pix
-        t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / F32_FLOPS * 1e3
-        bound = max(t_bytes, t_ops)
-        p = local_corr.plan(*f1.shape, md)
-        calls.append(dict(name=name, f1=list(f1.shape), f2_dtype=str(f2.dtype)[6:], md=md,
-                          scale=scale, ms=ms, device_ms=dev_ms, plain_ms=plain_ms,
-                          library_ms=None, bound_ms=bound,
-                          bound_by="bytes" if t_bytes >= t_ops else "operations",
-                          bound_share=None if dev_ms is None else bound / dev_ms, bytes=nbytes,
-                          flops=flops,
-                          replaced_device_ms=before_ms, replaced_kernels=before_n,
-                          span_now_device_ms=now_ms, span_now_kernels=now_n,
-                          mapping=dict(px=p.px, cluster=p.cluster, grid=list(p.grid),
-                                       block=list(p.block), warps=p.warps)))
+        nbytes, flops, ops_ms = _warped_bound(f1, flow, md, f1.element_size(),
+                                              f1.element_size(), flow.element_size())
+        # the earlier NHWC interface: float32 f1, flow and output, float32 sums
+        bytes_nhwc, _, ops_ms_nhwc = _warped_bound(f1, flow, md, 4, 4, 4)
+        bytes_nhwc -= f2.numel() * (4 - f2.element_size())   # f2 was read in its own dtype
+        bound, bound_by = _bound_ms(nbytes, ops_ms)
+        bound_nhwc, bound_by_nhwc = _bound_ms(bytes_nhwc, ops_ms_nhwc)
+        if old:   # the earlier kernel alone, on the inputs its span made for it
+            a1, a2, af = (f1.permute(0, 2, 3, 1).float().contiguous(),
+                          f2.permute(0, 2, 3, 1).contiguous(), flow.float().contiguous())
+        turns = {}
+        for who in ("old", "new", "new", "old") if old else ("new",):
+            if who == "new":
+                kernel, sp, kernel_name = run, span, "warped_corr_kernel"
+            else:
+                kernel = lambda: old[0](a1, a2, af, scale, md)  # noqa: E731
+                sp = lambda: old[1](f1, f2, flow, scale, md)  # noqa: E731
+                kernel_name = "local_corr_kernel"
+            row = turns.setdefault(who, dict(device_ms=[], graph_ms=[], span_device_ms=[],
+                                             span_kernels=[], span_graph_ms=[]))
+            row["device_ms"].append(device_ms(kernel, kernel_name))
+            row["graph_ms"].append(graph_ms(kernel))
+            span_ms, span_n = _profile_sums(_full_profile(sp))
+            row["span_device_ms"].append(span_ms)
+            row["span_kernels"].append(span_n)
+            row["span_graph_ms"].append(graph_ms(sp))
+        # the span's kernels, counted as a CUDA graph's kernel nodes (the earlier span's too)
+        span_launches = graph_kernels(span)
+        old_launches = graph_kernels(lambda: old[1](f1, f2, flow, scale, md)) if old else None
+        check(span_launches == 1, f"warped correlation {name}: PWC-DC's span launches "
+              f"{span_launches} kernels, not the one correlation")
+        if old:
+            check(torch.equal(old[1](f1, f2, flow, scale, md), span()) or not one_block,
+                  f"warped correlation {name}: differs from the earlier span")
+        dev = turns["new"]["device_ms"][0]
+        calls.append(dict(
+            name=name, f1=list(f1.shape), dtype=str(f1.dtype)[6:], flow_dtype=str(flow.dtype)[6:],
+            md=md, scale=scale, ms=ms, device_ms=dev, graph_ms=turns["new"]["graph_ms"][0],
+            plain_ms=plain_ms, library_ms=None, bound_ms=bound, bound_by=bound_by,
+            bound_share=None if dev is None else bound / dev, bytes=nbytes, flops=flops,
+            ops_ms=ops_ms, bytes_nhwc_basis=bytes_nhwc, ops_ms_nhwc_basis=ops_ms_nhwc,
+            bound_ms_nhwc_basis=bound_nhwc,
+            bound_by_nhwc_basis=bound_by_nhwc,
+            bound_share_nhwc_basis=None if dev is None else bound_nhwc / dev,
+            same_split_as_b2=one_block,
+            span_now_device_ms=turns["new"]["span_device_ms"][0],
+            span_now_kernels=turns["new"]["span_kernels"][0],
+            span_now_graph_kernels=span_launches, span_old_graph_kernels=old_launches,
+            span_now_graph_ms=turns["new"]["span_graph_ms"][0], turns=turns if old else None,
+            mapping=dict(px=p.px, cluster=p.cluster, grid=list(p.grid),
+                         block=list(p.block), warps=p.warps, **res)))
         r = calls[-1]
-        share = "not measured" if dev_ms is None else f"{100 * bound / dev_ms:.1f}%"
-        log(f"warped correlation {name}: f1 {tuple(f1.shape)} float32, f2 {r['f2_dtype']}, "
-            f"scale {scale}: device {_fmt_ms(dev_ms)}, events {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-            f"bound {bound:.5f} ms ({r['bound_by']}, {nbytes / 1e6:.2f} MB), share of bound "
-            f"{share}; the span PWC-DC ran before {_fmt_ms(before_ms)} in {before_n} kernels, now "
-            f"{_fmt_ms(now_ms)} in {now_n}; mapping px {p.px}, cluster {p.cluster}")
-    graph = warped_graph_check(cap_w, cap2[0], local_corr)
-    pair = _pair_sums(calls)
-    for key in ("replaced_device_ms", "replaced_kernels", "span_now_device_ms", "span_now_kernels"):
-        pair[key] = _sum_or_none(c[key] for c in calls)
-    pair["bound_share"] = None if pair["device_ms"] is None else pair["bound_ms"] / pair["device_ms"]
-    log(f"warped correlation per pair (levels 5..2): device {_fmt_ms(pair['device_ms'])}, events "
-        f"{pair['ms']:.4f} ms, bound {pair['bound_ms']:.4f} ms; the span PWC-DC ran before "
-        f"{_fmt_ms(pair['replaced_device_ms'])} in {pair['replaced_kernels']} kernels, now "
-        f"{_fmt_ms(pair['span_now_device_ms'])} in {pair['span_now_kernels']}")
-    return dict(pair, graph=graph, calls=calls), max_err
+        share = "not measured" if dev is None else f"{100 * bound / dev:.1f}%"
+        log(f"warped correlation {name}: f1 {tuple(f1.shape)} {r['dtype']}, flow "
+            f"{r['flow_dtype']}, scale {scale}: device {_fmt_ms(dev)}, graph "
+            f"{r['graph_ms']:.4f} ms, events "
+            f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound:.5f} ms ({bound_by}, "
+            f"{nbytes / 1e6:.2f} MB, {flops / 1e6:.1f} MFLOP), share {share} (NHWC float32 basis "
+            f"{bound_nhwc:.5f} ms, {bound_by_nhwc}); span now {_fmt_ms(r['span_now_device_ms'])} "
+            f"in {r['span_now_kernels']} kernels by the trace, {span_launches} in its CUDA graph "
+            f"(graph {r['span_now_graph_ms']:.4f} ms); mapping "
+            f"px {p.px} cluster {p.cluster}, {p.warps} warps, {res['registers']} "
+            f"registers, {res['smem_bytes']} B shared, {res['blocks_per_sm']} blocks/SM; "
+            f"B2's channel split, so bit-identical to gather + casts + B2: {one_block}")
+        if old:
+            log(f"  in turns (old, new, new, old): {json.dumps(turns)}")
+    total = _pair_sums(calls)
+    total["graph_ms"] = sum(c["graph_ms"] for c in calls)
+    b_nhwc, total["bound_by_nhwc_basis"] = _bound_ms(sum(c["bytes_nhwc_basis"] for c in calls),
+                                                     sum(c["ops_ms_nhwc_basis"] for c in calls))
+    total["bound_ms_nhwc_basis"] = b_nhwc
+    for key in ("span_now_device_ms", "span_now_kernels", "span_now_graph_kernels",
+                "span_old_graph_kernels"):
+        total[key] = _sum_or_none(c[key] for c in calls)
+    total["span_now_graph_ms"] = sum(c["span_now_graph_ms"] for c in calls)
+    dev = total["device_ms"]
+    total["bound_share"] = None if dev is None else total["bound_ms"] / dev
+    total["bound_share_nhwc_basis"] = None if dev is None else b_nhwc / dev
+    if old:
+        total["turns"] = {
+            who: {k: [_sum_or_none(c["turns"][who][k][i] for c in calls) for i in range(2)]
+                  for k in calls[0]["turns"][who]} for who in ("old", "new")}
+    log(f"warped correlation per {'pair' if path == 'pwc_cli_eval' else 'step'} ({path}, levels "
+        f"5..2): device {_fmt_ms(dev)}, graph {total['graph_ms']:.4f} ms, events "
+        f"{total['ms']:.4f} ms, bound {total['bound_ms']:.4f} ms ({total['bound_by']}; "
+        f"NHWC float32 basis {b_nhwc:.4f} ms); span now {_fmt_ms(total['span_now_device_ms'])} in "
+        f"{total['span_now_kernels']} kernels by the trace, {total['span_now_graph_kernels']} "
+        f"in its CUDA graph (the earlier span's: {total['span_old_graph_kernels']}; graph "
+        f"{total['span_now_graph_ms']:.4f} ms)"
+        + (f"; in turns {json.dumps(total['turns'])}" if old else ""))
+    return dict(total, calls=calls), max_err
 
 
 def _fmt_ms(v):
@@ -971,8 +1196,10 @@ def _sum_or_none(vals):
 
 
 def _pair_sums(calls):
+    # each call's operations at their own rates (`ops_ms`), else its flops at
+    # the float32 rate
     t_bytes = sum(c["bytes"] for c in calls) / HBM_BYTES_PER_S * 1e3
-    t_ops = sum(c["flops"] for c in calls) / F32_FLOPS * 1e3
+    t_ops = sum(c.get("ops_ms", c["flops"] / F32_FLOPS * 1e3) for c in calls)
     out = {k: sum(c[k] for c in calls) for k in ("ms", "plain_ms")}
     out["device_ms"] = (None if any(c["device_ms"] is None for c in calls)
                         else sum(c["device_ms"] for c in calls))
@@ -2777,7 +3004,8 @@ def phase_cli_train_pwc(dev, sweep_warp, local_corr):
     kernel. Reports ms per step by the host clock around a synchronised
     step and the peak memory of the timed steps. Returns the launches after
     the warm-up, validation included (gather, sweep, sweep backward, pose
-    gradient, displacement volume, its backward, warped correlation, B2)."""
+    gradient, displacement volume, its backward, warped correlation, B2),
+    and the warped correlation's inputs of the warm-up step (levels 5..2)."""
     from deep_sfm_revisited_tpu_torch import cli
     from deep_sfm_revisited_tpu_torch.data.synthetic import write_kitti_raw_tree
     from deep_sfm_revisited_tpu_torch.train.trainer import Trainer
@@ -2786,8 +3014,12 @@ def phase_cli_train_pwc(dev, sweep_warp, local_corr):
     counters = (sweep_warp.KERNEL, sweep_warp.VOLUME, sweep_warp.VOLUME_BACKWARD,
                 sweep_warp.VOLUME_POSE_GRAD, sweep_warp.DISPLACEMENT,
                 sweep_warp.DISPLACEMENT_BACKWARD, local_corr.WARPED, local_corr.KERNEL)
-    real_step = Trainer.train_step
-    steps = []
+    real_step, launch_w = Trainer.train_step, local_corr.warped_correlation_cuda
+    steps, cap_w = [], []
+
+    def record_w(f1, f2, flow, scale, md):
+        cap_w.append((f1.clone(), f2.clone(), flow.clone(), scale, md))
+        return launch_w(f1, f2, flow, scale, md)
 
     def timed_step(trainer, *args, **kw):
         model = trainer.model
@@ -2796,7 +3028,12 @@ def phase_cli_train_pwc(dev, sweep_warp, local_corr):
         before = _launches(*counters)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        metrics = real_step(trainer, *args, **kw)
+        if not steps:
+            local_corr.warped_correlation_cuda = record_w
+        try:
+            metrics = real_step(trainer, *args, **kw)
+        finally:
+            local_corr.warped_correlation_cuda = launch_w
         torch.cuda.synchronize()
         ms = 1e3 * (time.perf_counter() - t0)
         n = tuple(a - b for a, b in zip(_launches(*counters), before))
@@ -2816,7 +3053,8 @@ def phase_cli_train_pwc(dev, sweep_warp, local_corr):
             for k in counters:
                 k.launches = 0
             torch.cuda.reset_peak_memory_stats()
-            log(f"{what}: warm-up step {ms:.1f} ms, loss {loss:.4f}")
+            log(f"{what}: warm-up step {ms:.1f} ms, loss {loss:.4f}; warped correlation inputs "
+                f"{_warped_inputs_desc(cap_w)}")
         else:
             log(f"{what}: step {i}: {ms:.1f} ms, loss {loss:.4f}; launches {n}")
         steps.append(dict(ms=ms, loss=loss, peak_gib=torch.cuda.max_memory_allocated() / 2**30))
@@ -2852,7 +3090,8 @@ def phase_cli_train_pwc(dev, sweep_warp, local_corr):
         f"{timed[-1]['peak_gib']:.2f} GiB; launches after the warm-up, validation included "
         f"(gather, sweep, sweep backward, pose gradient, displacement volume, its backward, "
         f"warped correlation, B2): {launches}")
-    return launches
+    check(len(cap_w) == WARPED_PER_PAIR, f"{what}: {len(cap_w)} warped correlations recorded")
+    return launches, cap_w
 
 
 def _whole(profile: dict, reps: int) -> bool:
@@ -3153,6 +3392,10 @@ def main(argv=None) -> int:
                          "whose displacement volume phase 14 (and, where it takes a hole "
                          "buffer, whose displacement backward phase 17) time in turns with "
                          "the current one")
+    ap.add_argument("--old-b2", default=None,
+                    help="an earlier csrc/local_corr.cu whose NHWC warped correlation, and the "
+                         "span PWC-DC ran around it, phases 7 and 19 time in turns with the "
+                         "current kernel and span")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's smoke run needs one", file=sys.stderr)
@@ -3161,7 +3404,7 @@ def main(argv=None) -> int:
         print(f"chip_smoke: the package {PKG} is not beside this script", file=sys.stderr)
         return 2
     sys.path.insert(0, str(REPO))
-    from deep_sfm_revisited_tpu_torch.models import dicl
+    from deep_sfm_revisited_tpu_torch.models import dicl, pwcnet
     from deep_sfm_revisited_tpu_torch.ops import camera, correlation
     from deep_sfm_revisited_tpu_torch.ops.cuda import local_corr, sweep_warp
 
@@ -3181,7 +3424,9 @@ def main(argv=None) -> int:
         calls1, err1, gather_extras = phase_kernel(cap1, sweep_warp, camera)
         sweep_call, sweep_err = phase_sweep(cap_sweep + cap_sweep_pwc, sweep_warp, camera)
         calls2, err2 = phase_b2(cap2_all, local_corr, correlation)
-        warped_call, warped_err = phase_warped(cap_w, cap2, local_corr, correlation, dicl)
+        warped_call, warped_err = phase_warped("pwc_cli_eval", cap_w, local_corr, correlation,
+                                               dicl, pwcnet, args.old_b2)
+        warped_call["graph"] = warped_graph_check(cap_w, cap2[0], local_corr)
         del cap1, cap2_all, cap_w
     phase_small_train_reference(dev)
     phase_small_train_reference(dev, posenet=True)
@@ -3215,7 +3460,11 @@ def main(argv=None) -> int:
     with torch.no_grad():
         dbwd_call, dbwd_err = phase_displacement_backward(cap_flow, sweep_warp, dicl, args.old_b1)
     del cap_flow
-    pwc_train = phase_cli_train_pwc(dev, sweep_warp, local_corr)
+    pwc_train, cap_w_train = phase_cli_train_pwc(dev, sweep_warp, local_corr)
+    with torch.no_grad():
+        warped_train, warped_train_err = phase_warped("cli_train_pwc", cap_w_train, local_corr,
+                                                      correlation, dicl, pwcnet, args.old_b2)
+    del cap_w_train
     names = ("gather", "sweep", "backward", "pose_grad", "volume", "volume_backward", "warped",
              "b2")
     by_path = {"dicl_main_path": dict(zip(names, (0, sweep_dicl, 0, 0, disp_dicl, 0, 0, 0))),
@@ -3276,12 +3525,13 @@ def main(argv=None) -> int:
             "replaces": DISP_BWD_REPLACES, "gradient_of": DISP_FUSES,
             **launches("volume_backward"), "max_abs_err": dbwd_err,
             **{k: v for k, v in dbwd_call.items() if k != "calls"}, "calls": dbwd_call["calls"]}
-    # per frame pair: PWC-DC's levels 5..2, one launch each; no single
-    # PyTorch call warps and correlates, so there is no library time (the span
-    # PWC-DC ran before is timed beside it)
-    warped = {"name": "warped_correlation", "route": "cuda", "source": B2_SOURCE,
+    # per frame pair: PWC-DC's levels 5..2, one launch each (the training
+    # step's four beside it); no single PyTorch call warps and correlates, so
+    # there is no library time (PWC-DC's span is timed beside it)
+    warped = {"name": "warped_correlation", "route": "cuda", "source": WARPED_SOURCE,
               "replaces": B2_REPLACES, "fuses": WARPED_FUSES, **launches("warped"),
-              "max_abs_err": warped_err, **warped_call}
+              "max_abs_err": max(warped_err, warped_train_err), **warped_call,
+              "train_step": warped_train}
     kernels = [b1, disp, sweep, b2, bwd, pg, dbwd, warped]
     check(b1["launches"] == 0, f"a main path launched the standalone gather {b1['launches']} "
           "times")

@@ -64,37 +64,13 @@
 //   * Host. The dynamic shared-memory attribute is set once per template
 //     instantiation and device; every call is one cudaLaunchKernelEx.
 //
-// dsfm_warped_correlation -- the same correlation with its f1 operand
-// warped: f1[b, q] is the bilinear sample of the features f2 (B, H, W, C),
-// float32 or bfloat16, at q + scale flow(q) by B1's rule (bilinear.cuh:
-// `Taps`, `blend`), rounded to f2's dtype, and zero where q is off the
-// frame. It is PWC-DC's flow warp and correlation at levels 5..2 in one
-// launch (JAX models/pwcnet.py:125-131: warp_flow, then local_correlation
-// of the float32 casts), and also replaces B1's gather there
-// (deep_sfm_revisited_tpu/ops/pallas/sweep_warp.py::bilinear_sample_pallas):
-// the warped map never reaches device memory. Mapping, clusters, f0's
-// staging and the fixed-order sums are B2's; only the halo changes. The
-// block first computes the taps of every halo pixel once into shared memory
-// (flow read once, scale applied with __fmul_rn as the torch multiply
-// rounds it); then per chunk each thread fetches the four taps' 4-channel
-// groups of its halo elements (8 bytes each in bfloat16), blends, rounds
-// and stores them to the stage as float32. A chunk's fetches for up to
-// kHeld elements a thread are issued before the previous chunk is summed
-// and blended after it, so the ring still overlaps loads with arithmetic.
-// The stage then holds the very values the composition (gather, cast, B2)
-// staged, so the output is the same bits. What bounds it: at PWC-DC's
-// levels 5..2 it reads f1 (float32), f2 and the flow once and writes the
-// 81 channels once, a few MB a level; as for B2, a launch's fixed cost and
-// the load latency, not the bytes, set its time there.
+// PWC-DC launches it at level 6 only; levels 5..2 warp f2 by the flow
+// first and run the warped correlation (warped_corr.cu) in the network's
+// NCHW layout and dtype.
 
 #include <cooperative_groups.h>
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
-
-#include <type_traits>
-
-#include "bilinear.cuh"   // B1's sampling rule: Taps, blend
 
 namespace cg = cooperative_groups;
 
@@ -131,64 +107,6 @@ struct Geometry {
   static constexpr int OutFloats = kTileH * TileW * S2;
   static constexpr int StageBytes = kStages * StageF4 * 16;
   static constexpr int SmemBytes = StageBytes > OutFloats * 4 ? StageBytes : OutFloats * 4;
-  // the warped entry: one int4 of taps a halo pixel after the stages
-  static constexpr int HaloPix = HaloH * HaloW;
-  static constexpr int HaloElems = HaloPix * kChunk4;   // (pixel, group of 4) a chunk
-  static constexpr int WarpBytes = StageBytes + HaloPix * 16;
-  static constexpr int WarpSmemBytes = WarpBytes > OutFloats * 4 ? WarpBytes : OutFloats * 4;
-};
-
-// Where the f1 operand comes from. Plain: B2 stages the given float32 map.
-// WarpF32, WarpBF16: the warped entry samples f2 of that dtype; a Group is
-// one tap's 4 channels as loaded, kHeld the halo elements a thread keeps
-// in registers across a sum (32 registers of raw taps either way).
-struct Plain {
-  static constexpr bool kWarp = false;
-  static constexpr int kBytes = 4;
-};
-
-struct WarpF32 {
-  static constexpr bool kWarp = true;
-  static constexpr int kBytes = 4;
-  static constexpr int kHeld = 2;
-  using Group = float4;
-  __device__ __forceinline__ static Group load(const char* p) {
-    return __ldg(reinterpret_cast<const float4*>(p));
-  }
-  // channels [0, n) of the group, n in 1..4; the rest zero
-  __device__ __forceinline__ static Group load_n(const char* p, int n) {
-    const float* f = reinterpret_cast<const float*>(p);
-    return make_float4(__ldg(f), n > 1 ? __ldg(f + 1) : 0.f, n > 2 ? __ldg(f + 2) : 0.f,
-                       n > 3 ? __ldg(f + 3) : 0.f);
-  }
-  __device__ __forceinline__ static void unpack(const Group& g, float* v) {
-    v[0] = g.x; v[1] = g.y; v[2] = g.z; v[3] = g.w;
-  }
-  __device__ __forceinline__ static float round(float v) { return v; }
-};
-
-struct WarpBF16 {
-  static constexpr bool kWarp = true;
-  static constexpr int kBytes = 2;
-  static constexpr int kHeld = 4;
-  using Group = uint2;
-  __device__ __forceinline__ static Group load(const char* p) {
-    return __ldg(reinterpret_cast<const uint2*>(p));
-  }
-  __device__ __forceinline__ static Group load_n(const char* p, int n) {
-    const unsigned short* u = reinterpret_cast<const unsigned short*>(p);
-    const uint32_t a = __ldg(u), b = n > 1 ? __ldg(u + 1) : 0u;
-    const uint32_t c = n > 2 ? __ldg(u + 2) : 0u, d = n > 3 ? __ldg(u + 3) : 0u;
-    return make_uint2(a | (b << 16), c | (d << 16));
-  }
-  __device__ __forceinline__ static void unpack(const Group& g, float* v) {
-    v[0] = __uint_as_float(g.x << 16); v[1] = __uint_as_float(g.x & 0xffff0000u);
-    v[2] = __uint_as_float(g.y << 16); v[3] = __uint_as_float(g.y & 0xffff0000u);
-  }
-  // the sample as the gather stores it in bfloat16, read back as float32
-  __device__ __forceinline__ static float round(float v) {
-    return __uint_as_float((uint32_t)__bfloat16_as_ushort(__float2bfloat16_rn(v)) << 16);
-  }
 };
 
 __device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
@@ -212,16 +130,15 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
 }
 
-// Start the copies of channels [cb, cb + kChunk) of the f1 halo (HALO) and
-// the f0 tile into one stage; channels at or past cend, and pixels off the
-// frame, are zero-filled. Rows 0..HaloH-1 are the halo, the next kTileH the
-// f0 tile.
-template <int MD, int PX, bool HALO>
+// Start the copies of channels [cb, cb + kChunk) of the f1 halo and the f0
+// tile into one stage; channels at or past cend, and pixels off the frame,
+// are zero-filled. Rows 0..HaloH-1 are the halo, the next kTileH the f0 tile.
+template <int MD, int PX>
 __device__ __forceinline__ void stage(float4* buf, const float* f0, const float* f1,
                                       int64_t img, int H, int W, int C, int y0, int x0,
                                       int cb, int cend, bool vec, int warp, int lane) {
   using G = Geometry<MD, PX>;
-  for (int r = (HALO ? 0 : G::HaloH) + warp; r < G::HaloH + kTileH; r += G::S) {
+  for (int r = warp; r < G::HaloH + kTileH; r += G::S) {
     const bool halo = r < G::HaloH;
     const int gy = halo ? y0 - MD + r : y0 + r - G::HaloH;
     const int width = halo ? G::HaloW : G::TileW;
@@ -251,116 +168,10 @@ __device__ __forceinline__ void stage(float4* buf, const float* f0, const float*
   }
 }
 
-// The warped entry's halo taps, once a block: per halo pixel (row-major)
-// {tap (0, 0) as y W + x, or -1 off the frame; x1 - x | (y1 - y) << 1 |
-// valid << 2; wx, wy as bits}, from the flow at the pixel times `scale`.
 template <int MD, int PX>
-__device__ __forceinline__ void warp_taps(int4* taps, const float* flow, float scale, int b,
-                                          int H, int W, int y0, int x0, int tid) {
-  using G = Geometry<MD, PX>;
-  const int64_t hw = (int64_t)H * W;
-  const float* fb = flow + (int64_t)b * 2 * hw;
-  for (int i = tid; i < G::HaloPix; i += G::Threads) {
-    const int gy = y0 - MD + i / G::HaloW, gx = x0 - MD + i % G::HaloW;
-    int4 t4 = make_int4(-1, 0, 0, 0);
-    if (gy >= 0 && gy < H && gx >= 0 && gx < W) {
-      const int64_t q = (int64_t)gy * W + gx;
-      // the coordinate as grid + flow * scale rounds it
-      const Taps t(__fadd_rn((float)gx, __fmul_rn(__ldg(fb + q), scale)),
-                   __fadd_rn((float)gy, __fmul_rn(__ldg(fb + hw + q), scale)), H, W);
-      t4 = make_int4(t.yi * W + t.xi,
-                     (t.xi1 - t.xi) | ((t.yi1 - t.yi) << 1) | (t.valid != 0.f ? 4 : 0),
-                     __float_as_int(t.wx), __float_as_int(t.wy));
-    }
-    taps[i] = t4;
-  }
-}
-
-// The warped halo of one chunk: element i = (halo pixel i / 4, channel
-// group i % 4), thread tid takes i = tid + e Threads. `issue` starts the
-// tap fetches of the first kHeld elements into registers, `finish` blends
-// those and fetches, blends and stores the rest: each element's 4 channels,
-// rounded to the features' dtype, as one float4 of the stage, zero off the
-// frame and past cend.
-template <int MD, int PX, class Src>
-struct WarpHalo {
-  using G = Geometry<MD, PX>;
-  using Group = typename Src::Group;
-  static constexpr int kPer = (G::HaloElems + G::Threads - 1) / G::Threads;
-  static constexpr int kHeld = kPer < Src::kHeld ? kPer : Src::kHeld;
-  Group raw[kHeld][4];
-
-  __device__ __forceinline__ static void fetch(Group* v, const int4& t, const char* img, int W,
-                                               int C, int c, int cend, bool vec) {
-    const int64_t o00 = t.x, o01 = o00 + (t.y & 1);
-    const int64_t o10 = o00 + ((t.y >> 1) & 1) * (int64_t)W, o11 = o10 + (t.y & 1);
-    const int64_t o[4] = {o00, o01, o10, o11};
-#pragma unroll
-    for (int k = 0; k < 4; ++k) {
-      const char* p = img + (o[k] * C + c) * Src::kBytes;
-      v[k] = vec ? Src::load(p) : Src::load_n(p, cend - c);
-    }
-  }
-
-  __device__ __forceinline__ static float4 blend4(const Group* v, const int4& t) {
-    float a[4][4];
-#pragma unroll
-    for (int k = 0; k < 4; ++k) Src::unpack(v[k], a[k]);
-    const float wx = __int_as_float(t.z), wy = __int_as_float(t.w);
-    const float ax = __fsub_rn(1.f, wx), ay = __fsub_rn(1.f, wy);
-    const float valid = (t.y & 4) ? 1.f : 0.f;
-    float r[4];
-#pragma unroll
-    for (int ch = 0; ch < 4; ++ch)
-      r[ch] = Src::round(blend(a[0][ch], a[1][ch], a[2][ch], a[3][ch], wx, ax, wy, ay, valid));
-    return make_float4(r[0], r[1], r[2], r[3]);
-  }
-
-  __device__ __forceinline__ void issue(const int4* taps, const char* img, int W, int C, int cb,
-                                        int cend, bool vec, int tid) {
-#pragma unroll
-    for (int e = 0; e < kHeld; ++e) {
-      const int i = tid + e * G::Threads;
-      if (i >= G::HaloElems) break;
-      const int4 t = taps[i >> 2];
-      const int c = cb + 4 * (i & 3);
-      if (t.x >= 0 && c < cend) fetch(raw[e], t, img, W, C, c, cend, vec);
-    }
-  }
-
-  __device__ __forceinline__ void finish(float4* buf, const int4* taps, const char* img, int W,
-                                         int C, int cb, int cend, bool vec, int tid) {
-#pragma unroll
-    for (int e = 0; e < kPer; ++e) {
-      const int i = tid + e * G::Threads;
-      if (i >= G::HaloElems) break;
-      const int pix = i >> 2, g = i & 3;
-      const int4 t = taps[pix];
-      const int c = cb + 4 * g;
-      float4 r = make_float4(0.f, 0.f, 0.f, 0.f);
-      if (t.x >= 0 && c < cend) {
-        if (e < kHeld) {
-          r = blend4(raw[e], t);
-        } else {
-          Group v[4];
-          fetch(v, t, img, W, C, c, cend, vec);
-          r = blend4(v, t);
-        }
-      }
-      buf[g * G::F1Plane + (pix / G::HaloW) * G::HaloPW + pcol<PX>(pix % G::HaloW)] = r;
-    }
-  }
-};
-
-struct NoHalo {};
-
-// f1 is B2's float32 f1 (Plain) or the features to warp (the warped entry,
-// with flow (B, 2, H, W) float32 and its scale).
-template <int MD, int PX, class Src>
 __global__ void __launch_bounds__(Geometry<MD, PX>::Threads)
-local_corr_kernel(const float* __restrict__ f0, const void* __restrict__ f1,
-                  const float* __restrict__ flow, float scale, float* __restrict__ out, int H,
-                  int W, int C, int cluster_size, int vec) {
+local_corr_kernel(const float* __restrict__ f0, const float* __restrict__ f1,
+                  float* __restrict__ out, int H, int W, int C, int cluster_size, int vec) {
   using G = Geometry<MD, PX>;
   extern __shared__ float4 smem[];
   cg::cluster_group cluster = cg::this_cluster();
@@ -386,37 +197,22 @@ local_corr_kernel(const float* __restrict__ f0, const void* __restrict__ f1,
 
   // first float4 column of this thread's pixels, in the padded layout
   const int base = PX == 1 ? tx : tx * (PX + 1);
-  const float* f1s_src = Src::kWarp ? nullptr : reinterpret_cast<const float*>(f1);
-  const char* f2 = reinterpret_cast<const char*>(f1) + img * C * Src::kBytes;
-  int4* taps = reinterpret_cast<int4*>(smem + kStages * G::StageF4);
 
   // ring of kStages stages: chunk k lives in stage k % kStages; one commit
   // group per chunk (possibly empty), so waiting until kStages - 1 groups
-  // are pending means chunk k has landed. The warped entry's halo is
-  // written by the threads themselves: chunk 0's before the loop, chunk
-  // k + 1's after chunk k is summed (its fetches issued before the sum).
-  static_assert(kStages == 2, "the warped halo's ring assumes two stages");
-  if (0 < nk)
-    stage<MD, PX, !Src::kWarp>(smem, f0, f1s_src, img, H, W, C, y0, x0, cbeg, cend, vec, dyr,
-                               lane);
-  cp_async_commit();
-  [[maybe_unused]] std::conditional_t<Src::kWarp, WarpHalo<MD, PX, Src>, NoHalo> halo_;
-  if constexpr (Src::kWarp) {
-    warp_taps<MD, PX>(taps, flow, scale, blockIdx.z, H, W, y0, x0, tid);
-    __syncthreads();
-    if (0 < nk) {
-      halo_.issue(taps, f2, W, C, cbeg, cend, vec, tid);
-      halo_.finish(smem, taps, f2, W, C, cbeg, cend, vec, tid);
-    }
+  // are pending means chunk k has landed
+#pragma unroll
+  for (int k = 0; k < kStages - 1; ++k) {
+    if (k < nk)
+      stage<MD, PX>(smem + k * G::StageF4, f0, f1, img, H, W, C, y0, x0, cbeg + k * kChunk,
+                    cend, vec, dyr, lane);
+    cp_async_commit();
   }
   for (int k = 0; k < nk; ++k) {
     const int next = k + kStages - 1;
-    if (next < nk) {
-      stage<MD, PX, !Src::kWarp>(smem + (next % kStages) * G::StageF4, f0, f1s_src, img, H, W,
-                                 C, y0, x0, cbeg + next * kChunk, cend, vec, dyr, lane);
-      if constexpr (Src::kWarp)
-        halo_.issue(taps, f2, W, C, cbeg + next * kChunk, cend, vec, tid);
-    }
+    if (next < nk)
+      stage<MD, PX>(smem + (next % kStages) * G::StageF4, f0, f1, img, H, W, C, y0, x0,
+                    cbeg + next * kChunk, cend, vec, dyr, lane);
     cp_async_commit();
     cp_async_wait<kStages - 1>();
     __syncthreads();
@@ -445,13 +241,6 @@ local_corr_kernel(const float* __restrict__ f0, const void* __restrict__ f1,
           }
         }
       }
-    }
-    if constexpr (Src::kWarp) {
-      // stage next % kStages held chunk k - 1, whose reads ended before the
-      // barrier that closed the previous iteration
-      if (next < nk)
-        halo_.finish(smem + (next % kStages) * G::StageF4, taps, f2, W, C, cbeg + next * kChunk,
-                     cend, vec, tid);
     }
     __syncthreads();   // every read of this stage is done before it is refilled
   }
@@ -486,29 +275,30 @@ local_corr_kernel(const float* __restrict__ f0, const void* __restrict__ f1,
   if (cluster_size > 1) cluster.sync();   // no block leaves while its partials are read
 }
 
-template <int MD, int PX, class Src>
-cudaError_t launch(const float* f0, const void* f1, const float* flow, float scale, float* out,
-                   int B, int H, int W, int C, int cluster_size, int vec, cudaStream_t stream) {
+template <int MD, int PX>
+cudaError_t launch(const float* f0, const float* f1, float* out, int B, int H, int W, int C,
+                   int cluster_size, cudaStream_t stream) {
   using G = Geometry<MD, PX>;
-  constexpr int smem_bytes = Src::kWarp ? G::WarpSmemBytes : G::SmemBytes;
   static bool configured[kMaxDevices] = {};
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
   if (dev < 0 || dev >= kMaxDevices) return cudaErrorInvalidDevice;
   if (!configured[dev]) {
-    err = cudaFuncSetAttribute(local_corr_kernel<MD, PX, Src>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
+    err = cudaFuncSetAttribute(local_corr_kernel<MD, PX>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, G::SmemBytes);
     if (err != cudaSuccess) return err;
     configured[dev] = true;
   }
   const int tiles_x = (W + G::TileW - 1) / G::TileW, tiles_y = (H + kTileH - 1) / kTileH;
   if (tiles_y > 65535 || B > 65535) return cudaErrorInvalidConfiguration;
+  const bool aligned = ((reinterpret_cast<uintptr_t>(f0) | reinterpret_cast<uintptr_t>(f1)) & 15) == 0;
+  const int vec = (C % 4 == 0 && aligned) ? 1 : 0;
 
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(tiles_x * cluster_size, tiles_y, B);
   cfg.blockDim = dim3(kCols, kTileH, G::S);
-  cfg.dynamicSmemBytes = smem_bytes;
+  cfg.dynamicSmemBytes = G::SmemBytes;
   cfg.stream = stream;
   cudaLaunchAttribute attr[1];
   attr[0].id = cudaLaunchAttributeClusterDimension;
@@ -517,34 +307,19 @@ cudaError_t launch(const float* f0, const void* f1, const float* flow, float sca
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  err = cudaLaunchKernelEx(&cfg, local_corr_kernel<MD, PX, Src>, f0, f1, flow, scale, out, H, W,
-                           C, cluster_size, vec);
+  err = cudaLaunchKernelEx(&cfg, local_corr_kernel<MD, PX>, f0, f1, out, H, W, C,
+                           cluster_size, vec);
   if (err != cudaSuccess) return err;
   return cudaGetLastError();
 }
 
-template <int MD, class Src>
-cudaError_t launch_px(const float* f0, const void* f1, const float* flow, float scale,
-                      float* out, int B, int H, int W, int C, int px, int cluster_size, int vec,
-                      cudaStream_t stream) {
+template <int MD>
+cudaError_t launch_px(const float* f0, const float* f1, float* out, int B, int H, int W,
+                      int C, int px, int cluster_size, cudaStream_t stream) {
   switch (px) {
-    case 1: return launch<MD, 1, Src>(f0, f1, flow, scale, out, B, H, W, C, cluster_size, vec, stream);
-    case 2: return launch<MD, 2, Src>(f0, f1, flow, scale, out, B, H, W, C, cluster_size, vec, stream);
-    case 4: return launch<MD, 4, Src>(f0, f1, flow, scale, out, B, H, W, C, cluster_size, vec, stream);
-    default: return cudaErrorInvalidValue;
-  }
-}
-
-template <class Src>
-cudaError_t launch_md(const float* f0, const void* f1, const float* flow, float scale,
-                      float* out, int B, int H, int W, int C, int md, int px, int cluster,
-                      int vec, cudaStream_t s) {
-  if (cluster < 1 || cluster > kMaxCluster || cluster > (C + 3) / 4) return cudaErrorInvalidValue;
-  switch (md) {
-    case 1: return launch_px<1, Src>(f0, f1, flow, scale, out, B, H, W, C, px, cluster, vec, s);
-    case 2: return launch_px<2, Src>(f0, f1, flow, scale, out, B, H, W, C, px, cluster, vec, s);
-    case 3: return launch_px<3, Src>(f0, f1, flow, scale, out, B, H, W, C, px, cluster, vec, s);
-    case 4: return launch_px<4, Src>(f0, f1, flow, scale, out, B, H, W, C, px, cluster, vec, s);
+    case 1: return launch<MD, 1>(f0, f1, out, B, H, W, C, cluster_size, stream);
+    case 2: return launch<MD, 2>(f0, f1, out, B, H, W, C, cluster_size, stream);
+    case 4: return launch<MD, 4>(f0, f1, out, B, H, W, C, cluster_size, stream);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -559,30 +334,17 @@ cudaError_t launch_md(const float* f0, const void* f1, const float* flow, float 
 extern "C" int dsfm_local_correlation(const void* f0, const void* f1, void* out, int B,
                                       int H, int W, int C, int md, int px, int cluster,
                                       void* stream) {
-  const bool aligned = ((reinterpret_cast<uintptr_t>(f0) | reinterpret_cast<uintptr_t>(f1)) & 15) == 0;
-  return (int)launch_md<Plain>(reinterpret_cast<const float*>(f0), f1, nullptr, 0.f,
-                               reinterpret_cast<float*>(out), B, H, W, C, md, px, cluster,
-                               C % 4 == 0 && aligned, reinterpret_cast<cudaStream_t>(stream));
-}
-
-// The warped correlation: out (B, H, W, (2md+1)^2) float32 of f1 (B, H, W,
-// C) float32 and f2 (B, H, W, C) of `dtype` (0 = float32, 1 = bfloat16)
-// sampled at q + scale flow(q), flow (B, 2, H, W) float32; all contiguous.
-// The same md, px and cluster rules as dsfm_local_correlation, whose plan
-// it takes.
-extern "C" int dsfm_warped_correlation(const void* f1, const void* f2, const void* flow,
-                                       float scale, void* out, int B, int H, int W, int C,
-                                       int md, int px, int cluster, int dtype, void* stream) {
-  const float* a = reinterpret_cast<const float*>(f1);
-  const float* fl = reinterpret_cast<const float*>(flow);
-  float* o = reinterpret_cast<float*>(out);
+  if (cluster < 1 || cluster > kMaxCluster || cluster > (C + 3) / 4)
+    return (int)cudaErrorInvalidValue;
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
-  const uintptr_t a16 = reinterpret_cast<uintptr_t>(f1) & 15, p2 = reinterpret_cast<uintptr_t>(f2);
-  if (dtype == 0)
-    return (int)launch_md<WarpF32>(a, f2, fl, scale, o, B, H, W, C, md, px, cluster,
-                                   C % 4 == 0 && a16 == 0 && (p2 & 15) == 0, s);
-  if (dtype == 1)
-    return (int)launch_md<WarpBF16>(a, f2, fl, scale, o, B, H, W, C, md, px, cluster,
-                                    C % 4 == 0 && a16 == 0 && (p2 & 7) == 0, s);
-  return (int)cudaErrorInvalidValue;
+  const float* a = reinterpret_cast<const float*>(f0);
+  const float* b = reinterpret_cast<const float*>(f1);
+  float* o = reinterpret_cast<float*>(out);
+  switch (md) {
+    case 1: return launch_px<1>(a, b, o, B, H, W, C, px, cluster, s);
+    case 2: return launch_px<2>(a, b, o, B, H, W, C, px, cluster, s);
+    case 3: return launch_px<3>(a, b, o, B, H, W, C, px, cluster, s);
+    case 4: return launch_px<4>(a, b, o, B, H, W, C, px, cluster, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }

@@ -3,10 +3,10 @@
 A shared 6-level pyramid encoder (16/32/64/96/128/196 channels, stride 2
 per level, leaky ReLU 0.1) -> per level 6..2: the md=4 windowed correlation
 on float32 features of the reference features with the target features
-warped by the scaled up-sampled flow (levels 5..2: `warped_correlation`, one
-kernel a level on the GPU, B2's warped entry point; level 6 has no flow:
-`local_correlation`, kernel B2), a DenseNet-connected decoder and its flow
-head, and 4x4 stride-2
+warped by the scaled up-sampled flow (levels 5..2: `warped_correlation_nchw`,
+one kernel a level on the GPU in the network's layout and dtype; level 6
+has no flow: `local_correlation`, kernel B2), a DenseNet-connected decoder
+and its flow head, and 4x4 stride-2
 deconvolutions for the next level's up-flow and up-feature -> a dilated
 context net refining the level-2 flow -> x20 at full resolution.
 
@@ -35,7 +35,8 @@ from torch import nn
 
 from deep_sfm_revisited_tpu_torch.config import FlowConfig
 from deep_sfm_revisited_tpu_torch.models.submodules import _resize_nchw
-from deep_sfm_revisited_tpu_torch.ops.correlation import local_correlation, warped_correlation
+from deep_sfm_revisited_tpu_torch.ops.correlation import (local_correlation,
+                                                          warped_correlation_nchw)
 from deep_sfm_revisited_tpu_torch.utils.weights import pwc_encoder_names
 
 _LRELU = 0.1
@@ -67,13 +68,12 @@ def _correlate(f1: torch.Tensor, f2: torch.Tensor, md: int) -> torch.Tensor:
 
 def _warped_correlate(f1: torch.Tensor, f2: torch.Tensor, up_flow: torch.Tensor, scale: float,
                       md: int) -> torch.Tensor:
-    """NCHW features and up-sampled flow (B, 2, h, w) -> NCHW correlation of
-    f1 with f2 warped by the flow times `scale` (JAX `warp_flow`, then the
-    correlation of float32 casts), cast back to the features' dtype; f2 is
-    read in its own dtype."""
-    corr = warped_correlation(f1.permute(0, 2, 3, 1).float().contiguous(),
-                              f2.permute(0, 2, 3, 1).contiguous(), up_flow.float(), scale, md)
-    return corr.permute(0, 3, 1, 2).to(f1.dtype)
+    """NCHW features (channels-last in memory, as the encoder leaves them)
+    and up-sampled flow (B, 2, h, w) -> NCHW correlation of f1 with f2
+    warped by the flow times `scale` (JAX `warp_flow`, then the correlation
+    of float32 casts), in the features' dtype: on the GPU one launch, with
+    no permute, copy or cast around it."""
+    return warped_correlation_nchw(f1, f2, up_flow, scale, md)
 
 
 class PWCDCNet(nn.Module):

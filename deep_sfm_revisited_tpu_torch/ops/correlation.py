@@ -3,11 +3,17 @@
 `local_correlation` has a hand-written kernel: on CUDA tensors it launches
 kernel B2 (`ops/cuda/local_corr.py`, source `csrc/local_corr.cu`); on CPU
 tensors it runs `local_correlation_plain`, the kernel's plain PyTorch
-version. `warped_correlation` is PWC-DC's flow warp and correlation of one
-level (JAX `models/pwcnet.py:125-131`) as one kernel on CUDA tensors, with
-`warped_correlation_plain` on CPU tensors. There is no fallback from a
-kernel to its plain version. Layout NHWC, as in the JAX function.
-`epipolar_correlation` is not ported (no eval route reaches it).
+version. Layout NHWC, as in the JAX function.
+
+`warped_correlation_nchw` is PWC-DC's flow warp and correlation of one
+level (JAX `models/pwcnet.py:125-131`, the correlation cast back to the
+network's dtype) in PWC-DC's layout and dtype (NCHW tensors, channels-last
+in memory as its convolutions hold them): one kernel on CUDA tensors
+(`csrc/warped_corr.cu`), `warped_correlation_nchw_plain` on CPU tensors.
+`warped_correlation` is the same function under JAX's NHWC contract (on
+CUDA the kernel between permutes, float32 features only; used by tests
+only), with `warped_correlation_plain`. There is no fallback from a kernel to its plain
+version. `epipolar_correlation` is not ported (no eval route reaches it).
 """
 
 from __future__ import annotations
@@ -71,13 +77,50 @@ def warped_correlation(f1: torch.Tensor, f2: torch.Tensor, flow: torch.Tensor, s
     """Correlation of f1 (B, H, W, C) float32 with f2 (B, H, W, C) warped by
     flow (B, 2, H, W) * scale -> (B, H, W, (2md+1)^2) float32.
 
-    CUDA tensors go through B2's warped entry point (one kernel; f2 float32
-    or bfloat16, no warped map in device memory), CPU tensors through
-    `warped_correlation_plain`.
+    CUDA tensors go through the warped correlation's kernel between
+    permutes, and there f2 is float32 too (bfloat16 features take
+    `warped_correlation_nchw`, in whose dtype the kernel computes); CPU
+    tensors through `warped_correlation_plain`, f2 of any float dtype.
     """
     if f1.device.type == "cuda":
-        return local_corr.warped_correlation_cuda(f1.contiguous(), f2.contiguous(),
-                                                  flow.float().contiguous(), scale, md)
+        if f1.dtype != torch.float32 or f2.dtype != torch.float32:
+            raise TypeError(f"warped_correlation on CUDA takes float32 f1 and f2, not "
+                            f"{f1.dtype}, {f2.dtype}; bfloat16 features take "
+                            "warped_correlation_nchw")
+        out = local_corr.warped_correlation_cuda(
+            f1.contiguous().permute(0, 3, 1, 2), f2.contiguous().permute(0, 3, 1, 2),
+            flow.float(), scale, md)
+        return out.permute(0, 2, 3, 1)
     if f1.device.type == "cpu":
         return warped_correlation_plain(f1, f2, flow, scale, md)
     raise NotImplementedError(f"warped_correlation on {f1.device.type}")
+
+
+def warped_correlation_nchw_plain(f1: torch.Tensor, f2: torch.Tensor, flow: torch.Tensor,
+                                  scale: float, md: int = 4) -> torch.Tensor:
+    """The warped correlation kernel's plain PyTorch version in PWC-DC's
+    layout: f1, f2 (B, C, H, W), flow (B, 2, H, W) -> (B, (2md+1)^2, H, W)
+    in f1's dtype, channels-last as the kernel writes it:
+    `warped_correlation_plain` between permutes, cast back."""
+    corr = warped_correlation_plain(f1.permute(0, 2, 3, 1), f2.permute(0, 2, 3, 1), flow,
+                                    scale, md)
+    return corr.permute(0, 3, 1, 2).to(f1.dtype)
+
+
+def warped_correlation_nchw(f1: torch.Tensor, f2: torch.Tensor, flow: torch.Tensor,
+                            scale: float, md: int = 4) -> torch.Tensor:
+    """PWC-DC's correlation of one warped level: f1, f2 (B, C, H, W) of the
+    network's dtype, the up-sampled flow (B, 2, H, W) -> (B, (2md+1)^2, H,
+    W) in f1's dtype, the correlation of f1 with f2 warped by flow * scale.
+
+    CUDA tensors go through one launch of the warped correlation's kernel
+    and nothing else: f1, f2 of one dtype and the flow, each float32 or
+    bfloat16, f1 and f2 channels-last as PWC-DC's convolutions leave them
+    (other layouts are refused, not copied); the output is channels-last
+    too. CPU tensors go through `warped_correlation_nchw_plain`.
+    """
+    if f1.device.type == "cuda":
+        return local_corr.warped_correlation_cuda(f1, f2, flow, scale, md)
+    if f1.device.type == "cpu":
+        return warped_correlation_nchw_plain(f1, f2, flow, scale, md)
+    raise NotImplementedError(f"warped_correlation_nchw on {f1.device.type}")

@@ -12,9 +12,10 @@ is never loaded.
 that its main path went through the kernel.
 
 `TorchOps` builds a source that registers PyTorch operators
-(`TORCH_LIBRARY`) around the plain C launchers of a `CudaKernel`'s library:
+(`TORCH_LIBRARY`) around the plain C launchers of one or more `CudaKernel`
+libraries:
 host code compiled by nvcc against `torch.utils.cpp_extension`'s include
-and library paths (no ninja, no pybind11), linked to that library, into
+and library paths (no ninja, no pybind11), linked to those libraries, into
 `_build/` at first use, and loaded with `torch.ops.load_library`.
 """
 
@@ -105,11 +106,13 @@ def _compile(cmd: list, out: Path, src: Path) -> str:
 
 
 class TorchOps:
-    """Builds (once per source, kernel library and torch version), links and
-    loads one operator source; `build()` returns `torch.ops.<namespace>`."""
+    """Builds (once per source, kernel libraries and torch version), links
+    and loads one operator source; `build()` returns `torch.ops.<namespace>`."""
 
-    def __init__(self, source: str, kernel: CudaKernel, namespace: str):
-        self.source, self.kernel, self.namespace = source, kernel, namespace
+    def __init__(self, source: str, kernels: CudaKernel | tuple[CudaKernel, ...],
+                 namespace: str):
+        self.source, self.namespace = source, namespace
+        self.kernels = kernels if isinstance(kernels, tuple) else (kernels,)
         self.build_log = ""
         self._ops = None
         self._lock = threading.Lock()
@@ -121,9 +124,11 @@ class TorchOps:
             import torch
             from torch.utils import cpp_extension
 
-            self.kernel.build()
+            for kernel in self.kernels:
+                kernel.build()
             src = CSRC / self.source
-            key = src.read_bytes() + self.kernel.path.name.encode() + torch.__version__.encode()
+            key = (src.read_bytes() + "".join(k.path.name for k in self.kernels).encode()
+                   + torch.__version__.encode())
             lib_path = BUILD_DIR / f"lib{src.stem}_{hashlib.sha256(key).hexdigest()[:12]}.so"
             if not lib_path.exists():
                 # torch's own libraries are loaded with torch, so the
@@ -134,7 +139,7 @@ class TorchOps:
                     [_nvcc(), "-std=c++20", "-O2", "-shared", "-Xcompiler", "-fPIC",
                      f"-D_GLIBCXX_USE_CXX11_ABI={abi}",
                      *(f"-I{d}" for d in cpp_extension.include_paths()),
-                     str(src), str(self.kernel.path),
+                     str(src), *(str(k.path) for k in self.kernels),
                      *(f"-L{d}" for d in lib_dirs), "-lc10", "-ltorch_cpu"], lib_path, src)
             torch.ops.load_library(str(lib_path))
             self._ops = getattr(torch.ops, self.namespace)

@@ -1,30 +1,35 @@
-"""Kernel B2: the PWC-style windowed correlation, and PWC-DC's warp fused into it, as CUDA kernels for Hopper.
+"""Kernel B2 and PWC-DC's warped correlation, as CUDA kernels for Hopper.
 
 Both replace `deep_sfm_revisited_tpu/ops/pallas/local_corr.py::
 local_correlation_pallas` (`pallas_call` at `:80`); the warped one also
 replaces B1's gather (`ops/pallas/sweep_warp.py::bilinear_sample_pallas`)
-on PWC-DC's flow warps. One source, `csrc/local_corr.cu`, built at first use
-by `ops/cuda/build.py`; `csrc/local_corr_ops.cpp` registers its two entry
-points as the PyTorch operators `torch.ops.dsfm_corr.*` (`OPS`), through
-which each wrapper launches and adds one to its own count:
+on PWC-DC's flow warps. Two sources, `csrc/local_corr.cu` (B2) and
+`csrc/warped_corr.cu` (the warped correlation), built at first use by
+`ops/cuda/build.py`; `csrc/local_corr_ops.cpp` registers their entry points
+as the PyTorch operators `torch.ops.dsfm_corr.*` (`OPS`), through which each
+wrapper launches and adds one to its own count:
 
-- `local_correlation_cuda` (`KERNEL.launches`): the windowed correlation.
-  Plain version `ops/correlation.py::local_correlation_plain`;
-  `ops/correlation.py::local_correlation` sends CUDA tensors here (PWC-DC's
-  level 6).
+- `local_correlation_cuda` (`KERNEL.launches`): the windowed correlation of
+  NHWC float32 maps. Plain version `ops/correlation.py::
+  local_correlation_plain`; `ops/correlation.py::local_correlation` sends
+  CUDA tensors here (PWC-DC's level 6).
 - `warped_correlation_cuda` (`WARPED.launches`): the correlation of f1 with
-  f2 sampled at q + scale flow(q) by B1's rule, with no warped map in device
-  memory. Plain version `ops/correlation.py::warped_correlation_plain`;
-  `ops/correlation.py::warped_correlation` sends CUDA tensors here (PWC-DC's
-  levels 5..2).
+  f2 sampled at q + scale flow(q) by B1's rule, in PWC-DC's layout and
+  dtype ((B, C, H, W) float32 or bfloat16 features, channels-last in
+  memory, the output likewise), with no warped map in device memory.
+  Plain version `ops/correlation.py::warped_correlation_nchw_plain`;
+  `ops/correlation.py::warped_correlation_nchw` sends CUDA tensors here
+  (PWC-DC's levels 5..2), and `warped_correlation` (JAX's NHWC contract,
+  float32 features) too, between permutes.
 
-The source's header says what bounds the kernels and how their design
-answers that. `plan` picks the work mapping both take from the shape; it
-needs no card, so the CPU tests reach it.
+The sources' headers say what bounds the kernels and how their designs
+answer that. `plan` and `warped_plan` pick the work mappings from the
+shape; they need no card, so the CPU tests reach them.
 """
 
 from __future__ import annotations
 
+import ctypes
 import functools
 from dataclasses import dataclass
 
@@ -33,11 +38,13 @@ import torch
 from deep_sfm_revisited_tpu_torch.ops.cuda.build import CudaKernel, TorchOps
 
 MAX_MD = 4           # the source instantiates md = 1..4 (PWC-DC uses 4)
-TILE_H = 4           # output rows per block (`kTileH`)
+TILE_H = 4           # output rows per block (`kTileH`, both sources)
 THREAD_COLS = 8      # thread columns per block (`kCols`)
 PIXELS_PER_THREAD = (4, 2, 1)   # the source instantiates these PX
 MAX_CLUSTER = 8      # `kMaxCluster`: the portable cluster size
 TARGET_WARPS = 1024  # ~8 warps on each of the H100's 132 SMs
+WARPED_PIXELS = (2, 1)   # the warped correlation's pixels a thread (`warped_corr.cu`)
+MIN_BLOCKS = 120     # the warped correlation's grid: about a block on each of 132 SMs
 
 
 @dataclass(frozen=True)
@@ -106,20 +113,17 @@ def plan(B: int, H: int, W: int, C: int, md: int) -> Plan:
                 block=(THREAD_COLS, TILE_H, s), shares=channel_shares(C, cluster))
 
 
-def check_correlation_args(what: str, f0: torch.Tensor, f1: torch.Tensor, md: int,
-                           f1_dtypes=(torch.float32,)) -> None:
-    """Raise on what B2's kernels do not take: f0 not float32, f1 not of
-    `f1_dtypes`, not one (B, H, W, C) shape with every size >= 1, not
-    contiguous, md outside 1..4, a tensor not on CUDA or the two on two
-    devices. Checked here, not only in the operators, so the CPU tests see
-    every refusal."""
+def check_correlation_args(what: str, f0: torch.Tensor, f1: torch.Tensor, md: int) -> None:
+    """Raise on what B2's kernel does not take: f0 or f1 not float32, not
+    one (B, H, W, C) shape with every size >= 1, not contiguous, md outside
+    1..4, a tensor not on CUDA or the two on two devices. Checked here, not
+    only in the operators, so the CPU tests see every refusal."""
     if not (f0.is_cuda and f1.is_cuda):
         raise ValueError(f"{what} takes CUDA tensors only")
     if f0.device != f1.device:
         raise ValueError(f"f0 on {f0.device}, f1 on {f1.device}")
-    if f0.dtype != torch.float32 or f1.dtype not in f1_dtypes:
-        raise TypeError(f"{what} dtypes {f0.dtype}, {f1.dtype}; takes float32 and "
-                        f"{' or '.join(str(d) for d in f1_dtypes)}")
+    if f0.dtype != torch.float32 or f1.dtype != torch.float32:
+        raise TypeError(f"{what} dtypes {f0.dtype}, {f1.dtype}; takes float32")
     if f0.dim() != 4 or f0.shape != f1.shape:
         raise ValueError(f"{what} shapes f0 {tuple(f0.shape)}, f1 {tuple(f1.shape)}")
     if not (f0.is_contiguous() and f1.is_contiguous()):
@@ -128,6 +132,95 @@ def check_correlation_args(what: str, f0: torch.Tensor, f1: torch.Tensor, md: in
         raise ValueError(f"{what} max displacement {md}; takes 1..{MAX_MD}")
     if min(f0.shape) < 1:
         raise ValueError(f"{what} feature shape {tuple(f0.shape)} out of range")
+
+
+@dataclass(frozen=True)
+class WarpedPlan:
+    """The warped correlation's work mapping for one shape (see the header
+    of `csrc/warped_corr.cu`).
+
+    A block covers `TILE_H` rows x `tile_w` columns of one image with one
+    warp per displacement row (blockDim (8, 4, 2md+1)); each thread sums
+    `px` adjacent pixels. `cluster` blocks along grid.x share one tile and
+    split its channels, rank k taking `shares[k]`.
+    """
+
+    px: int
+    cluster: int
+    grid: tuple[int, int, int]
+    block: tuple[int, int, int]
+    shares: tuple[tuple[int, int], ...]
+
+    @property
+    def tile_w(self) -> int:
+        return THREAD_COLS * self.px
+
+    @property
+    def blocks(self) -> int:
+        gx, gy, gz = self.grid
+        return gx * gy * gz
+
+    @property
+    def warps(self) -> int:
+        return self.blocks * self.block[2]
+
+
+def warped_mapping(B: int, C: int, H: int, W: int, md: int, px: int,
+                   cluster: int) -> WarpedPlan:
+    """The launch geometry of one (px, cluster) mapping."""
+    tiles_x, tiles_y = -(-W // (THREAD_COLS * px)), -(-H // TILE_H)
+    return WarpedPlan(px=px, cluster=cluster, grid=(tiles_x * cluster, tiles_y, B),
+                      block=(THREAD_COLS, TILE_H, 2 * md + 1), shares=channel_shares(C, cluster))
+
+
+@functools.lru_cache(maxsize=256)
+def warped_plan(B: int, C: int, H: int, W: int, md: int) -> WarpedPlan:
+    """The mapping the warped correlation launches with for f1, f2 (B, C, H,
+    W) and max displacement md, chosen from a measured grid at both main
+    paths' levels 5..2 (`b2_compare.py --warped-plans`, PERF.md section 6).
+
+    Two pixels a thread where the tiles overhang W by at most W/8, else
+    one; then the fewest ranks of a channel split (1, 2, 4, 8, every rank
+    keeping a group of 4 channels) that bring the grid to `MIN_BLOCKS`
+    blocks. The measured best did not depend on the dtype by more than a
+    few percent.
+    """
+    px = 2 if -(-W // (THREAD_COLS * 2)) * THREAD_COLS * 2 - W <= W // 8 else 1
+    groups = (C + 3) // 4
+    cluster = 1
+    while (cluster < MAX_CLUSTER and 2 * cluster <= groups
+           and warped_mapping(B, C, H, W, md, px, cluster).blocks < MIN_BLOCKS):
+        cluster *= 2
+    return warped_mapping(B, C, H, W, md, px, cluster)
+
+
+def check_warped_args(f1: torch.Tensor, f2: torch.Tensor, flow: torch.Tensor,
+                      md: int) -> None:
+    """Raise on what the warped correlation does not take: a tensor not on
+    CUDA or not on one device; f1 not float32 or bfloat16, f2 of another
+    dtype, the flow not float32 or bfloat16; f1, f2 not one (B, C, H, W)
+    shape with every size >= 1, the flow not (B, 2, H, W); f1 or f2 not
+    channels-last contiguous; md outside 1..4. Checked here, not only in
+    the operator, so the CPU tests see every refusal."""
+    what = "the warped correlation"
+    if not (f1.is_cuda and f2.is_cuda and flow.is_cuda):
+        raise ValueError(f"{what} takes CUDA tensors only")
+    if not f1.device == f2.device == flow.device:
+        raise ValueError(f"{what}: f1 on {f1.device}, f2 on {f2.device}, flow on {flow.device}")
+    floats = (torch.float32, torch.bfloat16)
+    if f1.dtype not in floats or f2.dtype != f1.dtype or flow.dtype not in floats:
+        raise TypeError(f"{what} dtypes f1 {f1.dtype}, f2 {f2.dtype}, flow {flow.dtype}; takes "
+                        "f1 and f2 of one dtype and a flow, each float32 or bfloat16")
+    if f1.dim() != 4 or f2.shape != f1.shape or min(f1.shape) < 1:
+        raise ValueError(f"{what} shapes f1 {tuple(f1.shape)}, f2 {tuple(f2.shape)}")
+    B, _, H, W = f1.shape
+    if tuple(flow.shape) != (B, 2, H, W):
+        raise ValueError(f"{what} flow {tuple(flow.shape)}; takes {(B, 2, H, W)}")
+    cl = torch.channels_last
+    if not (f1.is_contiguous(memory_format=cl) and f2.is_contiguous(memory_format=cl)):
+        raise ValueError(f"{what} takes channels-last contiguous f1 and f2")
+    if not 1 <= md <= MAX_MD:
+        raise ValueError(f"{what} max displacement {md}; takes 1..{MAX_MD}")
 
 
 class LocalCorrKernel(CudaKernel):
@@ -155,30 +248,46 @@ class LocalCorrKernel(CudaKernel):
         return out
 
 
-class WarpedCorrelation:
-    """Launches the warped correlation through `OPS`; owns its launch count."""
+class WarpedKernel(CudaKernel):
+    """The warped correlation's library (plain C launcher, linked by `OPS`);
+    launches through `OPS` and owns its launch count."""
+
+    source = "warped_corr.cu"
 
     def __init__(self):
-        self.launches = 0
+        super().__init__()
         self._op = None
+
+    def _bind(self, lib) -> None:
+        """The launcher is the operator's (`OPS`); only the resources query
+        is called from here."""
+        fn = lib.dsfm_warped_correlation_resources
+        fn.argtypes = [ctypes.c_int] * 3 + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+
+    def resources(self, p: WarpedPlan, dtype: torch.dtype) -> dict:
+        """What one mapping's kernel takes on the card: registers a thread,
+        dynamic shared memory a block, resident blocks an SM (the occupancy
+        calculator's, without the cluster's constraint), threads a block."""
+        res = (ctypes.c_int * 4)()
+        md = (p.block[2] - 1) // 2
+        err = self.build().dsfm_warped_correlation_resources(
+            md, p.px, 0 if dtype == torch.float32 else 1, res)
+        if err != 0:
+            raise RuntimeError(f"the warped correlation's resources query failed: cudaError {err}")
+        return dict(registers=res[0], smem_bytes=res[1], blocks_per_sm=res[2], threads=res[3])
 
     def __call__(self, f1: torch.Tensor, f2: torch.Tensor, flow: torch.Tensor, scale: float,
                  md: int) -> torch.Tensor:
-        """f1 (B, H, W, C) float32, f2 (B, H, W, C) float32 or bfloat16, flow
-        (B, 2, H, W) float32, all contiguous on one device -> (B, H, W,
-        (2md+1)^2) float32. It has no backward: inputs that need a gradient
-        are refused while grad mode is on."""
-        check_correlation_args("the warped correlation", f1, f2, md,
-                               (torch.float32, torch.bfloat16))
-        B, H, W, _ = f1.shape
-        if flow.dtype != torch.float32 or tuple(flow.shape) != (B, 2, H, W) \
-                or not flow.is_contiguous() or flow.device != f1.device:
-            raise ValueError(f"the warped correlation's flow {tuple(flow.shape)} {flow.dtype} "
-                             f"on {flow.device}; takes a contiguous float32 {(B, 2, H, W)} "
-                             f"on {f1.device}")
+        """f1, f2 (B, C, H, W) of one dtype, float32 or bfloat16, channels-last
+        contiguous, flow (B, 2, H, W) float32 or bfloat16 of any strides, on
+        one device -> (B, (2md+1)^2, H, W) in f1's dtype, channels-last.
+        It has no backward: inputs that need a gradient are
+        refused while grad mode is on."""
+        check_warped_args(f1, f2, flow, md)
         if torch.is_grad_enabled() and any(t.requires_grad for t in (f1, f2, flow)):
             raise NotImplementedError("the warped correlation has no backward")
-        p = plan(*f1.shape, md)
+        p = warped_plan(*f1.shape, md)
         op = self._op
         if op is None:
             op = self._op = OPS.build().warped_correlation.default
@@ -188,9 +297,9 @@ class WarpedCorrelation:
 
 
 KERNEL = LocalCorrKernel()
-OPS = TorchOps("local_corr_ops.cpp", KERNEL, "dsfm_corr")
-BUILDS = (KERNEL, OPS)      # what chip_smoke.py's setup builds, in parallel with B1
-WARPED = WarpedCorrelation()
+WARPED = WarpedKernel()
+OPS = TorchOps("local_corr_ops.cpp", (KERNEL, WARPED), "dsfm_corr")
+BUILDS = (KERNEL, WARPED, OPS)   # what chip_smoke.py's setup builds, in parallel with B1
 
 
 def local_correlation_cuda(f0: torch.Tensor, f1: torch.Tensor, md: int) -> torch.Tensor:
@@ -201,5 +310,5 @@ def local_correlation_cuda(f0: torch.Tensor, f1: torch.Tensor, md: int) -> torch
 def warped_correlation_cuda(f1: torch.Tensor, f2: torch.Tensor, flow: torch.Tensor,
                             scale: float, md: int) -> torch.Tensor:
     """Launch the warped correlation on the current stream (see
-    `WarpedCorrelation.__call__`)."""
+    `WarpedKernel.__call__`)."""
     return WARPED(f1, f2, flow, scale, md)

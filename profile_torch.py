@@ -1,22 +1,24 @@
 #!/usr/bin/env python3
 """Where one frame pair's time goes on the GPU: the port's main path under torch.profiler.
 
-    python3 profile_torch.py [--out profile_torch_out]   # needs one CUDA device
+    python3 profile_torch.py [--flow PWC] [--out profile_torch_out]   # needs one CUDA device
 
 Builds the main path exactly as `chip_smoke.py` does (SFMNet eval under the
 KITTI recipe with bench.py's overrides, 384x1280, b=1, nlabel 128, bf16
-autocast, random weights from a seed), runs two warm-up pairs, then
-profiles one more pair with CPU and CUDA activities, stage by stage: DICL
-flow, the pose (sampler + RANSAC) and PSNet depth, as `SFMNet.forward`
-runs them, with a synchronize closing each stage so that every kernel of a
-stage ends inside the stage's host span. For each stage it prints the host
-span, the device's busy time (the summed device time of the kernels, copies
-and fills in the span; one stream, so they do not overlap), the idle share
-and the number of kernels; per stage, the device time and count of the
-kernel groups that the cost volume's layout moves (cuDNN's NCHW<->NHWC
-layout transposes, BatchNorm, B1's sweep, gather and displacement-volume
-kernels); the peak device memory of the profiled pair; then the kernels
-that take most device time, over the pair and in the depth stage. Writes
+autocast, random weights from a seed; DICL flow, or with `--flow PWC`
+PWC-DC's, as slice 2 runs it), runs two warm-up pairs, then profiles one
+more pair with CPU and CUDA activities, stage by stage: the flow, the pose
+(sampler + RANSAC) and PSNet depth, as `SFMNet.forward` runs them, with a
+synchronize closing each stage so that every kernel of a stage ends inside
+the stage's host span. For each stage it prints the host span, the
+device's busy time (the summed device time of the kernels, copies and
+fills in the span; one stream, so they do not overlap), the idle share and
+the number of kernels; per stage, the device time and count of the kernel
+groups that the cost volume's layout moves (cuDNN's NCHW<->NHWC layout
+transposes, BatchNorm, B1's sweep, gather and displacement-volume kernels,
+B2 and the warped correlation, copies and casts); the peak device memory
+of the profiled pair; then the kernels that take most device time, over
+the pair and in the depth stage. Writes
 one JSON summary and the Chrome trace into --out.
 
 It runs against whatever package sits beside it, so a copy of this script
@@ -42,7 +44,10 @@ GROUPS = {"layout_transpose": ("nchwtonhwc", "nhwctonchw"),
           "sweep_kernel": ("plane_sweep_volume_kernel",),
           "gather_kernel": ("bilinear_sample_kernel",),
           "displacement_volume_kernel": ("displacement_volume_kernel",
-                                         "displacement_volume_sample")}
+                                         "displacement_volume_sample"),
+          "b2_kernel": ("local_corr_kernel",),
+          "warped_correlation_kernel": ("warped_corr_kernel",),
+          "copy_or_cast": ("direct_copy_kernel",)}
 
 
 def _groups(events):
@@ -66,6 +71,8 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default="profile_torch_out")
     ap.add_argument("--top", type=int, default=15)
+    ap.add_argument("--flow", choices=("DICL", "PWC"), default="DICL",
+                    help="the flow estimator (slice 1: DICL, slice 2: PWC)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("profile_torch: no CUDA device", file=sys.stderr)
@@ -74,11 +81,12 @@ def main() -> int:
 
     from deep_sfm_revisited_tpu_torch.config import SfMConfig
     from deep_sfm_revisited_tpu_torch.models.sfmnet import SFMNet
-    from deep_sfm_revisited_tpu_torch.ops.cuda import sweep_warp
+    from deep_sfm_revisited_tpu_torch.ops.cuda import local_corr, sweep_warp
 
-    card = smoke.phase_setup(sweep_warp)   # card line, TF32 off, B1 built
+    card = smoke.phase_setup(sweep_warp, local_corr)   # card line, TF32 off, B1 and B2 built
     dev = torch.device("cuda", 0)
-    cfg = SfMConfig.kitti(nlabel=128).override(**smoke.BENCH_OVERRIDES)
+    cfg = SfMConfig.kitti(nlabel=128).override(**smoke.BENCH_OVERRIDES,
+                                               **{"flow.estimator": args.flow})
     model = SFMNet(cfg, dtype=torch.bfloat16, device=dev, seed=0)
     g = torch.Generator(device=dev).manual_seed(4)
     refs = torch.rand((3, smoke.B, smoke.H, smoke.W, 3), generator=g, device=dev) * 2 - 1
@@ -151,7 +159,7 @@ def main() -> int:
             print(f"  {ms:9.3f} ms  {n:5d}x  {name[:110]}")
     out = Path(args.out)
     out.mkdir(parents=True, exist_ok=True)
-    summary = {"card": card, "stages": per_stage, "pair_span_ms": total_span,
+    summary = {"card": card, "flow": args.flow, "stages": per_stage, "pair_span_ms": total_span,
                "pair_busy_ms": total_busy, "kernels": len(device), "peak_gib": peak_gib,
                "top": [{"name": n, "ms": ms, "count": c} for n, (ms, c) in top],
                "depth_top": [{"name": n, "ms": ms, "count": c} for n, (ms, c) in depth_top]}

@@ -1,6 +1,7 @@
 """Tests that need an NVIDIA GPU: the port's kernels (B1's gather,
 displacement volume and its backward, plane sweep, sweep backward and sweep
-pose gradient, B2 and its warped correlation) against their plain versions,
+pose gradient, B2, and PWC-DC's warped correlation in its NCHW layout and
+dtype) against their plain versions,
 and the pose engine on the card against itself on the CPU.
 
 They skip where no card is present. This file imports no jax, so it also
@@ -788,7 +789,7 @@ def test_b2_wrapper_refuses_what_the_kernel_does_not_take():
 
 # PWC-DC's warped levels 5..2 (b = 1, 384x1280) at their flow scales, a
 # batch of 2 with odd H and W split across a cluster (C = 40) at md 4 and 2,
-# and C = 3 on the scalar path
+# and C = 3 on the scalar path; NHWC (B, H, W, C), JAX's public contract
 WARPED_CASES = [((1, 12, 40, 128), 4, 0.625), ((1, 24, 80, 96), 4, 1.25),
                 ((1, 48, 160, 64), 4, 2.5), ((1, 96, 320, 32), 4, 5.0),
                 ((2, 13, 27, 40), 4, 1.0), ((2, 13, 27, 40), 2, 1.0), ((1, 5, 7, 3), 1, 1.0)]
@@ -816,43 +817,176 @@ def _warped_composition(f1, f2, flow, scale, md):
     return local_corr.local_correlation_cuda(f1, warped, md)
 
 
+def _same_split(B, C, H, W, md):
+    """The warped correlation's mapping splits the channels as B2's does
+    (the same cluster size): each rank's fmaf chain runs the same channels
+    in the same order and the partial sums add in the same rank order."""
+    return local_corr.warped_plan(B, C, H, W, md).cluster == local_corr.plan(B, H, W, C, md).cluster
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("shape,md,scale", WARPED_CASES)
 def test_warped_correlation_matches_composition_and_plain_on_card(shape, md, scale, dtype):
-    """The warped correlation against the CUDA composition it replaces (the
-    gather, the cast, B2) bit for bit -- the stage holds the same values and
-    B2's sums run in the same order -- and against its plain version within
-    B2's tolerance, |kernel - plain| <= 1e-5 max|plain| + 1e-6; two
-    launches give the same bits."""
+    """The NHWC warped correlation (the kernel between permutes) against
+    the CUDA composition it replaces (the gather, the cast, B2) bit for bit
+    where both mappings split the channels alike, and against its plain
+    version within B2's tolerance, |kernel - plain| <= 1e-5 max|plain| +
+    1e-6; two launches give the same bits. A bfloat16 f2 is refused there:
+    bfloat16 features take the NCHW entry, in whose dtype the kernel
+    computes (`test_warped_nchw_matches_plain_on_card`)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     f1, f2, flow = _warped_inputs(shape, getattr(torch, dtype), seed=12)
+    if f2.dtype != torch.float32:
+        with pytest.raises(TypeError, match="warped_correlation_nchw"):
+            tcorr.warped_correlation(f1, f2, flow, scale, md)
+        return
     before = local_corr.WARPED.launches
     got = tcorr.warped_correlation(f1, f2, flow, scale, md)
-    again = local_corr.warped_correlation_cuda(f1, f2, flow, scale, md)
+    again = tcorr.warped_correlation(f1, f2, flow, scale, md)
     torch.cuda.synchronize()
     assert local_corr.WARPED.launches == before + 2
     assert got.shape == shape[:3] + ((2 * md + 1) ** 2,) and got.dtype == torch.float32
     assert torch.equal(got, again)
-    assert torch.equal(got, _warped_composition(f1, f2, flow, scale, md))
+    B, H, W, C = shape
+    comp = _warped_composition(f1, f2, flow, scale, md)
     ref = tcorr.warped_correlation_plain(f1, f2, flow, scale, md)
-    assert float((got - ref).abs().max()) <= 1e-5 * float(ref.abs().max()) + 1e-6
+    tol = 1e-5 * float(ref.abs().max()) + 1e-6
+    assert float((got - ref).abs().max()) <= tol
+    if _same_split(B, C, H, W, md):
+        assert torch.equal(got, comp)
+    else:
+        assert float((got - comp).abs().max()) <= tol
+
+
+# PWC-DC's warped levels 5..2 as it calls them, (B, C, H, W) and the flow's
+# scale: a slice-2 pair (b = 1, 384x1280), a training step (b = 4, 256x768),
+# then odd shapes (C split unevenly across a cluster at md 4 and 2, C = 3,
+# rows not 16-byte aligned)
+NCHW_CASES = [((1, 128, 12, 40), 4, 0.625), ((1, 96, 24, 80), 4, 1.25),
+              ((1, 64, 48, 160), 4, 2.5), ((1, 32, 96, 320), 4, 5.0),
+              ((4, 128, 8, 24), 4, 0.625), ((4, 96, 16, 48), 4, 1.25),
+              ((4, 64, 32, 96), 4, 2.5), ((4, 32, 64, 192), 4, 5.0),
+              ((2, 40, 13, 27), 4, 1.0), ((2, 40, 13, 27), 2, 1.0), ((1, 3, 5, 7), 1, 1.0)]
+
+
+def _nchw_inputs(shape, dtype, seed, off_frame):
+    """f1, f2 (B, C, H, W) channels-last, as PWC-DC's convolutions leave
+    them, and a flow (B, 2, H, W) of a few pixels, all of `dtype`;
+    `off_frame` sends bands of samples off the frame to the right and
+    above, and lays the flow out channels-last (else contiguous: PWC-DC's
+    up-sampled flows come either way)."""
+    B, C, H, W = shape
+    cl = torch.channels_last
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    f1 = torch.randn(shape, device="cuda", generator=g).to(dtype).contiguous(memory_format=cl)
+    f2 = torch.randn(shape, device="cuda", generator=g).to(dtype).contiguous(memory_format=cl)
+    flow = (torch.rand(B, 2, H, W, device="cuda", generator=g) - 0.5) * 6
+    if off_frame:
+        flow[:, 0, :, -max(W // 8, 1):] += 2.0 * W
+        flow[:, 1, :max(H // 8, 1)] -= 1.5 * H
+        flow = flow.contiguous(memory_format=cl)
+    return f1, f2, flow.to(dtype)
+
+
+def _bf16_ulp(x):
+    _, e = torch.frexp(x.float().abs())
+    return torch.ldexp(torch.ones_like(x, dtype=torch.float32), e - 8)
+
+
+def _nchw_tolerance(ref):
+    """B2's float32 tolerance, plus one bf16 ulp of a bfloat16 output (the
+    kernel's and the plain version's sums may round to neighbouring
+    values)."""
+    tol = 1e-5 * float(ref.float().abs().max()) + 1e-6
+    return tol + _bf16_ulp(ref) if ref.dtype == torch.bfloat16 else tol
+
+
+def _span_before(f1, f2, flow, scale, md):
+    """PWC-DC's span as it ran before the NCHW kernel, through CUDA
+    kernels: the gather of f2 at grid + flow * scale, the float32 casts,
+    B2 and the cast back to f1's dtype, NCHW."""
+    f2h = f2.permute(0, 2, 3, 1).contiguous()
+    corr = _warped_composition(f1.permute(0, 2, 3, 1).float().contiguous(), f2h, flow.float(),
+                               scale, md)
+    return corr.permute(0, 3, 1, 2).to(f1.dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("off_frame", [False, True], ids=["flow", "off"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape,md,scale", NCHW_CASES)
+def test_warped_nchw_matches_plain_on_card(shape, md, scale, dtype, off_frame):
+    """PWC-DC's entry on its channels-last features: one launch, the output
+    channels-last in the features' dtype, within its plain version's
+    tolerance; bit for bit
+    against the span PWC-DC ran before (gather, casts, B2, cast back) where
+    both mappings split the channels alike; two launches give the same
+    bits."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    td = getattr(torch, dtype)
+    f1, f2, flow = _nchw_inputs(shape, td, seed=31, off_frame=off_frame)
+    before = local_corr.WARPED.launches
+    got = tcorr.warped_correlation_nchw(f1, f2, flow, scale, md)
+    again = local_corr.warped_correlation_cuda(f1, f2, flow, scale, md)
+    torch.cuda.synchronize()
+    assert local_corr.WARPED.launches == before + 2
+    B, C, H, W = shape
+    assert got.shape == (B, (2 * md + 1) ** 2, H, W) and got.dtype == td
+    assert got.is_contiguous(memory_format=torch.channels_last)
+    assert torch.equal(got, again)
+    ref = tcorr.warped_correlation_nchw_plain(f1, f2, flow, scale, md)
+    assert bool(((got.float() - ref.float()).abs() <= _nchw_tolerance(ref)).all())
+    was = _span_before(f1, f2, flow, scale, md)
+    if _same_split(B, C, H, W, md):
+        assert torch.equal(got, was)
+    else:
+        assert bool(((got.float() - was.float()).abs() <= _nchw_tolerance(was)).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape,md,scale", [NCHW_CASES[0], NCHW_CASES[3], NCHW_CASES[8]])
+def test_warped_nchw_mappings_agree_on_card(shape, md, scale, dtype):
+    """Every mapping the source instantiates gives its plain version's
+    result within the plain tolerance; the FMA mappings without a cluster,
+    whose chains run every channel in order in one block, give the same
+    bits."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    td = getattr(torch, dtype)
+    f1, f2, flow = _nchw_inputs(shape, td, seed=32, off_frame=True)
+    B, C, H, W = shape
+    op = local_corr.OPS.build().warped_correlation.default
+    ref = tcorr.warped_correlation_nchw_plain(f1, f2, flow, scale, md)
+    whole = op(f1, f2, flow, scale, md, 1, 1)
+    for px in local_corr.WARPED_PIXELS:
+        for cluster in (1, 2, 4, 8):
+            if cluster > -(-C // 4):
+                continue
+            got = op(f1, f2, flow, scale, md, px, cluster)
+            tol = _nchw_tolerance(ref)
+            assert bool(((got.float() - ref.float()).abs() <= tol).all()), (px, cluster)
+            if cluster == 1:
+                assert torch.equal(got, whole), px
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_pwc_flow_correlations_replay_in_a_cuda_graph(dtype):
     """PWC-DC's five correlations of a pair -- B2 at level 6 and the warped
-    correlation at levels 5..2, all through operators -- captured in one
-    CUDA graph count one launch each at capture and none at replay; a
-    replay on new inputs written in place equals eager calls bit for bit."""
+    correlation at levels 5..2 on the network's NCHW features, all through
+    operators -- captured in one CUDA graph count one launch each at capture
+    and none at replay; a replay on new inputs written in place equals
+    eager calls bit for bit."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     td = getattr(torch, dtype)
     level6 = list(_b2_inputs((1, 6, 20, 196), seed=13))
-    warped = [list(_warped_inputs(s, td, seed=14 + i)) + [sc]
-              for i, (s, _, sc) in enumerate(WARPED_CASES[:4])]
+    warped = [list(_nchw_inputs(s, td, seed=14 + i, off_frame=False)) + [sc]
+              for i, (s, _, sc) in enumerate(NCHW_CASES[:4])]
 
     def run():
         return ([local_corr.local_correlation_cuda(*level6, 4)]
@@ -872,7 +1006,8 @@ def test_pwc_flow_correlations_replay_in_a_cuda_graph(dtype):
     for t, new in zip(level6, _b2_inputs((1, 6, 20, 196), seed=20)):
         t.copy_(new)
     for i, args in enumerate(warped):
-        for t, new in zip(args[:3], _warped_inputs(WARPED_CASES[i][0], td, seed=21 + i)):
+        for t, new in zip(args[:3], _nchw_inputs(NCHW_CASES[i][0], td, seed=21 + i,
+                                                 off_frame=True)):
             t.copy_(new)
     graph.replay()
     torch.cuda.synchronize()
@@ -884,11 +1019,11 @@ def test_pwc_flow_correlations_replay_in_a_cuda_graph(dtype):
 def test_warped_correlation_wrapper_refuses_what_the_kernel_does_not_take():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
-    f1, f2, flow = _warped_inputs((1, 8, 8, 4), torch.bfloat16, seed=15)
-    for args in ((f1.bfloat16(), f2, flow, 1.0, 4), (f1, f2.double(), flow, 1.0, 4),
-                 (f1, f2[:, :4], flow, 1.0, 4), (f1, f2, flow[:, :1], 1.0, 4),
-                 (f1, f2, flow.bfloat16(), 1.0, 4), (f1, f2, flow.cpu(), 1.0, 4),
-                 (f1, f2.cpu(), flow, 1.0, 4), (f1.permute(0, 2, 1, 3), f2, flow, 1.0, 4),
+    f1, f2, flow = _nchw_inputs((1, 4, 8, 8), torch.bfloat16, seed=15, off_frame=False)
+    for args in ((f1.float(), f2, flow, 1.0, 4), (f1, f2.double(), flow, 1.0, 4),
+                 (f1, f2[:, :2], flow, 1.0, 4), (f1, f2, flow[:, :1], 1.0, 4),
+                 (f1, f2, flow.half(), 1.0, 4), (f1, f2, flow.cpu(), 1.0, 4),
+                 (f1, f2.cpu(), flow, 1.0, 4), (f1.contiguous(), f2, flow, 1.0, 4),
                  (f1, f2, flow, 1.0, 5), (f1, f2, flow, 1.0, 0)):
         with pytest.raises((ValueError, TypeError)):
             local_corr.warped_correlation_cuda(*args)

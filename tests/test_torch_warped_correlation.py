@@ -1,17 +1,19 @@
 """PWC-DC's warped correlation in the port against the JAX package.
 
 `ops/correlation.py::warped_correlation` is PWC-DC's flow warp and
-correlation of one level: on CUDA tensors one launch of B2's warped entry
-point (`dsfm_warped_correlation`), on the CPU its plain version
-`warped_correlation_plain`, the correlation of f1 with f2 sampled at
+correlation of one level under JAX's NHWC float32 contract: on CUDA tensors
+the warped correlation's kernel (`csrc/warped_corr.cu`) between permutes,
+on the CPU its plain version `warped_correlation_plain`, the correlation of
+f1 with f2 sampled at
 grid + flow * scale by the gather's plain version, in f2's dtype, both cast
 to float32. Here the plain version is held against the JAX package's
 `local_correlation(f1.astype(f32), warp_flow(f2, flow).astype(f32), md)` on
 the XLA path and through both Pallas kernels in interpret mode, on inputs
 made with numpy from a seed: float32 and bfloat16 features, C not a
 multiple of 4, md 4 (and 2), flows that push samples off the frame and just
-past its border. PWC-DC's forward goes through it at levels 5..2 and
-matches the JAX network. The kernel itself runs on the card
+past its border. PWC-DC's forward goes through its NCHW form
+(`warped_correlation_nchw`, `tests/test_torch_warped_nchw.py`) at levels
+5..2 and matches the JAX network. The kernel itself runs on the card
 (`tests/test_torch_cuda.py`, `chip_smoke.py`).
 
 Tolerances: float32 to 1e-6 absolute (correlations of order 1; the two
@@ -177,13 +179,13 @@ def pwc_pair():
 
 
 def test_pwcnet_runs_the_warped_correlation_and_matches_jax(pwc_pair, monkeypatch):
-    """Levels 5..2 call `warped_correlation` (one kernel a level on the
-    card) at the upstream scales 0.625..5, level 6 `local_correlation`; the
-    flow matches JAX's to 1e-3 px after the x20 (float32 convolutions, sums
-    in other orders)."""
+    """Levels 5..2 call `warped_correlation_nchw` (one kernel a level on
+    the card, on the network's NCHW features) at the upstream scales
+    0.625..5, level 6 `local_correlation`; the flow matches JAX's to 1e-3
+    px after the x20 (float32 convolutions, sums in other orders)."""
     pair, jflow, tnet = pwc_pair
     calls = {"warped": [], "plain": 0}
-    warped, plain = tpwc.warped_correlation, tpwc.local_correlation
+    warped, plain = tpwc.warped_correlation_nchw, tpwc.local_correlation
 
     def spy_warped(f1, f2, flow, scale, md):
         calls["warped"].append((tuple(f1.shape), scale, md))
@@ -193,12 +195,12 @@ def test_pwcnet_runs_the_warped_correlation_and_matches_jax(pwc_pair, monkeypatc
         calls["plain"] += 1
         return plain(f0, f1, md)
 
-    monkeypatch.setattr(tpwc, "warped_correlation", spy_warped)
+    monkeypatch.setattr(tpwc, "warped_correlation_nchw", spy_warped)
     monkeypatch.setattr(tpwc, "local_correlation", spy_plain)
     with torch.no_grad():
         tflow, _ = tnet(torch.from_numpy(pair))
     assert calls["plain"] == 1
-    assert [(s[1:3], sc, md) for s, sc, md in calls["warped"]] == [
+    assert [(s[2:4], sc, md) for s, sc, md in calls["warped"]] == [
         ((2, 2), 0.625, 4), ((4, 4), 1.25, 4), ((8, 8), 2.5, 4), ((16, 16), 5.0, 4)]
     assert np.abs(jflow).max() > 1e-2        # not a vacuous comparison
     np.testing.assert_allclose(t2n(tflow), jflow, rtol=0, atol=1e-3)
