@@ -9,10 +9,11 @@ Phases, each of which raises on failure:
    generic gather, DICL's displacement volume and its backward, the
    plane-sweep cost volume and its two gradients, one source, and the
    PyTorch operators that launch them) and B2 (the windowed correlation,
-   PWC-DC's warped correlation, and their operators) built with nvcc (in
-   parallel) from `deep_sfm_revisited_tpu_torch/csrc/sweep_warp.cu`,
-   `csrc/sweep_warp_ops.cpp`, `csrc/local_corr.cu`, `csrc/warped_corr.cu`
-   and `csrc/local_corr_ops.cpp`;
+   PWC-DC's warped correlation, both correlations' backward kernels, and
+   their operators) built with nvcc (in parallel) from
+   `deep_sfm_revisited_tpu_torch/csrc/sweep_warp.cu`,
+   `csrc/sweep_warp_ops.cpp`, `csrc/local_corr.cu`, `csrc/warped_corr.cu`,
+   `csrc/warped_corr_backward.cu` and `csrc/local_corr_ops.cpp`;
 2. pose on the card: rigid flow of a known (R, t) -> correspondence
    sampler -> five-point RANSAC in float64 recovers the pose, the
    zero-parallax probe gives a finite pose, and with noise and outliers
@@ -183,7 +184,31 @@ Phases, each of which raises on failure:
    the warm-up step records the warped correlation's inputs;
 19. the warped correlation on the inputs phase 18's step gave it (b = 4,
    256x768, levels 5..2), as phase 7 holds it on slice 2's, with `--old-b2`
-   in turns too.
+   in turns too; no path so far has launched a correlation's backward;
+20. a small-input PWC-DC flow-training reference: one `FlowTrainer` step
+   with `flow.estimator=PWC` at 128x128, b = 2, float32, TF32 off, on the
+   card against the same step on the CPU from the same weights and batch:
+   loss and EPE, and PWC-DC's clipped gradients at twice the CPU's own
+   sensitivity; the card launches B2 and its backward once each and the
+   warped correlation and its backward four times each;
+21. slice 13's main path, through the entry point a user calls:
+   `cli.main(["--train-flow", ..., "--flow-crop", "256", "768", "-b", "4",
+   "--override", "flow.estimator=PWC"])` on a KITTI 2015 flow tree of 24
+   pairs rendered at 384x1280 (PWC-DC takes /64 sides and the CLI pads to
+   /8), PWC-DC at full width, bf16: a warm-up step that records both
+   backward kernels' inputs and gradients, then five timed steps, each
+   launching B2 and its backward once, the warped correlation and its
+   backward four times and no B1 kernel, with a finite loss and EPE and
+   every PWC-DC parameter moved; ms/step, the stage split, peak memory; the
+   validation's EPE and Fl-all; `--pretrained-flow` into an SFMNet with
+   every PWC-DC tensor equal;
+22. the two backward kernels against their plain versions on phase 21's
+   captured inputs and gradients, level by level, in bf16 and float32 (B2's
+   in float32), with off-frame and edge-exact flows; B2's gradients and
+   the warped d f1 and d flow bit-identical across two launches, d f2
+   within the atomics' rounding; per level the device and events times,
+   the bound and its share, the plain version's time and the yardsticks
+   (autograd of the eager composition, `grid_sampler_2d_backward`).
 
 `python3 chip_smoke.py --save-sweep-inputs PATH` also writes the sweep
 backward's depths, M and K t from slice 5 (a few hundred floats) to PATH,
@@ -193,7 +218,8 @@ displacement volume's inputs of slice 1's pair and a training step, for
 source phases 13, 14 and 17 compare with, `--old-b2 PATH` the earlier
 `local_corr.cu` (with its NHWC warped correlation) phases 7 and 19 do.
 
-The line before the last is the kernel table as one JSON object; the last
+The line before the last is the kernel table as one JSON object (ten
+kernels, with launches on each of nine paths); the last
 is {"ok": true, "device": {...}}. Without a CUDA device, or without the
 port's package beside this script, it exits non-zero and prints no result.
 """
@@ -2797,16 +2823,19 @@ def phase_small_flow_train_reference(dev) -> None:
 
 
 class FlowStageTimer:
-    """CUDA events around one flow-training step: the feature net (the
-    U-net's two calls, one per frame), the levels (the feature net's exit to
-    DICL's), the loss and backward (DICL's exit to the optimizer's step,
-    clipping and the schedule included) and the AdamW update."""
+    """CUDA events around one flow-training step: for DICL the feature net
+    (the U-net's two calls, one per frame) and the levels (the feature
+    net's exit to DICL's), for PWC-DC the forward (the step's start to
+    PWC-DC's exit); the loss and backward (the flow net's exit to the
+    optimizer's step, clipping and the schedule included) and the AdamW
+    update."""
 
     def __init__(self, trainer):
         self.events, self._feature_calls = {}, 0
         model = trainer.model
-        model.feature.register_forward_pre_hook(lambda m, a: self._feature(True))
-        model.feature.register_forward_hook(lambda m, a, o: self._feature(False))
+        if hasattr(model, "feature"):
+            model.feature.register_forward_pre_hook(lambda m, a: self._feature(True))
+            model.feature.register_forward_hook(lambda m, a, o: self._feature(False))
         model.register_forward_hook(lambda m, a, o: self._mark("flow_end"))
         trainer.optimizer.register_step_pre_hook(lambda o, a, k: self._mark("opt_start"))
         trainer.optimizer.register_step_post_hook(lambda o, a, k: self._mark("opt_end"))
@@ -2826,11 +2855,12 @@ class FlowStageTimer:
 
     def stages_ms(self):
         e = self.events
-        return {"feature": e["feature_start"].elapsed_time(e["feature_end"]),
-                "levels": e["feature_end"].elapsed_time(e["flow_end"]),
-                "loss_backward": e["flow_end"].elapsed_time(e["opt_start"]),
-                "optimizer": e["opt_start"].elapsed_time(e["opt_end"]),
-                "step": e["step_start"].elapsed_time(e["step_end"])}
+        out = ({"feature": e["feature_start"].elapsed_time(e["feature_end"]),
+                "levels": e["feature_end"].elapsed_time(e["flow_end"])} if "feature_start" in e
+               else {"forward": e["step_start"].elapsed_time(e["flow_end"])})
+        return dict(out, loss_backward=e["flow_end"].elapsed_time(e["opt_start"]),
+                    optimizer=e["opt_start"].elapsed_time(e["opt_end"]),
+                    step=e["step_start"].elapsed_time(e["step_end"]))
 
 
 def phase_cli_train_flow(dev, sweep_warp):
@@ -3092,6 +3122,558 @@ def phase_cli_train_pwc(dev, sweep_warp, local_corr):
         f"warped correlation, B2): {launches}")
     check(len(cap_w) == WARPED_PER_PAIR, f"{what}: {len(cap_w)} warped correlations recorded")
     return launches, cap_w
+
+
+# ---------------------------------------------------------------- slice 13
+
+# PWC-DC's flow pretraining: B2 and its backward once a step (level 6), the
+# warped correlation and its backward four times (levels 5..2)
+PWC_FLOW_HW = (384, 1280)   # KITTI 2015's 375x1242, rendered where PWC-DC takes /8-padded pairs
+PWC_FLOW_PER_STEP = (1, 1, WARPED_PER_PAIR, WARPED_PER_PAIR)
+PWC_FLOW_WARMUP, PWC_FLOW_STEPS = 3, 6   # phase 21's untimed and timed steps
+PWC_FLOW_PAIRS = TRAIN_B * (PWC_FLOW_WARMUP + PWC_FLOW_STEPS)
+CORR_BWD_SOURCE = f"{PKG}/csrc/warped_corr_backward.cu"
+B2_BWD_REPLACES = "deep_sfm_revisited_tpu/ops/correlation.py:28"
+WARPED_BWD_REPLACES = "deep_sfm_revisited_tpu/models/pwcnet.py:125"
+# the warped backward's float32 work per (pixel, channel) of a valid sample:
+# the halo's blend of w (B1's 10), the two divisions by C, d f2's four
+# weighted taps (2 products each) and d flow's terms (4 differences, 4
+# products, 2 sums, 2 products, 2 sums)
+CORR_BWD_FLOPS_PER_TAP = B1_FLOPS_PER_OUTPUT + 2 + 8 + 14
+
+
+def _corr_counters(local_corr):
+    return (local_corr.KERNEL, local_corr.KERNEL_BACKWARD, local_corr.WARPED,
+            local_corr.WARPED_BACKWARD)
+
+
+def phase_small_pwc_flow_train_reference(dev, local_corr) -> None:
+    """One PWC-DC flow-pretraining step (`train/flow_trainer.py::FlowTrainer`,
+    `flow.estimator=PWC`, float32, TF32 off) at 128x128, b = 2, on the card
+    against the same step on the CPU (the plain versions, both correlations'
+    plain backwards) from the same weights and batch: the loss and EPE to
+    1e-4 relative; PWC-DC's clipped gradients, all tensors together, within
+    twice the largest relative move (L2) the CPU's own gradients make under
+    rounding-sized changes of the input (the reference image scaled by 1 +-
+    1e-6 and 1 + 3e-6, and plus +-1e-7, +-3e-7 times a fixed noise image),
+    and 1 - cosine <= 1e-4; the per-tensor moves against twice the CPU's are
+    logged (a leaky ReLU unit within rounding of zero changes its slope
+    between devices). The card's step must launch B2 and its backward once
+    each and the warped correlation and its backward four times each."""
+    from deep_sfm_revisited_tpu_torch.config import SfMConfig
+    from deep_sfm_revisited_tpu_torch.train.flow_trainer import FlowTrainer, build_flow_model
+
+    what = "small PWC-DC flow-train reference"
+    cfg = SfMConfig.kitti().override(**{"train.mixed_prec": False, "flow.estimator": "PWC"})
+    h = w = 128
+    g = torch.Generator().manual_seed(13)
+    ref = torch.rand((2, h, w, 3), generator=g) * 2 - 1
+    batch = {"ref": ref,
+             "target": torch.roll(ref, (2, 3), dims=(1, 2))
+             + 0.05 * torch.randn((2, h, w, 3), generator=g),
+             "flow_gt": torch.tensor([3.0, 2.0]) + torch.randn((2, h, w, 2), generator=g),
+             "flow_valid": torch.rand((2, h, w), generator=g) < 0.7}
+    noise = torch.randn((2, h, w, 3), generator=g)
+
+    def step(device, scale=1.0, eps=0.0):
+        t = FlowTrainer(build_flow_model(cfg.flow, seed=3).to(device), cfg, total_steps=40)
+        b = {k: v.to(device) for k, v in
+             dict(batch, ref=batch["ref"] * scale + eps * noise).items()}
+        m = t.train_step(b)
+        return ({k: float(v) for k, v in m.items()},
+                {k: p.grad.detach().cpu() for k, p in t.model.named_parameters()})
+
+    def l2(got, want):
+        a = torch.cat([got[k].double().flatten() for k in want])
+        b = torch.cat([want[k].double().flatten() for k in want])
+        return float((a - b).norm() / b.norm())
+
+    counters = _corr_counters(local_corr)
+    before = _launches(*counters)
+    m_card, g_card = step(dev)
+    torch.cuda.synchronize()
+    n = tuple(a - b for a, b in zip(_launches(*counters), before))
+    check(n == PWC_FLOW_PER_STEP, f"{what}: B2, its backward, the warped correlation and its "
+          f"backward launched {n} times, expected {PWC_FLOW_PER_STEP}")
+    m_cpu, g_cpu = step("cpu")
+    self_errs, self_l2, self_cos = {}, 0.0, 0.0
+    for kw in (dict(scale=1 + 1e-6), dict(scale=1 - 1e-6), dict(scale=1 + 3e-6),
+               dict(eps=1e-7), dict(eps=-1e-7), dict(eps=3e-7), dict(eps=-3e-7)):
+        moved = step("cpu", **kw)[1]
+        e, c = _grad_report(moved, g_cpu)
+        self_errs = {k: max(v, self_errs.get(k, 0.0)) for k, v in e.items()}
+        self_l2, self_cos = max(self_l2, l2(moved, g_cpu)), max(self_cos, c)
+    rel = {k: abs(m_card[k] - m_cpu[k]) / abs(m_cpu[k]) for k in ("loss", "epe")}
+    errs, cos_err = _grad_report(g_card, g_cpu)
+    l2_err = l2(g_card, g_cpu)
+    over = [k for k in errs if errs[k] > max(1e-3, 2 * self_errs[k])]
+    worst = max(errs, key=errs.get)
+    log(f"{what}: loss card {m_card['loss']:.7f} vs cpu {m_cpu['loss']:.7f} (relative "
+        f"{rel['loss']:.2e}), EPE {m_card['epe']:.6f} vs {m_cpu['epe']:.6f} (relative "
+        f"{rel['epe']:.2e}); PWC-DC gradients: relative L2 {l2_err:.2e} against the CPU's own "
+        f"{self_l2:.2e} at seven perturbed inputs, 1 - cosine {cos_err:.2e} (the CPU's own "
+        f"{self_cos:.2e}); per tensor worst {errs[worst]:.2e} ({worst}), "
+        f"{sum(e <= 1e-3 for e in errs.values())}/{len(errs)} within 1e-3 of their max, beyond "
+        f"twice the CPU's own move: {len(over)} "
+        f"({', '.join(f'{k} {errs[k]:.2e}' for k in over[:3])}); launches (B2, its backward, "
+        f"warped, its backward) {n}")
+    check(all(math.isfinite(v) for v in m_card.values()), f"{what}: metrics {m_card}")
+    check(max(rel.values()) <= 1e-4, f"{what}: loss or EPE differs: {rel}")
+    check(all(g.abs().max() > 0 for g in g_card.values()), f"{what}: a PWC-DC parameter got no "
+          "gradient on the card")
+    check(l2_err <= 2 * self_l2, f"{what}: the gradients differ by {l2_err} (relative L2), "
+          f"beyond twice the CPU's own {self_l2}")
+    check(cos_err <= 1e-4, f"{what}: 1 - cosine of the gradients {cos_err}")
+
+
+def phase_cli_train_flow_pwc(dev, sweep_warp, local_corr):
+    """Slice 13 through `cli.main --train-flow --override flow.estimator=PWC`
+    on a KITTI 2015 flow tree rendered at 384x1280 (PWC-DC takes /64 sides
+    and the CLI pads its batches and validation pairs to /8, as JAX does;
+    KITTI's 375x1242 would reach it at 376x1248), PWC_FLOW_PAIRS pairs,
+    cropped to 256x768, b = 4, one epoch, PWC-DC at full width, bf16:
+    PWC_FLOW_WARMUP untimed steps, the first of which records both backward
+    kernels' inputs and gradients, then PWC_FLOW_STEPS timed steps with the
+    launch counts reset after the warm-up; every step must launch B2 and
+    its backward once, the warped correlation and its backward four times
+    and no B1 kernel, give a finite loss and EPE and move every PWC-DC
+    parameter; ms/step by the host clock around a synchronised step (mean,
+    median and the spread of the timed steps, each step logged, the
+    warm-up's too), the stage split and peak memory; then the
+    epoch's validation (EPE and Fl-all, finite) and checkpoint, which
+    `--pretrained-flow` restores into an SFMNet built with
+    `flow.estimator=PWC` with every PWC-DC tensor equal and PSNet untouched.
+    Returns (launches over the timed steps and the validation: B1's six
+    kernels, then B2, its backward, the warped correlation, its backward;
+    the warm-up's backward calls [(kind, args)])."""
+    from deep_sfm_revisited_tpu_torch import cli
+    from deep_sfm_revisited_tpu_torch.config import SfMConfig
+    from deep_sfm_revisited_tpu_torch.data.synthetic import write_kitti_flow_tree
+    from deep_sfm_revisited_tpu_torch.models.sfmnet import SFMNet
+    from deep_sfm_revisited_tpu_torch.train.flow_trainer import FlowTrainer
+
+    what = "cli train-flow (PWC-DC)"
+    b1 = (sweep_warp.KERNEL, sweep_warp.VOLUME, sweep_warp.VOLUME_BACKWARD,
+          sweep_warp.VOLUME_POSE_GRAD, sweep_warp.DISPLACEMENT, sweep_warp.DISPLACEMENT_BACKWARD)
+    counters = b1 + _corr_counters(local_corr)
+    per_step = (0,) * len(b1) + PWC_FLOW_PER_STEP
+    real_step = FlowTrainer.train_step
+    real = (local_corr.local_correlation_backward_cuda, local_corr.warped_correlation_backward_cuda)
+    rows, timer, captured, strides, calls = [], [], [], [], []
+
+    def record_b2(f0, f1, dout, md):
+        captured.append(("b2", (f0.clone(), f1.clone(), dout.clone(), md)))
+        return real[0](f0, f1, dout, md)
+
+    def record_warped(f1, f2, flow, scale, dout, md):
+        strides.append(dout.stride())   # the decoder input's gradient, sliced
+        captured.append(("warped", (f1.clone(), f2.clone(), flow.clone(), scale, dout.clone(),
+                                    md)))
+        return real[1](f1, f2, flow, scale, dout, md)
+
+    def timed_step(trainer, *args, **kw):
+        calls.append(len(calls) + 1)
+        first, warm = len(calls) == 1, len(calls) <= PWC_FLOW_WARMUP
+        if first:
+            timer.append(FlowStageTimer(trainer))
+            local_corr.local_correlation_backward_cuda = record_b2
+            local_corr.warped_correlation_backward_cuda = record_warped
+        model = trainer.model
+        state = {k: p.detach().clone() for k, p in model.named_parameters()}
+        before = _launches(*counters)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        timer[0]._mark("step_start")
+        try:
+            metrics = real_step(trainer, *args, **kw)
+        finally:
+            local_corr.local_correlation_backward_cuda, \
+                local_corr.warped_correlation_backward_cuda = real
+        timer[0]._mark("step_end")
+        torch.cuda.synchronize()
+        ms = 1e3 * (time.perf_counter() - t0)
+        n = tuple(a - b for a, b in zip(_launches(*counters), before))
+        i = f"warm-up {calls[-1]}" if warm else f"{len(rows) + 1}"
+        loss, epe = float(metrics["loss"]), float(metrics["epe"])
+        check(math.isfinite(loss) and math.isfinite(epe), f"{what} step {i}: loss {loss}, "
+              f"EPE {epe}")
+        check(n == per_step, f"{what} step {i}: B1's six kernels, B2, its backward, the warped "
+              f"correlation, its backward launched {n} times, expected {per_step}")
+        still = [k for k, p in model.named_parameters() if torch.equal(p, state[k])]
+        check(not still, f"{what} step {i}: PWC-DC parameters did not move: {still[:3]}")
+        if warm:
+            if first:
+                kinds = [c[0] for c in captured]
+                check(kinds.count("b2") == 1 and kinds.count("warped") == WARPED_PER_PAIR,
+                      f"{what}: recorded backward calls {kinds}")
+                log(f"{what}: backward inputs " + ", ".join(
+                    f"{kind} {tuple(a[0].shape)} {a[0].dtype} dout {tuple(a[-2].shape)}"
+                    for kind, a in captured)
+                    + f"; the warped levels' dout strides as autograd gave them {strides}")
+            log(f"{what}: step {i}: {ms:.1f} ms, loss {loss:.4f}, EPE {epe:.4f} (untimed)")
+            if calls[-1] == PWC_FLOW_WARMUP:
+                for k in counters:
+                    k.launches = 0
+                torch.cuda.reset_peak_memory_stats()
+        else:
+            rows.append(dict(ms=ms, loss=loss, epe=epe, **timer[0].stages_ms()))
+            r = rows[-1]
+            log(f"{what}: step {i}: {ms:.1f} ms (forward {r['forward']:.1f}, loss + backward "
+                f"{r['loss_backward']:.1f}, optimizer {r['optimizer']:.1f} ms device); loss "
+                f"{loss:.4f}, EPE {epe:.4f}; launches {n}")
+            if len(rows) == PWC_FLOW_STEPS:
+                rows.append(dict(peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+                                 launches=_launches(*counters)))
+        return metrics
+
+    with tempfile.TemporaryDirectory() as tmp:
+        root = f"{tmp}/kitti_flow"
+        t0 = time.perf_counter()
+        write_kitti_flow_tree(root, n_pairs=PWC_FLOW_PAIRS, hw=PWC_FLOW_HW, focal=K_KITTI[0][0])
+        log(f"{what}: KITTI flow tree of {PWC_FLOW_PAIRS} {PWC_FLOW_HW[0]}x{PWC_FLOW_HW[1]} pairs "
+            f"rendered in {time.perf_counter() - t0:.2f} s")
+        argv = ["--data", root, "--cfg", "kitti", "--train-flow", "--flow-dataset", "kitti",
+                "--flow-crop", str(FLOW_CROP[0]), str(FLOW_CROP[1]), "-b", str(TRAIN_B),
+                "--epochs", "1", "--out", f"{tmp}/out", "--workers", "4",
+                "--override", "flow.estimator=PWC"]
+        log(f"{what}: cli.main(" + json.dumps(argv).replace(tmp, "<tmp>") + ")")
+        for k in counters:
+            k.launches = 0
+        FlowTrainer.train_step = timed_step
+        try:
+            t0 = time.perf_counter()
+            history = cli.main(argv)
+            wall = time.perf_counter() - t0
+        finally:
+            FlowTrainer.train_step = real_step
+        launches = _launches(*counters)
+        ckpt = f"{tmp}/out/kitti_flow/ckpt"
+        check(os.path.exists(f"{ckpt}/0.pt") and os.path.exists(f"{ckpt}/model_best.pt"),
+              f"{what}: no checkpoint written")
+        cfg = SfMConfig.kitti().override(**{"flow.estimator": "PWC"})
+        model = SFMNet(cfg, device=dev, seed=5)
+        psnet = {k: v.clone() for k, v in model.depth_estimator.state_dict().items()}
+        cli.apply_pretrained(cli.build_parser().parse_args(
+            ["--data", root, "--pretrained-flow", ckpt]), model)
+        want = torch.load(f"{ckpt}/0.pt", map_location=dev, weights_only=True)["model"]
+        got = model.flow_estimator.state_dict()
+        check(len(want) == 126 and set(got) == set(want)
+              and all(torch.equal(got[k], v) for k, v in want.items()),
+              f"{what}: --pretrained-flow did not restore every PWC-DC tensor")
+        check(all(torch.equal(v, psnet[k]) for k, v in model.depth_estimator.state_dict().items()),
+              f"{what}: --pretrained-flow touched PSNet")
+        del model, want, got, psnet
+    check(len(rows) == PWC_FLOW_STEPS + 1, f"{what}: {len(rows) - 1} timed steps, expected "
+          f"{PWC_FLOW_STEPS}")
+    tail = rows.pop()
+    check(tail["launches"] == tuple(PWC_FLOW_STEPS * n for n in per_step),
+          f"{what}: the timed steps launched {tail['launches']}")
+    rec = history[0] if len(history) == 1 else {}
+    check(all(math.isfinite(rec.get(k, math.nan)) for k in ("train_loss", "epe", "f1_all"))
+          and rec.get("n") == PWC_FLOW_PAIRS, f"{what}: epoch record {history}")
+    mean = {k: sum(r[k] for r in rows) / PWC_FLOW_STEPS for k in rows[0]}
+    ms = sorted(r["ms"] for r in rows)
+    median = (ms[(len(ms) - 1) // 2] + ms[len(ms) // 2]) / 2
+    log(f"{what}: the timed steps' host ms: median {median:.2f}, min {ms[0]:.2f}, max "
+        f"{ms[-1]:.2f}, spread (max - min) / median {(ms[-1] - ms[0]) / median:.3f}")
+    log(f"{what}: mean over {PWC_FLOW_STEPS} steps at b = {TRAIN_B}, {FLOW_CROP[0]}x"
+        f"{FLOW_CROP[1]}: {mean['ms']:.2f} ms/step ({1e3 * TRAIN_B / mean['ms']:.3f} pairs/s); "
+        f"device stages "
+        f"forward {mean['forward']:.2f}, loss + backward {mean['loss_backward']:.2f}, "
+        f"optimizer {mean['optimizer']:.2f} ms (step {mean['step']:.2f}); peak memory "
+        f"{tail['peak_gib']:.2f} GiB; cli.main {wall:.2f} s; validation over {rec['n']} pairs "
+        f"at {PWC_FLOW_HW[0]}x{PWC_FLOW_HW[1]}: EPE {rec['epe']:.4f} px, Fl-all "
+        f"{rec['f1_all']:.2f}%; train loss {rec['train_loss']:.4f}; --pretrained-flow restored "
+        f"every PWC-DC tensor into SFMNet, PSNet untouched; launches after the warm-up, "
+        f"validation included: {launches}")
+    log(f"{what} rows: " + json.dumps(rows))
+    return launches, captured
+
+
+def _edge_exact(flow, scale):
+    """A copy of the flow whose border pixels' samples land exactly on the
+    frame's edges (a zero flow) and whose every third column's land on
+    integer positions (5-pixel steps, which every PWC-DC scale multiplies
+    exactly)."""
+    out = flow.clone()
+    out[..., [0, -1], :] = 0
+    out[..., :, [0, -1]] = 0
+    h, w = flow.shape[-2:]
+    steps = torch.tensor([-1.0, 0.0, 1.0], device=flow.device)[
+        torch.arange(h * w, device=flow.device) % 3].reshape(h, w) * (5.0 / scale)
+    out[:, :, 1:-1, 2:-1:3] = steps[1:-1, 2:-1:3].to(flow.dtype)
+    return out
+
+
+def _in_frame_pairs(h, w, md):
+    """(pixel, displacement) pairs of one image whose p + d lies in the
+    frame: the dout elements a backward needs, and its products."""
+    r, c = torch.arange(h), torch.arange(w)
+    ny = sum(((r + d >= 0) & (r + d < h)).long() for d in range(-md, md + 1))
+    nx = sum(((c + d >= 0) & (c + d < w)).long() for d in range(-md, md + 1))
+    return int(ny.sum()) * int(nx.sum())
+
+
+def _valid_samples(flow, scale):
+    B_, _, h, w = flow.shape
+    gy, gx = torch.meshgrid(torch.arange(h, device=flow.device, dtype=torch.float32),
+                            torch.arange(w, device=flow.device, dtype=torch.float32),
+                            indexing="ij")
+    x = gx + flow[:, 0].float() * scale
+    y = gy + flow[:, 1].float() * scale
+    return int(((x >= 0) & (x <= w - 1) & (y >= 0) & (y <= h - 1)).sum())
+
+
+def _corr_bwd_bound(kind, args):
+    """(bytes, flops, operations ms) of one backward call: every input read
+    once at its own size (dout only where p + d lies in the frame), every
+    gradient written once; the two sums' products and adds of the in-frame
+    (pixel, displacement) pairs times C at the tensor cores' bfloat16 rate
+    where the features are bfloat16 and at the float32 rate otherwise, and
+    the warp's float32 work per (valid sample, channel)
+    (CORR_BWD_FLOPS_PER_TAP)."""
+    f1, dout = args[0], args[-2]
+    if kind == "b2":
+        B_, h, w, c = f1.shape
+        ins = (args[0], args[1])
+    else:
+        B_, c, h, w = f1.shape
+        ins = (args[0], args[1], args[2])
+    pairs = B_ * _in_frame_pairs(h, w, args[-1])
+    nbytes = (pairs * dout.element_size() + 2 * sum(t.numel() * t.element_size() for t in ins))
+    sums = 4 * pairs * c
+    scalar = 2 * c * B_ * h * w
+    if kind == "warped":
+        scalar += CORR_BWD_FLOPS_PER_TAP * c * _valid_samples(args[2], args[3])
+    rate = BF16_FLOPS if f1.dtype == torch.bfloat16 else F32_FLOPS
+    return nbytes, sums + scalar, (sums / rate + scalar / F32_FLOPS) * 1e3
+
+
+def _grad_tol(got, ref):
+    """Per element: 1e-5 of the gradient's largest element (float32 sums in
+    another order, d f2's atomics), plus, where the gradient is bf16, one
+    bf16 ulp of the larger of the two elements (both sides round their
+    float32 sums once). No absolute floor: phase 21's gradients are ~1e-6."""
+    tol = 1e-5 * float(ref.float().abs().max())
+    if ref.dtype != torch.bfloat16:
+        return tol
+    return tol + _bf16_ulp(torch.maximum(got.float().abs(), ref.float().abs()))
+
+
+def phase_corr_backward(captured, local_corr, correlation):
+    """The two backward kernels against their plain versions on the inputs
+    and gradients phase 21's warm-up step gave them (B2's at level 6, the
+    warped correlation's at levels 5..2), level by level: B2's in float32
+    (it takes float32), the warped one in bf16 and float32, each on the
+    captured gradient and flow, on a unit-scale random gradient (the
+    captured ones are ~1e-6, so a wrong kernel fails there by many times
+    the limit), on a flow that sends bands of samples off the frame and on
+    one that puts samples exactly on the frame's edges and on integer
+    positions. Tolerances (`_grad_tol`): float32 sums of up to 81 products
+    and d f2's atomics in another order, 1e-5 of each gradient's largest
+    element, plus one bf16 ulp of each element of a bf16 gradient; each
+    case logs each gradient's max |plain| and the share of its tolerance
+    used. B2's gradients and the warped d f1 and d flow bit-identical
+    across two launches (gathers, and a fixed order over the channels), d
+    f2 within the tolerance. Then per level, as the main path ran it:
+    device time (torch.profiler: the kernel, d f2's zero fill and, in bf16,
+    its cast; and by CUDA-graph replay, which traces cannot refuse), events
+    time, the bound and its share, the plain version's time, and the
+    yardsticks the port never calls: autograd of the eager composition
+    (the plain forward, its backward alone: events, and device time by
+    CUDA-graph replay of forward and backward less the forward's) and, for
+    the warp's half, `grid_sampler_2d_backward` (input and grid gradients)
+    of f2 at the level's samples. Returns
+    ({"b2": row, "warped": row}, {"b2": max |kernel - plain|, "warped": ...})."""
+    max_err = {"b2": 0.0, "warped": 0.0}
+    used = {}   # (kind, gradient) -> the largest share of its tolerance a case used
+    cases = 0
+    g = torch.Generator(device=captured[0][1][0].device).manual_seed(22)
+    for kind, args in captured:
+        variants = {"captured": args}
+        unit = torch.randn(args[-2].shape, device=args[-2].device, generator=g)
+        if kind == "warped":
+            f1, f2, flow, scale, dout, md = args
+            unit = unit.to(dout.dtype).contiguous(memory_format=torch.channels_last)
+            variants["unit dout"] = (f1, f2, flow, scale, unit, md)
+            variants["off the frame"] = (f1, f2, _off_frame(flow, scale), scale, dout, md)
+            variants["edges"] = (f1, f2, _edge_exact(flow, scale), scale, dout, md)
+        else:
+            variants["unit dout"] = (*args[:2], unit, args[3])
+        for vname, a in variants.items():
+            for dtype in ((torch.float32,) if kind == "b2" else (torch.bfloat16, torch.float32)):
+                if kind == "b2":
+                    f0, f1, dout, md = a
+                    got = local_corr.local_correlation_backward_cuda(f0, f1, dout, md)
+                    again = local_corr.local_correlation_backward_cuda(f0, f1, dout, md)
+                    ref = correlation.local_correlation_backward_plain(f0, f1, dout, md)
+                    names, exact = ("d f0", "d f1"), (True, True)
+                else:
+                    f1, f2, flow, scale, dout, md = a
+                    x = (f1.to(dtype), f2.to(dtype), flow.to(dtype), scale,
+                         dout.to(dtype), md)
+                    got = local_corr.warped_correlation_backward_cuda(*x)
+                    again = local_corr.warped_correlation_backward_cuda(*x)
+                    ref = correlation.warped_correlation_nchw_backward_plain(*x)
+                    names, exact = ("d f1", "d f2", "d flow"), (True, False, True)
+                tag = f"{kind} backward {tuple(a[0].shape)} {vname} {str(dtype)[6:]}"
+                parts = []
+                for nm, g_, g2, r, ex in zip(names, got, again, ref, exact):
+                    check(g_.dtype == r.dtype and g_.shape == r.shape, f"{tag} {nm}: "
+                          f"{g_.dtype} {tuple(g_.shape)}")
+                    err = (g_.float() - r.float()).abs()
+                    tol = _grad_tol(g_, r)
+                    top = float(r.float().abs().max())
+                    check(top > 0, f"{tag} {nm}: the plain gradient is zero")
+                    share = float((err / tol).max())
+                    used[kind, nm] = max(used.get((kind, nm), 0.0), share)
+                    max_err[kind] = max(max_err[kind], float(err.max()))
+                    parts.append(f"{nm} max |plain| {top:.3e}, max |kernel - plain| "
+                                 f"{float(err.max()):.3e} ({share:.3f} of its tolerance)")
+                    check(share <= 1.0, f"{tag} {nm}: max |kernel - plain| {float(err.max())} "
+                          f"beyond tolerance (max |plain| {top})")
+                    if ex:
+                        check(torch.equal(g_, g2), f"{tag} {nm}: two launches differ")
+                    else:
+                        check(bool(((g_.float() - g2.float()).abs() <= _grad_tol(g2, r)).all()),
+                              f"{tag} {nm}: two launches differ beyond the tolerance")
+                log(f"{tag}: " + "; ".join(parts))
+                cases += 1
+                del got, again, ref
+    log(f"correlation backwards: {cases} cases within their plain versions' tolerance; B2's "
+        f"gradients and the warped d f1 and d flow bit-identical across launches; largest "
+        f"|kernel - plain| B2's {max_err['b2']:.3e}, the warped one's {max_err['warped']:.3e}; "
+        "the largest share of its tolerance a case used: "
+        + ", ".join(f"{k} {nm} {v:.3f}" for (k, nm), v in used.items()))
+
+    rows = {"b2": [], "warped": []}
+    for kind, args in captured:
+        if kind == "b2":
+            f0, f1, dout, md = args
+
+            def run():
+                local_corr.local_correlation_backward_cuda(f0, f1, dout, md)
+
+            def plain():
+                correlation.local_correlation_backward_plain(f0, f1, dout, md)
+
+            leaves = (f0.clone().requires_grad_(), f1.clone().requires_grad_())
+
+            def forward(*ins):
+                return correlation.local_correlation_plain(*ins, md)
+
+            ops, name = 1, "corr_backward_kernel"
+        else:
+            f1, f2, flow, scale, dout, md = args
+
+            def run():
+                local_corr.warped_correlation_backward_cuda(f1, f2, flow, scale, dout, md)
+
+            def plain():
+                correlation.warped_correlation_nchw_backward_plain(f1, f2, flow, scale, dout, md)
+
+            leaves = [t.detach().clone().requires_grad_() for t in (f1, f2, flow)]
+
+            def forward(*ins):
+                return correlation.warped_correlation_nchw_plain(*ins, scale, md)
+
+            ops, name = 2 + (f1.dtype == torch.bfloat16), "corr_backward_kernel"
+        ms = cuda_ms(run, reps=20)
+        kernel_graph = graph_ms(run)
+        profile = _full_profile(run, ops)
+        dev_ms, dev_ops = _profile_sums(profile)
+        kern_ms = (None if profile is None
+                   else sum(v[0] for n, v in profile.items() if name in n))
+        plain_ms = cuda_ms(plain, reps=3, warmup=1)
+        with torch.enable_grad():
+            out = forward(*leaves)
+
+        def eager():
+            torch.autograd.grad(out, leaves, dout, retain_graph=True)
+
+        # For the CUDA graph: forward and backward, from views of the leaves
+        # made in the call, so that every node autograd runs (the leaves'
+        # AccumulateGrad, made on the default stream above, is not among
+        # them) belongs to the capture stream
+        def eager_forward():
+            with torch.enable_grad():
+                ins = [t.view_as(t) for t in leaves]
+                return forward(*ins), ins
+
+        def eager_whole():
+            y, ins = eager_forward()
+            torch.autograd.grad(y, ins, dout)
+
+        eager_ms = cuda_ms(eager, reps=3, warmup=1)
+        try:
+            # three calls on a side stream first, as PyTorch's whole-network
+            # capture recipe does
+            side = torch.cuda.Stream()
+            side.wait_stream(torch.cuda.current_stream())
+            with torch.cuda.stream(side):
+                for _ in range(3):
+                    eager_whole()
+            torch.cuda.current_stream().wait_stream(side)
+            eager_dev = graph_ms(eager_whole, reps=3) - graph_ms(eager_forward, reps=3)
+        except RuntimeError as e:   # a yardstick the port never calls: logged, not measured
+            log(f"{kind} backward: the eager composition's CUDA graph failed: {e}")
+            eager_dev = None
+        grid_ms = grid_dev = None
+        if kind == "warped":
+            B_, c, h, w = f2.shape
+            co = torch.stack(torch.meshgrid(torch.arange(h, device=f2.device),
+                                            torch.arange(w, device=f2.device),
+                                            indexing="ij")[::-1])[None].float() + flow.float() * scale
+            grid = torch.stack([co[:, 0] / (w - 1) * 2 - 1, co[:, 1] / (h - 1) * 2 - 1],
+                               dim=-1).to(f2.dtype)
+            gout = torch.ones_like(f2)
+
+            def sampler():
+                torch.ops.aten.grid_sampler_2d_backward(gout, f2, grid, 0, 0, True,
+                                                        [True, True])
+
+            grid_ms = cuda_ms(sampler, reps=20)
+            grid_dev = _profile_sums(_full_profile(sampler))[0]
+        nbytes, flops, ops_ms = _corr_bwd_bound(kind, args)
+        bound, bound_by = _bound_ms(nbytes, ops_ms)
+        shape = tuple(args[0].shape)
+        rows[kind].append(dict(
+            name=f"{kind}_{shape}", shape=list(shape), dtype=str(args[0].dtype)[6:], md=md,
+            dout_strides=list(dout.stride()), ms=ms, device_ms=dev_ms, kernel_device_ms=kern_ms,
+            graph_ms=kernel_graph, device_ops_per_call=dev_ops, plain_ms=plain_ms, library_ms=None,
+            eager_autograd_ms=eager_ms, eager_autograd_device_ms=eager_dev,
+            grid_sampler_backward_ms=grid_ms, grid_sampler_backward_device_ms=grid_dev,
+            bound_ms=bound, bound_by=bound_by, ops_ms=ops_ms,
+            bound_share=None if dev_ms is None else bound / dev_ms, bytes=nbytes, flops=flops))
+        r = rows[kind][-1]
+        share = "not measured" if dev_ms is None else f"{100 * bound / dev_ms:.1f}%"
+        log(f"{kind} backward {shape} {r['dtype']}: device {_fmt_ms(dev_ms)} in {dev_ops} "
+            f"device operations (the kernel {_fmt_ms(kern_ms)}), by CUDA graph "
+            f"{kernel_graph:.4f} ms, events {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+            f"{bound:.5f} ms ({bound_by}, {nbytes / 1e6:.2f} MB, {flops / 1e6:.1f} MFLOP), share "
+            f"{share}; yardsticks: eager autograd events {eager_ms:.4f} ms, device (CUDA graph, "
+            f"the forward's taken off) {_fmt_ms(eager_dev)}; grid_sampler_2d_backward "
+            f"{_fmt_ms(grid_ms)} events, device {_fmt_ms(grid_dev)}")
+        del out, leaves
+    out = {}
+    for kind, calls in rows.items():
+        total = _pair_sums(calls)
+        for key in ("eager_autograd_ms", "eager_autograd_device_ms", "kernel_device_ms", "graph_ms",
+                    "grid_sampler_backward_ms", "grid_sampler_backward_device_ms",
+                    "device_ops_per_call"):
+            total[key] = _sum_or_none(c[key] for c in calls)
+        total["bound_share"] = (None if total["device_ms"] is None
+                                else total["bound_ms"] / total["device_ms"])
+        out[kind] = dict(total, calls=calls)
+        share = ("not measured" if total["bound_share"] is None
+                 else f"{100 * total['bound_share']:.1f}%")
+        log(f"{kind} backward per PWC-DC flow step: device {_fmt_ms(total['device_ms'])}, share "
+            f"of bound {share}, by CUDA graph {total['graph_ms']:.4f} ms, events "
+            f"{total['ms']:.4f} ms, bound {total['bound_ms']:.5f} ms "
+            f"({total['bound_by']}), plain {total['plain_ms']:.4f} ms; eager autograd device "
+            f"{_fmt_ms(total['eager_autograd_device_ms'])}; grid_sampler_2d_backward device "
+            f"{_fmt_ms(total['grid_sampler_backward_device_ms'])}")
+    return out, max_err
 
 
 def _whole(profile: dict, reps: int) -> bool:
@@ -3465,15 +4047,31 @@ def main(argv=None) -> int:
         warped_train, warped_train_err = phase_warped("cli_train_pwc", cap_w_train, local_corr,
                                                       correlation, dicl, pwcnet, args.old_b2)
     del cap_w_train
+    # no path before slice 13 trains PWC-DC: none launched a correlation's backward
+    check(local_corr.KERNEL_BACKWARD.launches == 0 and local_corr.WARPED_BACKWARD.launches == 0,
+          "a path that does not train PWC-DC launched a correlation backward: B2's "
+          f"{local_corr.KERNEL_BACKWARD.launches}, the warped one's "
+          f"{local_corr.WARPED_BACKWARD.launches} times")
+    phase_small_pwc_flow_train_reference(dev, local_corr)
+    pwc_flow, cap_corr = phase_cli_train_flow_pwc(dev, sweep_warp, local_corr)
+    with torch.no_grad():
+        corr_bwd, corr_bwd_err = phase_corr_backward(cap_corr, local_corr, correlation)
+    del cap_corr
     names = ("gather", "sweep", "backward", "pose_grad", "volume", "volume_backward", "warped",
-             "b2")
-    by_path = {"dicl_main_path": dict(zip(names, (0, sweep_dicl, 0, 0, disp_dicl, 0, 0, 0))),
-               "pwc_cli_eval": dict(zip(names, (b1_pwc, sweep_pwc, 0, 0, disp_pwc, 0,
-                                                warped_pwc, b2_pwc))),
-               "cli_train": dict(zip(names, train_launches + (0, 0, 0))),
-               **{k: dict(zip(names, v + (0, 0, 0))) for k, v in pose_paths.items()},
-               "cli_train_flow": dict(zip(names, flow_launches + (0, 0))),
-               "cli_train_pwc": dict(zip(names, pwc_train))}
+             "b2", "b2_backward", "warped_backward")
+
+    def path(v):
+        return dict(zip(names, tuple(v) + (0,) * (len(names) - len(v))))
+
+    by_path = {"dicl_main_path": path((0, sweep_dicl, 0, 0, disp_dicl)),
+               "pwc_cli_eval": path((b1_pwc, sweep_pwc, 0, 0, disp_pwc, 0, warped_pwc, b2_pwc)),
+               "cli_train": path(train_launches),
+               **{k: path(v) for k, v in pose_paths.items()},
+               "cli_train_flow": path(flow_launches),
+               "cli_train_pwc": path(pwc_train),
+               # B1's six kernels, then B2, its backward, the warped correlation, its backward
+               "cli_train_flow_pwc": path(pwc_flow[:6] + (pwc_flow[8], pwc_flow[6], pwc_flow[7],
+                                                          pwc_flow[9]))}
 
     def launches(kernel):
         counts = {k: v[kernel] for k, v in by_path.items()}
@@ -3532,7 +4130,25 @@ def main(argv=None) -> int:
               "replaces": B2_REPLACES, "fuses": WARPED_FUSES, **launches("warped"),
               "max_abs_err": max(warped_err, warped_train_err), **warped_call,
               "train_step": warped_train}
-    kernels = [b1, disp, sweep, b2, bwd, pg, dbwd, warped]
+    # once a PWC-DC flow-training step (level 6); it replaces the gradient
+    # XLA derives for the JAX correlation, and no single PyTorch call
+    # computes it (autograd of the eager composition is timed beside it)
+    b2_bwd = {"name": "local_correlation_backward", "route": "cuda", "source": CORR_BWD_SOURCE,
+              "replaces": B2_BWD_REPLACES, "gradient_of": B2_REPLACES,
+              **launches("b2_backward"), "max_abs_err": corr_bwd_err["b2"],
+              **{k: v for k, v in corr_bwd["b2"].items() if k != "calls"},
+              "calls": corr_bwd["b2"]["calls"]}
+    # four times a PWC-DC flow-training step (levels 5..2); it replaces the
+    # gradient XLA derives for the JAX warp and correlation; no single
+    # PyTorch call computes it (autograd of the eager composition, and
+    # grid_sampler_2d_backward for the warp's half, are timed beside it)
+    warped_bwd = {"name": "warped_correlation_backward", "route": "cuda",
+                  "source": CORR_BWD_SOURCE, "replaces": WARPED_BWD_REPLACES,
+                  "gradient_of": WARPED_FUSES, **launches("warped_backward"),
+                  "max_abs_err": corr_bwd_err["warped"],
+                  **{k: v for k, v in corr_bwd["warped"].items() if k != "calls"},
+                  "calls": corr_bwd["warped"]["calls"]}
+    kernels = [b1, disp, sweep, b2, bwd, pg, dbwd, warped, b2_bwd, warped_bwd]
     check(b1["launches"] == 0, f"a main path launched the standalone gather {b1['launches']} "
           "times")
     check(all(k["launches"] > 0 for k in kernels if k is not b1), "a kernel was launched no "
@@ -3546,6 +4162,9 @@ def main(argv=None) -> int:
     check(b2["launches_by_path"]["cli_train_pwc"] > 0
           and warped["launches_by_path"]["cli_train_pwc"] > 0,
           "the PWC-DC training path launched no B2 or no warped correlation")
+    check(all(k["launches_by_path"]["cli_train_flow_pwc"] > 0
+              for k in (b2, warped, b2_bwd, warped_bwd)),
+          "PWC-DC's flow-training path launched no B2, warped correlation or backward")
     for k in kernels:
         lib = "none" if k["library_ms"] is None else f"{k['library_ms']:.4f} ms"
         dev = "not measured" if k["device_ms"] is None else f"{k['device_ms']:.4f} ms"

@@ -8,7 +8,9 @@ The JAX CLI's flags (the reference's `main.py:66-115` surface plus
 - without `-v`: training, the recipe's frozen-flow depth step (`train/
   loop.py::fit`): the KITTI train split with the recipe's augmentation,
   `train.epochs` epochs, a validation and a checkpoint after each, resumed
-  from `--start-epoch` with `--pretrained`;
+  from `--start-epoch` with `--pretrained`; with `--override
+  train.fix_flownet=False` the flow net (DICL or PWC-DC) trains too, on the
+  flow loss of batches that carry flow GT;
 - `--record-pose`: the pose errors of the test split in both directions
   (`train/pose_eval.py::record_pose_errors`) and, with `--dataset
   kitti_vo`, the odometry report of each test sequence (ATE, RPE, the KITTI
@@ -16,12 +18,17 @@ The JAX CLI's flags (the reference's `main.py:66-115` surface plus
 - `--save-pose`: the predicted poses of both splits, written into the
   dataset tree where the loaders read them back for training with
   `--override pred_pose_online=False`;
-- `--train-flow`: flow pretraining of DICL (`train/flow_trainer.py::
-  flow_fit`) over a flow benchmark (`--flow-dataset`, augmented and cropped
-  to `--flow-crop`), the per-epoch EPE / Fl-all validation, checkpoints
-  under `{out}/{tag}_flow/ckpt`, which `--pretrained-flow` restores into
-  the composite. DICL pads its input to /128 and the flow GT is not
-  padded, so the crop's sides must be multiples of 128 (as in JAX).
+- `--train-flow`: flow pretraining of DICL or PWC-DC (`--override
+  flow.estimator=PWC`; `train/flow_trainer.py::flow_fit`) over a flow
+  benchmark (`--flow-dataset`, augmented and cropped to `--flow-crop`), the
+  per-epoch EPE / Fl-all validation, checkpoints under
+  `{out}/{tag}_flow/ckpt`, which `--pretrained-flow` restores into the
+  composite. DICL pads its input to /128 and the flow GT is not padded, so
+  the crop's sides must be multiples of 128 (as in JAX). PWC-DC's batches
+  and validation pairs are padded to /8, as in JAX, and PWC-DC takes only
+  sides that are multiples of 64: a crop or validation pair that is not
+  one after the padding is refused with a ValueError before the first
+  step (JAX fails there at the validation, after the epoch).
 
 Weights are random from `train.seed`, or restored: `--pretrained` (the
 port's checkpoint: model, optimizer and step in training, the model alone
@@ -150,7 +157,10 @@ def train_flow_main(args, cfg, dev):
     """The `--train-flow` branch (JAX `train_flow_main`, `cli.py:268-296`):
     the augmented train split and the plain validation split of
     `--flow-dataset`, batches padded to /128 for DICL (/8 otherwise), and
-    `flow_fit` writing into `{out}/{tag}_flow`. Returns its epoch records."""
+    `flow_fit` writing into `{out}/{tag}_flow`. For PWC-DC the padded crop
+    and the padded size of the first validation pair must be multiples of
+    64 (`models/pwcnet.py::check_size`), checked before the first step.
+    Returns its epoch records."""
     from deep_sfm_revisited_tpu_torch.data.loader import BatchLoader
     from deep_sfm_revisited_tpu_torch.train.flow_trainer import flow_fit
 
@@ -158,6 +168,15 @@ def train_flow_main(args, cfg, dev):
                                   crop=args.flow_crop)
     val_ds = build_flow_dataset(args.flow_dataset, args.data, augment=False)
     pad = 128 if cfg.flow.estimator == "DICL" else 8
+    if cfg.flow.estimator == "PWC":
+        from deep_sfm_revisited_tpu_torch.models.pwcnet import check_size
+
+        up = lambda n: -(-n // pad) * pad   # noqa: E731
+        sizes = [tuple(train_ds.augmentor.crop_size)] if train_ds.augmentor is not None else []
+        if len(val_ds):
+            sizes.append(val_ds[0]["ref"].shape[:2])
+        for h, w in sizes:
+            check_size(up(h), up(w))
     loader = BatchLoader(train_ds, cfg.train.batch_size, workers=cfg.data.workers,
                          pad_multiple=pad, seed=cfg.train.seed)
     return flow_fit(cfg, loader, f"{args.out}/{cfg.tag}_flow", val_dataset=val_ds, device=dev,

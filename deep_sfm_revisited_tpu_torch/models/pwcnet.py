@@ -1,4 +1,4 @@
-"""PWC-DC optical flow (port of `models/pwcnet.py`), forward without gradient.
+"""PWC-DC optical flow (port of `models/pwcnet.py`), eval and train.
 
 A shared 6-level pyramid encoder (16/32/64/96/128/196 channels, stride 2
 per level, leaky ReLU 0.1) -> per level 6..2: the md=4 windowed correlation
@@ -23,8 +23,18 @@ features are NCHW.
 
 Train mode: PWC-DC has no BN and no dropout, so train and eval compute the
 same thing. The frozen-flow training step (`train.fix_flownet`) runs it in
-train mode under no gradient; where a gradient would reach it (training
-PWC-DC, ROADMAP A.5) it raises.
+train mode under no gradient; flow pretraining (`--train-flow`) and the
+composite step with `train.fix_flownet=False` train it through the
+`all_iters` stack. Both correlations are autograd functions
+(`ops/correlation.py`): on the GPU their backward is a kernel too
+(`csrc/warped_corr_backward.cu`), and the gradient reaches the up-sampled
+flow through the warp, which PWC-DC does not detach (JAX
+`pwcnet.py:125-131`).
+
+Sizes: H and W must be multiples of 64, or a level's up-sampled flow and
+its features differ by a row or a column. JAX raises there too (a
+TypeError of its warp's broadcast); the port raises a ValueError naming
+the rule (`check_size`).
 """
 
 from __future__ import annotations
@@ -58,9 +68,18 @@ def deconv(cin: int, cout: int) -> nn.ConvTranspose2d:
     return nn.ConvTranspose2d(cin, cout, 4, 2, 1)
 
 
+def check_size(h: int, w: int) -> None:
+    """Raise a ValueError unless PWC-DC takes an (h, w) input: both
+    multiples of 64 (six stride-2 levels, each up-sampled by two)."""
+    if h % 64 or w % 64:
+        raise ValueError(f"PWC-DC takes H and W that are multiples of 64; got {h}x{w} (pad or "
+                         "crop the pair to /64)")
+
+
 def _correlate(f1: torch.Tensor, f2: torch.Tensor, md: int) -> torch.Tensor:
     """NCHW features -> NCHW (2md+1)^2 correlation, computed on float32
-    NHWC copies and cast back to the features' dtype."""
+    NHWC copies and cast back to the features' dtype; differentiable in
+    both (on the GPU B2 and its backward kernel)."""
     corr = local_correlation(f1.permute(0, 2, 3, 1).float().contiguous(),
                              f2.permute(0, 2, 3, 1).float().contiguous(), md)
     return corr.permute(0, 3, 1, 2).to(f1.dtype)
@@ -72,12 +91,13 @@ def _warped_correlate(f1: torch.Tensor, f2: torch.Tensor, up_flow: torch.Tensor,
     and up-sampled flow (B, 2, h, w) -> NCHW correlation of f1 with f2
     warped by the flow times `scale` (JAX `warp_flow`, then the correlation
     of float32 casts), in the features' dtype: on the GPU one launch, with
-    no permute, copy or cast around it."""
+    no permute, copy or cast around it; its gradient in f1, f2 and the flow
+    one launch of the backward kernel (and in bfloat16 a cast)."""
     return warped_correlation_nchw(f1, f2, up_flow, scale, md)
 
 
 class PWCDCNet(nn.Module):
-    """PWC-DC flow network, without gradient. Returns (flow, None)."""
+    """PWC-DC flow network. Returns (flow, None)."""
 
     def __init__(self, cfg: FlowConfig, md: int = 4, div_flow: float = 20.0):
         super().__init__()
@@ -126,9 +146,8 @@ class PWCDCNet(nn.Module):
         (JAX `pwcnet.py:151-161`), the refined level-2 flow last. That order
         rounds the last entry apart from the eval flow `div_flow resize(flow)`,
         as in JAX."""
-        if self.training and torch.is_grad_enabled():
-            raise NotImplementedError("training PWC-DC is not ported")
         B, H, W, _ = pair.shape
+        check_size(H, W)
         x = pair.permute(0, 3, 1, 2)
         both = self.encode(torch.cat([x[:, :3], x[:, 3:]], dim=0))
         up_flow = up_feat = None

@@ -26,7 +26,8 @@ frozen (`train.fix_flownet`): it runs without gradient. With
 `train.fix_flownet=False` DICL runs with autograd on, so its flow stack
 (the flow loss of a batch that carries `flow_gt`, `train/trainer.py`) and,
 on the POSENET route, PoseNet's flow and confidence inputs reach its
-parameters, as in JAX; PWC-DC's train mode is not ported, so that raises.
+parameters, as in JAX; PWC-DC likewise (its flow stack; it gives no
+confidence).
 """
 
 from __future__ import annotations
@@ -63,16 +64,6 @@ def _check_supported(cfg: SfMConfig) -> None:
     for key, bad in unsupported.items():
         if bad:
             raise NotImplementedError(f"{key} = {_get(cfg, key)!r} is not ported yet")
-
-
-def check_trainable(cfg: SfMConfig, use_gt_pose: bool = False) -> None:
-    """Raise unless the training step is a ported one: a route that runs
-    PWC-DC trains with it frozen (`train.fix_flownet`); DICL trains either
-    way."""
-    if cfg.pred_pose_online and not (use_gt_pose or cfg.use_gt_pose) \
-            and not cfg.train.fix_flownet and cfg.flow.estimator != "DICL":
-        raise NotImplementedError(f"training the flow net {cfg.flow.estimator} "
-                                  "(train.fix_flownet=False) is not ported yet")
 
 
 def _get(cfg, dotted):
@@ -148,8 +139,6 @@ class SFMNet(nn.Module):
         """
         cfg = self.cfg
         train, grad = self.training, torch.is_grad_enabled()
-        if train:
-            check_trainable(cfg, use_gt_pose)
         rt = conf = None
         with torch.no_grad():
             K = K.float()

@@ -1,10 +1,12 @@
-"""Kernel B2 and PWC-DC's warped correlation, as CUDA kernels for Hopper.
+"""Kernel B2 and PWC-DC's warped correlation, as CUDA kernels for Hopper,
+and their backward kernels.
 
-Both replace `deep_sfm_revisited_tpu/ops/pallas/local_corr.py::
+Both forwards replace `deep_sfm_revisited_tpu/ops/pallas/local_corr.py::
 local_correlation_pallas` (`pallas_call` at `:80`); the warped one also
 replaces B1's gather (`ops/pallas/sweep_warp.py::bilinear_sample_pallas`)
-on PWC-DC's flow warps. Two sources, `csrc/local_corr.cu` (B2) and
-`csrc/warped_corr.cu` (the warped correlation), built at first use by
+on PWC-DC's flow warps. Three sources, `csrc/local_corr.cu` (B2),
+`csrc/warped_corr.cu` (the warped correlation) and
+`csrc/warped_corr_backward.cu` (both backwards), built at first use by
 `ops/cuda/build.py`; `csrc/local_corr_ops.cpp` registers their entry points
 as the PyTorch operators `torch.ops.dsfm_corr.*` (`OPS`), through which each
 wrapper launches and adds one to its own count:
@@ -21,6 +23,17 @@ wrapper launches and adds one to its own count:
   `ops/correlation.py::warped_correlation_nchw` sends CUDA tensors here
   (PWC-DC's levels 5..2), and `warped_correlation` (JAX's NHWC contract,
   float32 features) too, between permutes.
+- `local_correlation_backward_cuda` (`KERNEL_BACKWARD.launches`): B2's
+  gradients (d f0, d f1), the flow-free case of the backward template.
+  Plain version `ops/correlation.py::local_correlation_backward_plain`.
+- `warped_correlation_backward_cuda` (`WARPED_BACKWARD.launches`): the
+  warped correlation's gradients (d f1, d f2, d flow) in its forward's
+  layouts and dtypes. Plain version `ops/correlation.py::
+  warped_correlation_nchw_backward_plain`.
+
+The forwards refuse inputs that require a gradient while grad mode is on:
+those go through `ops/correlation.py`'s autograd functions, whose backward
+is the backward kernel.
 
 The sources' headers say what bounds the kernels and how their designs
 answer that. `plan` and `warped_plan` pick the work mappings from the
@@ -223,6 +236,15 @@ def check_warped_args(f1: torch.Tensor, f2: torch.Tensor, flow: torch.Tensor,
         raise ValueError(f"{what} max displacement {md}; takes 1..{MAX_MD}")
 
 
+def refuse_gradient(what: str, *tensors: torch.Tensor) -> None:
+    """Raise where a forward kernel is called, with grad mode on, on a
+    tensor that needs a gradient: autograd would not see the launch. Inside
+    an autograd function's forward grad mode is off."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise NotImplementedError(f"{what} on tensors that require a gradient goes through "
+                                  "ops/correlation.py (its autograd function)")
+
+
 class LocalCorrKernel(CudaKernel):
     """B2's library (plain C launchers, linked by `OPS`); launches the
     windowed correlation and owns its launch count."""
@@ -237,8 +259,12 @@ class LocalCorrKernel(CudaKernel):
         """Nothing to bind: the operators of `OPS` call the launchers."""
 
     def __call__(self, f0: torch.Tensor, f1: torch.Tensor, md: int) -> torch.Tensor:
-        """f0, f1 (B, H, W, C) float32 -> (B, H, W, (2md+1)^2) float32."""
+        """f0, f1 (B, H, W, C) float32 -> (B, H, W, (2md+1)^2) float32.
+        Inputs that need a gradient are refused while grad mode is on:
+        `ops/correlation.py::local_correlation` takes them, through its
+        autograd function."""
         check_correlation_args("B2", f0, f1, md)
+        refuse_gradient("B2", f0, f1)
         p = plan(*f0.shape, md)
         op = self._op
         if op is None:
@@ -282,11 +308,11 @@ class WarpedKernel(CudaKernel):
         """f1, f2 (B, C, H, W) of one dtype, float32 or bfloat16, channels-last
         contiguous, flow (B, 2, H, W) float32 or bfloat16 of any strides, on
         one device -> (B, (2md+1)^2, H, W) in f1's dtype, channels-last.
-        It has no backward: inputs that need a gradient are
-        refused while grad mode is on."""
+        Inputs that need a gradient are refused while grad mode is on:
+        `ops/correlation.py::warped_correlation_nchw` takes them, through
+        its autograd function."""
         check_warped_args(f1, f2, flow, md)
-        if torch.is_grad_enabled() and any(t.requires_grad for t in (f1, f2, flow)):
-            raise NotImplementedError("the warped correlation has no backward")
+        refuse_gradient("the warped correlation", f1, f2, flow)
         p = warped_plan(*f1.shape, md)
         op = self._op
         if op is None:
@@ -296,10 +322,83 @@ class WarpedKernel(CudaKernel):
         return out
 
 
+class BackwardKernels(CudaKernel):
+    """The backward kernels' library (`csrc/warped_corr_backward.cu`, plain C
+    launchers, linked by `OPS`); `LocalCorrBackward` and
+    `WarpedCorrBackward` launch them."""
+
+    source = "warped_corr_backward.cu"
+
+    def _bind(self, lib) -> None:
+        """Nothing to bind: the operators of `OPS` call the launchers."""
+
+
+class LocalCorrBackward:
+    """Launches B2's backward kernel through `OPS`; owns its launch count."""
+
+    def __init__(self):
+        self.launches = 0
+        self._op = None
+
+    def __call__(self, f0: torch.Tensor, f1: torch.Tensor, dout: torch.Tensor,
+                 md: int) -> tuple[torch.Tensor, torch.Tensor]:
+        """f0, f1 (B, H, W, C) as B2 took them, dout (B, H, W, (2md+1)^2)
+        float32 -> (d f0, d f1), float32 (B, H, W, C)."""
+        check_correlation_args("B2's backward", f0, f1, md)
+        want = (*f0.shape[:3], (2 * md + 1) ** 2)
+        if dout.device != f0.device or dout.dtype != torch.float32 or tuple(dout.shape) != want:
+            raise ValueError(f"B2's backward takes a float32 dout {want} on {f0.device}; got "
+                             f"{dout.dtype} {tuple(dout.shape)} on {dout.device}")
+        op = self._op
+        if op is None:
+            op = self._op = OPS.build().local_correlation_backward.default
+        out = op(f0, f1, dout.contiguous(), md)
+        self.launches += 1
+        return out
+
+
+class WarpedCorrBackward:
+    """Launches the warped correlation's backward kernel through `OPS`; owns
+    its launch count."""
+
+    def __init__(self):
+        self.launches = 0
+        self._op = None
+
+    def __call__(self, f1: torch.Tensor, f2: torch.Tensor, flow: torch.Tensor, scale: float,
+                 dout: torch.Tensor, md: int):
+        """f1, f2, flow, scale, md as the forward took them, dout (B,
+        (2md+1)^2, H, W) of f1's dtype -> (d f1, d f2) channels-last of f1's
+        dtype and d flow of the flow's dtype. A dout whose channels are
+        adjacent at one pixel stride (channels-last, or PWC-DC's slice of its
+        decoder input's gradient) is read in place; any other is made
+        channels-last first."""
+        check_warped_args(f1, f2, flow, md)
+        B, _, H, W = f1.shape
+        S2 = (2 * md + 1) ** 2
+        if (dout.device != f1.device or dout.dtype != f1.dtype
+                or tuple(dout.shape) != (B, S2, H, W)):
+            raise ValueError(f"the warped correlation's backward takes a {f1.dtype} dout "
+                             f"{(B, S2, H, W)} on {f1.device}; got {dout.dtype} "
+                             f"{tuple(dout.shape)} on {dout.device}")
+        if not (dout.stride(1) == 1 and dout.stride(3) >= S2
+                and dout.stride(2) == W * dout.stride(3)):
+            dout = dout.contiguous(memory_format=torch.channels_last)
+        op = self._op
+        if op is None:
+            op = self._op = OPS.build().warped_correlation_backward.default
+        out = op(f1, f2, flow, float(scale), dout, md)
+        self.launches += 1
+        return out
+
+
 KERNEL = LocalCorrKernel()
 WARPED = WarpedKernel()
-OPS = TorchOps("local_corr_ops.cpp", (KERNEL, WARPED), "dsfm_corr")
-BUILDS = (KERNEL, WARPED, OPS)   # what chip_smoke.py's setup builds, in parallel with B1
+BACKWARD = BackwardKernels()
+KERNEL_BACKWARD = LocalCorrBackward()
+WARPED_BACKWARD = WarpedCorrBackward()
+OPS = TorchOps("local_corr_ops.cpp", (KERNEL, WARPED, BACKWARD), "dsfm_corr")
+BUILDS = (KERNEL, WARPED, BACKWARD, OPS)   # what chip_smoke.py's setup builds, with B1
 
 
 def local_correlation_cuda(f0: torch.Tensor, f1: torch.Tensor, md: int) -> torch.Tensor:
@@ -312,3 +411,17 @@ def warped_correlation_cuda(f1: torch.Tensor, f2: torch.Tensor, flow: torch.Tens
     """Launch the warped correlation on the current stream (see
     `WarpedKernel.__call__`)."""
     return WARPED(f1, f2, flow, scale, md)
+
+
+def local_correlation_backward_cuda(f0: torch.Tensor, f1: torch.Tensor, dout: torch.Tensor,
+                                   md: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """Launch B2's backward on the current stream (see
+    `LocalCorrBackward.__call__`)."""
+    return KERNEL_BACKWARD(f0, f1, dout, md)
+
+
+def warped_correlation_backward_cuda(f1: torch.Tensor, f2: torch.Tensor, flow: torch.Tensor,
+                                     scale: float, dout: torch.Tensor, md: int):
+    """Launch the warped correlation's backward on the current stream (see
+    `WarpedCorrBackward.__call__`)."""
+    return WARPED_BACKWARD(f1, f2, flow, scale, dout, md)

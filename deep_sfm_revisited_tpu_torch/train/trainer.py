@@ -22,7 +22,6 @@ from typing import Callable, Dict, Optional
 import torch
 
 from deep_sfm_revisited_tpu_torch.config import SfMConfig
-from deep_sfm_revisited_tpu_torch.models.sfmnet import check_trainable
 from deep_sfm_revisited_tpu_torch.train.losses import depth_training_loss, pose_regression_loss
 
 # SFMNet's submodule for each subtree name of the JAX package's parameters
@@ -121,7 +120,6 @@ class Trainer:
     `ChainedStep`)."""
 
     def __init__(self, model, cfg: SfMConfig, steps_per_epoch: int):
-        check_trainable(cfg)
         self.model = model
         self.cfg = cfg
         self.optimizer = build_optimizer(model, cfg)

@@ -108,19 +108,26 @@ def test_cli_metrics_equal_the_jax_eval_step(tree, tmp_path):
 
 @pytest.mark.parametrize("extra", [["--train-flow"]])
 def test_unported_modes_raise(tree, tmp_path, extra):
-    """Flow pretraining is ported for DICL; PWC-DC's raises."""
-    with pytest.raises(NotImplementedError, match="not ported yet"):
+    """Flow pretraining is ported for DICL and PWC-DC
+    (tests/test_torch_train_pwc_flow.py runs PWC-DC's); at KITTI's default
+    crop, 288x960, which /8 padding keeps and whose 288 rows are not a
+    multiple of 64, PWC-DC's size rule refuses it before the first step
+    (JAX's first step fails there on its warp's shapes)."""
+    with pytest.raises(ValueError, match="multiples of 64"):
         cli.main(_argv(tree, tmp_path, dict(TINY, **{"flow.estimator": "PWC"}), *extra),
                  device="cpu")
 
 
 def test_training_raises(tree, tmp_path):
-    """Training the flow net (`train.fix_flownet=False`) is ported for DICL;
-    on the PWC-DC route it is not and raises."""
+    """Training the flow net (`train.fix_flownet=False`) is ported for DICL
+    and PWC-DC (tests/test_torch_train_cli.py trains an epoch on the PWC-DC
+    route); what raises on that route is a training crop that is not /64
+    after the loader's padding, 64x96 padded to /32: PWC-DC's size rule, a
+    ValueError at the first step."""
     over = dict(TINY, **{"train.fix_flownet": False, "flow.estimator": "PWC",
-                         "data.pad_multiple": 64})
+                         "data.pad_multiple": 32, "data.train_size": (64, 96)})
     argv = [a for a in _argv(tree, tmp_path, over) if a != "-v"]
-    with pytest.raises(NotImplementedError, match="not ported yet"):
+    with pytest.raises(ValueError, match="multiples of 64"):
         cli.main(argv, device="cpu")
 
 

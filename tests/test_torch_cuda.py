@@ -1,7 +1,8 @@
 """Tests that need an NVIDIA GPU: the port's kernels (B1's gather,
 displacement volume and its backward, plane sweep, sweep backward and sweep
 pose gradient, B2, and PWC-DC's warped correlation in its NCHW layout and
-dtype) against their plain versions,
+dtype, and the two correlations' backward kernels) against their plain
+versions,
 and the pose engine on the card against itself on the CPU.
 
 They skip where no card is present. This file imports no jax, so it also
@@ -1027,8 +1028,137 @@ def test_warped_correlation_wrapper_refuses_what_the_kernel_does_not_take():
                  (f1, f2, flow, 1.0, 5), (f1, f2, flow, 1.0, 0)):
         with pytest.raises((ValueError, TypeError)):
             local_corr.warped_correlation_cuda(*args)
-    with torch.enable_grad(), pytest.raises(NotImplementedError, match="no backward"):
+    with torch.enable_grad(), pytest.raises(NotImplementedError, match="autograd function"):
         local_corr.warped_correlation_cuda(f1.requires_grad_(), f2, flow, 1.0, 4)
+
+
+def _close(got, ref):
+    """The backward kernels against their plain versions, to B2's
+    tolerance (`_nchw_tolerance`): float32 sums of up to 81 products (and
+    d f2's atomics) in another order, plus one bf16 ulp of a bf16
+    gradient."""
+    return bool(((got.float() - ref.float()).abs() <= _nchw_tolerance(ref)).all())
+
+
+def _edge_flow(flow, scale):
+    """The flow with samples exactly on the frame's edges and on integer
+    positions: zero at the border pixels, and 5-pixel steps (a flow the
+    scale multiplies exactly) on every third column."""
+    flow = flow.clone()
+    flow[..., [0, -1], :] = 0
+    flow[..., :, [0, -1]] = 0
+    steps = torch.tensor([-1.0, 0.0, 1.0], device=flow.device)[
+        torch.arange(flow.shape[2] * flow.shape[3], device=flow.device) % 3].reshape(
+            flow.shape[2:]) * (5.0 / scale)
+    flow[:, :, 1:-1, 2:-1:3] = steps[1:-1, 2:-1:3].to(flow.dtype)
+    return flow
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["flow", "off", "edges"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape,md,scale", NCHW_CASES[4:])
+def test_warped_backward_matches_plain_on_card(shape, md, scale, dtype, kind):
+    """The warped correlation's backward kernel through its autograd
+    function at PWC-DC's training-step levels and odd shapes: one launch,
+    d f1 and d f2 channels-last in the features' dtype, d flow in the
+    flow's, within their plain versions' tolerance (`_close`),
+    with flows that send samples off the frame and exactly onto its edges;
+    d f1 and d flow bit-identical across two launches (gathers, and a fixed
+    order over the channels), d f2 within the atomics' rounding."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    td = getattr(torch, dtype)
+    f1, f2, flow = _nchw_inputs(shape, td, seed=41, off_frame=kind == "off")
+    if kind == "edges":
+        flow = _edge_flow(flow, scale)
+    B, C, H, W = shape
+    g = torch.Generator(device="cuda").manual_seed(42)
+    dout = torch.randn(B, (2 * md + 1) ** 2, H, W, device="cuda", generator=g).to(td)
+    dout = dout.contiguous(memory_format=torch.channels_last)
+    leaves = [t.detach().clone().requires_grad_() for t in (f1, f2, flow)]
+    before = (local_corr.WARPED.launches, local_corr.WARPED_BACKWARD.launches)
+    out = tcorr.warped_correlation_nchw(*leaves, scale, md)
+    got = torch.autograd.grad(out, leaves, dout)
+    again = local_corr.warped_correlation_backward_cuda(f1, f2, flow, scale, dout, md)
+    torch.cuda.synchronize()
+    assert (local_corr.WARPED.launches - before[0],
+            local_corr.WARPED_BACKWARD.launches - before[1]) == (1, 2)
+    ref = tcorr.warped_correlation_nchw_backward_plain(f1, f2, flow, scale, dout, md)
+    for name, a, b, w, t in zip(("d f1", "d f2", "d flow"), got, again, ref, (f1, f2, flow)):
+        assert a.shape == t.shape and a.dtype == t.dtype, name
+        assert _close(a, w), (name, float((a.float() - w.float()).abs().max()))
+        assert torch.equal(a, b) if name != "d f2" else _close(b, w), name
+    assert got[0].is_contiguous(memory_format=torch.channels_last)
+    assert got[1].is_contiguous(memory_format=torch.channels_last)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_warped_backward_reads_a_channel_slice_in_place(dtype):
+    """PWC-DC's decoder concatenates the correlation with other channels,
+    so the correlation's gradient arrives as a slice of a channels-last
+    gradient: the kernel reads it at its pixel stride, with the same result
+    as on a channels-last copy."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    td = getattr(torch, dtype)
+    shape, md, scale = NCHW_CASES[6]
+    f1, f2, flow = _nchw_inputs(shape, td, seed=43, off_frame=True)
+    B, C, H, W = shape
+    g = torch.Generator(device="cuda").manual_seed(44)
+    whole = torch.randn(B, 81 + C + 4, H, W, device="cuda", generator=g).to(td)
+    whole = whole.contiguous(memory_format=torch.channels_last)
+    part = whole[:, :81]
+    assert not part.is_contiguous(memory_format=torch.channels_last)
+    sliced = local_corr.warped_correlation_backward_cuda(f1, f2, flow, scale, part, md)
+    copied = local_corr.warped_correlation_backward_cuda(
+        f1, f2, flow, scale, part.contiguous(memory_format=torch.channels_last), md)
+    torch.cuda.synchronize()
+    assert torch.equal(sliced[0], copied[0]) and torch.equal(sliced[2], copied[2])
+    assert _close(sliced[1], copied[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,md", B2_SHAPES)
+def test_b2_backward_matches_plain_on_card(shape, md):
+    """B2's backward kernel through `local_correlation`'s autograd function:
+    one launch, d f0 and d f1 within the plain version's tolerance, bit
+    for bit across two launches (both gathers)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    f0, f1 = _b2_inputs(shape, seed=45)
+    g = torch.Generator(device="cuda").manual_seed(46)
+    dout = torch.randn(*shape[:3], (2 * md + 1) ** 2, device="cuda", generator=g)
+    a, b = f0.clone().requires_grad_(), f1.clone().requires_grad_()
+    before = (local_corr.KERNEL.launches, local_corr.KERNEL_BACKWARD.launches)
+    got = torch.autograd.grad(tcorr.local_correlation(a, b, md), (a, b), dout)
+    again = local_corr.local_correlation_backward_cuda(f0, f1, dout, md)
+    torch.cuda.synchronize()
+    assert (local_corr.KERNEL.launches - before[0],
+            local_corr.KERNEL_BACKWARD.launches - before[1]) == (1, 2)
+    ref = tcorr.local_correlation_backward_plain(f0, f1, dout, md)
+    for x, y, w in zip(got, again, ref):
+        assert x.shape == w.shape and _close(x, w) and torch.equal(x, y)
+
+
+@pytest.mark.cuda
+def test_backward_wrappers_refuse_what_the_kernels_do_not_take():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    f = torch.zeros(1, 8, 8, 4, device="cuda")
+    d = torch.zeros(1, 8, 8, 81, device="cuda")
+    for args in ((f, f, d.bfloat16(), 4), (f, f, d[..., :25], 4), (f, f, d, 2),
+                 (f.bfloat16(), f.bfloat16(), d, 4), (f, f, d.cpu(), 4)):
+        with pytest.raises((ValueError, TypeError)):
+            local_corr.local_correlation_backward_cuda(*args)
+    f1, f2, flow = _nchw_inputs((1, 4, 8, 8), torch.bfloat16, seed=47, off_frame=False)
+    dout = torch.zeros(1, 81, 8, 8, device="cuda", dtype=torch.bfloat16)
+    for args in ((f1, f2, flow, 1.0, dout.float(), 4), (f1, f2, flow, 1.0, dout[:, :49], 4),
+                 (f1, f2, flow, 1.0, dout, 3), (f1.contiguous(), f2, flow, 1.0, dout, 4),
+                 (f1, f2, flow, 1.0, dout.cpu(), 4)):
+        with pytest.raises((ValueError, TypeError)):
+            local_corr.warped_correlation_backward_cuda(*args)
 
 
 def _rigid_correspondences(seed):

@@ -35,7 +35,7 @@ def pwc():
     with torch.no_grad():
         tflow, tconf = tnet(torch.from_numpy(pair))
     return dict(variables=variables, sd=sd, jflow=np.asarray(jflow), jconf=jconf,
-                tflow=t2n(tflow), tconf=tconf, tnet=tnet)
+                tflow=t2n(tflow), tconf=tconf, tnet=tnet, pair=pair)
 
 
 def test_bridge_converts_every_leaf(pwc):
@@ -62,9 +62,35 @@ def test_flow_matches_jax(pwc):
 
 
 def test_train_mode_raises(pwc):
+    """PWC-DC trains: in train mode with autograd on it computes the eval
+    flow and a gradient reaches every parameter (through both correlations'
+    autograd functions and the warp's flow). What raises in train mode as
+    in eval is an input whose sides are not multiples of 64, with a
+    ValueError naming the rule."""
     net = pwc["tnet"].train()
     try:
-        with pytest.raises(NotImplementedError):
-            net(torch.zeros(1, 64, 64, 6))
+        net.zero_grad(set_to_none=True)
+        flow, _ = net(torch.from_numpy(pwc["pair"]))
+        np.testing.assert_allclose(t2n(flow), pwc["tflow"], rtol=0, atol=1e-5)
+        flow.square().mean().backward()
+        for k, p in net.named_parameters():
+            assert p.grad is not None and p.grad.abs().max() > 0, k
+        with pytest.raises(ValueError, match="multiples of 64"):
+            net(torch.zeros(1, 72, 104, 6))
     finally:
+        net.zero_grad(set_to_none=True)
         net.eval()
+
+
+@pytest.mark.parametrize("hw", [(72, 104), (64, 96)])
+def test_sizes_not_multiples_of_64_raise_as_in_jax(pwc, hw):
+    """At a size that is not /64 the JAX network fails too: a level's
+    up-sampled flow and its features differ by a row or a column, and its
+    warp's broadcast raises a TypeError (traced abstractly, no compile).
+    The port raises a ValueError that names the rule before any layer."""
+    jnet = JPWC(JFlow(estimator="PWC"))
+    x = jax.ShapeDtypeStruct((1, *hw, 6), jnp.float32)
+    with pytest.raises(TypeError, match="incompatible shapes"):
+        jax.eval_shape(lambda p: jnet.apply(pwc["variables"], p), x)
+    with torch.no_grad(), pytest.raises(ValueError, match="multiples of 64"):
+        pwc["tnet"](torch.zeros(1, *hw, 6))

@@ -116,10 +116,25 @@ def test_validate_restores_the_checkpoint(runs, tmp_path):
 
 
 def test_training_the_flow_net_raises(runs, tmp_path):
-    """`train.fix_flownet=False` trains DICL (tests/test_torch_flow_train_depth.py);
-    PWC-DC's train mode is not ported, so on its route it raises."""
+    """`train.fix_flownet=False` trains DICL and PWC-DC
+    (tests/test_torch_flow_train_depth.py); on the PWC-DC route `cli.main`
+    trains an epoch with PWC-DC in train mode under autograd: 2 steps, a
+    finite loss without a flow term (KITTI depth batches carry no flow GT,
+    so PWC-DC gets no gradient and its checkpointed weights are the seeded
+    ones, as in JAX), finite Eigen metrics. What still raises on the route
+    is an input PWC-DC does not take (tests/test_torch_cli.py)."""
+    from deep_sfm_revisited_tpu_torch.config import SfMConfig
+    from deep_sfm_revisited_tpu_torch.models.sfmnet import SFMNet
+
     _, _, _, root = runs
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        cli.main(_argv(root, tmp_path, "--epochs", "1",
-                       over=dict(TINY, **{"train.fix_flownet": False, "flow.estimator": "PWC",
-                                          "data.pad_multiple": 64})), device="cpu")
+    over = dict(TINY, **{"train.fix_flownet": False, "flow.estimator": "PWC",
+                         "data.pad_multiple": 64})
+    recs = cli.main(_argv(root, tmp_path, "--epochs", "1", over=over), device="cpu")
+    assert len(recs) == 1 and recs[0]["step"] == 2
+    assert np.isfinite(recs[0]["train_loss"]) and recs[0]["train_loss"] > 0
+    assert "flow_loss" not in recs[0] and all(np.isfinite(recs[0][k]) for k in EIGEN)
+    cfg = SfMConfig.kitti().override(**over)
+    fresh = SFMNet(cfg, device="cpu", seed=cfg.train.seed).state_dict()
+    stored = torch.load(tmp_path / "kitti" / "ckpt" / "0.pt", weights_only=True)["model"]
+    flow = [k for k in fresh if k.startswith("flow_estimator.")]
+    assert len(flow) == 126 and all(torch.equal(stored[k], fresh[k]) for k in flow)

@@ -83,14 +83,23 @@ def test_stack_ends_with_the_refined_flow(stack):
 
 
 def test_training_with_gradient_still_raises(stack):
-    """Where a gradient would reach PWC-DC (training it, ROADMAP A.5) train
-    mode raises, with or without all_iters."""
+    """A gradient reaches PWC-DC in train mode, with and without all_iters:
+    the outputs are those computed without one, and every parameter gets a
+    gradient (with all_iters the dilated context net through the last
+    entry only). What still raises is an input that is not /64."""
     net = stack["net"].train()
     try:
-        for kw in ({}, {"all_iters": True}):
-            with pytest.raises(NotImplementedError):
-                net(torch.from_numpy(stack["pair"]), **kw)
+        for kw, want in (({}, stack["tflow"]), ({"all_iters": True}, stack["t"])):
+            net.zero_grad(set_to_none=True)
+            out, _ = net(torch.from_numpy(stack["pair"]), **kw)
+            np.testing.assert_allclose(t2n(out), want, rtol=0, atol=1e-5)
+            out.abs().mean().backward()
+            for k, p in net.named_parameters():
+                assert p.grad is not None and p.grad.abs().max() > 0, (kw, k)
+        with pytest.raises(ValueError, match="multiples of 64"):
+            net(torch.from_numpy(stack["pair"][:, :, :96]))
     finally:
+        net.zero_grad(set_to_none=True)
         net.eval()
 
 

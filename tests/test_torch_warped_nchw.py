@@ -249,7 +249,7 @@ def test_wrapper_refusals():
     for a, b in ((nhwc, nhwc.bfloat16()), (nhwc.bfloat16(), nhwc.bfloat16())):
         with pytest.raises(TypeError, match="warped_correlation_nchw"):
             tcorr.warped_correlation(card(a), card(b), card(flow), 1.0, 4)
-    with torch.enable_grad(), pytest.raises(NotImplementedError, match="no backward"):
+    with torch.enable_grad(), pytest.raises(NotImplementedError, match="autograd function"):
         lc.warped_correlation_cuda(card(f, requires_grad=True), card(f), card(flow), 1.0, 4)
     m = torch.zeros(1, 4, 6, 8, device="meta")
     with pytest.raises(NotImplementedError):
