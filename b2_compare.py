@@ -6,6 +6,7 @@ every work mapping of the current source, to check `plan`'s choice.
     python3 b2_compare.py --old local/local_corr_old.cu   # needs one CUDA device
     python3 b2_compare.py --sweep [--variant other.cu ...]
     python3 b2_compare.py --warped-plans
+    python3 b2_compare.py --backward-plans [--old-backward local/warped_corr_backward_old.cu]
 
 Builds the older source (its C entry point without the mapping arguments:
 `dsfm_local_correlation(f0, f1, out, B, H, W, C, md, stream)`) beside the
@@ -27,9 +28,21 @@ mapping the warped correlation takes (pixels per thread 1, 2 x cluster 1,
 2, 4, 8): device ms (torch.profiler), ms per launch
 of a CUDA graph of 50 launches, and the registers, shared memory and
 resident blocks of each; beside `warped_plan`'s choice. Its timing in
-turns against an earlier source is `chip_smoke.py --old-b2`'s. Prints the
-card line, one line per level and, as the last line, one JSON object;
-writes the same object to --out.
+turns against an earlier source is `chip_smoke.py --old-b2`'s. With
+--backward-plans it times, at PWC-DC's correlations of a b = 4, 256x768
+training step (B2's level 6 in float32, the warped levels 5..2 in bf16
+and float32; unit-normal features, a flow of up to 3 px at the level's
+scale and a dout that is a channel slice of a channels-last gradient, as
+PWC-DC's decoder hands it, from a seed), every mapping the backward source
+takes (`local_corr.backward_mappings`: tile x slots), each held to its
+plain version first: ms per call by CUDA-graph replay of 20 calls (the
+whole call: d f2's fill, the kernel, the bf16 cast), and the registers,
+shared memory and resident blocks of each; device ms (torch.profiler, the
+kernel alone and the whole call) of `backward_plan`'s choice and of the
+fastest; with --old-backward an earlier `warped_corr_backward.cu` (no
+mapping arguments) in turns with the plan's, old, new, new, old, by CUDA
+graph. Prints the card line, one line per level and, as the last line, one
+JSON object; writes the same object to --out.
 """
 
 from __future__ import annotations
@@ -196,12 +209,105 @@ def warped_plans(md: int, generator) -> list[dict]:
     return rows
 
 
+# PWC-DC's correlations at a b = 4, 256x768 training step: B2's level 6
+# (B, H, W, C), then the warped correlation's levels 5..2 (B, C, H, W) and
+# the flow's scale
+BACKWARD_B2 = (4, 4, 12, 196)
+BACKWARD_LEVELS = [((4, 128, 8, 24), 0.625), ((4, 96, 16, 48), 1.25), ((4, 64, 32, 96), 2.5),
+                   ((4, 32, 64, 192), 5.0)]
+
+
+def _backward_cases(md: int, generator):
+    """(kind, dtype, args) at each level: B2's float32 maps, and the warped
+    levels' channels-last features, flow and a dout sliced from a
+    channels-last gradient of 81 + C + 4 channels."""
+    g = generator
+    f0, f1 = (torch.randn(BACKWARD_B2, device="cuda", generator=g) for _ in range(2))
+    dout = torch.randn((*BACKWARD_B2[:3], (2 * md + 1) ** 2), device="cuda", generator=g)
+    yield "b2", torch.float32, (f0, f1, dout, md)
+    for (B, C, H, W), scale in BACKWARD_LEVELS:
+        for dtype in (torch.bfloat16, torch.float32):
+            f1, f2 = (torch.randn((B, C, H, W), device="cuda", generator=g).to(dtype)
+                      .contiguous(memory_format=torch.channels_last) for _ in range(2))
+            flow = ((torch.rand((B, 2, H, W), device="cuda", generator=g) - 0.5)
+                    * (6.0 / scale)).to(dtype)
+            whole = torch.randn((B, (2 * md + 1) ** 2 + C + 4, H, W), device="cuda",
+                                generator=g).to(dtype).contiguous(memory_format=torch.channels_last)
+            yield "warped", dtype, (f1, f2, flow, scale, whole[:, :(2 * md + 1) ** 2], md)
+
+
+def backward_plans(md: int, generator, old_source: str | None = None) -> list[dict]:
+    """Every mapping of the backward kernels at each training-step level
+    (see the module's docstring), beside `backward_plan`'s choice."""
+    from deep_sfm_revisited_tpu_torch.ops import correlation
+    from deep_sfm_revisited_tpu_torch.ops.cuda import local_corr
+
+    old = smoke.old_corr_backward(Path(old_source)) if old_source else None
+    rows = []
+    for kind, dtype, args in _backward_cases(md, generator):
+        if kind == "b2":
+            B, H, W, C = args[0].shape
+            run, plain, flow = (local_corr.local_correlation_backward_cuda,
+                                correlation.local_correlation_backward_plain, False)
+        else:
+            B, C, H, W = args[0].shape
+            run, plain, flow = (local_corr.warped_correlation_backward_cuda,
+                                correlation.warped_correlation_nchw_backward_plain, True)
+        ref = plain(*args)
+        itemsize = torch.empty((), dtype=dtype).element_size()
+        graph, res = {}, {}
+        for p in local_corr.backward_mappings(B, C, H, W, md, itemsize, flow):
+            def call(p=p):
+                return run(*args, plan=p)
+
+            for name, got, want in zip(("d f1", "d f2", "d flow"), call(), ref):
+                err = (got.float() - want.float()).abs()
+                smoke.check(bool((err <= smoke._grad_tol(got, want)).all()),
+                            f"{kind} {(B, C, H, W)} {dtype} {p.key} {name}: max |kernel - "
+                            f"plain| {float(err.max())}")
+            graph[p.key] = smoke.graph_ms(call)
+            res[p.key] = local_corr.BACKWARD.resources(p, C, md, dtype, flow)
+        p = local_corr.backward_plan(B, C, H, W, md, dtype, flow)
+        best = min(graph, key=graph.get)
+        device = {}
+        for key in dict.fromkeys((p.key, best)):
+            q = next(m for m in local_corr.backward_mappings(B, C, H, W, md, itemsize, flow)
+                     if m.key == key)
+            prof = smoke._full_profile(lambda q=q: run(*args, plan=q))
+            device[key] = {"whole": smoke._profile_sums(prof)[0],
+                           "kernel": None if prof is None else sum(
+                               v[0] for n, v in prof.items() if "corr_backward_kernel" in n)}
+        row = {"kind": kind, "shape": [B, C, H, W], "dtype": str(dtype)[6:], "graph_ms": graph,
+               "resources": res, "best_by_graph": best, "plan": p.key, "device_ms": device}
+        if old is not None:
+            fn = old[0] if kind == "b2" else old[1]
+            turns = {"old": [], "new": []}
+            for who in ("old", "new", "new", "old"):
+                turns[who].append(smoke.graph_ms((lambda: fn(*args)) if who == "old"
+                                                 else (lambda: run(*args))))
+            row["old_graph_ms"], row["new_graph_ms"] = turns["old"], turns["new"]
+        rows.append(row)
+        smoke.log(f"b2_compare backward {kind} {(B, C, H, W)} {row['dtype']}: best {best} "
+                  f"{graph[best]:.5f} ms by graph {res[best]}, plan {p.key} {graph[p.key]:.5f} "
+                  f"{res[p.key]}; device {device}"
+                  + (f"; old {row['old_graph_ms']} new {row['new_graph_ms']}" if old else "")
+                  + "; " + ", ".join(f"{k} {v:.5f}" for k, v in sorted(graph.items(),
+                                                                      key=lambda kv: kv[1])[:8]))
+    return rows
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--old", help="the earlier local_corr.cu, timed in turns with the current")
     ap.add_argument("--sweep", action="store_true", help="time every mapping at each level")
     ap.add_argument("--warped-plans", action="store_true",
                     help="time every mapping of the warped correlation at PWC-DC's levels 5..2")
+    ap.add_argument("--backward-plans", action="store_true",
+                    help="time every mapping of the backward kernels at the training step's "
+                         "levels")
+    ap.add_argument("--old-backward", default=None,
+                    help="an earlier warped_corr_backward.cu timed in turns with the plan's "
+                         "mapping (with --backward-plans)")
     ap.add_argument("--variant", action="append", default=[],
                     help="another source with the current C entry point, swept too")
     ap.add_argument("--out", default="b2_compare_out/b2_compare.json")
@@ -222,6 +328,8 @@ def main() -> int:
             summary["sweep"][path] = sweep(variant_launcher(Path(path)), md, g)
     if args.warped_plans:
         summary["warped_plans"] = warped_plans(md, g)
+    if args.backward_plans:
+        summary["backward_plans"] = backward_plans(md, g, args.old_backward)
     if args.old:
         summary.update(compare(Path(args.old), local_corr, md, g))
     out = Path(args.out)

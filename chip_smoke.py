@@ -208,7 +208,12 @@ Phases, each of which raises on failure:
    the warped d f1 and d flow bit-identical across two launches, d f2
    within the atomics' rounding; per level the device and events times,
    the bound and its share, the plain version's time and the yardsticks
-   (autograd of the eager composition, `grid_sampler_2d_backward`).
+   (autograd of the eager composition, `grid_sampler_2d_backward`), the
+   mapping `backward_plan` chose with its registers, shared memory and
+   resident blocks; with `--old-b2-backward PATH` an earlier
+   `warped_corr_backward.cu` (whose entry points take no mapping arguments)
+   on the same inputs, within the same tolerance and timed in turns with
+   the current kernels (old, new, new, old) by CUDA graph and on the device.
 
 `python3 chip_smoke.py --save-sweep-inputs PATH` also writes the sweep
 backward's depths, M and K t from slice 5 (a few hundred floats) to PATH,
@@ -216,7 +221,9 @@ for `b1_compare.py --pose PATH`; `--save-disp-inputs PATH` the
 displacement volume's inputs of slice 1's pair and a training step, for
 `b1_compare.py --volume --inputs PATH`; `--old-b1 PATH` names the earlier
 source phases 13, 14 and 17 compare with, `--old-b2 PATH` the earlier
-`local_corr.cu` (with its NHWC warped correlation) phases 7 and 19 do.
+`local_corr.cu` (with its NHWC warped correlation) phases 7 and 19 do,
+`--old-b2-backward PATH` the earlier `warped_corr_backward.cu` phase 22
+does.
 
 The line before the last is the kernel table as one JSON object (ten
 kernels, with launches on each of nine paths); the last
@@ -3142,6 +3149,68 @@ WARPED_BWD_REPLACES = "deep_sfm_revisited_tpu/models/pwcnet.py:125"
 CORR_BWD_FLOPS_PER_TAP = B1_FLOPS_PER_OUTPUT + 2 + 8 + 14
 
 
+def old_corr_backward(path: Path):
+    """The backward kernels of an earlier `warped_corr_backward.cu` whose C
+    entry points take no mapping (`..., int md, void* stream)` and
+    `..., int md, int dtype, void* stream)`), built by
+    `ops/cuda/build.py` beside the current sources and called through
+    ctypes as that source's operators called them: d f1 and the float32 d f2
+    buffer allocated, the buffer zeroed, the launch (and in bfloat16 the
+    cast, inside it). Returns (b2, warped) with the current wrappers'
+    arguments and results."""
+    import ctypes
+
+    from deep_sfm_revisited_tpu_torch.ops.cuda.build import CudaKernel
+
+    text = path.read_text()
+    check("int md, void* stream)" in text and "int md, int dtype, void* stream)" in text,
+          f"{path} has no backward entry points without a mapping")
+    P, I = ctypes.c_void_p, ctypes.c_int
+
+    class OldBackward(CudaKernel):
+        source = str(path.resolve())   # an absolute path replaces csrc/
+
+        def _bind(self, lib):
+            fn = lib.dsfm_local_correlation_backward
+            fn.argtypes = [P] * 5 + [I] * 5 + [P]
+            fn.restype = I
+            fn = lib.dsfm_warped_correlation_backward
+            fn.argtypes = ([P] * 3 + [I] * 5 + [ctypes.c_float, P, ctypes.c_longlong,
+                                                ctypes.c_longlong] + [P] * 4 + [I] * 4
+                           + [I] * 6 + [P])
+            fn.restype = I
+
+    lib = OldBackward().build()
+
+    def b2(f0, f1, dout, md):
+        B_, H_, W_, C_ = f0.shape
+        d0, d1 = torch.empty_like(f0), torch.empty_like(f1)
+        err = lib.dsfm_local_correlation_backward(
+            f0.data_ptr(), f1.data_ptr(), dout.data_ptr(), d0.data_ptr(), d1.data_ptr(), B_, H_,
+            W_, C_, md, torch.cuda.current_stream().cuda_stream)
+        check(err == 0, f"{path}'s B2 backward launch failed: cudaError {err}")
+        return d0, d1
+
+    def warped(f1, f2, flow, scale, dout, md):
+        B_, C_, H_, W_ = f1.shape
+        cl = torch.channels_last
+        df1 = torch.empty_like(f1, memory_format=cl)
+        acc = torch.empty((B_, C_, H_, W_), device=f1.device, memory_format=cl)
+        acc.zero_()
+        df2 = acc if f1.dtype == torch.float32 else torch.empty_like(f1, memory_format=cl)
+        dflow = torch.empty_like(flow)
+        err = lib.dsfm_warped_correlation_backward(
+            f1.data_ptr(), f2.data_ptr(), flow.data_ptr(), int(flow.dtype == torch.bfloat16),
+            *flow.stride(), ctypes.c_float(scale), dout.data_ptr(), dout.stride(0),
+            dout.stride(3), df1.data_ptr(), df2.data_ptr(), acc.data_ptr(), dflow.data_ptr(),
+            *dflow.stride(), B_, H_, W_, C_, md, int(f1.dtype == torch.bfloat16),
+            torch.cuda.current_stream().cuda_stream)
+        check(err == 0, f"{path}'s warped backward launch failed: cudaError {err}")
+        return df1, df2, dflow
+
+    return b2, warped
+
+
 def _corr_counters(local_corr):
     return (local_corr.KERNEL, local_corr.KERNEL_BACKWARD, local_corr.WARPED,
             local_corr.WARPED_BACKWARD)
@@ -3460,7 +3529,7 @@ def _grad_tol(got, ref):
     return tol + _bf16_ulp(torch.maximum(got.float().abs(), ref.float().abs()))
 
 
-def phase_corr_backward(captured, local_corr, correlation):
+def phase_corr_backward(captured, local_corr, correlation, old_source=None):
     """The two backward kernels against their plain versions on the inputs
     and gradients phase 21's warm-up step gave them (B2's at level 6, the
     warped correlation's at levels 5..2), level by level: B2's in float32
@@ -3483,8 +3552,15 @@ def phase_corr_backward(captured, local_corr, correlation):
     (the plain forward, its backward alone: events, and device time by
     CUDA-graph replay of forward and backward less the forward's) and, for
     the warp's half, `grid_sampler_2d_backward` (input and grid gradients)
-    of f2 at the level's samples. Returns
-    ({"b2": row, "warped": row}, {"b2": max |kernel - plain|, "warped": ...})."""
+    of f2 at the level's samples. Each level's row also names its mapping
+    (`local_corr.backward_plan`) with the kernel's registers, shared memory
+    and resident blocks, and its bound's bytes and share. With `old_source`
+    (an earlier `warped_corr_backward.cu` without mapping arguments, PR
+    13's) that source's kernels run on the same inputs, are held to the
+    plain versions' tolerance, and are timed in turns with the current
+    ones, old, new, new, old, by CUDA-graph replay and on the device.
+    Returns ({"b2": row, "warped": row}, {"b2": max |kernel - plain|,
+    "warped": ...})."""
     max_err = {"b2": 0.0, "warped": 0.0}
     used = {}   # (kind, gradient) -> the largest share of its tolerance a case used
     cases = 0
@@ -3546,10 +3622,13 @@ def phase_corr_backward(captured, local_corr, correlation):
         "the largest share of its tolerance a case used: "
         + ", ".join(f"{k} {nm} {v:.3f}" for (k, nm), v in used.items()))
 
+    old = old_corr_backward(Path(old_source)) if old_source else None
     rows = {"b2": [], "warped": []}
     for kind, args in captured:
         if kind == "b2":
             f0, f1, dout, md = args
+            B_, h_, w_, c_ = f0.shape
+            p = local_corr.backward_plan(B_, c_, h_, w_, md, torch.float32, False)
 
             def run():
                 local_corr.local_correlation_backward_cuda(f0, f1, dout, md)
@@ -3565,6 +3644,8 @@ def phase_corr_backward(captured, local_corr, correlation):
             ops, name = 1, "corr_backward_kernel"
         else:
             f1, f2, flow, scale, dout, md = args
+            B_, c_, h_, w_ = f1.shape
+            p = local_corr.backward_plan(B_, c_, h_, w_, md, f1.dtype, True)
 
             def run():
                 local_corr.warped_correlation_backward_cuda(f1, f2, flow, scale, dout, md)
@@ -3637,16 +3718,46 @@ def phase_corr_backward(captured, local_corr, correlation):
         nbytes, flops, ops_ms = _corr_bwd_bound(kind, args)
         bound, bound_by = _bound_ms(nbytes, ops_ms)
         shape = tuple(args[0].shape)
+        res = local_corr.BACKWARD.resources(p, c_, md, args[0].dtype, kind == "warped")
+        turns = {}
+        if old is not None:
+            old_fn = old[0] if kind == "b2" else old[1]
+            got_old = old_fn(*args)
+            plain_fn = (correlation.local_correlation_backward_plain if kind == "b2"
+                        else correlation.warped_correlation_nchw_backward_plain)
+            for nm, g_, r in zip(("d f1", "d f2", "d flow"), got_old, plain_fn(*args)):
+                err = float((g_.float() - r.float()).abs().max())
+                check(bool(((g_.float() - r.float()).abs() <= _grad_tol(g_, r)).all()),
+                      f"{kind} backward {shape}: the earlier source's {nm} beyond tolerance "
+                      f"({err})")
+            del got_old
+            turns = {"old_graph_ms": [], "new_graph_ms": [], "old_device_ms": [],
+                     "new_device_ms": []}
+            for who in ("old", "new", "new", "old"):
+                fn = (lambda: old_fn(*args)) if who == "old" else run
+                turns[f"{who}_graph_ms"].append(graph_ms(fn))
+                turns[f"{who}_device_ms"].append(_profile_sums(_full_profile(fn, ops))[0])
         rows[kind].append(dict(
             name=f"{kind}_{shape}", shape=list(shape), dtype=str(args[0].dtype)[6:], md=md,
-            dout_strides=list(dout.stride()), ms=ms, device_ms=dev_ms, kernel_device_ms=kern_ms,
+            dout_strides=list(dout.stride()), mapping=p.key, groups=p.groups, cluster=p.cluster,
+            grid=list(p.grid), **res, ms=ms, device_ms=dev_ms, kernel_device_ms=kern_ms,
             graph_ms=kernel_graph, device_ops_per_call=dev_ops, plain_ms=plain_ms, library_ms=None,
             eager_autograd_ms=eager_ms, eager_autograd_device_ms=eager_dev,
             grid_sampler_backward_ms=grid_ms, grid_sampler_backward_device_ms=grid_dev,
             bound_ms=bound, bound_by=bound_by, ops_ms=ops_ms,
-            bound_share=None if dev_ms is None else bound / dev_ms, bytes=nbytes, flops=flops))
+            bound_share=None if dev_ms is None else bound / dev_ms,
+            bound_share_graph=bound / kernel_graph, bytes=nbytes, flops=flops, **turns))
         r = rows[kind][-1]
         share = "not measured" if dev_ms is None else f"{100 * bound / dev_ms:.1f}%"
+        if turns:
+            log(f"{kind} backward {shape} {r['dtype']} in turns (old, new, new, old): by CUDA "
+                f"graph old {turns['old_graph_ms']} new {turns['new_graph_ms']} ms; device old "
+                f"{turns['old_device_ms']} new {turns['new_device_ms']} ms")
+        log(f"{kind} backward {shape} {r['dtype']}: mapping {p.key} ({p.groups} groups, grid "
+            f"{p.grid}, {res['threads']} threads, {res['registers']} registers, "
+            f"{res['smem_bytes']} B shared, {res['blocks_per_sm']} blocks an SM); bound "
+            f"{nbytes / 1e6:.2f} MB, share {share} on the device, "
+            f"{100 * bound / kernel_graph:.1f}% by CUDA graph")
         log(f"{kind} backward {shape} {r['dtype']}: device {_fmt_ms(dev_ms)} in {dev_ops} "
             f"device operations (the kernel {_fmt_ms(kern_ms)}), by CUDA graph "
             f"{kernel_graph:.4f} ms, events {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
@@ -3662,6 +3773,13 @@ def phase_corr_backward(captured, local_corr, correlation):
                     "grid_sampler_backward_ms", "grid_sampler_backward_device_ms",
                     "device_ops_per_call"):
             total[key] = _sum_or_none(c[key] for c in calls)
+        for key in ("old_graph_ms", "new_graph_ms", "old_device_ms", "new_device_ms"):
+            if key in calls[0]:   # per turn, summed over the levels
+                total[key] = [_sum_or_none(c[key][i] for c in calls) for i in range(2)]
+        if "old_graph_ms" in total:
+            log(f"{kind} backward per PWC-DC flow step in turns: by CUDA graph old "
+                f"{total['old_graph_ms']} new {total['new_graph_ms']} ms; device old "
+                f"{total['old_device_ms']} new {total['new_device_ms']} ms")
         total["bound_share"] = (None if total["device_ms"] is None
                                 else total["bound_ms"] / total["device_ms"])
         out[kind] = dict(total, calls=calls)
@@ -3978,6 +4096,9 @@ def main(argv=None) -> int:
                     help="an earlier csrc/local_corr.cu whose NHWC warped correlation, and the "
                          "span PWC-DC ran around it, phases 7 and 19 time in turns with the "
                          "current kernel and span")
+    ap.add_argument("--old-b2-backward", default=None,
+                    help="an earlier csrc/warped_corr_backward.cu (without mapping arguments) "
+                         "whose backward kernels phase 22 times in turns with the current ones")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's smoke run needs one", file=sys.stderr)
@@ -4055,7 +4176,8 @@ def main(argv=None) -> int:
     phase_small_pwc_flow_train_reference(dev, local_corr)
     pwc_flow, cap_corr = phase_cli_train_flow_pwc(dev, sweep_warp, local_corr)
     with torch.no_grad():
-        corr_bwd, corr_bwd_err = phase_corr_backward(cap_corr, local_corr, correlation)
+        corr_bwd, corr_bwd_err = phase_corr_backward(cap_corr, local_corr, correlation,
+                                                     args.old_b2_backward)
     del cap_corr
     names = ("gather", "sweep", "backward", "pose_grad", "volume", "volume_backward", "warped",
              "b2", "b2_backward", "warped_backward")

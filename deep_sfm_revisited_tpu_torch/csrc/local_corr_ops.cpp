@@ -9,7 +9,8 @@
 // guard, the current stream (the capture stream inside `torch.cuda.graph`)
 // and the launch in C++, and nothing synchronises, so PWC-DC's flow stage
 // can be captured in a CUDA graph. The work mappings come from
-// ops/cuda/local_corr.py::plan and ::warped_plan, which the CPU tests replay.
+// ops/cuda/local_corr.py::plan, ::warped_plan and ::backward_plan, which the
+// CPU tests replay.
 //
 // Host code only: it calls the plain C launchers of local_corr.cu,
 // warped_corr.cu and warped_corr_backward.cu, whose libraries it links. ops/cuda/local_corr.py builds it with nvcc against
@@ -23,6 +24,7 @@
 #include <torch/library.h>
 
 #include <algorithm>
+#include <cstdint>
 #include <tuple>
 #include <utility>
 
@@ -34,18 +36,22 @@ int dsfm_warped_correlation(const void* f1, const void* f2, const void* flow, in
                             int H, int W, int C, int md, int px, int cluster, int dtype,
                             void* stream);
 int dsfm_local_correlation_backward(const void* f0, const void* f1, const void* dout, void* df0,
-                                    void* df1, int B, int H, int W, int C, int md, void* stream);
+                                    void* df1, int B, int H, int W, int C, int md, int tile_h,
+                                    int tile_w, int run, int slots, void* stream);
 int dsfm_warped_correlation_backward(const void* f1, const void* f2, const void* flow,
                                      int flow_dtype, int fs_b, int fs_k, int fs_y, int fs_x,
                                      float scale, const void* dout, long long dout_sb,
                                      long long dout_ld, void* df1, void* df2, float* acc,
                                      void* dflow, int ds_b, int ds_k, int ds_y, int ds_x, int B,
-                                     int H, int W, int C, int md, int dtype, void* stream);
+                                     int H, int W, int C, int md, int dtype, int tile_h,
+                                     int tile_w, int run, int slots, void* stream);
 }
 
 namespace {
 
 constexpr int64_t kMaxMd = 4, kMaxCluster = 8;
+// the backward kernels' mapping (warped_corr_backward.cu: kSlot, kMaxThreads)
+constexpr int64_t kSlot = 8, kMaxBackwardThreads = 512;
 
 void* current_stream(const at::Device& device) {
   return c10::impl::getDeviceGuardImpl(device.type())->getStream(device).native_handle();
@@ -165,13 +171,36 @@ at::Tensor warped_correlation(const at::Tensor& f1, const at::Tensor& f2, const 
   return out;
 }
 
+// The backward kernels' mapping, as ops/cuda/local_corr.py::backward_plan
+// gives it: a tile of tile_h >= 1 rows and tile_w columns (a multiple of
+// run, which is 1, 2 or 4 pixels a thread), slots (a power of two) of kSlot
+// channels a block, at most
+// kMaxBackwardThreads threads, and with a flow at most kMaxCluster channel
+// groups (one cluster a tile). The launcher refuses a mapping whose shared
+// memory exceeds a block's (the launch fails).
+void check_backward_plan(const char* what, int64_t C, int64_t tile_h, int64_t tile_w,
+                         int64_t run, int64_t slots, bool flow) {
+  TORCH_CHECK_VALUE((run == 1 || run == 2 || run == 4) && tile_h >= 1 && tile_w >= run &&
+                        tile_w % run == 0 && slots >= 1 && (slots & (slots - 1)) == 0 &&
+                        tile_h * (tile_w / run) * slots <= kMaxBackwardThreads,
+                    what, " mapping ", tile_h, "x", tile_w, " run ", run, " slots ", slots,
+                    "; takes a run of 1, 2 or 4, a tile of >= 1 rows and a multiple of the run "
+                    "in columns, a power of two of slots and at most ", kMaxBackwardThreads,
+                    " threads (rows x columns / run x slots)");
+  const int64_t groups = (C + slots * kSlot - 1) / (slots * kSlot);
+  TORCH_CHECK_VALUE(!flow || groups <= kMaxCluster, what, " slots ", slots, " for C = ", C,
+                    ": ", groups, " channel groups, one cluster takes at most ", kMaxCluster);
+}
+
 // B2's backward: f0, f1 (B, H, W, C) float32 contiguous as the forward
 // took them, dout (B, H, W, (2md+1)^2) float32 contiguous -> (d f0, d f1),
-// float32 contiguous.
+// float32 contiguous; the mapping as backward_plan gives it.
 std::tuple<at::Tensor, at::Tensor> local_correlation_backward(const at::Tensor& f0,
                                                               const at::Tensor& f1,
                                                               const at::Tensor& dout,
-                                                              int64_t md) {
+                                                              int64_t md, int64_t tile_h,
+                                                              int64_t tile_w, int64_t run,
+                                                              int64_t slots) {
   const char* what = "B2 backward";
   TORCH_CHECK_VALUE(f0.is_cuda(), what, " takes CUDA tensors only");
   check_features(what, "f0", f0, f0.device(), f0.sizes());
@@ -180,11 +209,13 @@ std::tuple<at::Tensor, at::Tensor> local_correlation_backward(const at::Tensor& 
   const int64_t B = f0.size(0), H = f0.size(1), W = f0.size(2), C = f0.size(3);
   const int64_t s2 = (2 * md + 1) * (2 * md + 1);
   check_features(what, "dout", dout, f0.device(), {B, H, W, s2});
+  check_backward_plan(what, C, tile_h, tile_w, run, slots, false);
   c10::OptionalDeviceGuard guard(f0.device());
   at::Tensor df0 = at::empty_like(f0), df1 = at::empty_like(f1);
   const int err = dsfm_local_correlation_backward(f0.data_ptr(), f1.data_ptr(), dout.data_ptr(),
                                                   df0.data_ptr(), df1.data_ptr(), B, H, W, C,
-                                                  md, current_stream(f0.device()));
+                                                  md, tile_h, tile_w, run, slots,
+                                                  current_stream(f0.device()));
   TORCH_CHECK(err == 0, what, " launch failed: cudaError ", err);
   return {df0, df1};
 }
@@ -194,10 +225,11 @@ std::tuple<at::Tensor, at::Tensor> local_correlation_backward(const at::Tensor& 
 // adjacent and its pixels at one stride (channels-last, or a slice of a
 // channels-last tensor's channels) -> (d f1, d f2) channels-last of f1's
 // dtype, d flow of the flow's dtype and strides (where the flow's are
-// dense).
+// dense); the mapping as backward_plan gives it.
 std::tuple<at::Tensor, at::Tensor, at::Tensor> warped_correlation_backward(
     const at::Tensor& f1, const at::Tensor& f2, const at::Tensor& flow, double scale,
-    const at::Tensor& dout, int64_t md) {
+    const at::Tensor& dout, int64_t md, int64_t tile_h, int64_t tile_w, int64_t run,
+    int64_t slots) {
   const char* what = "the warped correlation's backward";
   check_warped(what, f1, f2, flow, md);
   const at::Device device = f1.device();
@@ -216,6 +248,7 @@ std::tuple<at::Tensor, at::Tensor, at::Tensor> warped_correlation_backward(
                         dout.storage_offset() >= 0,
                     what, " takes dout with adjacent channels and one pixel stride; got "
                     "strides ", dout.strides());
+  check_backward_plan(what, C, tile_h, tile_w, run, slots, true);
   c10::OptionalDeviceGuard guard(device);
   const auto cl = at::MemoryFormat::ChannelsLast;
   const bool f32 = f1.scalar_type() == at::kFloat;
@@ -223,6 +256,11 @@ std::tuple<at::Tensor, at::Tensor, at::Tensor> warped_correlation_backward(
   // zeroed in place: at::zeros does not keep the options' memory format
   at::Tensor acc = at::empty({B, C, H, W}, f1.options().dtype(at::kFloat).memory_format(cl));
   acc.zero_();
+  // d f2's scatter adds 4 channels at a time with one 16-byte reduction
+  // where C % 4 == 0 (every C PWC-DC uses: 128, 96, 64, 32), which needs
+  // the buffer 16-byte aligned; other C take scalar atomics
+  TORCH_CHECK(reinterpret_cast<uintptr_t>(acc.data_ptr()) % 16 == 0, what,
+              ": d f2's float32 buffer must start 16-byte aligned (its 4-channel reductions)");
   at::Tensor df2 = f32 ? acc : at::empty({B, C, H, W}, f1.options().memory_format(cl));
   at::Tensor dflow = at::empty_like(flow);
   check_strides(what, "d flow", dflow);
@@ -231,7 +269,8 @@ std::tuple<at::Tensor, at::Tensor, at::Tensor> warped_correlation_backward(
       flow.stride(0), flow.stride(1), flow.stride(2), flow.stride(3), static_cast<float>(scale),
       dout.data_ptr(), dout.stride(0), dout.stride(3), df1.data_ptr(), df2.data_ptr(),
       acc.data_ptr<float>(), dflow.data_ptr(), dflow.stride(0), dflow.stride(1),
-      dflow.stride(2), dflow.stride(3), B, H, W, C, md, f32 ? 0 : 1, current_stream(device));
+      dflow.stride(2), dflow.stride(3), B, H, W, C, md, f32 ? 0 : 1, tile_h, tile_w, run, slots,
+      current_stream(device));
   TORCH_CHECK(err == 0, what, " launch failed: cudaError ", err);
   return {df1, df2, dflow};
 }
@@ -242,10 +281,11 @@ TORCH_LIBRARY(dsfm_corr, m) {
   m.def("local_correlation(Tensor f0, Tensor f1, int md, int px, int cluster) -> Tensor");
   m.def("warped_correlation(Tensor f1, Tensor f2, Tensor flow, float scale, int md, int px, "
         "int cluster) -> Tensor");
-  m.def("local_correlation_backward(Tensor f0, Tensor f1, Tensor dout, int md) -> "
-        "(Tensor, Tensor)");
+  m.def("local_correlation_backward(Tensor f0, Tensor f1, Tensor dout, int md, int tile_h, "
+        "int tile_w, int run, int slots) -> (Tensor, Tensor)");
   m.def("warped_correlation_backward(Tensor f1, Tensor f2, Tensor flow, float scale, "
-        "Tensor dout, int md) -> (Tensor, Tensor, Tensor)");
+        "Tensor dout, int md, int tile_h, int tile_w, int run, int slots) -> "
+        "(Tensor, Tensor, Tensor)");
 }
 
 // Registered for every dispatch key: a CPU tensor reaches the checks, which

@@ -36,8 +36,8 @@ those go through `ops/correlation.py`'s autograd functions, whose backward
 is the backward kernel.
 
 The sources' headers say what bounds the kernels and how their designs
-answer that. `plan` and `warped_plan` pick the work mappings from the
-shape; they need no card, so the CPU tests reach them.
+answer that. `plan`, `warped_plan` and `backward_plan` pick the work
+mappings from the shape; they need no card, so the CPU tests reach them.
 """
 
 from __future__ import annotations
@@ -58,6 +58,14 @@ MAX_CLUSTER = 8      # `kMaxCluster`: the portable cluster size
 TARGET_WARPS = 1024  # ~8 warps on each of the H100's 132 SMs
 WARPED_PIXELS = (2, 1)   # the warped correlation's pixels a thread (`warped_corr.cu`)
 MIN_BLOCKS = 120     # the warped correlation's grid: about a block on each of 132 SMs
+# the backward kernels (`warped_corr_backward.cu`)
+BWD_RUNS = (1, 2, 4)     # the template's RUN: pixels a thread sums along a row
+BWD_SLOT = 8             # `kSlot`: channels a thread owns
+BWD_MAX_THREADS = 512    # `kMaxThreads`
+BWD_SMEM_MAX = 232448    # `kSmemMax`: 227 KB of dynamic shared memory a block
+BWD_TILES_H = (1, 2, 4, 8)            # the mappings `backward_plan` and the grid choose from
+BWD_TILES_W = (4, 8, 12, 16, 32)
+BWD_SLOTS = (1, 2, 4, 8, 16, 32)
 
 
 @dataclass(frozen=True)
@@ -245,6 +253,143 @@ def refuse_gradient(what: str, *tensors: torch.Tensor) -> None:
                                   "ops/correlation.py (its autograd function)")
 
 
+@dataclass(frozen=True)
+class BackwardPlan:
+    """The backward kernels' work mapping for one shape (see the header of
+    `csrc/warped_corr_backward.cu`).
+
+    A block owns a `tile_h` x `tile_w` tile of one image and `slots` slots
+    of `BWD_SLOT` channels (a channel group); a thread owns `run` adjacent
+    pixels of a tile row and one slot. The `groups` groups of a
+    tile are adjacent blocks along grid.x and, with a flow, one cluster of
+    `cluster` = `groups` ranks, which add their partial d flow in rank
+    order. `smem` is a block's dynamic shared memory (`backward_smem`).
+    """
+
+    tile_h: int
+    tile_w: int
+    run: int
+    slots: int
+    groups: int
+    cluster: int
+    grid: tuple[int, int, int]
+    threads: int
+    smem: int
+
+    @property
+    def blocks(self) -> int:
+        gx, gy, gz = self.grid
+        return gx * gy * gz
+
+    @property
+    def key(self) -> str:
+        return f"{self.tile_h}x{self.tile_w}_r{self.run}_s{self.slots}"
+
+
+def backward_smem(md: int, itemsize: int, flow: bool, tile_h: int, tile_w: int,
+                  slots: int) -> int:
+    """A block's dynamic shared memory, as the kernel's `layout` lays it
+    out: the (tile_h + 2md) x (tile_w + 2md) halo in 16-byte units at an
+    odd pitch, the staged dout (tile pixels x (2md+1)^2 values, padded to an
+    even count in bfloat16, the buffer to 16 bytes), two index tables (4
+    bytes a halo and a tile pixel, padded to 16 bytes) and, with a flow, the
+    halo's taps (16 bytes a pixel), each thread's partial d flow (8 bytes a
+    pixel and slot) and the block's (8 bytes a pixel)."""
+    hp = (tile_h + 2 * md) * (tile_w + 2 * md)
+    units = slots * BWD_SLOT * itemsize // 16
+    s2 = (2 * md + 1) ** 2
+    gp = s2 + (1 if itemsize == 2 and s2 % 2 else 0)
+    npix = tile_h * tile_w
+    total = (hp * (units | 1) * 16 + -(-npix * gp * itemsize // 16) * 16
+             + -(-(hp + npix) * 4 // 16) * 16)
+    if flow:
+        total += hp * 16 + npix * slots * 8 + npix * 8
+    return total
+
+
+def backward_mapping(B: int, C: int, H: int, W: int, md: int, itemsize: int, flow: bool,
+                     tile_h: int, tile_w: int, run: int, slots: int) -> BackwardPlan | None:
+    """The launch geometry of one (tile, run, slots) mapping, or None where
+    the kernel does not take it (threads over `BWD_MAX_THREADS`, shared
+    memory over `BWD_SMEM_MAX`, with a flow more than `MAX_CLUSTER` groups;
+    a run not in `BWD_RUNS` or a tile width that is no multiple of it;
+    slots that are no power of two)."""
+    if (run not in BWD_RUNS or tile_w % run or tile_h < 1 or slots < 1
+            or slots & (slots - 1)):
+        return None
+    threads = tile_h * (tile_w // run) * slots
+    groups = -(-C // (slots * BWD_SLOT))
+    smem = backward_smem(md, itemsize, flow, tile_h, tile_w, slots)
+    if threads > BWD_MAX_THREADS or smem > BWD_SMEM_MAX or (flow and groups > MAX_CLUSTER):
+        return None
+    tiles_x, tiles_y = -(-W // tile_w), -(-H // tile_h)
+    return BackwardPlan(tile_h=tile_h, tile_w=tile_w, run=run, slots=slots, groups=groups,
+                        cluster=groups if flow else 1, grid=(tiles_x * groups, tiles_y, B),
+                        threads=threads, smem=smem)
+
+
+def backward_mappings(B: int, C: int, H: int, W: int, md: int, itemsize: int,
+                      flow: bool) -> list[BackwardPlan]:
+    """Every mapping of the grid (`BWD_TILES_H` x `BWD_TILES_W` x
+    `BWD_RUNS` x `BWD_SLOTS`) the kernel takes at this shape, without tiles
+    or slots larger than the frame or the channels need."""
+    out = []
+    for th in BWD_TILES_H:
+        if th > 1 and th // 2 >= H:
+            continue
+        for tw in BWD_TILES_W:
+            if tw > 4 and tw - 4 >= W:
+                continue
+            for run in BWD_RUNS:
+                for ns in BWD_SLOTS:
+                    if ns > 1 and (ns // 2) * BWD_SLOT >= C:
+                        continue
+                    p = backward_mapping(B, C, H, W, md, itemsize, flow, th, tw, run, ns)
+                    if p is not None:
+                        out.append(p)
+    return out
+
+
+@functools.lru_cache(maxsize=256)
+def backward_plan(B: int, C: int, H: int, W: int, md: int, dtype: torch.dtype,
+                  flow: bool) -> BackwardPlan:
+    """The mapping the backward kernels launch with for features (B, C, H,
+    W) of `dtype` (B2's backward: float32, flow False) and max displacement
+    md, fitted to the grid `b2_compare.py --backward-plans` timed at a
+    training step's levels (on an H100 80GB HBM3 at 700 W; PERF.md
+    section 6): it is the fastest there at every bfloat16 level and B2's
+    within 4%, float32 within 19%.
+
+    The frames are small, so parallelism comes first: a run of 1 pixel a
+    thread up to 4096 pixels a call (B H W), 2 up to 16384, then 4 in
+    bfloat16 (1 in float32, whose slots hold twice the units); a slot
+    group as wide as the channels allow up to 8 slots in bfloat16 and 4 in
+    float32 (a power of two, widened where a cluster would pass 8 ranks);
+    tiles of 4 x 4 pixels up to 1024 pixels a call, else 4 x 12 for a run
+    of 1, 8 x 12 for a run of 2 and 8 x 16 for a run of 4, no taller or
+    wider than the frame needs.
+    """
+    itemsize = torch.empty((), dtype=dtype).element_size()
+    pixels = B * H * W
+    if pixels <= 4096:
+        run = 1
+    elif pixels <= 16384:
+        run = 2
+    else:
+        run = 4 if itemsize == 2 else 1
+    th, tw = {1: (4, 4) if pixels <= 1024 else (4, 12), 2: (8, 12), 4: (8, 16)}[run]
+    th = min(th, next(t for t in BWD_TILES_H if t >= H or t == BWD_TILES_H[-1]))
+    tw = min(tw, -(-W // 4) * 4)
+    ns = min(8 if itemsize == 2 else 4, 1 << ((-(-C // BWD_SLOT)).bit_length() - 1))
+    while flow and -(-C // (ns * BWD_SLOT)) > MAX_CLUSTER:
+        ns *= 2
+    p = backward_mapping(B, C, H, W, md, itemsize, flow, th, tw, run, ns)
+    if p is None:
+        raise ValueError(f"no backward mapping for C = {C} ({dtype}, flow {flow}): "
+                         f"{th}x{tw} run {run} slots {ns}")
+    return p
+
+
 class LocalCorrKernel(CudaKernel):
     """B2's library (plain C launchers, linked by `OPS`); launches the
     windowed correlation and owns its launch count."""
@@ -330,7 +475,24 @@ class BackwardKernels(CudaKernel):
     source = "warped_corr_backward.cu"
 
     def _bind(self, lib) -> None:
-        """Nothing to bind: the operators of `OPS` call the launchers."""
+        """The launchers are the operators' (`OPS`); only the resources
+        query is called from here."""
+        fn = lib.dsfm_corr_backward_resources
+        fn.argtypes = [ctypes.c_int] * 8 + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+
+    def resources(self, p: BackwardPlan, C: int, md: int, dtype: torch.dtype,
+                  flow: bool) -> dict:
+        """What one mapping's kernel takes on the card: registers a thread,
+        dynamic shared memory a block, resident blocks an SM (the occupancy
+        calculator's, without the cluster's constraint), threads a block."""
+        res = (ctypes.c_int * 4)()
+        err = self.build().dsfm_corr_backward_resources(
+            md, 0 if dtype == torch.float32 else 1, int(flow), C, p.tile_h, p.tile_w, p.run,
+            p.slots, res)
+        if err != 0:
+            raise RuntimeError(f"the backward kernels' resources query failed: cudaError {err}")
+        return dict(registers=res[0], smem_bytes=res[1], blocks_per_sm=res[2], threads=res[3])
 
 
 class LocalCorrBackward:
@@ -341,18 +503,22 @@ class LocalCorrBackward:
         self._op = None
 
     def __call__(self, f0: torch.Tensor, f1: torch.Tensor, dout: torch.Tensor,
-                 md: int) -> tuple[torch.Tensor, torch.Tensor]:
+                 md: int, plan: BackwardPlan | None = None) -> tuple[torch.Tensor, torch.Tensor]:
         """f0, f1 (B, H, W, C) as B2 took them, dout (B, H, W, (2md+1)^2)
-        float32 -> (d f0, d f1), float32 (B, H, W, C)."""
+        float32 -> (d f0, d f1), float32 (B, H, W, C). The mapping is
+        `backward_plan`'s unless `plan` names another (the card tests and
+        `b2_compare.py --backward-plans` force each of the grid)."""
         check_correlation_args("B2's backward", f0, f1, md)
         want = (*f0.shape[:3], (2 * md + 1) ** 2)
         if dout.device != f0.device or dout.dtype != torch.float32 or tuple(dout.shape) != want:
             raise ValueError(f"B2's backward takes a float32 dout {want} on {f0.device}; got "
                              f"{dout.dtype} {tuple(dout.shape)} on {dout.device}")
+        B, H, W, C = f0.shape
+        p = plan or backward_plan(B, C, H, W, md, torch.float32, False)
         op = self._op
         if op is None:
             op = self._op = OPS.build().local_correlation_backward.default
-        out = op(f0, f1, dout.contiguous(), md)
+        out = op(f0, f1, dout.contiguous(), md, p.tile_h, p.tile_w, p.run, p.slots)
         self.launches += 1
         return out
 
@@ -366,15 +532,16 @@ class WarpedCorrBackward:
         self._op = None
 
     def __call__(self, f1: torch.Tensor, f2: torch.Tensor, flow: torch.Tensor, scale: float,
-                 dout: torch.Tensor, md: int):
+                 dout: torch.Tensor, md: int, plan: BackwardPlan | None = None):
         """f1, f2, flow, scale, md as the forward took them, dout (B,
         (2md+1)^2, H, W) of f1's dtype -> (d f1, d f2) channels-last of f1's
         dtype and d flow of the flow's dtype. A dout whose channels are
         adjacent at one pixel stride (channels-last, or PWC-DC's slice of its
         decoder input's gradient) is read in place; any other is made
-        channels-last first."""
+        channels-last first. The mapping is `backward_plan`'s unless `plan`
+        names another."""
         check_warped_args(f1, f2, flow, md)
-        B, _, H, W = f1.shape
+        B, C, H, W = f1.shape
         S2 = (2 * md + 1) ** 2
         if (dout.device != f1.device or dout.dtype != f1.dtype
                 or tuple(dout.shape) != (B, S2, H, W)):
@@ -387,7 +554,8 @@ class WarpedCorrBackward:
         op = self._op
         if op is None:
             op = self._op = OPS.build().warped_correlation_backward.default
-        out = op(f1, f2, flow, float(scale), dout, md)
+        p = plan or backward_plan(B, C, H, W, md, f1.dtype, True)
+        out = op(f1, f2, flow, float(scale), dout, md, p.tile_h, p.tile_w, p.run, p.slots)
         self.launches += 1
         return out
 
@@ -414,14 +582,16 @@ def warped_correlation_cuda(f1: torch.Tensor, f2: torch.Tensor, flow: torch.Tens
 
 
 def local_correlation_backward_cuda(f0: torch.Tensor, f1: torch.Tensor, dout: torch.Tensor,
-                                   md: int) -> tuple[torch.Tensor, torch.Tensor]:
+                                   md: int, plan: BackwardPlan | None = None
+                                   ) -> tuple[torch.Tensor, torch.Tensor]:
     """Launch B2's backward on the current stream (see
     `LocalCorrBackward.__call__`)."""
-    return KERNEL_BACKWARD(f0, f1, dout, md)
+    return KERNEL_BACKWARD(f0, f1, dout, md, plan)
 
 
 def warped_correlation_backward_cuda(f1: torch.Tensor, f2: torch.Tensor, flow: torch.Tensor,
-                                     scale: float, dout: torch.Tensor, md: int):
+                                     scale: float, dout: torch.Tensor, md: int,
+                                     plan: BackwardPlan | None = None):
     """Launch the warped correlation's backward on the current stream (see
     `WarpedCorrBackward.__call__`)."""
-    return WARPED_BACKWARD(f1, f2, flow, scale, dout, md)
+    return WARPED_BACKWARD(f1, f2, flow, scale, dout, md, plan)

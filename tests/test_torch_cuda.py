@@ -1161,6 +1161,91 @@ def test_backward_wrappers_refuse_what_the_kernels_do_not_take():
             local_corr.warped_correlation_backward_cuda(*args)
 
 
+# the backward kernels' mappings: B2's at PWC-DC's level 6 of a training
+# step (B, H, W, C) and ragged shapes, the warped one's at the training
+# step's levels 5..2 (B, C, H, W) and ragged shapes
+BWD_B2_CASES = [((4, 4, 12, 196), 4), ((2, 13, 27, 40), 4), ((1, 5, 7, 3), 1)]
+BWD_WARPED_CASES = [NCHW_CASES[i] for i in (4, 5, 6, 7, 8, 10)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,md", BWD_B2_CASES)
+def test_b2_backward_every_mapping_on_card(shape, md):
+    """B2's backward under every mapping of its grid
+    (`local_corr.backward_mappings`, forced through the wrapper's `plan`):
+    d f0 and d f1 within the plain version's tolerance, bit for bit across
+    two launches."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    f0, f1 = _b2_inputs(shape, seed=49)
+    g = torch.Generator(device="cuda").manual_seed(50)
+    dout = torch.randn(*shape[:3], (2 * md + 1) ** 2, device="cuda", generator=g)
+    ref = tcorr.local_correlation_backward_plain(f0, f1, dout, md)
+    B, H, W, C = shape
+    maps = local_corr.backward_mappings(B, C, H, W, md, 4, False)
+    assert len(maps) > 1
+    for p in maps:
+        got = local_corr.local_correlation_backward_cuda(f0, f1, dout, md, plan=p)
+        again = local_corr.local_correlation_backward_cuda(f0, f1, dout, md, plan=p)
+        torch.cuda.synchronize()
+        for x, y, w in zip(got, again, ref):
+            assert _close(x, w), (p.key, float((x - w).abs().max()))
+            assert torch.equal(x, y), p.key
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape,md,scale", BWD_WARPED_CASES)
+def test_warped_backward_every_mapping_on_card(shape, md, scale, dtype):
+    """The warped correlation's backward under every mapping of its grid
+    (tiles, channel groups of 1 to 8 cluster ranks), on a flow that sends
+    samples off the frame and a dout sliced from a channels-last gradient,
+    as PWC-DC's decoder hands it: d f1, d f2 and d flow within the plain
+    version's tolerance; d f1 and d flow bit for bit across two launches
+    (the cluster adds its ranks' d flow in a fixed order)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    td = getattr(torch, dtype)
+    f1, f2, flow = _nchw_inputs(shape, td, seed=51, off_frame=True)
+    B, C, H, W = shape
+    S2 = (2 * md + 1) ** 2
+    g = torch.Generator(device="cuda").manual_seed(52)
+    whole = torch.randn(B, S2 + C + 4, H, W, device="cuda", generator=g).to(td)
+    dout = whole.contiguous(memory_format=torch.channels_last)[:, :S2]
+    ref = tcorr.warped_correlation_nchw_backward_plain(f1, f2, flow, scale, dout, md)
+    maps = local_corr.backward_mappings(B, C, H, W, md, td.itemsize, True)
+    assert len(maps) > 1
+    for p in maps:
+        got = local_corr.warped_correlation_backward_cuda(f1, f2, flow, scale, dout, md, plan=p)
+        again = local_corr.warped_correlation_backward_cuda(f1, f2, flow, scale, dout, md, plan=p)
+        torch.cuda.synchronize()
+        for name, a, b, w in zip(("d f1", "d f2", "d flow"), got, again, ref):
+            assert _close(a, w), (p.key, name, float((a.float() - w.float()).abs().max()))
+            assert torch.equal(a, b) if name != "d f2" else _close(b, w), (p.key, name)
+
+
+@pytest.mark.cuda
+def test_backward_operators_refuse_mappings_the_kernel_does_not_take():
+    """A tile width that is no multiple of the run, too many threads, a run
+    other than 1, 2 or 4, slots that are no power of two, and with a flow
+    more channel groups than a cluster holds: refused by the operators'
+    checks, never launched."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    ops = local_corr.OPS.build()
+    f = torch.zeros(1, 8, 8, 16, device="cuda")
+    d = torch.zeros(1, 8, 8, 81, device="cuda")
+    for th, tw, run, ns in ((4, 6, 4, 1), (8, 32, 4, 16), (0, 8, 4, 1), (4, 8, 3, 1),
+                            (4, 8, 4, 3)):
+        with pytest.raises(ValueError):
+            ops.local_correlation_backward(f, f, d, 4, th, tw, run, ns)
+    f1, f2, flow = _nchw_inputs((1, 128, 8, 8), torch.bfloat16, seed=53, off_frame=False)
+    dout = torch.zeros(1, 81, 8, 8, device="cuda", dtype=torch.bfloat16).contiguous(
+        memory_format=torch.channels_last)
+    with pytest.raises(ValueError, match="cluster"):
+        ops.warped_correlation_backward(f1, f2, flow, 1.0, dout, 4, 4, 8, 4, 1)
+
+
 def _rigid_correspondences(seed):
     """Normalized correspondences of a rigid scene (f64, on the CPU) with
     1e-5 noise and 20% outliers, and 128 minimal samples."""
