@@ -10,10 +10,12 @@ Phases, each of which raises on failure:
    plane-sweep cost volume and its two gradients, one source, and the
    PyTorch operators that launch them) and B2 (the windowed correlation,
    PWC-DC's warped correlation, both correlations' backward kernels, and
-   their operators) built with nvcc (in parallel) from
+   their operators) and R1/R2 (RAFT's correlation lookup and its backward,
+   and their operators) built with nvcc (in parallel) from
    `deep_sfm_revisited_tpu_torch/csrc/sweep_warp.cu`,
    `csrc/sweep_warp_ops.cpp`, `csrc/local_corr.cu`, `csrc/warped_corr.cu`,
-   `csrc/warped_corr_backward.cu` and `csrc/local_corr_ops.cpp`;
+   `csrc/warped_corr_backward.cu`, `csrc/local_corr_ops.cpp`,
+   `csrc/raft_lookup.cu` and `csrc/raft_lookup_ops.cpp`;
 2. pose on the card: rigid flow of a known (R, t) -> correspondence
    sampler -> five-point RANSAC in float64 recovers the pose, the
    zero-parallax probe gives a finite pose, and with noise and outliers
@@ -213,7 +215,37 @@ Phases, each of which raises on failure:
    resident blocks; with `--old-b2-backward PATH` an earlier
    `warped_corr_backward.cu` (whose entry points take no mapping arguments)
    on the same inputs, within the same tolerance and timed in turns with
-   the current kernels (old, new, new, old) by CUDA graph and on the device.
+   the current kernels (old, new, new, old) by CUDA graph and on the device;
+23. a small RAFT reference (slice 15): RAFT's flow net in float32 at
+   128x128 on the card against the CPU (the plain lookup there), 24 eval
+   iterations, then one RAFT `FlowTrainer` step (12 iterations, b = 2):
+   flow, loss, EPE and clipped gradients held as phase 20 holds PWC-DC's;
+   the eval launches R1 24 times, the step R1 and R2 12 times each;
+24. slice 15's eval path through `cli.main -v --override flow.estimator=RAFT`
+   on phase 5's rendered 370x1224 tree (RAFT at the JAX defaults, 24
+   iterations -> uniform sampler -> RANSAC -> PSNet, 384x1280, bf16): a
+   warm-up pair that records R1's inputs, then three pairs, each launching
+   R1 24 times, the sweep once and nothing else; the 9 Eigen metrics,
+   finite; ms per pair with the flow / pose / depth split, peak memory;
+25. R1 against its plain version on phase 24's pyramid and each of its 24
+   coordinate maps, bf16 and float32 out, and at the clip's bounds and off
+   the frame, bit for bit at every level; per pair its device, CUDA-graph
+   and events ms, bound, plain ms and `F.grid_sample` over the four levels
+   (upstream RAFT's lookup) as the yardstick;
+26. slice 15's training path through `cli.main --train-flow --override
+   flow.estimator=RAFT` on a 36-pair KITTI 2015 flow tree at 375x1242
+   (padded to /8), 256x768 crops, b = 4, bf16: three untimed steps (the
+   first records R2's inputs) and six timed ones, each launching R1 and R2
+   12 times and nothing else, every RAFT parameter moved; median, spread,
+   stage split and peak memory; the validation's EPE and Fl-all (R1 24
+   times a pair); `--pretrained-flow` into SFMNet;
+27. R2 against its plain version on phase 26's captured coordinates,
+   pyramid and gradients, in bf16 and float32, unit-scale and at the clip's
+   bounds: the levels' gradients bit for bit, d coords to 1e-5 of its
+   largest; per step its device, CUDA-graph and events ms, bound, plain ms
+   and `grid_sampler_2d_backward` over the four levels (upstream's
+   gradient) as the yardstick. The script's total seconds and the RAFT
+   phases' are printed.
 
 `python3 chip_smoke.py --save-sweep-inputs PATH` also writes the sweep
 backward's depths, M and K t from slice 5 (a few hundred floats) to PATH,
@@ -225,8 +257,8 @@ source phases 13, 14 and 17 compare with, `--old-b2 PATH` the earlier
 `--old-b2-backward PATH` the earlier `warped_corr_backward.cu` phase 22
 does.
 
-The line before the last is the kernel table as one JSON object (ten
-kernels, with launches on each of nine paths); the last
+The line before the last is the kernel table as one JSON object (twelve
+kernels, with launches on each of eleven paths); the last
 is {"ok": true, "device": {...}}. Without a CUDA device, or without the
 port's package beside this script, it exits non-zero and prints no result.
 """
@@ -320,7 +352,7 @@ def phase_setup(*kernels) -> str:
     log(f"setup: torch {torch.__version__} cuda {torch.version.cuda}; "
         f"tf32 matmul={torch.backends.cuda.matmul.allow_tf32} "
         f"cudnn={torch.backends.cudnn.allow_tf32}")
-    builds = [b for k in kernels for b in getattr(k, "BUILDS", (k.KERNEL,))]
+    builds = [b for k in kernels for b in (k.BUILDS if hasattr(k, "BUILDS") else (k.KERNEL,))]
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(builds)) as pool:   # one nvcc per source, together
         for f in [pool.submit(b.build) for b in builds]:
@@ -4078,6 +4110,636 @@ def phase_displacement_backward(captured, sweep_warp, dicl, old_source: str | No
     return dict(total, calls=rows), max_err
 
 
+# slice 15: RAFT, the JAX package's default flow estimator, through `cli -v`
+# and `cli --train-flow`; kernels R1 (the correlation lookup, all levels in
+# one launch an iteration) and R2 (its backward), `csrc/raft_lookup.cu`
+RAFT_SOURCE = f"{PKG}/csrc/raft_lookup.cu"
+RAFT_REPLACES = ("deep_sfm_revisited_tpu/models/raft.py:127 (lookup_correlation: XLA one-hot "
+                 "matmuls; no TPU kernel)")
+RAFT_EVAL_ITERS, RAFT_TRAIN_ITERS, RAFT_RADIUS = 24, 12, 4
+RAFT_FLOW_WARMUP, RAFT_FLOW_STEPS = 3, 6   # phase 26's untimed and timed steps
+RAFT_FLOW_PAIRS = TRAIN_B * (RAFT_FLOW_WARMUP + RAFT_FLOW_STEPS)
+# B1's six kernels, B2, its backward, the warped correlation, its backward, R1, R2
+RAFT_EVAL_PER_PAIR = (0, SWEEP_PER_PAIR, 0, 0, 0, 0, 0, 0, 0, 0, RAFT_EVAL_ITERS, 0)
+RAFT_FLOW_PER_STEP = (0,) * 10 + (RAFT_TRAIN_ITERS, RAFT_TRAIN_ITERS)
+
+
+def _all_counters(sweep_warp, local_corr, raft_lookup):
+    """Every kernel's launch count: B1's six, B2, its backward, the warped
+    correlation, its backward, R1, R2."""
+    return (sweep_warp.KERNEL, sweep_warp.VOLUME, sweep_warp.VOLUME_BACKWARD,
+            sweep_warp.VOLUME_POSE_GRAD, sweep_warp.DISPLACEMENT,
+            sweep_warp.DISPLACEMENT_BACKWARD, local_corr.KERNEL, local_corr.KERNEL_BACKWARD,
+            local_corr.WARPED, local_corr.WARPED_BACKWARD, raft_lookup.LOOKUP,
+            raft_lookup.LOOKUP_BACKWARD)
+
+
+def phase_small_raft_reference(dev, raft_lookup) -> None:
+    """RAFT on the card against RAFT on the CPU (the plain lookup and its
+    plain backward there), float32, TF32 off, same weights and inputs, at
+    128x128: the flow net alone in eval mode (24 iterations), the flow to
+    1e-3 px or to twice the CPU's own move under rounding-sized changes of
+    the input, whichever is larger (the pyramid is bf16: a correlation that
+    float32 noise puts on a bf16 rounding boundary rounds either way); then
+    one `FlowTrainer` step with `flow.estimator=RAFT` (12 iterations, b =
+    2): the loss and EPE to 1e-4 relative, the clipped gradients within
+    twice the CPU's own relative L2 move at perturbed inputs, 1 - cosine <=
+    1e-4. The card's eval launches R1 24 times and R2 never, its step R1
+    and R2 12 times each."""
+    from deep_sfm_revisited_tpu_torch.config import SfMConfig
+    from deep_sfm_revisited_tpu_torch.train.flow_trainer import FlowTrainer, build_flow_model
+
+    what = "small RAFT reference"
+    cfg = SfMConfig.kitti().override(**{"train.mixed_prec": False, "flow.estimator": "RAFT"})
+    h = w = 128
+    g = torch.Generator().manual_seed(17)
+    ref = torch.rand((2, h, w, 3), generator=g) * 2 - 1
+    tgt = torch.roll(ref, (2, 3), dims=(1, 2)) + 0.05 * torch.randn((2, h, w, 3), generator=g)
+    batch = {"ref": ref, "target": tgt,
+             "flow_gt": torch.tensor([3.0, 2.0]) + torch.randn((2, h, w, 2), generator=g),
+             "flow_valid": torch.rand((2, h, w), generator=g) < 0.7}
+    noise = torch.randn((2, h, w, 3), generator=g)
+    counters = (raft_lookup.LOOKUP, raft_lookup.LOOKUP_BACKWARD)
+    perturbed = (dict(scale=1 + 1e-6), dict(scale=1 - 1e-6), dict(eps=1e-7), dict(eps=-1e-7))
+
+    def flow(device, scale=1.0, eps=0.0):
+        net = build_flow_model(cfg.flow, seed=3).to(device).eval()
+        pair = torch.cat([ref[:1] * scale + eps * noise[:1], tgt[:1]], dim=-1).to(device)
+        with torch.no_grad():
+            return net(pair)[0].cpu()
+
+    before = _launches(*counters)
+    f_card = flow(dev)
+    torch.cuda.synchronize()
+    n = tuple(a - b for a, b in zip(_launches(*counters), before))
+    check(n == (RAFT_EVAL_ITERS, 0), f"{what}: eval launched R1, R2 {n} times")
+    f_cpu = flow("cpu")
+    self_move = max(float((flow("cpu", **kw) - f_cpu).abs().max()) for kw in perturbed)
+    f_err = float((f_card - f_cpu).abs().max())
+    check(torch.isfinite(f_card).all(), f"{what}: non-finite flow on the card")
+    log(f"{what}: eval flow (max |flow| {float(f_cpu.abs().max()):.3f} px) max |card - cpu| "
+        f"{f_err:.3e} px, the CPU's own move at perturbed inputs {self_move:.3e} px; launches "
+        f"(R1, R2) {n}")
+    check(f_err <= max(1e-3, 2 * self_move), f"{what}: eval flow differs by {f_err} px")
+
+    def step(device, scale=1.0, eps=0.0):
+        t = FlowTrainer(build_flow_model(cfg.flow, seed=3).to(device), cfg, total_steps=40)
+        b = {k: v.to(device) for k, v in
+             dict(batch, ref=batch["ref"] * scale + eps * noise).items()}
+        m = t.train_step(b)
+        return ({k: float(v) for k, v in m.items()},
+                {k: p.grad.detach().cpu() for k, p in t.model.named_parameters()})
+
+    def l2(got, want):
+        a = torch.cat([got[k].double().flatten() for k in want])
+        b = torch.cat([want[k].double().flatten() for k in want])
+        return float((a - b).norm() / b.norm())
+
+    before = _launches(*counters)
+    m_card, g_card = step(dev)
+    torch.cuda.synchronize()
+    n = tuple(a - b for a, b in zip(_launches(*counters), before))
+    check(n == (RAFT_TRAIN_ITERS, RAFT_TRAIN_ITERS), f"{what}: the step launched R1, R2 {n} "
+          "times")
+    m_cpu, g_cpu = step("cpu")
+    self_l2, self_cos = 0.0, 0.0
+    for kw in perturbed:
+        moved = step("cpu", **kw)[1]
+        self_l2 = max(self_l2, l2(moved, g_cpu))
+        self_cos = max(self_cos, _grad_report(moved, g_cpu)[1])
+    rel = {k: abs(m_card[k] - m_cpu[k]) / abs(m_cpu[k]) for k in ("loss", "epe")}
+    errs, cos_err = _grad_report(g_card, g_cpu)
+    l2_err = l2(g_card, g_cpu)
+    worst = max(errs, key=errs.get)
+    log(f"{what}: step loss card {m_card['loss']:.7f} vs cpu {m_cpu['loss']:.7f} (relative "
+        f"{rel['loss']:.2e}), EPE {m_card['epe']:.6f} vs {m_cpu['epe']:.6f} (relative "
+        f"{rel['epe']:.2e}); gradients: relative L2 {l2_err:.2e} against the CPU's own "
+        f"{self_l2:.2e} at {len(perturbed)} perturbed inputs, 1 - cosine {cos_err:.2e} (the "
+        f"CPU's own {self_cos:.2e}); per tensor worst {errs[worst]:.2e} ({worst}); launches "
+        f"(R1, R2) {n}")
+    check(all(math.isfinite(v) for v in m_card.values()), f"{what}: metrics {m_card}")
+    check(max(rel.values()) <= 1e-4, f"{what}: loss or EPE differs: {rel}")
+    check(all(g_.abs().max() > 0 for g_ in g_card.values()), f"{what}: a RAFT parameter got no "
+          "gradient on the card")
+    check(l2_err <= 2 * self_l2, f"{what}: the gradients differ by {l2_err} (relative L2), "
+          f"beyond twice the CPU's own {self_l2}")
+    check(cos_err <= 1e-4, f"{what}: 1 - cosine of the gradients {cos_err}")
+
+
+def phase_cli_raft(dev, sweep_warp, local_corr, raft_lookup):
+    """Slice 15's eval path, through the entry point a user calls: the
+    golden KITTI raw tree of phase 5 evaluated by `cli.main([... "-v",
+    "--override", "flow.estimator=RAFT", ...])` (RAFT, 24 iterations ->
+    uniform sampler -> the 512x5 RANSAC -> PSNet, padded to 384x1280, bf16).
+    `SFMNet.forward` is wrapped as in phase 5: the warm-up pair records R1's
+    inputs (the pyramid, once, and each iteration's coordinates), then each
+    of the three test pairs must launch R1 24 times, the sweep once and no
+    other kernel; the 9 Eigen metrics, finite; ms per pair and the flow /
+    pose / depth split by CUDA events. Returns the launches over the test
+    pairs (`_all_counters`' order) and the captured (levels, [coords],
+    out dtype)."""
+    from deep_sfm_revisited_tpu_torch import cli
+    from deep_sfm_revisited_tpu_torch.data.synthetic import write_kitti_raw_tree
+    from deep_sfm_revisited_tpu_torch.models.sfmnet import SFMNet
+
+    what = "cli RAFT"
+    rows, timer, cap = [], [], {"coords": []}
+    real_forward, launch = SFMNet.forward, raft_lookup.raft_lookup_cuda
+    counters = _all_counters(sweep_warp, local_corr, raft_lookup)
+
+    def record(coords, levels, radius, out_dtype):
+        if "levels" not in cap:
+            cap.update(levels=list(levels), out_dtype=out_dtype)
+        check(all(a is b for a, b in zip(levels, cap["levels"])), f"{what}: the pyramid "
+              "changed between iterations of one pair")
+        cap["coords"].append(coords.clone())
+        return launch(coords, levels, radius, out_dtype)
+
+    def timed_forward(model, *args, **kw):
+        warm = not timer
+        if warm:
+            timer.append(StageTimer(model))
+            raft_lookup.raft_lookup_cuda = record
+        before = _launches(*counters)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        try:
+            out = real_forward(model, *args, **kw)
+            torch.cuda.synchronize()
+        finally:
+            raft_lookup.raft_lookup_cuda = launch
+        ms = 1e3 * (time.perf_counter() - t0)
+        n = tuple(a - b for a, b in zip(_launches(*counters), before))
+        i = len(rows) + (0 if warm else 1)
+        _check_pair(out, i)
+        check(out["num_matches"] is None, f"{what} pair {i}: the sampler reported confidences")
+        check(n == RAFT_EVAL_PER_PAIR, f"{what} pair {i}: launches {n}, expected "
+              f"{RAFT_EVAL_PER_PAIR}")
+        if warm:
+            for k in counters:
+                k.launches = 0
+            log(f"{what}: warm-up pair {ms:.1f} ms; R1 inputs: levels "
+                f"{[tuple(t.shape) for t in cap['levels']]} {cap['levels'][0].dtype}, "
+                f"{len(cap['coords'])} coordinate maps {tuple(cap['coords'][0].shape)}, out "
+                f"{cap['out_dtype']}")
+        else:
+            rows.append(dict(ms=ms, **timer[0].stages_ms(), inliers=int(out["inliers"][0])))
+            r = rows[-1]
+            log(f"{what}: pair {i}: {ms:.1f} ms (flow {r['flow']:.1f}, pose {r['pose']:.1f}, "
+                f"depth {r['depth']:.1f} ms device); inliers {r['inliers']}/"
+                f"{BENCH_OVERRIDES['pose.num_correspondences']}; launches {n}")
+        return out
+
+    with tempfile.TemporaryDirectory() as tmp:
+        root = f"{tmp}/kitti_raw"
+        t0 = time.perf_counter()
+        write_kitti_raw_tree(root, n_frames=PAIRS + 2, hw=(370, 1224),
+                             focal=K_KITTI[0][0], n_test=PAIRS + 1)
+        log(f"{what}: golden tree of {PAIRS + 2} 370x1224 frames rendered in "
+            f"{time.perf_counter() - t0:.2f} s")
+        argv = ["--data", root, "--cfg", "kitti", "-v", "--gt-depth-dir", f"{root}/gt_depth",
+                "--out", f"{tmp}/out", "--workers", "4", "--override", "flow.estimator=RAFT",
+                *[f"{k}={v}" for k, v in BENCH_OVERRIDES.items()]]
+        log(f"{what}: cli.main(" + json.dumps(argv).replace(tmp, "<tmp>") + ")")
+        torch.cuda.reset_peak_memory_stats()
+        for k in counters:
+            k.launches = 0
+        SFMNet.forward = timed_forward
+        try:
+            t0 = time.perf_counter()
+            results = cli.main(argv)
+            wall = time.perf_counter() - t0
+        finally:
+            SFMNet.forward = real_forward
+        launches = _launches(*counters)
+    check(len(rows) == PAIRS, f"{what}: {len(rows)} test pairs after the warm-up")
+    check(launches == tuple(PAIRS * n for n in RAFT_EVAL_PER_PAIR),
+          f"{what}: the test pairs launched {launches}")
+    check(len(cap["coords"]) == RAFT_EVAL_ITERS, f"{what}: {len(cap['coords'])} recorded R1 calls")
+    check(set(results) == EIGEN_KEYS, f"{what}: metrics {sorted(results)}")
+    check(all(math.isfinite(v) for v in results.values()), f"{what}: metrics {results}")
+    mean = {k: sum(r[k] for r in rows) / PAIRS for k in ("ms", "flow", "pose", "depth")}
+    log(f"{what}: metrics {json.dumps(results)}")
+    log(f"{what}: mean over {PAIRS} pairs: {mean['ms']:.2f} ms/pair ({1e3 / mean['ms']:.3f} "
+        f"pairs/s); stages flow {mean['flow']:.2f}, pose {mean['pose']:.2f}, depth "
+        f"{mean['depth']:.2f} ms; cli.main {wall:.2f} s for {PAIRS + 1} pairs; peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    log(f"{what} rows: " + json.dumps(rows))
+    return launches, cap
+
+
+def _raft_taps(coords, shapes) -> int:
+    """The taps of every (query, level) patch that lie on its level, for
+    coordinates (B, h, w, 2) and level shapes (Hl, Wl): what the lookup
+    must read of the pyramid (a query reads only its own rows, so no tap is
+    shared). The window's corner is the kernels' (clip, then floor)."""
+    flat = coords.reshape(-1, 2).float()
+    r, S = RAFT_RADIUS, 2 * RAFT_RADIUS + 2
+    total = 0
+    for i, (hl, wl) in enumerate(shapes):
+        c = flat / (2.0 ** i)
+        n = []
+        for k, size in ((0, wl), (1, hl)):
+            lo = torch.floor(c[:, k].clamp(-(r + 2.0), size + r + 1.0) - r)
+            n.append((torch.minimum(lo + S, torch.full_like(lo, size))
+                      - torch.clamp(lo, min=0)).clamp(min=0))
+        total += int((n[0] * n[1]).sum())
+    return total
+
+
+def _raft_bound(coords, shapes, level_bytes, grad_bytes, backward):
+    """(bytes, flops) one launch must move and compute at least. R1: the
+    coordinates and the in-frame taps read once, the window written once;
+    per (query, level) ~16 float32 operations for the clip and weights and
+    7 a window channel. R2: the coordinates, dout and the in-frame taps
+    (the coordinates' gradient needs them) read once, the dense gradient
+    of every level and of the coordinates written once; per (query, level)
+    ~30 operations, 8 a window channel and 8 a patch tap."""
+    Q, L = coords.numel() // 2, len(shapes)
+    D, S = 2 * RAFT_RADIUS + 1, 2 * RAFT_RADIUS + 2
+    window = Q * L * D * D * grad_bytes
+    nbytes = coords.numel() * 4 + _raft_taps(coords, shapes) * level_bytes + window
+    if not backward:
+        return nbytes, Q * L * (16 + 7 * D * D)
+    dense = sum(h * w for h, w in shapes) * Q * level_bytes
+    return nbytes + coords.numel() * 4 + dense, Q * L * (30 + 8 * D * D + 8 * S * S)
+
+
+def _raft_edge_coords(coords, levels):
+    """A copy of `coords` whose first queries sit exactly on each level's
+    clip bounds, one float32 step inside and outside them, far off the
+    frame both ways and on integer positions."""
+    c = coords.clone()
+    flat = c.view(-1, 2)
+    q = 0
+    for i, lv in enumerate(levels):
+        for k, size in ((0, lv.shape[2]), (1, lv.shape[1])):
+            for v in (-(RAFT_RADIUS + 2) * 2.0 ** i, (size + RAFT_RADIUS + 1) * 2.0 ** i):
+                v = torch.tensor(v, dtype=torch.float32)
+                for u in (v, torch.nextafter(v, v + 1), torch.nextafter(v, v - 1)):
+                    flat[q, k] = u
+                    q += 1
+    for v in (-1000.0, 1000.0, 0.0, 5.0):
+        flat[q] = v
+        q += 1
+    return c
+
+
+def _raft_grids(coords, levels):
+    """Upstream RAFT's lookup as `F.grid_sample` takes it (align_corners,
+    zero padding): per level the (Q, 9, 9, 2) grid of the window around
+    coords / 2^i, normalised to [-1, 1], in the levels' dtype."""
+    r = RAFT_RADIUS
+    d = torch.arange(-r, r + 1, device=coords.device, dtype=torch.float32)
+    dy, dx = torch.meshgrid(d, d, indexing="ij")
+    delta = torch.stack([dx, dy], dim=-1)
+    grids = []
+    for i, lv in enumerate(levels):
+        hl, wl = lv.shape[1:]
+        c = coords.reshape(-1, 1, 1, 2) / 2 ** i + delta
+        grid = torch.stack([2 * c[..., 0] / max(wl - 1, 1) - 1, 2 * c[..., 1] / max(hl - 1, 1) - 1],
+                           dim=-1)
+        grids.append(grid.to(lv.dtype))
+    return grids
+
+
+def phase_raft_lookup(cap, raft_lookup, raft):
+    """R1 against its plain version (`models/raft.py::lookup_correlation_plain`)
+    on the pyramid and each of the 24 coordinate maps phase 24's warm-up pair
+    gave it, in the network's dtype (bf16) and in float32, bit for bit at
+    every level (both round op by op in one order), and on a copy whose
+    queries sit on the clip's bounds, beyond them and off the frame; two
+    launches bit-identical. Per pair (24 launches): device ms (torch.profiler)
+    or "not measured" where every trace is refused, CUDA-graph and events
+    ms, the bound (the window written once, the in-frame taps and the
+    coordinates read once), the plain version's ms and the yardstick the
+    port never calls, `F.grid_sample` (align_corners, zeros) over the four
+    levels, upstream RAFT's own lookup (96 calls a pair)."""
+    what = "R1 (RAFT lookup)"
+    levels, coords, od = cap["levels"], cap["coords"], cap["out_dtype"]
+    shapes = [tuple(t.shape[1:]) for t in levels]
+    K = (2 * RAFT_RADIUS + 1) ** 2
+    max_err = 0.0
+    cases = [(c, od, "captured") for c in coords]
+    cases += [(coords[-1], torch.float32, "captured, float32 out"),
+              (_raft_edge_coords(coords[-1], levels), od, "clip bounds and off the frame"),
+              (_raft_edge_coords(coords[0], levels), torch.float32, "bounds, float32 out")]
+    for c, dtype, kind in cases:
+        got = raft_lookup.raft_lookup_cuda(c, levels, RAFT_RADIUS, dtype)
+        want = raft.lookup_correlation_plain(levels, c, RAFT_RADIUS).to(dtype)
+        for i in range(len(levels)):
+            sl = slice(i * K, (i + 1) * K)
+            err = float((got[..., sl].float() - want[..., sl].float()).abs().max())
+            max_err = max(max_err, err)
+            check(torch.equal(got[..., sl], want[..., sl]), f"{what} {kind}: level {i} differs "
+                  f"from the plain version by {err}")
+        check(torch.equal(got, raft_lookup.raft_lookup_cuda(c, levels, RAFT_RADIUS, dtype)),
+              f"{what} {kind}: two launches differ")
+    log(f"{what}: {len(cases)} cases (the warm-up pair's {len(coords)} coordinate maps in "
+        f"{od}, float32 out, clip bounds and off-frame) bit for bit the plain version at every "
+        f"level; two launches bit-identical")
+
+    def run():
+        for c in coords:
+            raft_lookup.raft_lookup_cuda(c, levels, RAFT_RADIUS, od)
+
+    def plain():
+        for c in coords:
+            raft.lookup_correlation_plain(levels, c, RAFT_RADIUS).to(od)
+
+    grids = [_raft_grids(c, levels) for c in coords]
+    inputs = [lv[:, None] for lv in levels]
+    try:
+        F.grid_sample(inputs[0], grids[0][0], align_corners=True)
+    except RuntimeError as e:   # a yardstick the port never calls: in float32 where it must
+        log(f"{what}: F.grid_sample refuses {levels[0].dtype} ({e}); timed in float32")
+        grids = [[gr.float() for gr in gs] for gs in grids]
+        inputs = [t.float() for t in inputs]
+
+    def library():
+        for gs in grids:
+            for lv, gr in zip(inputs, gs):
+                F.grid_sample(lv, gr, align_corners=True)
+
+    ms = cuda_ms(run, reps=5)
+    graph = graph_ms(run, reps=2)
+    dev_ms = device_ms(run, "raft_lookup_kernel", reps=5)
+    plain_ms = cuda_ms(plain, reps=1, warmup=1)
+    lib_ms = cuda_ms(library, reps=3)
+    lib_dev = _profile_sums(_full_profile(library, reps=3))[0]
+    isz = levels[0].element_size()
+    osz = torch.empty((), dtype=od).element_size()
+    nbytes, flops = (sum(v) for v in zip(*(_raft_bound(c, shapes, isz, osz, False)
+                                          for c in coords)))
+    taps = sum(_raft_taps(c, shapes) for c in coords)
+    Q = coords[0].numel() // 2
+    ops_ms = flops / F32_FLOPS * 1e3
+    bound, bound_by = _bound_ms(nbytes, ops_ms)
+    share = "not measured" if dev_ms is None else f"{100 * bound / dev_ms:.1f}%"
+    log(f"{what} per eval pair ({len(coords)} launches, Q = {Q}, levels {shapes}): device "
+        f"{_fmt_ms(dev_ms)}, by CUDA graph {graph:.4f} ms, events {ms:.4f} ms; bound "
+        f"{bound:.4f} ms ({bound_by}: {nbytes / 1e6:.2f} MB, of which in-frame taps "
+        f"{taps * isz / 1e6:.2f} MB; {flops / 1e6:.1f} MFLOP), share {share} on the device, "
+        f"{100 * bound / graph:.1f}% by CUDA graph; plain {plain_ms:.4f} ms; F.grid_sample over "
+        f"the four levels {lib_ms:.4f} ms by events, {_fmt_ms(lib_dev)} on the device")
+    return dict(ms=ms, device_ms=dev_ms, graph_ms=graph, plain_ms=plain_ms, bound_ms=bound,
+                bound_by=bound_by, library_ms=lib_ms, library_device_ms=lib_dev, bytes=nbytes,
+                flops=flops, launches_per_pair=len(coords), levels=[list(s) for s in shapes],
+                Q=Q), max_err
+
+
+def phase_cli_train_flow_raft(dev, sweep_warp, local_corr, raft_lookup):
+    """Slice 15's training path, through the entry point a user calls:
+    `cli.main(["--train-flow", ..., "--flow-crop", "256", "768", "-b", "4",
+    "--override", "flow.estimator=RAFT"])` on a KITTI 2015 flow tree of
+    RAFT_FLOW_PAIRS pairs rendered at KITTI's 375x1242 (RAFT's pairs are
+    padded to /8: 376x1248), RAFT at full width (JAX's `FlowConfig`
+    defaults: 12 iterations, radius 4, 4 levels), bf16: RAFT_FLOW_WARMUP
+    untimed steps, the first of which records R2's inputs (the pyramid, each
+    iteration's coordinates and gradient), then RAFT_FLOW_STEPS timed steps;
+    every step must launch R1 and R2 12 times each and no other kernel,
+    give a finite loss and EPE and move every RAFT parameter; ms/step
+    (median, mean, spread), the stage split (forward, loss + backward,
+    AdamW) by CUDA events, peak memory; the validation's EPE and Fl-all
+    over the pairs (R1 24 times a pair); `--pretrained-flow` into an SFMNet
+    with every RAFT tensor equal and PSNet untouched. Returns (the launches
+    after the warm-up, validation included, in `_all_counters`' order; the
+    captured R2 calls [(coords, levels, dout)])."""
+    from deep_sfm_revisited_tpu_torch import cli
+    from deep_sfm_revisited_tpu_torch.config import SfMConfig
+    from deep_sfm_revisited_tpu_torch.data.synthetic import write_kitti_flow_tree
+    from deep_sfm_revisited_tpu_torch.models.sfmnet import SFMNet
+    from deep_sfm_revisited_tpu_torch.train.flow_trainer import FlowTrainer
+
+    what = "cli train-flow (RAFT)"
+    counters = _all_counters(sweep_warp, local_corr, raft_lookup)
+    real_step, real_bwd = FlowTrainer.train_step, raft_lookup.raft_lookup_backward_cuda
+    rows, timer, captured, calls = [], [], [], []
+
+    def record(coords, levels, dout, radius):
+        captured.append((coords.clone(), list(levels), dout.clone()))
+        return real_bwd(coords, levels, dout, radius)
+
+    def timed_step(trainer, *args, **kw):
+        calls.append(len(calls) + 1)
+        first, warm = len(calls) == 1, len(calls) <= RAFT_FLOW_WARMUP
+        if first:
+            timer.append(FlowStageTimer(trainer))
+            raft_lookup.raft_lookup_backward_cuda = record
+        model = trainer.model
+        state = {k: p.detach().clone() for k, p in model.named_parameters()}
+        before = _launches(*counters)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        timer[0]._mark("step_start")
+        try:
+            metrics = real_step(trainer, *args, **kw)
+        finally:
+            raft_lookup.raft_lookup_backward_cuda = real_bwd
+        timer[0]._mark("step_end")
+        torch.cuda.synchronize()
+        ms = 1e3 * (time.perf_counter() - t0)
+        n = tuple(a - b for a, b in zip(_launches(*counters), before))
+        i = f"warm-up {calls[-1]}" if warm else f"{len(rows) + 1}"
+        loss, epe = float(metrics["loss"]), float(metrics["epe"])
+        check(math.isfinite(loss) and math.isfinite(epe), f"{what} step {i}: loss {loss}, "
+              f"EPE {epe}")
+        check(n == RAFT_FLOW_PER_STEP, f"{what} step {i}: launches {n}, expected "
+              f"{RAFT_FLOW_PER_STEP}")
+        still = [k for k, p in model.named_parameters() if torch.equal(p, state[k])]
+        check(not still, f"{what} step {i}: RAFT parameters did not move: {still[:3]}")
+        if warm:
+            if first:
+                check(len(captured) == RAFT_TRAIN_ITERS, f"{what}: {len(captured)} R2 calls "
+                      "recorded")
+                c, lv, g = captured[0]
+                log(f"{what}: R2 inputs: coords {tuple(c.shape)}, levels "
+                    f"{[tuple(t.shape) for t in lv]} {lv[0].dtype}, dout {tuple(g.shape)} "
+                    f"{g.dtype} (max |dout| {max(float(x[2].abs().max()) for x in captured):.3e})")
+            log(f"{what}: step {i}: {ms:.1f} ms, loss {loss:.4f}, EPE {epe:.4f} (untimed)")
+            if calls[-1] == RAFT_FLOW_WARMUP:
+                for k in counters:
+                    k.launches = 0
+                torch.cuda.reset_peak_memory_stats()
+        else:
+            rows.append(dict(ms=ms, loss=loss, epe=epe, **timer[0].stages_ms()))
+            r = rows[-1]
+            log(f"{what}: step {i}: {ms:.1f} ms (forward {r['forward']:.1f}, loss + backward "
+                f"{r['loss_backward']:.1f}, optimizer {r['optimizer']:.1f} ms device); loss "
+                f"{loss:.4f}, EPE {epe:.4f}; launches {n}")
+            if len(rows) == RAFT_FLOW_STEPS:
+                rows.append(dict(peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+                                 launches=_launches(*counters)))
+        return metrics
+
+    with tempfile.TemporaryDirectory() as tmp:
+        root = f"{tmp}/kitti_flow"
+        t0 = time.perf_counter()
+        write_kitti_flow_tree(root, n_pairs=RAFT_FLOW_PAIRS, hw=FLOW_HW, focal=K_KITTI[0][0])
+        log(f"{what}: KITTI flow tree of {RAFT_FLOW_PAIRS} {FLOW_HW[0]}x{FLOW_HW[1]} pairs "
+            f"rendered in {time.perf_counter() - t0:.2f} s")
+        argv = ["--data", root, "--cfg", "kitti", "--train-flow", "--flow-dataset", "kitti",
+                "--flow-crop", str(FLOW_CROP[0]), str(FLOW_CROP[1]), "-b", str(TRAIN_B),
+                "--epochs", "1", "--out", f"{tmp}/out", "--workers", "4",
+                "--override", "flow.estimator=RAFT"]
+        log(f"{what}: cli.main(" + json.dumps(argv).replace(tmp, "<tmp>") + ")")
+        for k in counters:
+            k.launches = 0
+        FlowTrainer.train_step = timed_step
+        try:
+            t0 = time.perf_counter()
+            history = cli.main(argv)
+            wall = time.perf_counter() - t0
+        finally:
+            FlowTrainer.train_step = real_step
+        launches = _launches(*counters)
+        ckpt = f"{tmp}/out/kitti_flow/ckpt"
+        check(os.path.exists(f"{ckpt}/0.pt") and os.path.exists(f"{ckpt}/model_best.pt"),
+              f"{what}: no checkpoint written")
+        cfg = SfMConfig.kitti().override(**{"flow.estimator": "RAFT"})
+        model = SFMNet(cfg, device=dev, seed=5)
+        psnet = {k: v.clone() for k, v in model.depth_estimator.state_dict().items()}
+        cli.apply_pretrained(cli.build_parser().parse_args(
+            ["--data", root, "--pretrained-flow", ckpt]), model)
+        want = torch.load(f"{ckpt}/0.pt", map_location=dev, weights_only=True)["model"]
+        got = model.flow_estimator.state_dict()
+        check(set(got) == set(want) and all(torch.equal(got[k], v) for k, v in want.items()),
+              f"{what}: --pretrained-flow did not restore every RAFT tensor")
+        check(all(torch.equal(v, psnet[k]) for k, v in model.depth_estimator.state_dict().items()),
+              f"{what}: --pretrained-flow touched PSNet")
+        n_tensors = len(want)
+        del model, want, got, psnet
+    check(len(rows) == RAFT_FLOW_STEPS + 1, f"{what}: {len(rows) - 1} timed steps")
+    tail = rows.pop()
+    check(tail["launches"] == tuple(RAFT_FLOW_STEPS * n for n in RAFT_FLOW_PER_STEP),
+          f"{what}: the timed steps launched {tail['launches']}")
+    rec = history[0] if len(history) == 1 else {}
+    check(all(math.isfinite(rec.get(k, math.nan)) for k in ("train_loss", "epe", "f1_all"))
+          and rec.get("n") == RAFT_FLOW_PAIRS, f"{what}: epoch record {history}")
+    val = tuple(RAFT_FLOW_STEPS * n for n in RAFT_FLOW_PER_STEP)
+    val = val[:10] + (val[10] + RAFT_EVAL_ITERS * RAFT_FLOW_PAIRS, val[11])
+    check(launches == val, f"{what}: the timed steps and the validation launched {launches}, "
+          f"expected {val}")
+    mean = {k: sum(r[k] for r in rows) / RAFT_FLOW_STEPS for k in rows[0]}
+    ms = sorted(r["ms"] for r in rows)
+    median = (ms[(len(ms) - 1) // 2] + ms[len(ms) // 2]) / 2
+    log(f"{what}: the timed steps' host ms: median {median:.2f}, min {ms[0]:.2f}, max "
+        f"{ms[-1]:.2f}, spread (max - min) / median {(ms[-1] - ms[0]) / median:.3f}")
+    log(f"{what}: mean over {RAFT_FLOW_STEPS} steps at b = {TRAIN_B}, {FLOW_CROP[0]}x"
+        f"{FLOW_CROP[1]}: {mean['ms']:.2f} ms/step ({1e3 * TRAIN_B / mean['ms']:.3f} pairs/s); "
+        f"device stages forward {mean['forward']:.2f}, loss + backward "
+        f"{mean['loss_backward']:.2f}, optimizer {mean['optimizer']:.2f} ms (step "
+        f"{mean['step']:.2f}); peak memory {tail['peak_gib']:.2f} GiB; cli.main {wall:.2f} s; "
+        f"validation over {rec['n']} pairs at {FLOW_HW[0]}x{FLOW_HW[1]}: EPE {rec['epe']:.4f} "
+        f"px, Fl-all {rec['f1_all']:.2f}%; train loss {rec['train_loss']:.4f}; "
+        f"--pretrained-flow restored all {n_tensors} RAFT tensors into SFMNet, PSNet untouched; "
+        f"launches after the warm-up, validation included: {launches}")
+    log(f"{what} rows: " + json.dumps(rows))
+    return launches, captured
+
+
+def phase_raft_backward(captured, raft_lookup, raft):
+    """R2 against its plain version (`models/raft.py::
+    lookup_correlation_backward_plain`) on the coordinates, pyramid and
+    gradients phase 26's first step gave it (12 calls, b = 4, 256x768), with
+    the gradient in the network's dtype (bf16) and in float32, on a
+    unit-scale random gradient (the captured ones are small, so a wrong
+    kernel fails there by many times the limit) and on coordinates at the
+    clip's bounds and off the frame: every level's gradient bit for bit
+    (float32 terms added in one order, cast once, every element written),
+    the coordinates' to 1e-5 of its largest value (sums of 81 products in a
+    warp's order), two launches bit-identical. Per step (12 launches):
+    device ms or "not measured", CUDA-graph and events ms, the bound (the
+    dense gradient of every level and of the coordinates written once,
+    dout, the coordinates and the in-frame taps read once), the plain
+    version's ms, and the yardstick the port never calls:
+    `grid_sampler_2d_backward` (input and grid gradients) over the four
+    levels, upstream RAFT's gradient (48 calls a step)."""
+    what = "R2 (RAFT lookup backward)"
+    levels = captured[0][1]
+    shapes = [tuple(t.shape[1:]) for t in levels]
+    g = torch.Generator(device=levels[0].device).manual_seed(23)
+    max_err, shares = 0.0, []
+    c0, _, d0 = captured[0]
+    unit = torch.randn(d0.shape, generator=g, device=d0.device)
+    cases = [(c, d, "captured") for c, _, d in captured]
+    cases += [(captured[-1][0], captured[-1][2].float(), "captured, float32 dout"),
+              (c0, unit.to(d0.dtype), "unit-scale"), (c0, unit, "unit-scale, float32 dout"),
+              (_raft_edge_coords(c0, levels), unit.to(d0.dtype), "clip bounds and off the frame")]
+    for c, d, kind in cases:
+        dc, dl = raft_lookup.raft_lookup_backward_cuda(c, levels, d, RAFT_RADIUS)
+        wdl, wdc = raft.lookup_correlation_backward_plain(levels, c, d, RAFT_RADIUS)
+        for i, (a, b) in enumerate(zip(dl, wdl)):
+            err = float((a.float() - b.float()).abs().max())
+            max_err = max(max_err, err)
+            check(torch.equal(a, b), f"{what} {kind}: level {i}'s gradient differs from the "
+                  f"plain version by {err}")
+        tol = 1e-5 * float(wdc.abs().max())
+        err = float((dc - wdc).abs().max())
+        max_err = max(max_err, err)
+        shares.append(err / tol if tol else 0.0)
+        check(err <= tol, f"{what} {kind}: d coords differ by {err}, beyond {tol}")
+        dc2, dl2 = raft_lookup.raft_lookup_backward_cuda(c, levels, d, RAFT_RADIUS)
+        check(torch.equal(dc, dc2) and all(torch.equal(a, b) for a, b in zip(dl, dl2)),
+              f"{what} {kind}: two launches differ")
+    log(f"{what}: {len(cases)} cases (phase 26's {len(captured)} calls in {d0.dtype}, float32 "
+        f"dout, unit-scale, clip bounds and off-frame): the levels' gradients bit for bit the "
+        f"plain version's, d coords within 1e-5 of its largest (largest share of that "
+        f"{max(shares):.3f}); two launches bit-identical")
+
+    def run():
+        for c, lv, d in captured:
+            raft_lookup.raft_lookup_backward_cuda(c, lv, d, RAFT_RADIUS)
+
+    def plain():
+        for c, lv, d in captured:
+            raft.lookup_correlation_backward_plain(lv, c, d, RAFT_RADIUS)
+
+    K = (2 * RAFT_RADIUS + 1) ** 2
+    lib_args = []
+    for c, lv, d in captured:
+        for i, (t, gr) in enumerate(zip(lv, _raft_grids(c, lv))):
+            gout = d[..., i * K:(i + 1) * K].reshape(-1, 1, 2 * RAFT_RADIUS + 1,
+                                                     2 * RAFT_RADIUS + 1).to(t.dtype)
+            lib_args.append((gout, t[:, None], gr))
+
+    try:
+        torch.ops.aten.grid_sampler_2d_backward(*lib_args[0], 0, 0, True, [True, True])
+    except RuntimeError as e:   # a yardstick the port never calls: in float32 where it must
+        log(f"{what}: grid_sampler_2d_backward refuses {levels[0].dtype} ({e}); timed in "
+            "float32")
+        lib_args = [tuple(t.float() for t in a) for a in lib_args]
+
+    def library():
+        for gout, t, gr in lib_args:
+            torch.ops.aten.grid_sampler_2d_backward(gout, t, gr, 0, 0, True, [True, True])
+
+    ms = cuda_ms(run, reps=3)
+    graph = graph_ms(run, reps=1)
+    dev_ms = device_ms(run, "raft_lookup_backward_kernel", reps=3)
+    plain_ms = cuda_ms(plain, reps=1, warmup=1)
+    lib_ms = cuda_ms(library, reps=2, warmup=1)
+    lib_dev = _profile_sums(_full_profile(library, reps=2))[0]
+    isz = levels[0].element_size()
+    nbytes, flops = (sum(v) for v in zip(*(_raft_bound(c, shapes, isz, d.element_size(), True)
+                                          for c, _, d in captured)))
+    Q = c0.numel() // 2
+    dense = sum(h * w for h, w in shapes) * Q * isz * len(captured)
+    bound, bound_by = _bound_ms(nbytes, flops / F32_FLOPS * 1e3)
+    share = "not measured" if dev_ms is None else f"{100 * bound / dev_ms:.1f}%"
+    log(f"{what} per training step ({len(captured)} launches, Q = {Q}, levels {shapes}): "
+        f"device {_fmt_ms(dev_ms)}, by CUDA graph {graph:.4f} ms, events {ms:.4f} ms; bound "
+        f"{bound:.4f} ms ({bound_by}: {nbytes / 1e6:.2f} MB, of which the dense level gradients "
+        f"{dense / 1e6:.2f} MB; {flops / 1e6:.1f} MFLOP), share {share} on the device, "
+        f"{100 * bound / graph:.1f}% by CUDA graph; plain {plain_ms:.4f} ms; "
+        f"grid_sampler_2d_backward over the four levels {lib_ms:.4f} ms by events, "
+        f"{_fmt_ms(lib_dev)} on the device")
+    return dict(ms=ms, device_ms=dev_ms, graph_ms=graph, plain_ms=plain_ms, bound_ms=bound,
+                bound_by=bound_by, library_ms=lib_ms, library_device_ms=lib_dev, bytes=nbytes,
+                flops=flops, launches_per_step=len(captured), levels=[list(s) for s in shapes],
+                Q=Q), max_err
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -4107,13 +4769,13 @@ def main(argv=None) -> int:
         print(f"chip_smoke: the package {PKG} is not beside this script", file=sys.stderr)
         return 2
     sys.path.insert(0, str(REPO))
-    from deep_sfm_revisited_tpu_torch.models import dicl, pwcnet
+    from deep_sfm_revisited_tpu_torch.models import dicl, pwcnet, raft
     from deep_sfm_revisited_tpu_torch.ops import camera, correlation
-    from deep_sfm_revisited_tpu_torch.ops.cuda import local_corr, sweep_warp
+    from deep_sfm_revisited_tpu_torch.ops.cuda import local_corr, raft_lookup, sweep_warp
 
     dev = torch.device("cuda", 0)
     t_start = time.perf_counter()
-    phase_setup(sweep_warp, local_corr)
+    phase_setup(sweep_warp, local_corr, raft_lookup)
     cap_disp = {}
     with torch.no_grad():
         phase_pose(dev)
@@ -4179,8 +4841,26 @@ def main(argv=None) -> int:
         corr_bwd, corr_bwd_err = phase_corr_backward(cap_corr, local_corr, correlation,
                                                      args.old_b2_backward)
     del cap_corr
+    # no path before slice 15 runs RAFT
+    check(raft_lookup.LOOKUP.launches == 0 and raft_lookup.LOOKUP_BACKWARD.launches == 0,
+          f"a path without RAFT launched R1 {raft_lookup.LOOKUP.launches} and R2 "
+          f"{raft_lookup.LOOKUP_BACKWARD.launches} times")
+    t_raft = time.perf_counter()
+    phase_small_raft_reference(dev, raft_lookup)
+    with torch.no_grad():
+        raft_eval, cap_raft = phase_cli_raft(dev, sweep_warp, local_corr, raft_lookup)
+        r1_call, r1_err = phase_raft_lookup(cap_raft, raft_lookup, raft)
+    del cap_raft
+    # the eval path does not train RAFT: no R2
+    check(raft_lookup.LOOKUP_BACKWARD.launches == 0, "the RAFT eval path launched R2 "
+          f"{raft_lookup.LOOKUP_BACKWARD.launches} times")
+    raft_flow, cap_r2 = phase_cli_train_flow_raft(dev, sweep_warp, local_corr, raft_lookup)
+    with torch.no_grad():
+        r2_call, r2_err = phase_raft_backward(cap_r2, raft_lookup, raft)
+    del cap_r2
+    log(f"chip_smoke: the RAFT phases 23-27 took {time.perf_counter() - t_raft:.1f} s")
     names = ("gather", "sweep", "backward", "pose_grad", "volume", "volume_backward", "warped",
-             "b2", "b2_backward", "warped_backward")
+             "b2", "b2_backward", "warped_backward", "raft_lookup", "raft_lookup_backward")
 
     def path(v):
         return dict(zip(names, tuple(v) + (0,) * (len(names) - len(v))))
@@ -4193,7 +4873,11 @@ def main(argv=None) -> int:
                "cli_train_pwc": path(pwc_train),
                # B1's six kernels, then B2, its backward, the warped correlation, its backward
                "cli_train_flow_pwc": path(pwc_flow[:6] + (pwc_flow[8], pwc_flow[6], pwc_flow[7],
-                                                          pwc_flow[9]))}
+                                                          pwc_flow[9])),
+               # `_all_counters`' order: B1's six, B2, its backward, the warped
+               # correlation, its backward, R1, R2
+               **{k: path(v[:6] + (v[8], v[6], v[7], v[9], v[10], v[11]))
+                  for k, v in (("cli_eval_raft", raft_eval), ("cli_train_flow_raft", raft_flow))}}
 
     def launches(kernel):
         counts = {k: v[kernel] for k, v in by_path.items()}
@@ -4270,7 +4954,18 @@ def main(argv=None) -> int:
                   "max_abs_err": corr_bwd_err["warped"],
                   **{k: v for k, v in corr_bwd["warped"].items() if k != "calls"},
                   "calls": corr_bwd["warped"]["calls"]}
-    kernels = [b1, disp, sweep, b2, bwd, pg, dbwd, warped, b2_bwd, warped_bwd]
+    # 24 launches an eval pair (one an iteration, all four levels), 12 a
+    # RAFT flow-training step and 24 a validation pair; no TPU kernel behind
+    # it (XLA one-hot matmuls); `F.grid_sample` over the four levels is
+    # upstream RAFT's lookup, timed as the yardstick
+    r1 = {"name": "raft_lookup", "route": "cuda", "source": RAFT_SOURCE,
+          "replaces": RAFT_REPLACES, **launches("raft_lookup"), "max_abs_err": r1_err, **r1_call}
+    # 12 launches a RAFT flow-training step; `grid_sampler_2d_backward` over
+    # the four levels (input and grid gradients) is upstream's gradient
+    r2 = {"name": "raft_lookup_backward", "route": "cuda", "source": RAFT_SOURCE,
+          "replaces": RAFT_REPLACES, "gradient_of": RAFT_REPLACES,
+          **launches("raft_lookup_backward"), "max_abs_err": r2_err, **r2_call}
+    kernels = [b1, disp, sweep, b2, bwd, pg, dbwd, warped, b2_bwd, warped_bwd, r1, r2]
     check(b1["launches"] == 0, f"a main path launched the standalone gather {b1['launches']} "
           "times")
     check(all(k["launches"] > 0 for k in kernels if k is not b1), "a kernel was launched no "
@@ -4287,6 +4982,10 @@ def main(argv=None) -> int:
     check(all(k["launches_by_path"]["cli_train_flow_pwc"] > 0
               for k in (b2, warped, b2_bwd, warped_bwd)),
           "PWC-DC's flow-training path launched no B2, warped correlation or backward")
+    check(r1["launches_by_path"]["cli_eval_raft"] > 0
+          and r1["launches_by_path"]["cli_train_flow_raft"] > 0
+          and r2["launches_by_path"]["cli_train_flow_raft"] > 0,
+          "RAFT's paths launched no R1 or no R2")
     for k in kernels:
         lib = "none" if k["library_ms"] is None else f"{k['library_ms']:.4f} ms"
         dev = "not measured" if k["device_ms"] is None else f"{k['device_ms']:.4f} ms"

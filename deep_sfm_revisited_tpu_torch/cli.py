@@ -18,17 +18,19 @@ The JAX CLI's flags (the reference's `main.py:66-115` surface plus
 - `--save-pose`: the predicted poses of both splits, written into the
   dataset tree where the loaders read them back for training with
   `--override pred_pose_online=False`;
-- `--train-flow`: flow pretraining of DICL or PWC-DC (`--override
-  flow.estimator=PWC`; `train/flow_trainer.py::flow_fit`) over a flow
-  benchmark (`--flow-dataset`, augmented and cropped to `--flow-crop`), the
-  per-epoch EPE / Fl-all validation, checkpoints under
+- `--train-flow`: flow pretraining of DICL, PWC-DC or RAFT (`--override
+  flow.estimator=PWC` / `RAFT`; `train/flow_trainer.py::flow_fit`) over a
+  flow benchmark (`--flow-dataset`, augmented and cropped to `--flow-crop`),
+  the per-epoch EPE / Fl-all validation, checkpoints under
   `{out}/{tag}_flow/ckpt`, which `--pretrained-flow` restores into the
   composite. DICL pads its input to /128 and the flow GT is not padded, so
-  the crop's sides must be multiples of 128 (as in JAX). PWC-DC's batches
-  and validation pairs are padded to /8, as in JAX, and PWC-DC takes only
-  sides that are multiples of 64: a crop or validation pair that is not
-  one after the padding is refused with a ValueError before the first
-  step (JAX fails there at the validation, after the epoch).
+  the crop's sides must be multiples of 128 (as in JAX). PWC-DC's and
+  RAFT's batches and validation pairs are padded to /8, as in JAX. PWC-DC
+  takes only sides that are multiples of 64: a crop or validation pair
+  that is not one after the padding is refused with a ValueError before
+  the first step (JAX fails there at the validation, after the epoch).
+  RAFT's crop must be a multiple of 8 itself (the padding would part the
+  prediction from the unpadded flow GT): another is refused likewise.
 
 Weights are random from `train.seed`, or restored: `--pretrained` (the
 port's checkpoint: model, optimizer and step in training, the model alone
@@ -39,7 +41,7 @@ keys are printed, as the JAX CLI does; the pose net is left untouched, as
 the JAX CLI's converter call leaves it).
 
     python -m deep_sfm_revisited_tpu_torch.cli --data /path/KITTI --cfg kitti -v \\
-        [--override flow.estimator=PWC] [--pretrained-torch kitti.pth.tar]
+        [--override flow.estimator=PWC|RAFT] [--pretrained-torch kitti.pth.tar]
     python -m deep_sfm_revisited_tpu_torch.cli --data /path/KITTI --cfg kitti -b 4 \\
         --gt-depth-dir /path/gt_depth [--epochs 12] [--pretrained out/kitti/ckpt --start-epoch 3]
     python -m deep_sfm_revisited_tpu_torch.cli --data /path/KITTI_odometry --cfg kitti \\
@@ -159,7 +161,8 @@ def train_flow_main(args, cfg, dev):
     `--flow-dataset`, batches padded to /128 for DICL (/8 otherwise), and
     `flow_fit` writing into `{out}/{tag}_flow`. For PWC-DC the padded crop
     and the padded size of the first validation pair must be multiples of
-    64 (`models/pwcnet.py::check_size`), checked before the first step.
+    64 (`models/pwcnet.py::check_size`), for RAFT the crop a multiple of 8
+    (`models/raft.py::check_size`), checked before the first step.
     Returns its epoch records."""
     from deep_sfm_revisited_tpu_torch.data.loader import BatchLoader
     from deep_sfm_revisited_tpu_torch.train.flow_trainer import flow_fit
@@ -177,6 +180,10 @@ def train_flow_main(args, cfg, dev):
             sizes.append(val_ds[0]["ref"].shape[:2])
         for h, w in sizes:
             check_size(up(h), up(w))
+    elif cfg.flow.estimator == "RAFT" and train_ds.augmentor is not None:
+        from deep_sfm_revisited_tpu_torch.models.raft import check_size
+
+        check_size(*train_ds.augmentor.crop_size)
     loader = BatchLoader(train_ds, cfg.train.batch_size, workers=cfg.data.workers,
                          pad_multiple=pad, seed=cfg.train.seed)
     return flow_fit(cfg, loader, f"{args.out}/{cfg.tag}_flow", val_dataset=val_ds, device=dev,

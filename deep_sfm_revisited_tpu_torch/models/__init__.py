@@ -1,1 +1,1 @@
-"""DICL flow, PSNet depth and the SFMNet composite of the port."""
+"""DICL, PWC-DC and RAFT flow, PSNet depth and the SFMNet composite of the port."""

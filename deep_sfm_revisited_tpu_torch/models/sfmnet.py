@@ -1,7 +1,7 @@
 """SFMNet, the two-view SfM composite (port of `models/sfmnet.py`), eval and train.
 
-DICL flow with entropy confidence, or PWC-DC flow (no confidence, so the
-sampler takes its uniform path) -> correspondence sampling -> five-point
+DICL flow with entropy confidence, or PWC-DC or RAFT flow (no confidence,
+so the sampler takes its uniform path) -> correspondence sampling -> five-point
 RANSAC in float64 -> PSNet plane-sweep depth. Like
 `SFMNet(cfg, dtype=jnp.bfloat16)` of the JAX package, `dtype=torch.bfloat16`
 runs flow, PoseNet and depth under `torch.autocast(..., torch.bfloat16)`;
@@ -43,6 +43,7 @@ from deep_sfm_revisited_tpu_torch.models.dicl import DICLFlow, SmoothCost
 from deep_sfm_revisited_tpu_torch.models.posenet import PlainPose
 from deep_sfm_revisited_tpu_torch.models.psnet import PSNet
 from deep_sfm_revisited_tpu_torch.models.pwcnet import PWCDCNet
+from deep_sfm_revisited_tpu_torch.models.raft import RAFT
 from deep_sfm_revisited_tpu_torch.ops.essential import ransac_pose
 from deep_sfm_revisited_tpu_torch.ops.flow_ops import (sample_correspondences,
                                                        texture_pseudo_entropy)
@@ -50,7 +51,7 @@ from deep_sfm_revisited_tpu_torch.ops.rotations import rt_to_pose
 from deep_sfm_revisited_tpu_torch.utils.device import resolve_device
 
 
-FLOW_NETS = {"DICL": DICLFlow, "PWC": PWCDCNet}
+FLOW_NETS = {"DICL": DICLFlow, "PWC": PWCDCNet, "RAFT": RAFT}
 
 
 def _check_supported(cfg: SfMConfig) -> None:
@@ -74,8 +75,9 @@ def _get(cfg, dotted):
 
 def init_weights(module: nn.Module, generator: torch.Generator) -> None:
     """Seeded random init: convolutions and deconvolutions (DICL, PWC-DC,
-    PSNet) ~ N(0, 1/fan_in) (flax's lecun scale), zero biases, BatchNorm at
-    identity with running stats at their defaults, and the DICL cost
+    RAFT, PSNet) ~ N(0, 1/fan_in) (flax's lecun scale), zero biases,
+    BatchNorm at identity with running stats at their defaults, RAFT's
+    affine instance norms (GroupNorm) left at identity, and the DICL cost
     smoothing at identity (SMOOTH_INIT_BY_ID)."""
     keep = {id(m.smooth_layer.conv) for m in module.modules() if isinstance(m, SmoothCost)}
     with torch.no_grad():

@@ -10,9 +10,10 @@ and the EPE / Fl-all validation (`train/flow_eval.py`). The checkpoint holds
 the flow network alone, so `--pretrained-flow` restores it into the SfM
 composite (`train/checkpoint.py::restore_subtree`).
 
-DICL and PWC-DC are the ported estimators (DICL with its multiscale loss,
-PWC-DC with RAFT's sequence loss over its five levels, gamma 0.8 and
-max_flow 400 as in JAX); RAFT's pretraining raises (ROADMAP.md A.6).
+DICL, PWC-DC and RAFT are the ported estimators (DICL with its multiscale
+loss; PWC-DC with RAFT's sequence loss over its five levels and RAFT with
+it over its `raft_iters_train` iterations, gamma 0.8 and max_flow 400 as in
+JAX).
 Mixed precision is the model's bf16 autocast (`train.mixed_prec`);
 parameters and the optimizer stay float32.
 """
@@ -55,13 +56,12 @@ def flow_loss(cfg: FlowConfig, preds: torch.Tensor, flow_gt: torch.Tensor,
 
 
 def build_flow_model(cfg: FlowConfig, seed: int = 0) -> torch.nn.Module:
-    """The flow network, DICL or PWC-DC, with random weights from `seed` (the
-    composite's init rule, `models/sfmnet.py::init_weights`)."""
+    """The flow network, DICL, PWC-DC or RAFT, with random weights from
+    `seed` (the composite's init rule, `models/sfmnet.py::init_weights`)."""
     from deep_sfm_revisited_tpu_torch.models.sfmnet import FLOW_NETS, init_weights
 
     if cfg.estimator not in FLOW_NETS:
-        raise NotImplementedError(f"flow pretraining of {cfg.estimator} is not ported yet "
-                                  "(ROADMAP.md A.6)")
+        raise NotImplementedError(f"flow pretraining of {cfg.estimator} is not ported")
     model = FLOW_NETS[cfg.estimator](cfg)
     init_weights(model, torch.Generator().manual_seed(seed))
     return model

@@ -19,6 +19,14 @@ each transform in reverse:
                          to the reference's (du outer, dv inner)
   bn                     scale/bias/mean/var        -> weight/bias/running_*
                          (plus num_batches_tracked = 0)
+  gn                     flax GroupNorm scale/bias  -> weight/bias (RAFT's
+                         affine instance norms, which the JAX table leaves
+                         at identity and a reference checkpoint lacks)
+  conv2d_bgr             as conv2d: JAX's kernel already reads RGB (a
+                         reference tensor reads BGR and is permuted when
+                         `load_reference_state` loads it)
+  conv2d_cat             RAFT's fused z|r and heads kernels, split evenly
+                         along Cout into the upstream modules' tensors
 
 Input: the flax variables as nested dicts of arrays (numpy or anything
 `np.asarray` takes), {"params": ..., "batch_stats": ...}.
@@ -37,7 +45,9 @@ from typing import Any, Dict, List, Sequence, Tuple
 import numpy as np
 import torch
 
-Entry = Tuple[str, str, str]  # (kind, torch module prefix, flax path)
+# (kind, torch module prefix, flax path); a `conv2d_cat` entry names a tuple
+# of torch module prefixes
+Entry = Tuple[str, Any, str]
 
 
 # ---- entry tables (copied from deep_sfm_revisited_tpu/utils/torch_port.py) --
@@ -186,6 +196,62 @@ def pwc_entries(t: str = "flow_estimator", f: str = "flow_net") -> List[Entry]:
     return e
 
 
+# RAFT's norms: the entry kind and flax module name of each
+_RAFT_NORMS = {"batch": ("bn", "BatchNorm"), "instance": ("gn", "GroupNorm")}
+
+
+def _resblock(t: str, f: str, norm: str, down: bool) -> List[Entry]:
+    """RAFT's `ResidualBlock` (torch_port.py:570), plus the instance norms'
+    GroupNorm tensors, which the JAX table leaves out."""
+    e: List[Entry] = [("conv2d", f"{t}.conv1", f"{f}/Conv_0"),
+                      ("conv2d", f"{t}.conv2", f"{f}/Conv_1")]
+    kind, flax = _RAFT_NORMS.get(norm, (None, None))
+    if kind:
+        e += [(kind, f"{t}.norm1", f"{f}/{flax}_0"), (kind, f"{t}.norm2", f"{f}/{flax}_1")]
+    if down:
+        e += [("conv2d", f"{t}.downsample.0", f"{f}/Conv_2")]
+        if kind:
+            e += [(kind, f"{t}.downsample.1", f"{f}/{flax}_2")]
+    return e
+
+
+def basic_encoder_entries(t: str, f: str, norm: str) -> List[Entry]:
+    """RAFT's `BasicEncoder` (torch_port.py:586); conv1 is `conv2d_bgr`."""
+    e: List[Entry] = [("conv2d_bgr", f"{t}.conv1", f"{f}/Conv_0")]
+    kind, flax = _RAFT_NORMS.get(norm, (None, None))
+    if kind:
+        e += [(kind, f"{t}.norm1", f"{f}/{flax}_0")]
+    blk = 0
+    for layer in ("layer1", "layer2", "layer3"):
+        for b in range(2):
+            down = layer != "layer1" and b == 0
+            e += _resblock(f"{t}.{layer}.{b}", f"{f}/ResBlock_{blk}", norm, down)
+            blk += 1
+    e += [("conv2d", f"{t}.conv2", f"{f}/Conv_1")]
+    return e
+
+
+def raft_entries(t: str = "flow_estimator", f: str = "flow_net") -> List[Entry]:
+    """RAFT (torch_port.py:608): fnet, cnet and the update block; the
+    `conv2d_cat` entries name a tuple of torch modules whose weights JAX
+    concatenates along Cout."""
+    e = basic_encoder_entries(f"{t}.fnet", f"{f}/fnet", "instance")
+    e += basic_encoder_entries(f"{t}.cnet", f"{f}/cnet", "batch")
+    u_t, u_f = f"{t}.update_block", f"{f}/UpdateBlock_0"
+    me = f"{u_f}/MotionEncoder_0"
+    for i, name in enumerate(("convc1", "convc2", "convf1", "convf2", "conv")):
+        e += [("conv2d", f"{u_t}.encoder.{name}", f"{me}/Conv_{i}")]
+    gru = f"{u_f}/SepConvGRU_0"
+    e += [("conv2d_cat", (f"{u_t}.gru.convz1", f"{u_t}.gru.convr1"), f"{gru}/Conv_0"),
+          ("conv2d", f"{u_t}.gru.convq1", f"{gru}/Conv_1"),
+          ("conv2d_cat", (f"{u_t}.gru.convz2", f"{u_t}.gru.convr2"), f"{gru}/Conv_2"),
+          ("conv2d", f"{u_t}.gru.convq2", f"{gru}/Conv_3"),
+          ("conv2d_cat", (f"{u_t}.flow_head.conv1", f"{u_t}.mask.0"), f"{u_f}/Conv_0"),
+          ("conv2d", f"{u_t}.flow_head.conv2", f"{u_f}/Conv_1"),
+          ("conv2d", f"{u_t}.mask.2", f"{u_f}/Conv_2")]
+    return e
+
+
 def plainpose_entries(t: str = "posenet", f: str = "pose_net") -> List[Entry]:
     """`PlainPose` (torch_port.py:633): biased conv + BN + ReLU stacks,
     `posenet.conv.{i}` (the shared frame encoder), `posenet.pose_agg.{i}`
@@ -222,7 +288,7 @@ def _has(tree, path: Sequence[str]) -> bool:
 
 
 def _torch_weight(kind: str, w: np.ndarray) -> np.ndarray:
-    if kind == "conv2d":
+    if kind in ("conv2d", "conv2d_bgr"):
         return np.transpose(w, (3, 2, 0, 1))
     if kind == "conv3d":
         return np.transpose(w, (4, 3, 0, 1, 2))
@@ -250,6 +316,20 @@ def convert(variables: Dict[str, Any], entries: Sequence[Entry]) -> Dict[str, to
 
     for kind, tkey, fpath in entries:
         parts = tuple(p for p in fpath.split("/") if p)
+        if kind == "conv2d_cat":
+            n = len(tkey)
+            ws = np.split(_torch_weight("conv2d", _get(params, parts + ("kernel",))), n, axis=0)
+            bs = (np.split(_get(params, parts + ("bias",)), n)
+                  if _has(params, parts + ("bias",)) else [None] * n)
+            for key, w, b in zip(tkey, ws, bs):
+                put(f"{key}.weight", w)
+                if b is not None:
+                    put(f"{key}.bias", b)
+            continue
+        if kind == "gn":
+            put(f"{tkey}.weight", _get(params, parts + ("scale",)))
+            put(f"{tkey}.bias", _get(params, parts + ("bias",)))
+            continue
         if kind == "bn":
             put(f"{tkey}.weight", _get(params, parts + ("scale",)))
             put(f"{tkey}.bias", _get(params, parts + ("bias",)))
@@ -263,13 +343,13 @@ def convert(variables: Dict[str, Any], entries: Sequence[Entry]) -> Dict[str, to
     return sd
 
 
-FLOW_ENTRIES = {"DICL": dicl_entries, "PWC": pwc_entries}
+FLOW_ENTRIES = {"DICL": dicl_entries, "PWC": pwc_entries, "RAFT": raft_entries}
 
 
 def jax_params_to_torch(variables: Dict[str, Any], context_bn: bool = False,
                         dep_context: bool = True,
                         flow_estimator: str = "DICL") -> Dict[str, torch.Tensor]:
-    """State dict of the port's `SFMNet` (DICL or PWC-DC flow + PSNet, and
+    """State dict of the port's `SFMNet` (DICL, PWC-DC or RAFT flow + PSNet, and
     PoseNet where the variables hold a `pose_net`, the POSENET route) from
     the JAX `SFMNet` variables, under the reference's module names."""
     entries = FLOW_ENTRIES[flow_estimator]() + psnet_entries(
@@ -306,7 +386,12 @@ def load_reference_state(model: torch.nn.Module, sd: Dict[str, torch.Tensor],
     520-568`): a checkpoint whose flow (depth) keys lack the
     `flow_estimator.` (`depth_estimator.`) prefix is read without it; a
     BN entry takes weight, bias and the running statistics, any other entry
-    its weight and, where `sd` has one, its bias. Returns {"consumed",
+    its weight and, where `sd` has one, its bias; RAFT's `conv2d_cat` entry
+    takes its modules' weights, then their biases (a reference names the
+    fused modules apart), its `conv2d_bgr` weight is permuted from the
+    reference's BGR input channels to the port's RGB, and its GroupNorm
+    (`gn`) entries are skipped: a reference's instance norms carry no
+    tensors, so they stay at identity, as in JAX. Returns {"consumed",
     "missing", "unused"}: the keys loaded, the keys a table wants that `sd`
     lacks, and the keys of `sd` no table took. A shape that differs from
     the model's raises.
@@ -327,11 +412,11 @@ def load_reference_state(model: torch.nn.Module, sd: Dict[str, torch.Tensor],
         tables.append((plainpose_entries("posenet", "pose_net"), "posenet", "posenet"))
     load, consumed, missing = {}, [], []
     for entries, prefix, module in tables:
-        def take(key, required=True):
+        def take(key, required=True, bgr=False):
             key = key.lstrip(".")
             if key in sd:
                 consumed.append(key)
-                load[key if prefix else f"{module}.{key}"] = sd[key]
+                load[key if prefix else f"{module}.{key}"] = sd[key].flip(1) if bgr else sd[key]
             elif required:
                 missing.append(key)
 
@@ -339,6 +424,16 @@ def load_reference_state(model: torch.nn.Module, sd: Dict[str, torch.Tensor],
             if kind == "bn":
                 for suffix in BN_SUFFIXES:
                     take(f"{tkey}.{suffix}")
+            elif kind == "gn":
+                continue
+            elif kind == "conv2d_cat":
+                for key in tkey:
+                    take(f"{key}.weight")
+                for key in tkey:
+                    take(f"{key}.bias", required=False)
+            elif kind == "conv2d_bgr":
+                take(f"{tkey}.weight", bgr=True)
+                take(f"{tkey}.bias", required=False)
             else:
                 take(f"{tkey}.weight")
                 take(f"{tkey}.bias", required=False)

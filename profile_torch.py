@@ -1,12 +1,13 @@
 #!/usr/bin/env python3
 """Where one frame pair's time goes on the GPU: the port's main path under torch.profiler.
 
-    python3 profile_torch.py [--flow PWC] [--out profile_torch_out]   # needs one CUDA device
+    python3 profile_torch.py [--flow PWC|RAFT] [--out profile_torch_out]   # needs one CUDA device
 
 Builds the main path exactly as `chip_smoke.py` does (SFMNet eval under the
 KITTI recipe with bench.py's overrides, 384x1280, b=1, nlabel 128, bf16
 autocast, random weights from a seed; DICL flow, or with `--flow PWC`
-PWC-DC's, as slice 2 runs it), runs two warm-up pairs, then profiles one
+PWC-DC's, as slice 2 runs it, or with `--flow RAFT` RAFT's, 24 iterations,
+as `cli -v` runs it), runs two warm-up pairs, then profiles one
 more pair with CPU and CUDA activities, stage by stage: the flow, the pose
 (sampler + RANSAC) and PSNet depth, as `SFMNet.forward` runs them, with a
 synchronize closing each stage so that every kernel of a stage ends inside
@@ -16,7 +17,8 @@ fills in the span; one stream, so they do not overlap), the idle share and
 the number of kernels; per stage, the device time and count of the kernel
 groups that the cost volume's layout moves (cuDNN's NCHW<->NHWC layout
 transposes, BatchNorm, B1's sweep, gather and displacement-volume kernels,
-B2 and the warped correlation, copies and casts); the peak device memory
+B2 and the warped correlation, RAFT's lookup R1, the GEMM kernels of
+products and convolutions, copies and casts); the peak device memory
 of the profiled pair; then the kernels that take most device time, over
 the pair and in the depth stage. Writes
 one JSON summary and the Chrome trace into --out.
@@ -47,6 +49,8 @@ GROUPS = {"layout_transpose": ("nchwtonhwc", "nhwctonchw"),
                                          "displacement_volume_sample"),
           "b2_kernel": ("local_corr_kernel",),
           "warped_correlation_kernel": ("warped_corr_kernel",),
+          "raft_lookup_kernel": ("raft_lookup_kernel",),
+          "matmul_or_conv": ("gemm", "cutlass"),
           "copy_or_cast": ("direct_copy_kernel",)}
 
 
@@ -71,8 +75,8 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default="profile_torch_out")
     ap.add_argument("--top", type=int, default=15)
-    ap.add_argument("--flow", choices=("DICL", "PWC"), default="DICL",
-                    help="the flow estimator (slice 1: DICL, slice 2: PWC)")
+    ap.add_argument("--flow", choices=("DICL", "PWC", "RAFT"), default="DICL",
+                    help="the flow estimator (slice 1: DICL, slice 2: PWC, slice 15: RAFT)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("profile_torch: no CUDA device", file=sys.stderr)
@@ -81,9 +85,10 @@ def main() -> int:
 
     from deep_sfm_revisited_tpu_torch.config import SfMConfig
     from deep_sfm_revisited_tpu_torch.models.sfmnet import SFMNet
-    from deep_sfm_revisited_tpu_torch.ops.cuda import local_corr, sweep_warp
+    from deep_sfm_revisited_tpu_torch.ops.cuda import local_corr, raft_lookup, sweep_warp
 
-    card = smoke.phase_setup(sweep_warp, local_corr)   # card line, TF32 off, B1 and B2 built
+    # card line, TF32 off, B1, B2 and R1/R2 built
+    card = smoke.phase_setup(sweep_warp, local_corr, raft_lookup)
     dev = torch.device("cuda", 0)
     cfg = SfMConfig.kitti(nlabel=128).override(**smoke.BENCH_OVERRIDES,
                                                **{"flow.estimator": args.flow})

@@ -138,3 +138,18 @@ def test_entry_point_without_cuda_raises(tree, tmp_path):
     with pytest.raises(RuntimeError, match="CUDA"):
         cli.main(_argv(tree, tmp_path, TINY))
     assert not os.path.exists(tmp_path / "kitti" / "test")
+
+
+def test_cli_validate_end_to_end_on_the_raft_route(tree, tmp_path):
+    """`cli -v` with `flow.estimator=RAFT` (2 eval iterations), random
+    weights, online RANSAC on the uniform grid (RAFT gives no confidence):
+    finite metrics under the JAX eval step's names, and the run's config and
+    metric logs on disk."""
+    over = dict(TINY, **{"flow.estimator": "RAFT", "flow.raft_iters_eval": 2,
+                         "data.pad_multiple": 32})
+    res = cli.main(_argv(tree, tmp_path, over), device="cpu")
+    assert set(res) == _jax_metric_keys(over, (64, 96))
+    assert len(res) == 9
+    assert all(np.isfinite(v) for v in res.values())
+    run = tmp_path / "kitti"
+    assert (run / "config.yaml").exists() and (run / "test" / "scalars.jsonl").exists()

@@ -122,7 +122,7 @@ def test_pretrained_torch_leaves_a_network_without_a_table(sfm_variables, tmp_pa
     torch.save(sd, path)
     model = TSFMNet(TConfig.kitti().override(**OVER), device="cpu")
     before = {k: v.clone() for k, v in model.state_dict().items()}
-    cfg = model.cfg.override(**{"flow.estimator": "RAFT"})
+    cfg = model.cfg.override(**{"flow.estimator": "FLOWNET"})
     cli.load_pretrained_torch(path, model, cfg)
     assert "leaving flow_net untouched" in capsys.readouterr().out
     for key, value in model.state_dict().items():

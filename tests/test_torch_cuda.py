@@ -1289,3 +1289,134 @@ def test_ransac_on_card_matches_cpu(solve):
         on_card = essential.ransac_pose(x1.cuda(), x2.cuda(), sample_idx=idx.cuda(), **kw)
         assert int(on_card["inliers"][0]) == int(on_cpu["inliers"][0])
         torch.testing.assert_close(on_card["P"].cpu(), on_cpu["P"], rtol=0, atol=1e-5)
+
+
+# RAFT's lookup (R1) and its backward (R2): the eval pair's shape (384x1280
+# at 1/8, b = 1), the training step's (256x768 crops at 1/8, b = 4), and
+# ragged shapes whose coarse rows are no whole number of 16-byte units
+RAFT_CASES = [(1, 48, 160), (4, 32, 96), (2, 9, 13), (1, 8, 11)]
+
+
+def _raft_inputs(B, h, w, level_dtype, seed=0):
+    """A bf16 (or float32) pyramid pooled as RAFT pools it, and coordinates
+    in and off the frame, beyond the clip and on each clip bound."""
+    from deep_sfm_revisited_tpu_torch.models import raft as traft
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    f1 = torch.randn(B, 64, h, w, device="cuda", generator=g)
+    f2 = torch.randn(B, 64, h, w, device="cuda", generator=g)
+    levels = [lv.to(level_dtype) for lv in traft.correlation_pyramid(f1, f2, 4)]
+    coords = torch.rand(B, h, w, 2, device="cuda", generator=g) * torch.tensor(
+        [w + 24.0, h + 24.0], device="cuda") - 12.0
+    flat = coords.view(-1, 2)
+    n = 0
+    for i, lv in enumerate(levels):
+        for k, size in ((0, lv.shape[2]), (1, lv.shape[1])):
+            for v in (-6.0 * 2 ** i, (size + 5.0) * 2 ** i):
+                if n < flat.shape[0]:
+                    flat[n, k] = v
+                    n += 1
+    return levels, coords
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("level_dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("out_dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", RAFT_CASES)
+def test_raft_lookup_matches_plain_on_card(shape, out_dtype, level_dtype):
+    """R1 bit for bit its plain version on the card (both round op by op,
+    without FMA contraction, in one order), cast to the output dtype."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from deep_sfm_revisited_tpu_torch.models import raft as traft
+    from deep_sfm_revisited_tpu_torch.ops.cuda import raft_lookup
+
+    od, ld = getattr(torch, out_dtype), getattr(torch, level_dtype)
+    levels, coords = _raft_inputs(*shape, ld)
+    before = raft_lookup.LOOKUP.launches
+    got = raft_lookup.raft_lookup_cuda(coords, levels, 4, od)
+    torch.cuda.synchronize()
+    assert raft_lookup.LOOKUP.launches == before + 1
+    assert got.dtype == od and got.shape == (*shape, 324) and got.is_contiguous()
+    ref = traft.lookup_correlation_plain(levels, coords, 4).to(od)
+    torch.testing.assert_close(got, ref, rtol=0, atol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("level_dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("dout_dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", RAFT_CASES)
+def test_raft_lookup_backward_matches_plain_on_card(shape, dout_dtype, level_dtype):
+    """R2: every level's gradient bit for bit the plain version's (float32
+    terms added in one order, cast once; every element written, zeros
+    where no tap lands); the coordinates' gradient to 1e-5 of its largest
+    value (sums of 81 products in a warp's order)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from deep_sfm_revisited_tpu_torch.models import raft as traft
+    from deep_sfm_revisited_tpu_torch.ops.cuda import raft_lookup
+
+    levels, coords = _raft_inputs(*shape, getattr(torch, level_dtype), seed=1)
+    g = torch.Generator(device="cuda").manual_seed(2)
+    dout = torch.randn(*shape, 324, device="cuda", generator=g).to(getattr(torch, dout_dtype))
+    before = raft_lookup.LOOKUP_BACKWARD.launches
+    dc, dl = raft_lookup.raft_lookup_backward_cuda(coords, levels, dout, 4)
+    torch.cuda.synchronize()
+    assert raft_lookup.LOOKUP_BACKWARD.launches == before + 1
+    wdl, wdc = traft.lookup_correlation_backward_plain(levels, coords, dout, 4)
+    for got, want in zip(dl, wdl):
+        assert got.dtype == want.dtype and got.shape == want.shape
+        torch.testing.assert_close(got, want, rtol=0, atol=0)
+    assert dc.dtype == torch.float32 and dc.shape == coords.shape
+    torch.testing.assert_close(dc, wdc, rtol=0, atol=1e-5 * float(wdc.abs().max()))
+
+
+@pytest.mark.cuda
+def test_raft_lookup_autograd_launches_both_kernels():
+    """`RaftLookupFn` on CUDA tensors: one R1 launch forward, one R2 launch
+    backward, its gradients R2's."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from deep_sfm_revisited_tpu_torch.models import raft as traft
+    from deep_sfm_revisited_tpu_torch.ops.cuda import raft_lookup
+
+    levels, coords = _raft_inputs(2, 16, 24, torch.bfloat16, seed=3)
+    levels = [lv.requires_grad_() for lv in levels]
+    coords = coords.requires_grad_()
+    f0, b0 = raft_lookup.LOOKUP.launches, raft_lookup.LOOKUP_BACKWARD.launches
+    out = traft.lookup_correlation(levels, coords, 4, torch.bfloat16)
+    dout = torch.randn_like(out)
+    grads = torch.autograd.grad(out, [coords, *levels], dout)
+    torch.cuda.synchronize()
+    assert raft_lookup.LOOKUP.launches == f0 + 1
+    assert raft_lookup.LOOKUP_BACKWARD.launches == b0 + 1
+    dc, dl = raft_lookup.raft_lookup_backward_cuda(coords.detach(),
+                                                   [lv.detach() for lv in levels], dout, 4)
+    assert torch.equal(grads[0], dc)
+    for got, want in zip(grads[1:], dl):
+        assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+def test_raft_lookup_wrappers_refuse_what_the_kernels_do_not_take():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from deep_sfm_revisited_tpu_torch.ops.cuda import raft_lookup
+
+    levels, coords = _raft_inputs(1, 8, 12, torch.bfloat16)
+    with pytest.raises(ValueError, match="CUDA"):
+        raft_lookup.raft_lookup_cuda(coords.cpu(), levels, 4, torch.float32)
+    with pytest.raises(TypeError):
+        raft_lookup.raft_lookup_cuda(coords.double(), levels, 4, torch.float32)
+    with pytest.raises(ValueError, match="radius"):
+        raft_lookup.raft_lookup_cuda(coords, levels, 5, torch.float32)
+    with pytest.raises(TypeError):
+        raft_lookup.raft_lookup_cuda(coords, [levels[0].float(), *levels[1:]], 4,
+                                     torch.float32)
+    with pytest.raises(ValueError, match="levels"):
+        raft_lookup.raft_lookup_cuda(coords, levels + levels[:1], 4, torch.float32)
+    with pytest.raises(TypeError):
+        raft_lookup.raft_lookup_cuda(coords, levels, 4, torch.float64)
+    with pytest.raises(ValueError, match="dout"):
+        raft_lookup.raft_lookup_backward_cuda(coords, levels,
+                                              torch.zeros(1, 8, 12, 81, device="cuda"), 4)

@@ -199,3 +199,81 @@ def test_port_imports_no_jax():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr[-2000:]
     assert out.stdout.startswith("ok")
+
+
+@pytest.fixture(scope="module")
+def raft_variables():
+    over = dict(OVER, **{"flow.estimator": "RAFT"})
+    net = JSFMNet(JConfig.kitti().override(**over))
+    x = jnp.zeros((1, 128, 128, 3), jnp.float32)
+    K = jnp.asarray([[[100.0, 0, 64], [0, 100.0, 64], [0, 0, 1]]], jnp.float32)
+    return over, random_variables(lambda r, t, k: net.init(
+        jax.random.PRNGKey(0), r, t, k, key=jax.random.PRNGKey(1)), x, x, K, seed=8)
+
+
+def test_raft_state_dict_loads_strictly(raft_variables):
+    """The RAFT route: every flax leaf of the JAX SFMNet (RAFT + PSNet)
+    feeds the port's state dict, which loads strictly; each of the three
+    fused kernels (z|r twice, the heads' first convolutions) and its bias
+    splits into two upstream tensors, and the instance norms' scale and
+    bias are carried."""
+    over, variables = raft_variables
+    sd = weights.jax_params_to_torch(variables, flow_estimator="RAFT")
+    load_strict(TSFMNet(TConfig.kitti().override(**over), device="cpu"), sd)
+    n_bn = sum(k.endswith("num_batches_tracked") for k in sd)
+    assert len(sd) - n_bn == len(jax.tree_util.tree_leaves(variables)) + 6
+    flow = variables["params"]["flow_net"]
+    zr = np.asarray(flow["UpdateBlock_0"]["SepConvGRU_0"]["Conv_0"]["kernel"])
+    np.testing.assert_array_equal(sd["flow_estimator.update_block.gru.convr1.weight"].numpy(),
+                                  np.transpose(zr[..., 128:], (3, 2, 0, 1)))
+    np.testing.assert_array_equal(sd["flow_estimator.fnet.layer3.0.downsample.1.weight"].numpy(),
+                                  np.asarray(flow["fnet"]["ResBlock_4"]["GroupNorm_2"]["scale"]))
+
+
+def _reference_raft(sd):
+    """A reference-named RAFT checkpoint from the port's state dict:
+    upstream's instance norms carry no tensors, conv1 reads BGR, and each
+    strided residual block of cnet holds its projection's BatchNorm twice
+    (`norm3` and `downsample.1`, one module)."""
+    ref = {}
+    for k, v in sd.items():
+        if k.startswith("flow_estimator.fnet.") and (".norm" in k or "downsample.1" in k):
+            continue
+        ref[k] = v.flip(1) if k.endswith("net.conv1.weight") else v
+    for k in list(ref):
+        if k.startswith("flow_estimator.cnet.") and ".downsample.1." in k:
+            ref[k.replace("downsample.1", "norm3")] = ref[k]
+    return ref
+
+
+def test_pretrained_torch_loads_a_reference_raft_as_jax_does(raft_variables, tmp_path, capsys):
+    """`--pretrained-torch` with a reference-named RAFT checkpoint: the
+    report (consumed, missing, unused) is the JAX converter's on the same
+    file; the loaded conv1 is JAX's after its BGR permutation, carried back
+    to the port; fnet's instance norms stay at identity and are neither
+    missing nor unused."""
+    from deep_sfm_revisited_tpu_torch import cli
+
+    over, variables = raft_variables
+    sd = _reference_raft(weights.jax_params_to_torch(variables, flow_estimator="RAFT"))
+    path = str(tmp_path / "raft.pth.tar")
+    torch.save({"epoch": 0, "state_dict": sd}, path)
+    model = TSFMNet(TConfig.kitti().override(**over), device="cpu")
+    report = cli.load_pretrained_torch(path, model, model.cfg)
+    jsd = torch_port.load_torch_checkpoint(path)
+    back, jreport = torch_port.convert_reference_checkpoint(jsd, variables, flow="RAFT")
+    assert sorted(report["missing"]) == sorted(jreport["missing"]) == []
+    assert report["unused"] == jreport["unused"]
+    assert sorted(report["consumed"]) == sorted(jreport["consumed"])
+    assert any(".norm3." in k for k in report["unused"])
+    assert not any("fnet" in k and "norm" in k for k in report["unused"])
+    state = model.state_dict()
+    carried = weights.jax_params_to_torch(back, flow_estimator="RAFT")
+    for k in ("flow_estimator.fnet.conv1.weight", "flow_estimator.cnet.conv1.weight"):
+        assert torch.equal(state[k], carried[k]), k
+        assert torch.equal(state[k], sd[k].flip(1)), k
+    for k, v in state.items():
+        if k.startswith("flow_estimator.fnet.") and ".norm" in k:
+            assert torch.equal(v, torch.ones_like(v) if k.endswith("weight")
+                               else torch.zeros_like(v)), k
+    assert "torch port:" in capsys.readouterr().out
