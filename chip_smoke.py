@@ -228,10 +228,14 @@ Phases, each of which raises on failure:
    R1 24 times, the sweep once and nothing else; the 9 Eigen metrics,
    finite; ms per pair with the flow / pose / depth split, peak memory;
 25. R1 against its plain version on phase 24's pyramid and each of its 24
-   coordinate maps, bf16 and float32 out, and at the clip's bounds and off
-   the frame, bit for bit at every level; per pair its device, CUDA-graph
-   and events ms, bound, plain ms and `F.grid_sample` over the four levels
-   (upstream RAFT's lookup) as the yardstick;
+   coordinate maps, bf16 and float32 out, on a tail block (the first 7332
+   queries) and at the clip's bounds and off the frame, bit for bit at
+   every level; per pair its device,
+   CUDA-graph and events ms, the byte bound and the bound at the 32-byte
+   sectors the tap rows touch, plain ms and `F.grid_sample` over the four
+   levels (upstream RAFT's lookup) as the yardstick; with `--old-raft PATH`
+   that source's R1 bit for bit and in turns (old, new, new, old) by CUDA
+   graph, on the device and by events;
 26. slice 15's training path through `cli.main --train-flow --override
    flow.estimator=RAFT` on a 36-pair KITTI 2015 flow tree at 375x1242
    (padded to /8), 256x768 crops, b = 4, bf16: three untimed steps (the
@@ -240,12 +244,24 @@ Phases, each of which raises on failure:
    stage split and peak memory; the validation's EPE and Fl-all (R1 24
    times a pair); `--pretrained-flow` into SFMNet;
 27. R2 against its plain version on phase 26's captured coordinates,
-   pyramid and gradients, in bf16 and float32, unit-scale and at the clip's
-   bounds: the levels' gradients bit for bit, d coords to 1e-5 of its
-   largest; per step its device, CUDA-graph and events ms, bound, plain ms
-   and `grid_sampler_2d_backward` over the four levels (upstream's
-   gradient) as the yardstick. The script's total seconds and the RAFT
-   phases' are printed.
+   pyramid and gradients, in bf16 and float32, unit-scale, at the clip's
+   bounds and on a tail block, each adding into accumulators that hold
+   random values: the accumulators bit for bit, d coords to 1e-5 of its
+   largest; the step's whole backward (one zero fill, the 12 launches last
+   iteration first) bit for bit the dense plain gradients added in bf16;
+   per step the launches'
+   and the whole backward's device, CUDA-graph and events ms, the bound of
+   this interface and of the dense one, plain ms and
+   `grid_sampler_2d_backward` over the four levels (upstream's gradient)
+   as the yardstick; with `--old-raft PATH` that source's whole backward
+   as autograd ran it (12 dense launches, each level's bf16 `add_` after
+   the first) bit for bit the new accumulators and in turns. The RAFT
+   phases' seconds are printed;
+28. fault C.2's route: `cli.main -v --override pose.estimator=GT
+   use_gt_pose=True` on a rendered 370x1224 tree (no pose net, no flow
+   run, PSNet on the ground-truth pose, bf16), each pair launching the
+   sweep once and nothing else; the 9 Eigen metrics, finite. The script's
+   total seconds are printed.
 
 `python3 chip_smoke.py --save-sweep-inputs PATH` also writes the sweep
 backward's depths, M and K t from slice 5 (a few hundred floats) to PATH,
@@ -255,10 +271,10 @@ displacement volume's inputs of slice 1's pair and a training step, for
 source phases 13, 14 and 17 compare with, `--old-b2 PATH` the earlier
 `local_corr.cu` (with its NHWC warped correlation) phases 7 and 19 do,
 `--old-b2-backward PATH` the earlier `warped_corr_backward.cu` phase 22
-does.
+does, `--old-raft PATH` the earlier `raft_lookup.cu` phases 25 and 27 do.
 
 The line before the last is the kernel table as one JSON object (twelve
-kernels, with launches on each of eleven paths); the last
+kernels, with launches on each of twelve paths); the last
 is {"ok": true, "device": {...}}. Without a CUDA device, or without the
 port's package beside this script, it exits non-zero and prints no result.
 """
@@ -4347,22 +4363,123 @@ def _raft_taps(coords, shapes) -> int:
     return total
 
 
-def _raft_bound(coords, shapes, level_bytes, grad_bytes, backward):
+def _raft_bound(coords, shapes, level_bytes, grad_bytes, backward, dense=False):
     """(bytes, flops) one launch must move and compute at least. R1: the
     coordinates and the in-frame taps read once, the window written once;
     per (query, level) ~16 float32 operations for the clip and weights and
     7 a window channel. R2: the coordinates, dout and the in-frame taps
-    (the coordinates' gradient needs them) read once, the dense gradient
-    of every level and of the coordinates written once; per (query, level)
-    ~30 operations, 8 a window channel and 8 a patch tap."""
+    (the coordinates' gradient needs them) read once, the coordinates'
+    gradient written once, and the accumulators' in-frame patch elements
+    read and written once; with `dense` (the earlier interface) the dense
+    gradient of every level written once instead; per (query, level) ~30
+    operations, 8 a window channel and 8 a patch tap."""
     Q, L = coords.numel() // 2, len(shapes)
     D, S = 2 * RAFT_RADIUS + 1, 2 * RAFT_RADIUS + 2
     window = Q * L * D * D * grad_bytes
-    nbytes = coords.numel() * 4 + _raft_taps(coords, shapes) * level_bytes + window
+    taps = _raft_taps(coords, shapes) * level_bytes
+    nbytes = coords.numel() * 4 + taps + window
     if not backward:
         return nbytes, Q * L * (16 + 7 * D * D)
-    dense = sum(h * w for h, w in shapes) * Q * level_bytes
-    return nbytes + coords.numel() * 4 + dense, Q * L * (30 + 8 * D * D + 8 * S * S)
+    levels = sum(h * w for h, w in shapes) * Q * level_bytes if dense else 2 * taps
+    return nbytes + coords.numel() * 4 + levels, Q * L * (30 + 8 * D * D + 8 * S * S)
+
+
+def _raft_sector_bytes(coords, levels) -> int:
+    """The bytes of the 32-byte sectors that the in-frame tap rows of every
+    (query, level) touch, at the addresses of `levels` (the pyramid, or
+    accumulators of its shapes): the rows' cost at the granularity the
+    memory serves them in."""
+    flat = coords.reshape(-1, 2).float()
+    r, S = RAFT_RADIUS, 2 * RAFT_RADIUS + 2
+    q = torch.arange(flat.shape[0], device=flat.device)
+    total = 0
+    for i, lv in enumerate(levels):
+        hl, wl = lv.shape[1:]
+        isz = lv.element_size()
+        c = flat / (2.0 ** i)
+        x0 = torch.floor(c[:, 0].clamp(-(r + 2.0), wl + r + 1.0) - r).long()
+        y0 = torch.floor(c[:, 1].clamp(-(r + 2.0), hl + r + 1.0) - r).long()
+        xa, xb = x0.clamp(min=0), (x0 + S).clamp(max=wl)
+        ys = y0[:, None] + torch.arange(S, device=flat.device)
+        ok = (ys >= 0) & (ys < hl) & (xb > xa)[:, None]
+        row = (q[:, None] * hl + ys) * wl
+        start = lv.data_ptr() + (row + xa[:, None]) * isz
+        end = lv.data_ptr() + (row + xb[:, None]) * isz
+        total += int(((end - 1) // 32 - start // 32 + 1)[ok].sum()) * 32
+    return total
+
+
+def old_raft(path: Path):
+    """R1 and R2 of an earlier `raft_lookup.cu` (one block a query; R2
+    writes every level's gradient densely, `write_grad_row`),
+    built by `ops/cuda/build.py` beside the current source and called
+    through ctypes as that source's operators called them. Returns (r1,
+    r2): r1(coords, levels, radius, out_dtype) -> out; r2(coords, levels,
+    dout, radius) -> (d coords, [dense d level])."""
+    import ctypes
+
+    from deep_sfm_revisited_tpu_torch.ops.cuda.build import CudaKernel
+
+    check("write_grad_row" in path.read_text(),
+          f"{path} is not a source whose R2 writes dense level gradients")
+    P, I, LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+
+    class OldRaft(CudaKernel):
+        source = str(path.resolve())   # an absolute path replaces csrc/
+
+        def _bind(self, lib):
+            lib.dsfm_raft_lookup.argtypes = [P, P, P, I, P, P, LL, I, I, I, P]
+            lib.dsfm_raft_lookup.restype = I
+            lib.dsfm_raft_lookup_backward.argtypes = [P, P, P, P, I, P, P, P, LL, I, I, I, P]
+            lib.dsfm_raft_lookup_backward.restype = I
+
+    lib = OldRaft().build()
+
+    def table(tensors, kind=P, attr=None):
+        vals = [t.data_ptr() if attr is None else attr(t) for t in tensors]
+        return ctypes.cast((kind * len(vals))(*vals), P)
+
+    def shapes(levels):
+        return (table(levels), table(levels, I, lambda t: t.shape[1]),
+                table(levels, I, lambda t: t.shape[2]))
+
+    def r1(coords, levels, radius, out_dtype):
+        ptrs, hs, ws = shapes(levels)
+        out = torch.empty((*coords.shape[:3], len(levels) * (2 * radius + 1) ** 2),
+                          dtype=out_dtype, device=coords.device)
+        err = lib.dsfm_raft_lookup(ptrs, hs, ws, len(levels), coords.data_ptr(), out.data_ptr(),
+                                   coords.numel() // 2, radius,
+                                   int(levels[0].dtype == torch.bfloat16),
+                                   int(out_dtype == torch.bfloat16),
+                                   torch.cuda.current_stream().cuda_stream)
+        check(err == 0, f"{path}'s R1 launch failed: cudaError {err}")
+        return out
+
+    def r2(coords, levels, dout, radius):
+        ptrs, hs, ws = shapes(levels)
+        grads = [torch.empty_like(t) for t in levels]
+        dc = torch.empty_like(coords)
+        err = lib.dsfm_raft_lookup_backward(
+            ptrs, table(grads), hs, ws, len(levels), coords.data_ptr(), dout.data_ptr(),
+            dc.data_ptr(), coords.numel() // 2, radius, int(levels[0].dtype == torch.bfloat16),
+            int(dout.dtype == torch.bfloat16), torch.cuda.current_stream().cuda_stream)
+        check(err == 0, f"{path}'s R2 launch failed: cudaError {err}")
+        return dc, grads
+
+    return r1, r2
+
+
+def _tail(coords, levels, dout=None, n=7332):
+    """The first `n` queries (376x1248's 47 x 156 at 1/8: no multiple of the
+    queries a block) as a (1, 1, n) problem of their own."""
+    c = coords.reshape(1, 1, -1, 2)[:, :, :n].contiguous()
+    lv = [t[:n] for t in levels]
+    return (c, lv) if dout is None else (c, lv, dout.reshape(1, 1, -1, dout.shape[-1])[:, :, :n]
+                                         .contiguous())
+
+
+def _bits(t):
+    return t.view(torch.int16 if t.element_size() == 2 else torch.int32)
 
 
 def _raft_edge_coords(coords, levels):
@@ -4403,41 +4520,52 @@ def _raft_grids(coords, levels):
     return grids
 
 
-def phase_raft_lookup(cap, raft_lookup, raft):
+def phase_raft_lookup(cap, raft_lookup, raft, old_source=None):
     """R1 against its plain version (`models/raft.py::lookup_correlation_plain`)
     on the pyramid and each of the 24 coordinate maps phase 24's warm-up pair
     gave it, in the network's dtype (bf16) and in float32, bit for bit at
-    every level (both round op by op in one order), and on a copy whose
-    queries sit on the clip's bounds, beyond them and off the frame; two
-    launches bit-identical. Per pair (24 launches): device ms (torch.profiler)
-    or "not measured" where every trace is refused, CUDA-graph and events
-    ms, the bound (the window written once, the in-frame taps and the
-    coordinates read once), the plain version's ms and the yardstick the
-    port never calls, `F.grid_sample` (align_corners, zeros) over the four
-    levels, upstream RAFT's own lookup (96 calls a pair)."""
+    every level (both round op by op in one order), on the first 7332
+    queries (a tail block) and on a copy whose queries sit on the clip's
+    bounds, beyond them and off the frame; two launches bit-identical. Per
+    pair (24 launches): device ms (torch.profiler) or "not
+    measured" where every trace is refused, CUDA-graph and events ms, the
+    bound (the window written once, the in-frame taps and the coordinates
+    read once) and the same with the taps counted in the 32-byte sectors
+    their rows touch, the plain version's ms and the yardstick the port
+    never calls, `F.grid_sample` (align_corners, zeros) over the four
+    levels, upstream RAFT's own lookup (96 calls a pair). With `old_source`
+    (an earlier `raft_lookup.cu`, one block a query) its R1, bit for bit
+    the current one and timed in turns (old, new, new, old) by CUDA graph,
+    on the device and by events (host included: the earlier kernel is
+    launched through ctypes here, not through its own operator, so its
+    events time is not its wrapper's; `raft_compare.py --host-tree`
+    compares two checkouts' wrappers)."""
     what = "R1 (RAFT lookup)"
     levels, coords, od = cap["levels"], cap["coords"], cap["out_dtype"]
     shapes = [tuple(t.shape[1:]) for t in levels]
     K = (2 * RAFT_RADIUS + 1) ** 2
     max_err = 0.0
-    cases = [(c, od, "captured") for c in coords]
-    cases += [(coords[-1], torch.float32, "captured, float32 out"),
-              (_raft_edge_coords(coords[-1], levels), od, "clip bounds and off the frame"),
-              (_raft_edge_coords(coords[0], levels), torch.float32, "bounds, float32 out")]
-    for c, dtype, kind in cases:
-        got = raft_lookup.raft_lookup_cuda(c, levels, RAFT_RADIUS, dtype)
-        want = raft.lookup_correlation_plain(levels, c, RAFT_RADIUS).to(dtype)
-        for i in range(len(levels)):
+    tail_c, tail_lv = _tail(coords[-1], levels)
+    cases = [(c, levels, od, "captured") for c in coords]
+    cases += [(coords[-1], levels, torch.float32, "captured, float32 out"),
+              (tail_c, tail_lv, od, f"the first {tail_c.shape[2]} queries (a tail block)"),
+              (tail_c, tail_lv, torch.float32, "a tail block, float32 out"),
+              (_raft_edge_coords(coords[-1], levels), levels, od, "clip bounds and off the frame"),
+              (_raft_edge_coords(coords[0], levels), levels, torch.float32, "bounds, float32 out")]
+    for c, lv, dtype, kind in cases:
+        got = raft_lookup.raft_lookup_cuda(c, lv, RAFT_RADIUS, dtype)
+        want = raft.lookup_correlation_plain(lv, c, RAFT_RADIUS).to(dtype)
+        for i in range(len(lv)):
             sl = slice(i * K, (i + 1) * K)
             err = float((got[..., sl].float() - want[..., sl].float()).abs().max())
             max_err = max(max_err, err)
             check(torch.equal(got[..., sl], want[..., sl]), f"{what} {kind}: level {i} differs "
                   f"from the plain version by {err}")
-        check(torch.equal(got, raft_lookup.raft_lookup_cuda(c, levels, RAFT_RADIUS, dtype)),
+        check(torch.equal(got, raft_lookup.raft_lookup_cuda(c, lv, RAFT_RADIUS, dtype)),
               f"{what} {kind}: two launches differ")
     log(f"{what}: {len(cases)} cases (the warm-up pair's {len(coords)} coordinate maps in "
-        f"{od}, float32 out, clip bounds and off-frame) bit for bit the plain version at every "
-        f"level; two launches bit-identical")
+        f"{od}, float32 out, a tail block, clip bounds and off-frame) bit for bit the plain "
+        "version at every level; two launches bit-identical")
 
     def run():
         for c in coords:
@@ -4447,6 +4575,11 @@ def phase_raft_lookup(cap, raft_lookup, raft):
         for c in coords:
             raft.lookup_correlation_plain(levels, c, RAFT_RADIUS).to(od)
 
+    chosen = raft_lookup.R1_QUERIES
+    ms = cuda_ms(run, reps=5)
+    graph = graph_ms(run, reps=2)
+    dev_ms = device_ms(run, "raft_lookup_kernel", reps=5)
+    plain_ms = cuda_ms(plain, reps=1, warmup=1)
     grids = [_raft_grids(c, levels) for c in coords]
     inputs = [lv[:, None] for lv in levels]
     try:
@@ -4461,31 +4594,59 @@ def phase_raft_lookup(cap, raft_lookup, raft):
             for lv, gr in zip(inputs, gs):
                 F.grid_sample(lv, gr, align_corners=True)
 
-    ms = cuda_ms(run, reps=5)
-    graph = graph_ms(run, reps=2)
-    dev_ms = device_ms(run, "raft_lookup_kernel", reps=5)
-    plain_ms = cuda_ms(plain, reps=1, warmup=1)
     lib_ms = cuda_ms(library, reps=3)
     lib_dev = _profile_sums(_full_profile(library, reps=3))[0]
+    del grids, inputs
     isz = levels[0].element_size()
     osz = torch.empty((), dtype=od).element_size()
     nbytes, flops = (sum(v) for v in zip(*(_raft_bound(c, shapes, isz, osz, False)
                                           for c in coords)))
     taps = sum(_raft_taps(c, shapes) for c in coords)
+    sector_bytes = nbytes - taps * isz + sum(_raft_sector_bytes(c, levels) for c in coords)
     Q = coords[0].numel() // 2
     ops_ms = flops / F32_FLOPS * 1e3
     bound, bound_by = _bound_ms(nbytes, ops_ms)
+    sector_bound = _bound_ms(sector_bytes, ops_ms)[0]
     share = "not measured" if dev_ms is None else f"{100 * bound / dev_ms:.1f}%"
-    log(f"{what} per eval pair ({len(coords)} launches, Q = {Q}, levels {shapes}): device "
-        f"{_fmt_ms(dev_ms)}, by CUDA graph {graph:.4f} ms, events {ms:.4f} ms; bound "
-        f"{bound:.4f} ms ({bound_by}: {nbytes / 1e6:.2f} MB, of which in-frame taps "
+    log(f"{what} per eval pair ({len(coords)} launches, Q = {Q}, levels {shapes}, {chosen} "
+        f"queries a block): device {_fmt_ms(dev_ms)}, by CUDA graph {graph:.4f} ms, events {ms:.4f} ms; "
+        f"bound {bound:.4f} ms ({bound_by}: {nbytes / 1e6:.2f} MB, of which in-frame taps "
         f"{taps * isz / 1e6:.2f} MB; {flops / 1e6:.1f} MFLOP), share {share} on the device, "
-        f"{100 * bound / graph:.1f}% by CUDA graph; plain {plain_ms:.4f} ms; F.grid_sample over "
-        f"the four levels {lib_ms:.4f} ms by events, {_fmt_ms(lib_dev)} on the device")
-    return dict(ms=ms, device_ms=dev_ms, graph_ms=graph, plain_ms=plain_ms, bound_ms=bound,
-                bound_by=bound_by, library_ms=lib_ms, library_device_ms=lib_dev, bytes=nbytes,
-                flops=flops, launches_per_pair=len(coords), levels=[list(s) for s in shapes],
-                Q=Q), max_err
+        f"{100 * bound / graph:.1f}% by CUDA graph; at the 32-byte sectors the tap rows touch "
+        f"{sector_bound:.4f} ms ({sector_bytes / 1e6:.2f} MB), "
+        f"{100 * sector_bound / (dev_ms or graph):.1f}%; plain {plain_ms:.4f} ms; F.grid_sample "
+        f"over the four levels {lib_ms:.4f} ms by events, {_fmt_ms(lib_dev)} on the device")
+    row = dict(ms=ms, device_ms=dev_ms, graph_ms=graph, plain_ms=plain_ms, bound_ms=bound,
+               bound_by=bound_by, sector_bound_ms=sector_bound, sector_bytes=sector_bytes,
+               library_ms=lib_ms, library_device_ms=lib_dev, bytes=nbytes, flops=flops,
+               launches_per_pair=len(coords), levels=[list(s) for s in shapes], Q=Q,
+               queries_a_block=chosen)
+    if old_source:
+        r1_old, _ = old_raft(Path(old_source))
+        for c in coords:
+            check(torch.equal(r1_old(c, levels, RAFT_RADIUS, od),
+                              raft_lookup.raft_lookup_cuda(c, levels, RAFT_RADIUS, od)),
+                  f"{what}: {old_source}'s R1 differs from the current one")
+
+        def run_old():
+            for c in coords:
+                r1_old(c, levels, RAFT_RADIUS, od)
+
+        turns = {"old": [], "new": []}
+        for who in ("old", "new", "new", "old"):
+            fn = run_old if who == "old" else run
+            turns[who].append((graph_ms(fn, reps=2), device_ms(fn, "raft_lookup_kernel", reps=5),
+                               cuda_ms(fn, reps=5)))
+        row["in_turns"] = {k: {"graph_ms": [t[0] for t in v], "device_ms": [t[1] for t in v],
+                               "events_ms": [t[2] for t in v]} for k, v in turns.items()}
+        log(f"{what}: {old_source} bit for bit the current kernel; in turns old, new, new, old "
+            f"per pair: by CUDA graph old {[round(t[0], 4) for t in turns['old']]}, new "
+            f"{[round(t[0], 4) for t in turns['new']]} ms; on the device old "
+            f"{[_fmt_ms(t[1]) for t in turns['old']]}, new "
+            f"{[_fmt_ms(t[1]) for t in turns['new']]}; by events (host included; the old "
+            f"kernel through ctypes) old {[round(t[2], 4) for t in turns['old']]}, new "
+            f"{[round(t[2], 4) for t in turns['new']]} ms")
+    return row, max_err
 
 
 def phase_cli_train_flow_raft(dev, sweep_warp, local_corr, raft_lookup):
@@ -4516,9 +4677,9 @@ def phase_cli_train_flow_raft(dev, sweep_warp, local_corr, raft_lookup):
     real_step, real_bwd = FlowTrainer.train_step, raft_lookup.raft_lookup_backward_cuda
     rows, timer, captured, calls = [], [], [], []
 
-    def record(coords, levels, dout, radius):
+    def record(coords, levels, dout, radius, grads):
         captured.append((coords.clone(), list(levels), dout.clone()))
-        return real_bwd(coords, levels, dout, radius)
+        return real_bwd(coords, levels, dout, radius, grads)
 
     def timed_step(trainer, *args, **kw):
         calls.append(len(calls) + 1)
@@ -4638,71 +4799,113 @@ def phase_cli_train_flow_raft(dev, sweep_warp, local_corr, raft_lookup):
     return launches, captured
 
 
-def phase_raft_backward(captured, raft_lookup, raft):
+def phase_raft_backward(captured, raft_lookup, raft, old_source=None):
     """R2 against its plain version (`models/raft.py::
-    lookup_correlation_backward_plain`) on the coordinates, pyramid and
-    gradients phase 26's first step gave it (12 calls, b = 4, 256x768), with
-    the gradient in the network's dtype (bf16) and in float32, on a
-    unit-scale random gradient (the captured ones are small, so a wrong
-    kernel fails there by many times the limit) and on coordinates at the
-    clip's bounds and off the frame: every level's gradient bit for bit
-    (float32 terms added in one order, cast once, every element written),
-    the coordinates' to 1e-5 of its largest value (sums of 81 products in a
-    warp's order), two launches bit-identical. Per step (12 launches):
-    device ms or "not measured", CUDA-graph and events ms, the bound (the
-    dense gradient of every level and of the coordinates written once,
-    dout, the coordinates and the in-frame taps read once), the plain
-    version's ms, and the yardstick the port never calls:
-    `grid_sampler_2d_backward` (input and grid gradients) over the four
-    levels, upstream RAFT's gradient (48 calls a step)."""
+    lookup_correlation_backward_accumulate_plain`) on the coordinates,
+    pyramid and gradients phase 26's first step gave it (12 calls, b = 4,
+    256x768), with the gradient in the network's dtype (bf16) and in
+    float32, on a unit-scale random gradient (the captured ones are small,
+    so a wrong kernel fails there by many times the limit), on coordinates
+    at the clip's bounds and off the frame and on the first 7332 queries (a
+    tail block), each adding into accumulators that already hold random
+    values: every level's accumulator bit for bit, the coordinates'
+    gradient to 1e-5 of its largest value (sums of 81 products in a warp's
+    order), two launches bit-identical. The step's whole backward of the
+    lookup (one zero fill of the pyramid's accumulators, then the 12
+    launches, last iteration first) bit for bit the dense plain gradients
+    added in bf16 in that order. Per step: the 12 launches' device ms or "not
+    measured", CUDA-graph and events ms, and the whole backward's; the bound
+    of this interface (the coordinates, dout and the in-frame taps read,
+    the accumulators' in-frame patch elements read and written, d coords
+    written) and of the dense one it replaced; the plain version's ms, and
+    the yardstick the port never calls: `grid_sampler_2d_backward` (input
+    and grid gradients) over the four levels, upstream RAFT's gradient (48
+    calls a step); and the bound with the patch rows of the levels and the
+    accumulators counted in the 32-byte sectors they touch. With `old_source` (an earlier `raft_lookup.cu` whose R2
+    writes each level's gradient densely) its whole backward as autograd
+    ran it, 12 dense launches with each level's bf16 `add_` after the
+    first, bit for bit the new accumulators and timed in turns (old, new,
+    new, old) by CUDA graph and on the device."""
     what = "R2 (RAFT lookup backward)"
+    R_ = RAFT_RADIUS
     levels = captured[0][1]
     shapes = [tuple(t.shape[1:]) for t in levels]
     g = torch.Generator(device=levels[0].device).manual_seed(23)
     max_err, shares = 0.0, []
     c0, _, d0 = captured[0]
     unit = torch.randn(d0.shape, generator=g, device=d0.device)
-    cases = [(c, d, "captured") for c, _, d in captured]
-    cases += [(captured[-1][0], captured[-1][2].float(), "captured, float32 dout"),
-              (c0, unit.to(d0.dtype), "unit-scale"), (c0, unit, "unit-scale, float32 dout"),
-              (_raft_edge_coords(c0, levels), unit.to(d0.dtype), "clip bounds and off the frame")]
-    for c, d, kind in cases:
-        dc, dl = raft_lookup.raft_lookup_backward_cuda(c, levels, d, RAFT_RADIUS)
-        wdl, wdc = raft.lookup_correlation_backward_plain(levels, c, d, RAFT_RADIUS)
-        for i, (a, b) in enumerate(zip(dl, wdl)):
+    tail = _tail(c0, levels, unit.to(d0.dtype))
+    cases = [(c, levels, d, "captured") for c, _, d in captured]
+    cases += [(captured[-1][0], levels, captured[-1][2].float(), "captured, float32 dout"),
+              (c0, levels, unit.to(d0.dtype), "unit-scale"),
+              (c0, levels, unit, "unit-scale, float32 dout"),
+              (_raft_edge_coords(c0, levels), levels, unit.to(d0.dtype),
+               "clip bounds and off the frame"),
+              (*tail, f"the first {tail[0].shape[2]} queries (a tail block)")]
+    for c, lv, d, kind in cases:
+        start = [torch.randn(t.shape, generator=g, device=t.device).to(t.dtype) for t in lv]
+        acc = [a.clone() for a in start]
+        dc = raft_lookup.raft_lookup_backward_cuda(c, lv, d, R_, acc)
+        want = [a.clone() for a in start]
+        wdc = raft.lookup_correlation_backward_accumulate_plain(lv, c, d, R_, want)
+        for i, (a, b) in enumerate(zip(acc, want)):
             err = float((a.float() - b.float()).abs().max())
             max_err = max(max_err, err)
-            check(torch.equal(a, b), f"{what} {kind}: level {i}'s gradient differs from the "
-                  f"plain version by {err}")
+            check(torch.equal(_bits(a), _bits(b)), f"{what} {kind}: level {i}'s accumulator "
+                  f"differs from the plain version's by {err}")
         tol = 1e-5 * float(wdc.abs().max())
         err = float((dc - wdc).abs().max())
         max_err = max(max_err, err)
         shares.append(err / tol if tol else 0.0)
         check(err <= tol, f"{what} {kind}: d coords differ by {err}, beyond {tol}")
-        dc2, dl2 = raft_lookup.raft_lookup_backward_cuda(c, levels, d, RAFT_RADIUS)
-        check(torch.equal(dc, dc2) and all(torch.equal(a, b) for a, b in zip(dl, dl2)),
+        acc2 = [a.clone() for a in start]
+        dc2 = raft_lookup.raft_lookup_backward_cuda(c, lv, d, R_, acc2)
+        check(torch.equal(dc, dc2) and all(torch.equal(_bits(a), _bits(b))
+                                           for a, b in zip(acc, acc2)),
               f"{what} {kind}: two launches differ")
+        del start, acc, want, acc2
     log(f"{what}: {len(cases)} cases (phase 26's {len(captured)} calls in {d0.dtype}, float32 "
-        f"dout, unit-scale, clip bounds and off-frame): the levels' gradients bit for bit the "
-        f"plain version's, d coords within 1e-5 of its largest (largest share of that "
-        f"{max(shares):.3f}); two launches bit-identical")
+        f"dout, unit-scale, clip bounds and off-frame, a tail block), into accumulators holding "
+        f"random values: the accumulators bit for bit the plain version's, d coords within 1e-5 "
+        f"of its largest (largest share of that {max(shares):.3f}); two launches bit-identical")
+
+    def whole():
+        """The lookup's backward of one step: one zero fill, 12 launches."""
+        acc = raft.zeros_like_pyramid(levels)
+        for c, lv, d in reversed(captured):
+            raft_lookup.raft_lookup_backward_cuda(c, lv, d, R_, acc)
+        return acc
+
+    got = whole()
+    dense = None
+    for c, lv, d in reversed(captured):
+        dl, _ = raft.lookup_correlation_backward_plain(lv, c, d, R_)
+        dense = dl if dense is None else [a.add_(b) for a, b in zip(dense, dl)]
+    check(all(torch.equal(_bits(a), _bits(b)) for a, b in zip(got, dense)),
+          f"{what}: the step's accumulated gradient differs from the dense plain gradients "
+          "added in bf16, last iteration first")
+    del dense
+    chosen = raft_lookup.R2_QUERIES
+    log(f"{what}: the step's whole backward (zero fill + {len(captured)} launches) bit for bit "
+        "the dense plain gradients added in bf16, last iteration first")
+
+    acc = raft.zeros_like_pyramid(levels)
 
     def run():
         for c, lv, d in captured:
-            raft_lookup.raft_lookup_backward_cuda(c, lv, d, RAFT_RADIUS)
+            raft_lookup.raft_lookup_backward_cuda(c, lv, d, R_, acc)
 
     def plain():
+        pacc = [torch.zeros_like(t) for t in levels]
         for c, lv, d in captured:
-            raft.lookup_correlation_backward_plain(lv, c, d, RAFT_RADIUS)
+            raft.lookup_correlation_backward_accumulate_plain(lv, c, d, R_, pacc)
 
-    K = (2 * RAFT_RADIUS + 1) ** 2
+    K = (2 * R_ + 1) ** 2
     lib_args = []
     for c, lv, d in captured:
         for i, (t, gr) in enumerate(zip(lv, _raft_grids(c, lv))):
-            gout = d[..., i * K:(i + 1) * K].reshape(-1, 1, 2 * RAFT_RADIUS + 1,
-                                                     2 * RAFT_RADIUS + 1).to(t.dtype)
+            gout = d[..., i * K:(i + 1) * K].reshape(-1, 1, 2 * R_ + 1, 2 * R_ + 1).to(t.dtype)
             lib_args.append((gout, t[:, None], gr))
-
     try:
         torch.ops.aten.grid_sampler_2d_backward(*lib_args[0], 0, 0, True, [True, True])
     except RuntimeError as e:   # a yardstick the port never calls: in float32 where it must
@@ -4717,27 +4920,129 @@ def phase_raft_backward(captured, raft_lookup, raft):
     ms = cuda_ms(run, reps=3)
     graph = graph_ms(run, reps=1)
     dev_ms = device_ms(run, "raft_lookup_backward_kernel", reps=3)
+    whole_graph = graph_ms(whole, reps=1)
+    whole_ms = cuda_ms(whole, reps=3)
+    whole_dev, whole_ops = _profile_sums(_full_profile(whole, ops=len(captured), reps=3))
     plain_ms = cuda_ms(plain, reps=1, warmup=1)
     lib_ms = cuda_ms(library, reps=2, warmup=1)
     lib_dev = _profile_sums(_full_profile(library, reps=2))[0]
+    del lib_args
     isz = levels[0].element_size()
+    Q = c0.numel() // 2
     nbytes, flops = (sum(v) for v in zip(*(_raft_bound(c, shapes, isz, d.element_size(), True)
                                           for c, _, d in captured)))
-    Q = c0.numel() // 2
-    dense = sum(h * w for h, w in shapes) * Q * isz * len(captured)
-    bound, bound_by = _bound_ms(nbytes, flops / F32_FLOPS * 1e3)
+    dense_bytes = sum(_raft_bound(c, shapes, isz, d.element_size(), True, dense=True)[0]
+                      for c, _, d in captured)
+    fill = sum(h * w for h, w in shapes) * Q * isz
+    taps = sum(_raft_taps(c, shapes) for c, _, _ in captured) * isz
+    sectors = sum(_raft_sector_bytes(c, levels) + 2 * _raft_sector_bytes(c, acc)
+                  for c, _, _ in captured)
+    sector_bytes = nbytes - 3 * taps + sectors
+    ops_ms = flops / F32_FLOPS * 1e3
+    bound, bound_by = _bound_ms(nbytes, ops_ms)
+    sector_bound = _bound_ms(sector_bytes, ops_ms)[0]
+    whole_bound = _bound_ms(nbytes + fill, ops_ms)[0]
+    dense_bound = _bound_ms(dense_bytes, ops_ms)[0]
     share = "not measured" if dev_ms is None else f"{100 * bound / dev_ms:.1f}%"
-    log(f"{what} per training step ({len(captured)} launches, Q = {Q}, levels {shapes}): "
-        f"device {_fmt_ms(dev_ms)}, by CUDA graph {graph:.4f} ms, events {ms:.4f} ms; bound "
-        f"{bound:.4f} ms ({bound_by}: {nbytes / 1e6:.2f} MB, of which the dense level gradients "
-        f"{dense / 1e6:.2f} MB; {flops / 1e6:.1f} MFLOP), share {share} on the device, "
-        f"{100 * bound / graph:.1f}% by CUDA graph; plain {plain_ms:.4f} ms; "
-        f"grid_sampler_2d_backward over the four levels {lib_ms:.4f} ms by events, "
-        f"{_fmt_ms(lib_dev)} on the device")
-    return dict(ms=ms, device_ms=dev_ms, graph_ms=graph, plain_ms=plain_ms, bound_ms=bound,
-                bound_by=bound_by, library_ms=lib_ms, library_device_ms=lib_dev, bytes=nbytes,
-                flops=flops, launches_per_step=len(captured), levels=[list(s) for s in shapes],
-                Q=Q), max_err
+    log(f"{what} per training step ({len(captured)} launches, Q = {Q}, levels {shapes}, "
+        f"{chosen} queries a block): device {_fmt_ms(dev_ms)}, by CUDA graph {graph:.4f} ms, "
+        f"events {ms:.4f} ms; bound {bound:.4f} ms ({bound_by}: {nbytes / 1e6:.2f} MB; "
+        f"{flops / 1e6:.1f} MFLOP), share {share} on the device, {100 * bound / graph:.1f}% by "
+        f"CUDA graph; at the 32-byte sectors the patch rows of the levels and accumulators "
+        f"touch {sector_bound:.4f} ms ({sector_bytes / 1e6:.2f} MB), "
+        f"{100 * sector_bound / (dev_ms or graph):.1f}%; the dense interface's bound "
+        f"{dense_bound:.4f} ms ({dense_bytes / 1e6:.2f} MB); the whole backward (zero fill of {fill / 1e6:.2f} MB + {len(captured)} launches): "
+        f"device {_fmt_ms(whole_dev)} in {whole_ops} device operations, by CUDA graph "
+        f"{whole_graph:.4f} ms, events {whole_ms:.4f} ms, bound {whole_bound:.4f} ms; plain "
+        f"{plain_ms:.4f} ms; grid_sampler_2d_backward over the four levels {lib_ms:.4f} ms by "
+        f"events, {_fmt_ms(lib_dev)} on the device")
+    row = dict(ms=ms, device_ms=dev_ms, graph_ms=graph, plain_ms=plain_ms, bound_ms=bound,
+               bound_by=bound_by, sector_bound_ms=sector_bound, sector_bytes=sector_bytes,
+               dense_bound_ms=dense_bound, library_ms=lib_ms,
+               library_device_ms=lib_dev, bytes=nbytes, flops=flops,
+               launches_per_step=len(captured), levels=[list(s) for s in shapes], Q=Q,
+               queries_a_block=chosen,
+               whole_backward=dict(device_ms=whole_dev, device_ops=whole_ops,
+                                   graph_ms=whole_graph, events_ms=whole_ms,
+                                   bound_ms=whole_bound, fill_bytes=fill))
+    if old_source:
+        _, r2_old = old_raft(Path(old_source))
+
+        def old_whole():
+            """The earlier path: 12 dense launches, autograd's bf16 adds."""
+            total = None
+            for c, lv, d in reversed(captured):
+                dl = r2_old(c, lv, d, R_)[1]
+                total = dl if total is None else [a.add_(b) for a, b in zip(total, dl)]
+            return total
+
+        check(all(torch.equal(_bits(a), _bits(b)) for a, b in zip(old_whole(), got)),
+              f"{what}: {old_source}'s dense gradients added in bf16 differ from the new "
+              "accumulators")
+        for c, lv, d in captured[:2]:
+            want = r2_old(c, lv, d, R_)[0]
+            scratch = raft.zeros_like_pyramid(lv)
+            err = float((raft_lookup.raft_lookup_backward_cuda(c, lv, d, R_, scratch) - want)
+                        .abs().max())
+            check(err <= 1e-5 * float(want.abs().max()), f"{what}: d coords differ from "
+                  f"{old_source}'s by {err}")
+        turns = {"old": [], "new": []}
+        n_old = len(captured) + (len(captured) - 1) * len(levels)   # launches, adds
+        for who in ("old", "new", "new", "old"):
+            fn, ops = (old_whole, n_old) if who == "old" else (whole, len(captured) + 1)
+            turns[who].append((graph_ms(fn, reps=1),
+                               _profile_sums(_full_profile(fn, ops=ops, reps=3))[0]))
+        row["in_turns"] = {k: {"graph_ms": [t for t, _ in v], "device_ms": [d for _, d in v]}
+                           for k, v in turns.items()}
+        log(f"{what}: {old_source}'s whole backward ({len(captured)} dense launches, then each "
+            "level's bf16 add_, last iteration first) bit for bit the new accumulators; in turns "
+            f"old, new, new, old per step: by CUDA graph old "
+            f"{[round(t, 4) for t, _ in turns['old']]}, new "
+            f"{[round(t, 4) for t, _ in turns['new']]} ms; on the device old "
+            f"{[_fmt_ms(d) for _, d in turns['old']]}, new {[_fmt_ms(d) for _, d in turns['new']]}")
+    return row, max_err
+
+
+# the oracle-pose route with `pose.estimator=GT` (fault C.2): no flow, no
+# pose estimate; PSNet's sweep once a pair (`_all_counters`' order)
+GT_PER_PAIR = (0, SWEEP_PER_PAIR) + (0,) * 10
+
+
+def phase_cli_gt(dev, sweep_warp, local_corr, raft_lookup):
+    """`cli.main -v --override pose.estimator=GT use_gt_pose=True` on a
+    golden KITTI raw tree rendered at 370x1224 (padded to 384x1280, bf16):
+    SFMNet builds no pose net, runs no flow net and conditions PSNet on the
+    ground-truth pose; the launch counts go to 0 before it, and each pair
+    launches the sweep once and nothing else; the 9 Eigen metrics, finite.
+    Returns the launches (`_all_counters`' order)."""
+    from deep_sfm_revisited_tpu_torch import cli
+    from deep_sfm_revisited_tpu_torch.data.synthetic import write_kitti_raw_tree
+
+    what = "cli GT pose"
+    counters = _all_counters(sweep_warp, local_corr, raft_lookup)
+    with tempfile.TemporaryDirectory() as tmp:
+        root = f"{tmp}/kitti_raw"
+        write_kitti_raw_tree(root, n_frames=PAIRS + 2, hw=(370, 1224), focal=K_KITTI[0][0],
+                             n_test=PAIRS + 1)
+        argv = ["--data", root, "--cfg", "kitti", "-v", "--gt-depth-dir", f"{root}/gt_depth",
+                "--out", f"{tmp}/out", "--workers", "4", "--override", "pose.estimator=GT",
+                "use_gt_pose=True"]
+        log(f"{what}: cli.main(" + json.dumps(argv).replace(tmp, "<tmp>") + ")")
+        for k in counters:
+            k.launches = 0
+        t0 = time.perf_counter()
+        results = cli.main(argv)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = _launches(*counters)
+    pairs = PAIRS + 1
+    check(launches == tuple(pairs * n for n in GT_PER_PAIR), f"{what}: {pairs} pairs launched "
+          f"{launches}, expected {GT_PER_PAIR} a pair")
+    check(set(results) == EIGEN_KEYS, f"{what}: metrics {sorted(results)}")
+    check(all(math.isfinite(v) for v in results.values()), f"{what}: metrics {results}")
+    log(f"{what}: {pairs} pairs in {wall:.2f} s (cli.main), launches {launches}; metrics "
+        f"{json.dumps(results)}")
+    return launches
 
 
 def main(argv=None) -> int:
@@ -4761,6 +5066,10 @@ def main(argv=None) -> int:
     ap.add_argument("--old-b2-backward", default=None,
                     help="an earlier csrc/warped_corr_backward.cu (without mapping arguments) "
                          "whose backward kernels phase 22 times in turns with the current ones")
+    ap.add_argument("--old-raft", default=None,
+                    help="an earlier csrc/raft_lookup.cu (one block a query, R2 writing dense "
+                         "level gradients) whose R1 phase 25 and whose whole backward, with "
+                         "autograd's adds, phase 27 time in turns with the current ones")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's smoke run needs one", file=sys.stderr)
@@ -4849,16 +5158,18 @@ def main(argv=None) -> int:
     phase_small_raft_reference(dev, raft_lookup)
     with torch.no_grad():
         raft_eval, cap_raft = phase_cli_raft(dev, sweep_warp, local_corr, raft_lookup)
-        r1_call, r1_err = phase_raft_lookup(cap_raft, raft_lookup, raft)
+        r1_call, r1_err = phase_raft_lookup(cap_raft, raft_lookup, raft, args.old_raft)
     del cap_raft
     # the eval path does not train RAFT: no R2
     check(raft_lookup.LOOKUP_BACKWARD.launches == 0, "the RAFT eval path launched R2 "
           f"{raft_lookup.LOOKUP_BACKWARD.launches} times")
     raft_flow, cap_r2 = phase_cli_train_flow_raft(dev, sweep_warp, local_corr, raft_lookup)
     with torch.no_grad():
-        r2_call, r2_err = phase_raft_backward(cap_r2, raft_lookup, raft)
+        r2_call, r2_err = phase_raft_backward(cap_r2, raft_lookup, raft, args.old_raft)
     del cap_r2
     log(f"chip_smoke: the RAFT phases 23-27 took {time.perf_counter() - t_raft:.1f} s")
+    with torch.no_grad():
+        gt_eval = phase_cli_gt(dev, sweep_warp, local_corr, raft_lookup)
     names = ("gather", "sweep", "backward", "pose_grad", "volume", "volume_backward", "warped",
              "b2", "b2_backward", "warped_backward", "raft_lookup", "raft_lookup_backward")
 
@@ -4877,7 +5188,8 @@ def main(argv=None) -> int:
                # `_all_counters`' order: B1's six, B2, its backward, the warped
                # correlation, its backward, R1, R2
                **{k: path(v[:6] + (v[8], v[6], v[7], v[9], v[10], v[11]))
-                  for k, v in (("cli_eval_raft", raft_eval), ("cli_train_flow_raft", raft_flow))}}
+                  for k, v in (("cli_eval_raft", raft_eval), ("cli_train_flow_raft", raft_flow),
+                               ("cli_eval_gt", gt_eval))}}
 
     def launches(kernel):
         counts = {k: v[kernel] for k, v in by_path.items()}
@@ -4986,6 +5298,7 @@ def main(argv=None) -> int:
           and r1["launches_by_path"]["cli_train_flow_raft"] > 0
           and r2["launches_by_path"]["cli_train_flow_raft"] > 0,
           "RAFT's paths launched no R1 or no R2")
+    check(sweep["launches_by_path"]["cli_eval_gt"] > 0, "the GT-pose path launched no sweep")
     for k in kernels:
         lib = "none" if k["library_ms"] is None else f"{k['library_ms']:.4f} ms"
         dev = "not measured" if k["device_ms"] is None else f"{k['device_ms']:.4f} ms"

@@ -98,16 +98,18 @@ at::Tensor raft_lookup(const at::Tensor& coords, at::TensorList levels, int64_t 
                                    static_cast<int>(n), coords.data_ptr(), out.data_ptr(), Q,
                                    static_cast<int>(radius),
                                    levels[0].scalar_type() == at::kBFloat16,
-                                   out_dtype == at::kBFloat16, current_stream(coords.device()));
+                                   out_dtype == at::kBFloat16,
+                                   current_stream(coords.device()));
   TORCH_CHECK(err == 0, what, " launch failed: cudaError ", err);
   return out;
 }
 
 // As raft_lookup, with dout (B, h, w, L (2 radius + 1)^2) float32 or
-// bfloat16 -> [d coords (B, h, w, 2) float32, d level 0, ..., d level L-1]
-// (each the level's shape and dtype): R2.
-std::vector<at::Tensor> raft_lookup_backward(const at::Tensor& coords, at::TensorList levels,
-                                             const at::Tensor& dout, int64_t radius) {
+// bfloat16: adds each query's patch gradient into grads (one accumulator a
+// level of its level's shape and dtype, contiguous) in place and returns d
+// coords (B, h, w, 2) float32: R2.
+at::Tensor raft_lookup_backward(const at::Tensor& coords, at::TensorList levels,
+                                const at::Tensor& dout, at::TensorList grads, int64_t radius) {
   const char* what = "R2 (the RAFT lookup's backward)";
   std::vector<const void*> ptrs;
   std::vector<int> heights, widths;
@@ -123,29 +125,36 @@ std::vector<at::Tensor> raft_lookup_backward(const at::Tensor& coords, at::Tenso
                         dout.size(3) == n * K && dout.is_contiguous(),
                     what, " takes a contiguous dout (", coords.size(0), ", ", coords.size(1),
                     ", ", coords.size(2), ", ", n * K, "); got ", dout.sizes());
-  c10::OptionalDeviceGuard guard(coords.device());
-  std::vector<at::Tensor> out;
-  out.push_back(at::empty_like(coords));
-  std::vector<void*> grads;
-  for (int64_t i = 0; i < n; ++i) {
-    out.push_back(at::empty_like(levels[i]));
-    grads.push_back(out.back().data_ptr());
+  TORCH_CHECK_VALUE(static_cast<int64_t>(grads.size()) == n, what,
+                    " takes one accumulator a level; got ", grads.size());
+  std::vector<void*> gptrs;
+  for (size_t i = 0; i < grads.size(); ++i) {
+    const at::Tensor& t = grads[i];
+    TORCH_CHECK_VALUE(t.device() == coords.device() &&
+                          t.scalar_type() == levels[i].scalar_type() &&
+                          t.sizes() == levels[i].sizes() && t.is_contiguous(),
+                      what, " accumulator ", i, " must be contiguous, of level ", i,
+                      "'s shape and dtype on its device; got ", t.scalar_type(), " ",
+                      t.sizes(), " on ", t.device());
+    gptrs.push_back(t.data_ptr());
   }
+  c10::OptionalDeviceGuard guard(coords.device());
+  at::Tensor dcoords = at::empty_like(coords);
   const int err = dsfm_raft_lookup_backward(
-      ptrs.data(), grads.data(), heights.data(), widths.data(), static_cast<int>(n),
-      coords.data_ptr(), dout.data_ptr(), out[0].data_ptr(), Q, static_cast<int>(radius),
-      levels[0].scalar_type() == at::kBFloat16, dout.scalar_type() == at::kBFloat16,
-      current_stream(coords.device()));
+      ptrs.data(), gptrs.data(), heights.data(), widths.data(),
+      static_cast<int>(n), coords.data_ptr(), dout.data_ptr(), dcoords.data_ptr(), Q,
+      static_cast<int>(radius), levels[0].scalar_type() == at::kBFloat16,
+      dout.scalar_type() == at::kBFloat16, current_stream(coords.device()));
   TORCH_CHECK(err == 0, what, " launch failed: cudaError ", err);
-  return out;
+  return dcoords;
 }
 
 }  // namespace
 
 TORCH_LIBRARY(dsfm_raft, m) {
   m.def("raft_lookup(Tensor coords, Tensor[] levels, int radius, ScalarType out_dtype) -> Tensor");
-  m.def("raft_lookup_backward(Tensor coords, Tensor[] levels, Tensor dout, int radius) -> "
-        "Tensor[]");
+  m.def("raft_lookup_backward(Tensor coords, Tensor[] levels, Tensor dout, Tensor(a!)[] grads, "
+        "int radius) -> Tensor");
 }
 
 // Registered for every dispatch key: a CPU tensor reaches the checks, which

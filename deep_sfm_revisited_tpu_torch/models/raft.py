@@ -31,10 +31,13 @@ upstream the port follows JAX:
 The lookup is `RaftLookupFn`: on CUDA tensors kernel R1 and, in its
 backward, R2 (`ops/cuda/raft_lookup.py`, source `csrc/raft_lookup.cu`), one
 launch of each an iteration over all levels; on CPU tensors the plain
-versions `lookup_correlation_plain` and `lookup_correlation_backward_plain`,
-which the CPU tests hold to the JAX function and its `jax.vjp`. The pyramid
-is kept unpadded: the lookup zero-fills, so JAX's 11-pixel pad is never
-made.
+versions `lookup_correlation_plain` and
+`lookup_correlation_backward_accumulate_plain`, which the CPU tests hold to
+the JAX function and its `jax.vjp`. The iterations' lookups of one forward
+add their level gradients into one pyramid gradient (`PyramidGrad`), in
+place, in the order autograd's sum of dense gradients would add them. The
+pyramid is kept unpadded: the lookup zero-fills, so JAX's 11-pixel pad is
+never made.
 
 Layouts: `RAFT.forward` takes (B, H, W, 6) NHWC in [-1, 1], H and W
 multiples of 8 (`check_size`), and returns (flow (B, H, W, 2) float32, None),
@@ -232,7 +235,9 @@ def lookup_correlation_backward_plain(levels: Sequence[torch.Tensor], coords: to
     float32 in that order, as JAX's transpose adds the float32 patch's
     cotangents; placed at the taps on the level, zero elsewhere; and
         d x = sum_i clip'(x / 2^i) (dfx_i - d(1-fx)_i) / 2^i
-    with d w_kl = sum over the window of g p_kl (y likewise).
+    with d w_kl = sum over the window of g p_kl (y likewise). R2 adds this gradient into an
+    accumulator (`lookup_correlation_backward_accumulate_plain`); this dense
+    form is the reference the tests hold that one to.
     """
     B, h, w, _ = coords.shape
     Q, r, S, D = B * h * w, radius, 2 * radius + 2, 2 * radius + 1
@@ -267,21 +272,105 @@ def lookup_correlation_backward_plain(levels: Sequence[torch.Tensor], coords: to
     return dlevels, dcoords.to(coords.dtype).reshape(coords.shape)
 
 
+def lookup_correlation_backward_accumulate_plain(levels: Sequence[torch.Tensor],
+                                                 coords: torch.Tensor, dout: torch.Tensor,
+                                                 radius: int, grads: Sequence[torch.Tensor]):
+    """Kernel R2's plain PyTorch version: `lookup_correlation_backward_plain`
+    added into one accumulator a level (`grads`, each of its level's shape
+    and dtype) in place, each element as
+        buf = round(float(buf) + float(round(d p)))
+    (round: to the levels' dtype; float: at least float32), what adding the
+    dense gradients in that dtype gives. Returns d coords."""
+    dlevels, dcoords = lookup_correlation_backward_plain(levels, coords, dout, radius)
+    for acc, d in zip(grads, dlevels):
+        cdt = torch.promote_types(acc.dtype, torch.float32)
+        acc.copy_((acc.to(cdt) + d.to(cdt)).to(acc.dtype))
+    return dcoords
+
+
+def zeros_like_pyramid(levels: Sequence[torch.Tensor]) -> List[torch.Tensor]:
+    """One contiguous zero tensor a level, views of one buffer filled at
+    once (each level starting on 128 bytes)."""
+    offsets, n = [], 0
+    for lv in levels:
+        offsets.append(n)
+        n += -(-lv.numel() * lv.element_size() // 128) * 128 // lv.element_size()
+    flat = torch.zeros(n, dtype=levels[0].dtype, device=levels[0].device)
+    return [flat[o:o + lv.numel()].view(lv.shape) for o, lv in zip(offsets, levels)]
+
+
+class PyramidGrad:
+    """One gradient of the correlation pyramid for all the lookups of one
+    RAFT forward, which its iterations' lookups add into in place (JAX's
+    scan transpose adds the iterations' level gradients likewise, in the
+    levels' dtype, last iteration first).
+
+    Each lookup registers in its forward (`register`, 0, 1, ...). In a
+    backward pass the lookups come last-registered first (autograd's order:
+    each iteration's coordinates depend on the iteration before, so lookup
+    i's gradient needs lookup i+1's); the first to come zero-fills one
+    accumulator a level (`begin`), each adds into them, and lookup 0, which
+    every pass through a RAFT forward reaches, hands them to autograd and
+    ends the pass (`end`); the others hand None. A lookup out of that order,
+    or a pass that ends without lookup 0, raises: the pyramid's gradient
+    would be wrong. A second backward through the same graph starts a new
+    pass with fresh accumulators."""
+
+    def __init__(self):
+        self.count = 0
+        self.grads = None
+        self.last = None
+
+    def register(self) -> int:
+        self.count += 1
+        return self.count - 1
+
+    def begin(self, index: int, levels: Sequence[torch.Tensor]) -> List[torch.Tensor]:
+        """The accumulators lookup `index` adds into."""
+        if self.grads is None:
+            self.grads = zeros_like_pyramid(levels)
+            torch.autograd.Variable._execution_engine.queue_callback(self._check_ended)
+        elif index >= self.last:
+            self.grads = None
+            raise RuntimeError(f"RAFT's lookups ran their backward out of order: lookup {index} "
+                               f"after lookup {self.last} in one pass (the pyramid's gradient "
+                               "is added last iteration first)")
+        self.last = index
+        return self.grads
+
+    def end(self, index: int) -> List[torch.Tensor | None]:
+        """What lookup `index` hands autograd for the levels."""
+        if index:
+            return [None] * len(self.grads)
+        grads, self.grads, self.last = self.grads, None, None
+        return grads
+
+    def _check_ended(self) -> None:
+        if self.grads is not None:
+            last, self.grads, self.last = self.last, None, None
+            raise RuntimeError(f"a backward pass reached RAFT's lookups down to lookup {last} "
+                               "but not lookup 0, which hands the pyramid's gradient to "
+                               "autograd: the gradient would be lost")
+
+
 class RaftLookupFn(torch.autograd.Function):
     """The lookup and its gradient in the levels and the coordinates:
     kernels R1 and R2 on CUDA tensors, `lookup_correlation_plain` and
-    `lookup_correlation_backward_plain` on CPU tensors. The window comes
-    out in `out_dtype` (the network's dtype). Each call's level gradients
-    are dense, in the levels' dtype; autograd sums them over the
-    iterations, as the transpose of JAX's scan does."""
+    `lookup_correlation_backward_accumulate_plain` on CPU tensors. The
+    window comes out in `out_dtype` (the network's dtype). The level
+    gradients go into `acc`, the `PyramidGrad` shared by the lookups of one
+    RAFT forward (a lookup without one gets its own; where the levels need
+    no gradient, what it adds is dropped)."""
 
     @staticmethod
-    def forward(ctx, coords, radius, out_dtype, *levels):
+    def forward(ctx, coords, radius, out_dtype, acc, *levels):
         if coords.is_cuda:
             out = raft_lookup.raft_lookup_cuda(coords, levels, radius, out_dtype)
         else:
             out = lookup_correlation_plain(levels, coords, radius).to(out_dtype)
         ctx.radius = radius
+        ctx.acc = PyramidGrad() if acc is None else acc
+        ctx.index = ctx.acc.register()
         ctx.save_for_backward(coords, *levels)
         return out
 
@@ -289,21 +378,25 @@ class RaftLookupFn(torch.autograd.Function):
     @once_differentiable
     def backward(ctx, dout):
         coords, *levels = ctx.saved_tensors
-        if dout.is_cuda:
-            dcoords, dlevels = raft_lookup.raft_lookup_backward_cuda(coords, levels, dout,
-                                                                     ctx.radius)
-        else:
-            dlevels, dcoords = lookup_correlation_backward_plain(levels, coords, dout, ctx.radius)
         need = ctx.needs_input_grad
-        return (dcoords if need[0] else None, None, None,
-                *(d if n else None for d, n in zip(dlevels, need[3:])))
+        grads = ctx.acc.begin(ctx.index, levels)
+        if dout.is_cuda:
+            dcoords = raft_lookup.raft_lookup_backward_cuda(coords, levels, dout, ctx.radius,
+                                                            grads)
+        else:
+            dcoords = lookup_correlation_backward_accumulate_plain(levels, coords, dout,
+                                                                   ctx.radius, grads)
+        dlevels = ctx.acc.end(ctx.index)
+        return (dcoords if need[0] else None, None, None, None,
+                *(d if n else None for d, n in zip(dlevels, need[4:])))
 
 
 def lookup_correlation(levels: Sequence[torch.Tensor], coords: torch.Tensor, radius: int,
-                       out_dtype: torch.dtype) -> torch.Tensor:
+                       out_dtype: torch.dtype, acc: PyramidGrad | None = None) -> torch.Tensor:
     """The lookup through `RaftLookupFn` (JAX `lookup_correlation(...)
-    .astype(out_dtype)`): (B, h, w, L (2r+1)^2) in `out_dtype`."""
-    return RaftLookupFn.apply(coords.contiguous(), radius, out_dtype, *levels)
+    .astype(out_dtype)`): (B, h, w, L (2r+1)^2) in `out_dtype`; its level
+    gradients go into `acc` where given."""
+    return RaftLookupFn.apply(coords.contiguous(), radius, out_dtype, acc, *levels)
 
 
 class SepConvGRU(nn.Module):
@@ -452,8 +545,10 @@ class RAFT(nn.Module):
         coords1 = coords0.contiguous()
         iters = cfg.raft_iters_train if self.training else cfg.raft_iters_eval
         flows, masks = [], []
+        # the iterations' lookups add into one pyramid gradient
+        acc = PyramidGrad() if torch.is_grad_enabled() and pyramid[0].requires_grad else None
         for _ in range(iters):
-            corr = lookup_correlation(pyramid, coords1, cfg.raft_corr_radius, d)
+            corr = lookup_correlation(pyramid, coords1, cfg.raft_corr_radius, d, acc)
             flow = (coords1 - coords0).to(d)
             net, mask, dflow = self.update_block(net, inp, corr.permute(0, 3, 1, 2),
                                                  flow.permute(0, 3, 1, 2), need_mask=all_iters)

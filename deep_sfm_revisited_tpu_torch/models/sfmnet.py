@@ -12,7 +12,9 @@ Routes: online RANSAC with the entropy, texture (Shi-Tomasi score of the
 ref image) or uniform sampler; PoseNet regression (`pose.estimator=
 "POSENET"`, `PlainPose` fed the flow and DICL's entropy, its `rt` output
 returned for the pose loss); `use_gt_pose`; and pre-saved poses
-(`pred_pose_online=False`). Everything else the JAX composite offers raises
+(`pred_pose_online=False`). `pose.estimator="GT"` builds no pose net, as
+JAX's composite: it takes the last two routes and raises on an online
+forward, as JAX's does. Everything else the JAX composite offers raises
 NotImplementedError (ROADMAP.md lists what is still to port).
 
 Train mode (`model.train()`, JAX `train=True`, `sfmnet.py:163-170`): the
@@ -58,7 +60,7 @@ def _check_supported(cfg: SfMConfig) -> None:
     unsupported = {
         "flow.estimator": cfg.flow.estimator not in FLOW_NETS,
         "depth.estimator": cfg.depth.estimator != "PSNET",
-        "pose.estimator": cfg.pose.estimator not in ("RANSAC", "POSENET"),
+        "pose.estimator": cfg.pose.estimator not in ("RANSAC", "POSENET", "GT"),
         "pose.sampler": cfg.pose.sampler not in ("entropy", "texture", "uniform"),
         "pose.differentiable": cfg.pose.differentiable,
     }
@@ -140,6 +142,9 @@ class SFMNet(nn.Module):
         "gumbel_u": (B, 4N) in [1e-12, 1), "sample_idx": (B, H, 5)}.
         """
         cfg = self.cfg
+        if cfg.pose.estimator == "GT" and not use_gt_pose and cfg.pred_pose_online:
+            raise NotImplementedError("pose.estimator = 'GT' estimates no pose online: it takes "
+                                      "use_gt_pose=True or pred_pose_online=False")
         train, grad = self.training, torch.is_grad_enabled()
         rt = conf = None
         with torch.no_grad():

@@ -1343,38 +1343,101 @@ def test_raft_lookup_matches_plain_on_card(shape, out_dtype, level_dtype):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("level_dtype", ["bfloat16", "float32"])
-@pytest.mark.parametrize("dout_dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("shape", RAFT_CASES)
-def test_raft_lookup_backward_matches_plain_on_card(shape, dout_dtype, level_dtype):
-    """R2: every level's gradient bit for bit the plain version's (float32
-    terms added in one order, cast once; every element written, zeros
-    where no tap lands); the coordinates' gradient to 1e-5 of its largest
-    value (sums of 81 products in a warp's order)."""
+def test_raft_lookup_levels_off_a_word_match_plain_on_card():
+    """R1 bit for bit at the eval shape and at one whose Q (234) is no
+    multiple of the queries a block (a tail block), bf16 levels with the
+    first level one element off a 4-byte word (its rows' phase flips)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     from deep_sfm_revisited_tpu_torch.models import raft as traft
     from deep_sfm_revisited_tpu_torch.ops.cuda import raft_lookup
 
-    levels, coords = _raft_inputs(*shape, getattr(torch, level_dtype), seed=1)
+    assert 234 % raft_lookup.R1_QUERIES
+    for shape in ((1, 48, 160), (2, 9, 13)):
+        levels, coords = _raft_inputs(*shape, torch.bfloat16, seed=4)
+        Q = shape[0] * shape[1] * shape[2]
+        odd = torch.empty(Q * levels[0][0].numel() + 1, dtype=torch.bfloat16, device="cuda")
+        levels[0] = odd[1:].view_as(levels[0]).copy_(levels[0])
+        for od in (torch.bfloat16, torch.float32):
+            got = raft_lookup.raft_lookup_cuda(coords, levels, 4, od)
+            ref = traft.lookup_correlation_plain(levels, coords, 4).to(od)
+            torch.testing.assert_close(got, ref, rtol=0, atol=0)
+
+
+def _bits(t):
+    return t.view(torch.int16 if t.dtype == torch.bfloat16 else torch.int32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("level_dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("dout_dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", RAFT_CASES)
+def test_raft_lookup_backward_matches_plain_on_card(shape, dout_dtype, level_dtype):
+    """R2 adds each level's gradient into an accumulator that already holds
+    values: bit for bit the accumulating plain version from the same start
+    (float32 terms added in one order, rounded to the levels' dtype, added
+    to the accumulator in float32 and rounded again; elements no tap
+    reaches untouched); the coordinates' gradient to 1e-5 of its largest
+    value (sums of 81 products in a fixed order), the same from a second
+    launch."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from deep_sfm_revisited_tpu_torch.models import raft as traft
+    from deep_sfm_revisited_tpu_torch.ops.cuda import raft_lookup
+
+    ld = getattr(torch, level_dtype)
+    levels, coords = _raft_inputs(*shape, ld, seed=1)
     g = torch.Generator(device="cuda").manual_seed(2)
     dout = torch.randn(*shape, 324, device="cuda", generator=g).to(getattr(torch, dout_dtype))
+    start = [torch.randn(lv.shape, device="cuda", generator=g).to(ld) for lv in levels]
+    acc = [a.clone() for a in start]
     before = raft_lookup.LOOKUP_BACKWARD.launches
-    dc, dl = raft_lookup.raft_lookup_backward_cuda(coords, levels, dout, 4)
+    dc = raft_lookup.raft_lookup_backward_cuda(coords, levels, dout, 4, acc)
     torch.cuda.synchronize()
     assert raft_lookup.LOOKUP_BACKWARD.launches == before + 1
-    wdl, wdc = traft.lookup_correlation_backward_plain(levels, coords, dout, 4)
-    for got, want in zip(dl, wdl):
-        assert got.dtype == want.dtype and got.shape == want.shape
-        torch.testing.assert_close(got, want, rtol=0, atol=0)
+    want = [a.clone() for a in start]
+    wdc = traft.lookup_correlation_backward_accumulate_plain(levels, coords, dout, 4, want)
+    for got, w in zip(acc, want):
+        assert got.dtype == ld and torch.equal(_bits(got), _bits(w))
     assert dc.dtype == torch.float32 and dc.shape == coords.shape
     torch.testing.assert_close(dc, wdc, rtol=0, atol=1e-5 * float(wdc.abs().max()))
+    again = [a.clone() for a in start]
+    assert torch.equal(raft_lookup.raft_lookup_backward_cuda(coords, levels, dout, 4, again), dc)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("calls", [2, 12])
+@pytest.mark.parametrize("shape", [(4, 32, 96), (2, 9, 13)])
+def test_raft_lookup_backward_adds_across_calls_on_card(shape, calls):
+    """`calls` launches of R2 (the iterations of one backward pass, last
+    first) into one zero-filled accumulator a level: bit for bit the dense
+    plain gradients added in bf16 in that order (what autograd's sum gave);
+    at the training step's shape and at one with a tail block (Q = 234) and
+    levels of odd size (updated element by element)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from deep_sfm_revisited_tpu_torch.models import raft as traft
+    from deep_sfm_revisited_tpu_torch.ops.cuda import raft_lookup
+
+    levels, coords = _raft_inputs(*shape, torch.bfloat16, seed=5)
+    g = torch.Generator(device="cuda").manual_seed(6)
+    acc = [torch.zeros_like(lv) for lv in levels]
+    dense = None
+    for i in range(calls):
+        c = coords + 0.37 * i
+        d = torch.randn(*shape, 324, device="cuda", generator=g).to(torch.bfloat16)
+        raft_lookup.raft_lookup_backward_cuda(c, levels, d, 4, acc)
+        dl, _ = traft.lookup_correlation_backward_plain(levels, c, d, 4)
+        dense = dl if dense is None else [a + b for a, b in zip(dense, dl)]
+    torch.cuda.synchronize()
+    for got, want in zip(acc, dense):
+        assert torch.equal(_bits(got), _bits(want))
 
 
 @pytest.mark.cuda
 def test_raft_lookup_autograd_launches_both_kernels():
     """`RaftLookupFn` on CUDA tensors: one R1 launch forward, one R2 launch
-    backward, its gradients R2's."""
+    backward into a zero-filled accumulator, its gradients R2's."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     from deep_sfm_revisited_tpu_torch.models import raft as traft
@@ -1390,11 +1453,131 @@ def test_raft_lookup_autograd_launches_both_kernels():
     torch.cuda.synchronize()
     assert raft_lookup.LOOKUP.launches == f0 + 1
     assert raft_lookup.LOOKUP_BACKWARD.launches == b0 + 1
-    dc, dl = raft_lookup.raft_lookup_backward_cuda(coords.detach(),
-                                                   [lv.detach() for lv in levels], dout, 4)
+    acc = [torch.zeros_like(lv) for lv in levels]
+    dc = raft_lookup.raft_lookup_backward_cuda(coords.detach(), [lv.detach() for lv in levels],
+                                               dout, 4, acc)
     assert torch.equal(grads[0], dc)
-    for got, want in zip(grads[1:], dl):
+    for got, want in zip(grads[1:], acc):
         assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+def test_raft_training_step_on_card_launches_r2_into_one_pyramid_gradient():
+    """A 3-iteration RAFT training step on the card: R1 and R2 three times
+    each, the pyramid's gradient finite and non-zero, every parameter
+    reached."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from deep_sfm_revisited_tpu_torch.config import SfMConfig
+    from deep_sfm_revisited_tpu_torch.models import raft as traft
+    from deep_sfm_revisited_tpu_torch.ops.cuda import raft_lookup
+
+    cfg = SfMConfig.kitti().override(**{"flow.estimator": "RAFT", "flow.raft_iters_train": 3})
+    torch.manual_seed(0)
+    net = traft.RAFT(cfg.flow).cuda().train()
+    pair = torch.rand((2, 64, 96, 6), device="cuda") * 2 - 1
+    f0, b0 = raft_lookup.LOOKUP.launches, raft_lookup.LOOKUP_BACKWARD.launches
+    with torch.autocast("cuda", torch.bfloat16):
+        flows, _ = net(pair, all_iters=True)
+    flows.float().abs().mean().backward()
+    torch.cuda.synchronize()
+    assert (raft_lookup.LOOKUP.launches - f0, raft_lookup.LOOKUP_BACKWARD.launches - b0) == (3, 3)
+    for k, p in net.named_parameters():
+        assert p.grad is not None and torch.isfinite(p.grad).all() and p.grad.abs().max() > 0, k
+
+
+class _DenseCardLookupFn(torch.autograd.Function):
+    """The lookup as the port ran it before the accumulators: R1 forward,
+    and a backward that launches R2 into fresh zero accumulators on every
+    call and returns them as dense level gradients, which autograd adds."""
+
+    @staticmethod
+    def forward(ctx, coords, radius, out_dtype, acc, *levels):
+        from deep_sfm_revisited_tpu_torch.ops.cuda import raft_lookup
+
+        ctx.radius = radius
+        ctx.save_for_backward(coords, *levels)
+        return raft_lookup.raft_lookup_cuda(coords, levels, radius, out_dtype)
+
+    @staticmethod
+    def backward(ctx, dout):
+        from deep_sfm_revisited_tpu_torch.ops.cuda import raft_lookup
+
+        coords, *levels = ctx.saved_tensors
+        dense = [torch.zeros_like(lv) for lv in levels]
+        dc = raft_lookup.raft_lookup_backward_cuda(coords, levels, dout.contiguous(), ctx.radius,
+                                                   dense)
+        return (dc, None, None, None, *dense)
+
+
+def _raft_card_step(iters=3):
+    """Parameter and pyramid gradients of a RAFT training step on the card
+    (float32, b = 2, 64x96, the `all_iters` stack under a sequence loss),
+    and the R1 and R2 launches it made."""
+    from deep_sfm_revisited_tpu_torch.config import SfMConfig
+    from deep_sfm_revisited_tpu_torch.models import raft as traft
+    from deep_sfm_revisited_tpu_torch.ops.cuda import raft_lookup
+
+    cfg = SfMConfig.kitti().override(**{"flow.estimator": "RAFT",
+                                        "flow.raft_iters_train": iters})
+    torch.manual_seed(0)
+    net = traft.RAFT(cfg.flow).cuda().train()
+    g = torch.Generator().manual_seed(1)
+    pair = (torch.rand((2, 64, 96, 6), generator=g) * 2 - 1).cuda()
+    gt = (torch.randn((2, 64, 96, 2), generator=g) + 2).cuda()
+    pyramids, real = [], traft.correlation_pyramid
+
+    def keep(*a, **kw):
+        levels = real(*a, **kw)
+        for lv in levels:
+            lv.retain_grad()
+        pyramids.append(levels)
+        return levels
+
+    f0, b0 = raft_lookup.LOOKUP.launches, raft_lookup.LOOKUP_BACKWARD.launches
+    traft.correlation_pyramid = keep
+    try:
+        flows, _ = net(pair, all_iters=True)
+    finally:
+        traft.correlation_pyramid = real
+    n = flows.shape[0]
+    loss = sum(0.8 ** (n - i - 1) * (flows[i] - gt).abs().mean() for i in range(n))
+    loss.backward()
+    torch.cuda.synchronize()
+    launches = (raft_lookup.LOOKUP.launches - f0, raft_lookup.LOOKUP_BACKWARD.launches - b0)
+    return ({k: p.grad for k, p in net.named_parameters()},
+            [lv.grad for lv in pyramids[0]], launches)
+
+
+@pytest.mark.cuda
+def test_raft_step_gradients_are_the_dense_paths_bit_for_bit_on_card(monkeypatch):
+    """A 3-iteration RAFT training step on the card through `PyramidGrad`
+    (R2 adding into one pyramid gradient, lookup 0 handing it to autograd)
+    gives the pyramid's and every parameter's gradient bit for bit as the
+    dense path (R2 into fresh zero accumulators each call, autograd adding
+    them), both with deterministic cuDNN; the step run twice gives the same
+    bits."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from deep_sfm_revisited_tpu_torch.models import raft as traft
+
+    monkeypatch.setattr(torch.backends.cudnn, "deterministic", True)
+    monkeypatch.setattr(torch.backends.cudnn, "benchmark", False)
+    grads, pyr, launches = _raft_card_step()
+    assert launches == (3, 3)
+    again, pyr2, _ = _raft_card_step()
+    monkeypatch.setattr(traft, "RaftLookupFn", _DenseCardLookupFn)
+    want, wpyr, dense_launches = _raft_card_step()
+    assert dense_launches == (3, 3)
+    assert set(grads) == set(want)
+    for i, (a, a2, b) in enumerate(zip(pyr, pyr2, wpyr)):
+        assert a.dtype == torch.bfloat16 and a.abs().max() > 0
+        assert torch.equal(_bits(a), _bits(a2)), f"pyramid level {i}, run twice"
+        assert torch.equal(_bits(a), _bits(b)), f"pyramid level {i}"
+    for k, v in grads.items():
+        assert torch.isfinite(v).all() and v.abs().max() > 0, k
+        assert torch.equal(v, again[k]), f"{k}, run twice"
+        assert torch.equal(v, want[k]), k
 
 
 @pytest.mark.cuda
@@ -1417,6 +1600,13 @@ def test_raft_lookup_wrappers_refuse_what_the_kernels_do_not_take():
         raft_lookup.raft_lookup_cuda(coords, levels + levels[:1], 4, torch.float32)
     with pytest.raises(TypeError):
         raft_lookup.raft_lookup_cuda(coords, levels, 4, torch.float64)
+    acc = [torch.zeros_like(lv) for lv in levels]
     with pytest.raises(ValueError, match="dout"):
         raft_lookup.raft_lookup_backward_cuda(coords, levels,
-                                              torch.zeros(1, 8, 12, 81, device="cuda"), 4)
+                                              torch.zeros(1, 8, 12, 81, device="cuda"), 4, acc)
+    dout = torch.zeros(1, 8, 12, 324, device="cuda")
+    with pytest.raises(ValueError, match="accumulator"):
+        raft_lookup.raft_lookup_backward_cuda(coords, levels, dout, 4, acc[:-1])
+    with pytest.raises(ValueError, match="accumulator"):
+        raft_lookup.raft_lookup_backward_cuda(coords, levels, dout, 4,
+                                              [torch.zeros_like(lv).float() for lv in levels])
