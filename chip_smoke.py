@@ -10,12 +10,14 @@ Phases, each of which raises on failure:
    plane-sweep cost volume and its two gradients, one source, and the
    PyTorch operators that launch them) and B2 (the windowed correlation,
    PWC-DC's warped correlation, both correlations' backward kernels, and
-   their operators) and R1/R2 (RAFT's correlation lookup and its backward,
-   and their operators) built with nvcc (in parallel) from
+   their operators), R1/R2 (RAFT's correlation lookup and its backward,
+   and their operators) and K1/K2 (REGNet's sweep correlation and its
+   backward, and their operators) built with nvcc (in parallel) from
    `deep_sfm_revisited_tpu_torch/csrc/sweep_warp.cu`,
    `csrc/sweep_warp_ops.cpp`, `csrc/local_corr.cu`, `csrc/warped_corr.cu`,
    `csrc/warped_corr_backward.cu`, `csrc/local_corr_ops.cpp`,
-   `csrc/raft_lookup.cu` and `csrc/raft_lookup_ops.cpp`;
+   `csrc/raft_lookup.cu`, `csrc/raft_lookup_ops.cpp`, `csrc/sweep_corr.cu`
+   and `csrc/sweep_corr_ops.cpp`;
 2. pose on the card: rigid flow of a known (R, t) -> correspondence
    sampler -> five-point RANSAC in float64 recovers the pose, the
    zero-parallax probe gives a finite pose, and with noise and outliers
@@ -260,8 +262,27 @@ Phases, each of which raises on failure:
 28. fault C.2's route: `cli.main -v --override pose.estimator=GT
    use_gt_pose=True` on a rendered 370x1224 tree (no pose net, no flow
    run, PSNet on the ground-truth pose, bf16), each pair launching the
-   sweep once and nothing else; the 9 Eigen metrics, finite. The script's
-   total seconds are printed.
+   sweep once and nothing else; the 9 Eigen metrics, finite;
+29. PANet and REGNet (slice 17) on the card against the CPU: a 128x128
+   SFMNet in float32 with `depth.estimator` PANET, then REGNET, on a given
+   pose, depth to 1e-3 relative;
+30. `cli.main -v --override depth.estimator=PANET` on a rendered 370x1224
+   tree (DICL flow, the 512x5 RANSAC, 384x1280, nlabel 128, 9 pose scales
+   in one sweep, bf16): a warm-up and three pairs, each launching the
+   displacement volume 5 times and the sweep once; the 9 Eigen metrics,
+   finite; stage ms by CUDA events, peak memory;
+31. the same with `depth.estimator=REGNET` (125 poses): K1 once a pair
+   instead of the sweep; the warm-up records K1's inputs;
+32. REGNet's depth-training step through `cli.main` (b = 4, 256x768, bf16,
+   DICL frozen): a warm-up step recording K1's and K2's inputs, then three
+   steps launching the displacement volume 5 times, K1 and K2 once each,
+   with finite losses and REGNet's parameters moved; validation, peak
+   memory;
+33. K1 bit for bit and K2 to 1e-5 of its largest plus one bf16 ulp against
+   their plain versions on phases 31's and 32's inputs, with device,
+   CUDA-graph and events ms, the bound, the plain ms and the composition
+   they replaced (grid_sample + product + mean, and its autograd, a pose at
+   a time). The script's total seconds are printed.
 
 `python3 chip_smoke.py --save-sweep-inputs PATH` also writes the sweep
 backward's depths, M and K t from slice 5 (a few hundred floats) to PATH,
@@ -273,8 +294,8 @@ source phases 13, 14 and 17 compare with, `--old-b2 PATH` the earlier
 `--old-b2-backward PATH` the earlier `warped_corr_backward.cu` phase 22
 does, `--old-raft PATH` the earlier `raft_lookup.cu` phases 25 and 27 do.
 
-The line before the last is the kernel table as one JSON object (twelve
-kernels, with launches on each of twelve paths); the last
+The line before the last is the kernel table as one JSON object (fourteen
+kernels, with launches on each of fifteen paths); the last
 is {"ok": true, "device": {...}}. Without a CUDA device, or without the
 port's package beside this script, it exits non-zero and prints no result.
 """
@@ -5045,6 +5066,442 @@ def phase_cli_gt(dev, sweep_warp, local_corr, raft_lookup):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# Slice 17: PANet and REGNet through `cli -v`, REGNet's training step, and
+# REGNet's sweep correlation K1 and its backward K2 (phases 29-33)
+
+CORR_SOURCE = f"{PKG}/csrc/sweep_corr.cu"
+CORR_FUSES = ("deep_sfm_revisited_tpu/models/depth_alternates.py:248 (REGNet's mean(ref * "
+              "_scaled_sweep(tgt), -1) over its pose grid, :91-107)")
+CORR_BWD_REPLACES = "deep_sfm_revisited_tpu/models/depth_alternates.py:248"
+# K1 a channel of a valid sample: the blend, the product, the sum; K2: the
+# blend, dref's product and sum, g ref, the four taps' products and sums
+CORR_FLOPS_PER_CHANNEL = B1_FLOPS_PER_OUTPUT + 2
+CORR_BWD_FLOPS_PER_CHANNEL = B1_FLOPS_PER_OUTPUT + 2 + 1 + 8
+CORR_BWD_FLOPS_PER_SAMPLE = SWEEP_FLOPS_PER_SAMPLE + 4 + 1   # the tap weights, g / C
+REGNET_TRAIN_STEPS = 3
+# `_depth_counters`' order: B1's six, B2, its backward, the warped
+# correlation, its backward, R1, R2, K1, K2
+PANET_PER_PAIR = (0, SWEEP_PER_PAIR, 0, 0, DISP_PER_PAIR) + (0,) * 9
+REGNET_PER_PAIR = (0, 0, 0, 0, DISP_PER_PAIR) + (0,) * 7 + (1, 0)
+REGNET_PER_STEP = (0, 0, 0, 0, DISP_PER_PAIR) + (0,) * 7 + (1, 1)
+
+
+def _depth_counters(sweep_warp, local_corr, raft_lookup, sweep_corr):
+    return _all_counters(sweep_warp, local_corr, raft_lookup) + (
+        sweep_corr.CORRELATION, sweep_corr.CORRELATION_BACKWARD)
+
+
+def phase_small_depth_reference(dev, sweep_warp, sweep_corr) -> None:
+    """PANet and REGNet on the card against the CPU: a 128x128 SFMNet in
+    float32 (TF32 off) with `depth.estimator` PANET, then REGNET (DICL flow,
+    the config's 9 scales and 5^3 poses, nlabel 8), same weights and inputs,
+    conditioned on the same given pose, so the flow and RANSAC play no part;
+    depth (and REGNet's depth_init) to 1e-3 relative, finite; PANet launches
+    the sweep once, REGNet K1 once."""
+    from deep_sfm_revisited_tpu_torch.config import SfMConfig
+    from deep_sfm_revisited_tpu_torch.models.sfmnet import SFMNet
+
+    g = torch.Generator().manual_seed(11)
+    h = w = 128
+    ref = torch.rand((1, h, w, 3), generator=g) * 2 - 1
+    tgt = torch.roll(ref, (1, 3), dims=(1, 2)) + 0.05 * torch.randn((1, h, w, 3), generator=g)
+    K = torch.tensor([[[100.0, 0, w / 2], [0, 100.0, h / 2], [0, 0, 1]]])
+    a = 0.03
+    pose_gt = torch.tensor([[[math.cos(a), 0, math.sin(a), 0.2], [0, 1, 0, 0.0],
+                             [-math.sin(a), 0, math.cos(a), 0.95]]])
+    for est, counter in (("PANET", sweep_warp.VOLUME), ("REGNET", sweep_corr.CORRELATION)):
+        what = f"small reference {est}"
+        cfg = SfMConfig.kitti().override(**SMALL, **{"depth.estimator": est})
+        gpu = SFMNet(cfg, device=dev, seed=2)
+        cpu = SFMNet(cfg, device="cpu", seed=2)
+        before = counter.launches
+        g_out = gpu(ref.to(dev), tgt.to(dev), K.to(dev), pose_gt=pose_gt.to(dev),
+                    use_gt_pose=True)
+        torch.cuda.synchronize()
+        n = counter.launches - before
+        c_out = cpu(ref, tgt, K, pose_gt=pose_gt, use_gt_pose=True)
+        keys = ("depth",) if est == "PANET" else ("depth_init", "depth")
+        check(est != "PANET" or g_out["depth_init"] is None, f"{what}: PANet gave a depth_init")
+        errs = {}
+        for k in keys:
+            got = g_out[k].cpu()
+            check(torch.isfinite(got).all(), f"{what}: non-finite {k}")
+            errs[k] = float(((got - c_out[k]).abs() / c_out[k].abs()).max())
+        log(f"{what}: depth relative |card - cpu| {json.dumps(errs)}; its kernel launched {n} "
+            "time(s)")
+        check(n == 1, f"{what}: its kernel launched {n} times, expected 1")
+        check(all(v <= 1e-3 for v in errs.values()), f"{what}: depth differs by {errs}")
+
+
+def phase_cli_depth(dev, est, counters, sweep_corr):
+    """`cli.main -v --override depth.estimator=<est>` (PANET or REGNET) on
+    a golden KITTI raw tree rendered at 370x1224 (padded to 384x1280, DICL
+    flow, the 512x5 RANSAC, nlabel 128, bf16): PANet's 9 pose scales in one
+    sweep, REGNet's 125 poses in one K1 launch. The warm-up pair records
+    K1's inputs (REGNet); then each of the three test pairs must launch the
+    displacement volume 5 times and the sweep once (PANet) or K1 once
+    (REGNet) and nothing else; the 9 Eigen metrics, finite; ms per pair and
+    the flow / pose / depth split by CUDA events; peak memory. Returns the
+    launches over the test pairs (`_depth_counters`' order) and K1's inputs."""
+    from deep_sfm_revisited_tpu_torch import cli
+    from deep_sfm_revisited_tpu_torch.data.synthetic import write_kitti_raw_tree
+    from deep_sfm_revisited_tpu_torch.models.sfmnet import SFMNet
+
+    what = f"cli {est}"
+    per_pair = PANET_PER_PAIR if est == "PANET" else REGNET_PER_PAIR
+    rows, timer, cap = [], [], []
+    real_forward, launch = SFMNet.forward, sweep_corr.sweep_correlation_cuda
+
+    def record(*args):
+        cap.append(tuple(a.clone() for a in args))
+        return launch(*args)
+
+    def timed_forward(model, *args, **kw):
+        warm = not timer
+        if warm:
+            timer.append(StageTimer(model))
+            sweep_corr.sweep_correlation_cuda = record
+        before = _launches(*counters)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        try:
+            out = real_forward(model, *args, **kw)
+            torch.cuda.synchronize()
+        finally:
+            sweep_corr.sweep_correlation_cuda = launch
+        ms = 1e3 * (time.perf_counter() - t0)
+        n = tuple(a - b for a, b in zip(_launches(*counters), before))
+        i = len(rows) + (0 if warm else 1)
+        _check_pair(out, i)
+        check(n == per_pair, f"{what} pair {i}: launches {n}, expected {per_pair}")
+        if warm:
+            for k in counters:
+                k.launches = 0
+            log(f"{what}: warm-up pair {ms:.1f} ms"
+                + (f"; K1 inputs {[tuple(t.shape) for t in cap[0]]} {cap[0][0].dtype}"
+                   if cap else ""))
+        else:
+            rows.append(dict(ms=ms, **timer[0].stages_ms()))
+            r = rows[-1]
+            log(f"{what}: pair {i}: {ms:.1f} ms (flow {r['flow']:.1f}, pose {r['pose']:.1f}, "
+                f"depth {r['depth']:.1f} ms device); launches {n}")
+        return out
+
+    with tempfile.TemporaryDirectory() as tmp:
+        root = f"{tmp}/kitti_raw"
+        write_kitti_raw_tree(root, n_frames=PAIRS + 2, hw=(370, 1224), focal=K_KITTI[0][0],
+                             n_test=PAIRS + 1)
+        argv = ["--data", root, "--cfg", "kitti", "-v", "--gt-depth-dir", f"{root}/gt_depth",
+                "--out", f"{tmp}/out", "--workers", "4", "--override",
+                f"depth.estimator={est}", *[f"{k}={v}" for k, v in BENCH_OVERRIDES.items()]]
+        log(f"{what}: cli.main(" + json.dumps(argv).replace(tmp, "<tmp>") + ")")
+        torch.cuda.reset_peak_memory_stats()
+        for k in counters:
+            k.launches = 0
+        SFMNet.forward = timed_forward
+        try:
+            t0 = time.perf_counter()
+            results = cli.main(argv)
+            wall = time.perf_counter() - t0
+        finally:
+            SFMNet.forward = real_forward
+        launches = _launches(*counters)
+    check(len(rows) == PAIRS, f"{what}: {len(rows)} test pairs after the warm-up")
+    check(launches == tuple(PAIRS * n for n in per_pair), f"{what}: the test pairs launched "
+          f"{launches}")
+    # DICL's entropy sampler adds its `num_matches` and `uniform_fallback`
+    check(EIGEN_KEYS <= set(results), f"{what}: metrics {sorted(results)}")
+    check(all(math.isfinite(results[k]) for k in EIGEN_KEYS), f"{what}: metrics {results}")
+    mean = {k: sum(r[k] for r in rows) / PAIRS for k in ("ms", "flow", "pose", "depth")}
+    log(f"{what}: metrics {json.dumps(results)}")
+    log(f"{what}: mean over {PAIRS} pairs: {mean['ms']:.2f} ms/pair; stages flow "
+        f"{mean['flow']:.2f}, pose {mean['pose']:.2f}, depth {mean['depth']:.2f} ms; cli.main "
+        f"{wall:.2f} s for {PAIRS + 1} pairs; peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    log(f"{what} rows: " + json.dumps(rows))
+    return launches, cap
+
+
+def phase_cli_train_regnet(dev, counters, sweep_corr):
+    """REGNet's depth-training step through `cli.main` (no `-v`) with
+    `depth.estimator=REGNET` on a rendered 370x1224 golden tree, the
+    recipe's 256x768 crop, b = 4, bf16, DICL frozen, RANSAC: one warm-up
+    step, which records K1's and K2's inputs and gradients, then
+    REGNET_TRAIN_STEPS timed steps, each launching the displacement volume 5
+    times, K1 and K2 once and nothing else, with a finite loss, DICL's
+    parameters bit-identical and every REGNet parameter that got a gradient
+    moved; the epoch's validation (9 finite Eigen metrics) and checkpoint;
+    stage split by CUDA events, peak memory. Returns (the launches of the
+    timed steps, K1's inputs, K2's inputs)."""
+    from deep_sfm_revisited_tpu_torch import cli
+    from deep_sfm_revisited_tpu_torch.data.synthetic import write_kitti_raw_tree
+    from deep_sfm_revisited_tpu_torch.train.trainer import Trainer
+
+    what = "cli train REGNET"
+    real_step = Trainer.train_step
+    fwd, bwd = sweep_corr.sweep_correlation_cuda, sweep_corr.sweep_correlation_backward_cuda
+    rows, cap1, cap2, timer = [], [], [], []
+    steps = [(0,) * len(counters)]
+
+    def record_fwd(*args):
+        cap1.append(tuple(a.clone() for a in args))
+        return fwd(*args)
+
+    def record_bwd(*args):
+        cap2.append(tuple(a.clone() for a in args))
+        return bwd(*args)
+
+    def timed_step(trainer, *args, **kw):
+        warm = not timer
+        if warm:
+            timer.append(TrainStageTimer(trainer))
+            sweep_corr.sweep_correlation_cuda = record_fwd
+            sweep_corr.sweep_correlation_backward_cuda = record_bwd
+        model = trainer.model
+        dicl = {k: v.clone() for k, v in model.flow_estimator.state_dict().items()}
+        params = {k: p.detach().clone() for k, p in model.depth_estimator.named_parameters()}
+        before = _launches(*counters)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        timer[0]._mark("step_start")
+        try:
+            metrics = real_step(trainer, *args, **kw)
+        finally:
+            sweep_corr.sweep_correlation_cuda = fwd
+            sweep_corr.sweep_correlation_backward_cuda = bwd
+        timer[0]._mark("step_end")
+        torch.cuda.synchronize()
+        ms = 1e3 * (time.perf_counter() - t0)
+        n = tuple(a - b for a, b in zip(_launches(*counters), before))
+        i = len(rows) + (0 if warm else 1)
+        loss = float(metrics["loss"])
+        check(math.isfinite(loss), f"{what} step {i}: loss {loss}")
+        check(n == REGNET_PER_STEP, f"{what} step {i}: launches {n}, expected {REGNET_PER_STEP}")
+        for k, p in model.flow_estimator.named_parameters():
+            check(torch.equal(p, dicl[k]), f"{what} step {i}: DICL parameter {k} moved")
+        net = model.depth_estimator
+        got_grad = [k for k, p in net.named_parameters() if p.grad is not None and p.grad.any()]
+        still = [k for k in got_grad if torch.equal(dict(net.named_parameters())[k], params[k])]
+        check(len(got_grad) > 0, f"{what} step {i}: no REGNet parameter got a gradient")
+        check("feature_extraction.firstconv.0.0.weight" in got_grad,
+              f"{what} step {i}: no gradient reached the feature net through K2")
+        check(not still, f"{what} step {i}: REGNet parameters with a gradient did not move: "
+              f"{still[:3]}")
+        if warm:
+            torch.cuda.reset_peak_memory_stats()
+            log(f"{what}: warm-up step {ms:.1f} ms, loss {loss:.4f}; K1 inputs "
+                f"{[tuple(t.shape) for t in cap1[0]]}, K2 gradient {tuple(cap2[0][0].shape)} "
+                f"strides {cap2[0][0].stride()}")
+        else:
+            steps.append(n)
+            rows.append(dict(ms=ms, loss=loss, **timer[0].stages_ms()))
+            r = rows[-1]
+            log(f"{what}: step {i}: {ms:.1f} ms (prep {r['prep']:.1f}, flow {r['flow']:.1f}, pose "
+                f"{r['pose']:.1f}, depth forward {r['depth']:.1f}, loss + backward "
+                f"{r['backward']:.1f}, Adam {r['adam']:.1f} ms device); loss {loss:.4f}; "
+                f"launches {n}")
+            if len(rows) == REGNET_TRAIN_STEPS:
+                rows.append(dict(peak_gib=torch.cuda.max_memory_allocated() / 2**30))
+        return metrics
+
+    with tempfile.TemporaryDirectory() as tmp:
+        root = f"{tmp}/kitti_raw"
+        n_test = 2
+        write_kitti_raw_tree(root, n_frames=n_test + TRAIN_B * (REGNET_TRAIN_STEPS + 1),
+                             hw=(370, 1224), focal=K_KITTI[0][0], n_test=n_test)
+        argv = ["--data", root, "--cfg", "kitti", "--gt-depth-dir", f"{root}/gt_depth",
+                "--out", f"{tmp}/out", "--workers", "4", "-b", str(TRAIN_B), "--epochs", "1",
+                "--override", f"data.train_size={TRAIN_HW}", "depth.estimator=REGNET",
+                *[f"{k}={v}" for k, v in BENCH_OVERRIDES.items()]]
+        log(f"{what}: cli.main(" + json.dumps(argv).replace(tmp, "<tmp>") + ")")
+        for k in counters:
+            k.launches = 0
+        Trainer.train_step = timed_step
+        try:
+            t0 = time.perf_counter()
+            history = cli.main(argv)
+            wall = time.perf_counter() - t0
+        finally:
+            Trainer.train_step = real_step
+        check(os.path.exists(f"{tmp}/out/kitti/ckpt/0.pt"), f"{what}: no checkpoint written")
+    check(len(rows) == REGNET_TRAIN_STEPS + 1, f"{what}: {len(rows) - 1} timed steps")
+    tail = rows.pop()
+    check(len(history) == 1 and all(math.isfinite(history[0][k]) for k in EIGEN_KEYS),
+          f"{what}: validation {history}")
+    mean = {k: sum(r[k] for r in rows) / len(rows) for k in rows[0]}
+    log(f"{what}: mean over {len(rows)} steps at b = {TRAIN_B}, {TRAIN_HW[0]}x{TRAIN_HW[1]}: "
+        f"{mean['ms']:.2f} ms/step; device stages prep {mean['prep']:.2f}, flow "
+        f"{mean['flow']:.2f}, pose {mean['pose']:.2f}, depth forward {mean['depth']:.2f}, loss + "
+        f"backward {mean['backward']:.2f}, Adam {mean['adam']:.2f} ms (step {mean['step']:.2f}); "
+        f"peak memory {tail['peak_gib']:.2f} GiB; cli.main {wall:.2f} s; validation "
+        f"{json.dumps({k: history[0][k] for k in sorted(EIGEN_KEYS)})}")
+    log(f"{what} rows: " + json.dumps(rows))
+    launches = tuple(sum(v) for v in zip(*steps))
+    return launches, cap1[0], cap2[0]
+
+
+def _corr_valid(depths, M, Kt, H, W, camera) -> int:
+    """Samples (b, s, d, y, x) of a sweep correlation whose point lies in
+    the frame (the ones the kernels blend), counted a pose at a time."""
+    n = 0
+    for s in range(M.shape[0]):
+        x, y = camera.sweep_pixel_coords(depths, M[s:s + 1], Kt[s:s + 1], H, W)
+        n += int(camera._taps(x.float(), y.float(), H, W)[0].sum())
+    return n
+
+
+def _corr_composition(ref, tgt, depths, M, Kt, g=None):
+    """The composition K1 (with `g`: K1 and K2) replaced, one pose at a
+    time: coordinates, `F.grid_sample` (align_corners, zeros) of the
+    target, the product with ref, the channel mean; with `g`, its autograd
+    with respect to ref and tgt. A yardstick the port never calls."""
+    from deep_sfm_revisited_tpu_torch.ops import camera
+
+    B, H, W, C = tgt.shape
+    S, D = M.shape[0] // B, depths.shape[0]
+    scale = torch.tensor([2.0 / (W - 1), 2.0 / (H - 1)], device=tgt.device)
+    with torch.set_grad_enabled(g is not None):
+        nchw = tgt.permute(0, 3, 1, 2).float().requires_grad_(g is not None)
+        r = ref.permute(0, 3, 1, 2).float()[:, :, None].requires_grad_(g is not None)
+        for s in range(S):
+            x, y = camera.sweep_pixel_coords(depths, M.view(B, S, 3, 3)[:, s],
+                                             Kt.view(B, S, 3)[:, s], H, W)
+            grid = torch.stack([x, y], -1).reshape(B, D * H, W, 2) * scale - 1
+            warped = F.grid_sample(nchw, grid, align_corners=True).reshape(B, C, D, H, W)
+            corr = (r * warped).mean(1)
+            if g is not None:
+                torch.autograd.grad(corr, (r, nchw), g[:, s])
+
+
+def phase_sweep_corr(cap_eval, cap_train, cap_bwd, sweep_corr, camera):
+    """K1 and K2 against their plain versions on the inputs phases 31 and 32
+    recorded (K1: the REGNet eval pair's and the training step's, bf16,
+    and the eval pair's in float32; K2: the training step's K1 inputs with
+    the gradient autograd gave it): K1 bit for bit, two launches the same
+    bits; K2's d ref and d tgt within 1e-5 of their largest element plus
+    one bf16 ulp (`_grad_tol`), d ref the same bits every launch. Per eval
+    pair (K1) and per training step (K2): device ms (torch.profiler; K2 with
+    and without its zero fill and cast), CUDA-graph and events ms, the
+    bound (bytes: each input read once, the output written once; float32
+    operations of the valid samples), the plain version's ms, and no
+    library call (no one PyTorch call computes either): the composition
+    they replaced timed one pose at a time by events instead."""
+    rows, errs = {}, {}
+    what = "K1 (sweep correlation)"
+    err = 0.0
+    for name, args in (("eval pair", cap_eval), ("training step", cap_train),
+                       ("eval pair, float32", (cap_eval[0].float(), cap_eval[1].float(),
+                                               *cap_eval[2:]))):
+        got = sweep_corr.sweep_correlation_cuda(*args)
+        B = args[0].shape[0]
+        want = camera.sweep_correlation_plain(*args[:3], args[3].view(B, -1, 3, 3),
+                                              args[4].view(B, -1, 3))
+        err = max(err, float((got - want).abs().max()))
+        check(torch.equal(got, want), f"{what} {name}: differs from the plain version by {err}")
+        check(torch.equal(got, sweep_corr.sweep_correlation_cuda(*args)),
+              f"{what} {name}: two launches differ")
+        del got, want
+    errs["K1"] = err
+    log(f"{what}: bit for bit the plain version on the eval pair's and the training step's "
+        "inputs (bf16) and the eval pair's in float32; two launches the same bits")
+
+    def k1_row(args, label):
+        ref, tgt, depths, M, Kt = args
+        B, H, W, C = ref.shape
+        S, D = M.shape[0] // B, depths.shape[0]
+
+        def run():
+            sweep_corr.sweep_correlation_cuda(*args)
+
+        def plain():
+            camera.sweep_correlation_plain(ref, tgt, depths, M.view(B, S, 3, 3), Kt.view(B, S, 3))
+
+        def comp():
+            _corr_composition(ref, tgt, depths, M, Kt)
+
+        ms, graph = cuda_ms(run, reps=5), graph_ms(run, reps=2)
+        dev_ms = device_ms(run, "sweep_correlation_kernel", reps=5)
+        plain_ms = cuda_ms(plain, reps=1, warmup=0)
+        comp_ms = cuda_ms(comp, reps=1, warmup=1)
+        valid = _corr_valid(depths, M, Kt, H, W, camera)
+        samples = B * S * D * H * W
+        nbytes = 2 * ref.numel() * ref.element_size() + 4 * (depths.numel() + M.numel()
+                                                              + Kt.numel() + samples)
+        flops = valid * (C * CORR_FLOPS_PER_CHANNEL + SWEEP_FLOPS_PER_SAMPLE) \
+            + (samples - valid) * (SWEEP_FLOPS_PER_SAMPLE + 1)
+        bound, bound_by = _bound_ms(nbytes, flops / F32_FLOPS * 1e3)
+        log(f"{what} per {label} ({B} x {S} poses x {D} planes x {H}x{W}, C = {C} "
+            f"{str(ref.dtype)[6:]}; {valid} of {samples} samples valid): device "
+            f"{_fmt_ms(dev_ms)}, by CUDA graph {graph:.4f} ms, events {ms:.4f} ms; bound "
+            f"{bound:.4f} ms ({bound_by}: {nbytes / 1e6:.1f} MB, {flops / 1e9:.1f} GFLOP), share "
+            f"{100 * bound / (dev_ms or graph):.1f}%; plain {plain_ms:.2f} ms; the composition "
+            f"it replaced (grid_sample + product + mean, a pose at a time) {comp_ms:.2f} ms")
+        return dict(ms=ms, device_ms=dev_ms, graph_ms=graph, plain_ms=plain_ms, bound_ms=bound,
+                    bound_by=bound_by, library_ms=None, composition_ms=comp_ms, bytes=nbytes,
+                    flops=flops, valid_samples=valid, samples=samples, shape=[B, S, D, H, W, C])
+
+    rows["K1"] = k1_row(cap_eval, "eval pair")
+    rows["K1"]["train_step"] = k1_row(cap_train, "training step")
+
+    what = "K2 (sweep correlation backward)"
+    g, ref, tgt, depths, M, Kt = cap_bwd
+    B, H, W, C = ref.shape
+    S, D = M.shape[0] // B, depths.shape[0]
+    dref, dtgt = sweep_corr.sweep_correlation_backward_cuda(*cap_bwd)
+    dref2, _ = sweep_corr.sweep_correlation_backward_cuda(*cap_bwd)
+    check(torch.equal(dref, dref2), f"{what}: two launches' d ref differ")
+    want = camera.sweep_correlation_backward_plain(g, ref, tgt, depths, M.view(B, S, 3, 3),
+                                                   Kt.view(B, S, 3))
+    err = 0.0
+    for name, got, w in (("d ref", dref, want[0]), ("d tgt", dtgt, want[1])):
+        diff = (got.float() - w.float()).abs()
+        tol = _grad_tol(got, w)
+        e = float(diff.max())
+        err = max(err, e)
+        log(f"{what} {name}: max |kernel - plain| {e:.3e}, max |plain| "
+            f"{float(w.float().abs().max()):.3e}, {float((diff / tol).max()):.3f} of the tolerance")
+        check(bool((diff <= tol).all()), f"{what} {name}: differs from the plain version")
+    errs["K2"] = err
+    del dref, dtgt, dref2, want
+
+    def run():
+        sweep_corr.sweep_correlation_backward_cuda(*cap_bwd)
+
+    def plain():
+        camera.sweep_correlation_backward_plain(g, ref, tgt, depths, M.view(B, S, 3, 3),
+                                                Kt.view(B, S, 3))
+
+    def comp():
+        _corr_composition(ref, tgt, depths, M, Kt, g)
+
+    ms, graph = cuda_ms(run, reps=2, warmup=1), graph_ms(run, reps=1)
+    dev_ms = device_ms(run, "sweep_correlation_backward", reps=2)
+    whole_ms, whole_ops = _profile_sums(_full_profile(run, reps=2))
+    plain_ms = cuda_ms(plain, reps=1, warmup=0)
+    comp_ms = cuda_ms(comp, reps=1, warmup=0)
+    valid = _corr_valid(depths, M, Kt, H, W, camera)
+    samples = B * S * D * H * W
+    fbytes = ref.numel() * ref.element_size()
+    nbytes = 4 * (samples + depths.numel() + M.numel() + Kt.numel()) + 4 * fbytes
+    flops = valid * (C * CORR_BWD_FLOPS_PER_CHANNEL + CORR_BWD_FLOPS_PER_SAMPLE) \
+        + (samples - valid) * SWEEP_FLOPS_PER_SAMPLE
+    bound, bound_by = _bound_ms(nbytes, flops / F32_FLOPS * 1e3)
+    log(f"{what} per training step ({B} x {S} poses x {D} planes x {H}x{W}, C = {C} "
+        f"{str(ref.dtype)[6:]}; {valid} of {samples} samples valid): device {_fmt_ms(dev_ms)} "
+        f"(with its zero fill and cast {_fmt_ms(whole_ms)}, {whole_ops} operations), by CUDA "
+        f"graph {graph:.4f} ms, events {ms:.4f} ms; bound {bound:.4f} ms ({bound_by}: "
+        f"{nbytes / 1e6:.1f} MB, {flops / 1e9:.1f} GFLOP), share "
+        f"{100 * bound / (dev_ms or graph):.1f}%; plain {plain_ms:.2f} ms; the composition it "
+        f"replaced (grid_sample + product + mean and their autograd, a pose at a time) "
+        f"{comp_ms:.2f} ms")
+    rows["K2"] = dict(ms=ms, device_ms=dev_ms, whole_device_ms=whole_ms, graph_ms=graph,
+                      plain_ms=plain_ms, bound_ms=bound, bound_by=bound_by, library_ms=None,
+                      composition_ms=comp_ms, bytes=nbytes, flops=flops, valid_samples=valid,
+                      samples=samples, shape=[B, S, D, H, W, C])
+    return rows, errs
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -5080,11 +5537,11 @@ def main(argv=None) -> int:
     sys.path.insert(0, str(REPO))
     from deep_sfm_revisited_tpu_torch.models import dicl, pwcnet, raft
     from deep_sfm_revisited_tpu_torch.ops import camera, correlation
-    from deep_sfm_revisited_tpu_torch.ops.cuda import local_corr, raft_lookup, sweep_warp
+    from deep_sfm_revisited_tpu_torch.ops.cuda import local_corr, raft_lookup, sweep_corr, sweep_warp
 
     dev = torch.device("cuda", 0)
     t_start = time.perf_counter()
-    phase_setup(sweep_warp, local_corr, raft_lookup)
+    phase_setup(sweep_warp, local_corr, raft_lookup, sweep_corr)
     cap_disp = {}
     with torch.no_grad():
         phase_pose(dev)
@@ -5170,8 +5627,25 @@ def main(argv=None) -> int:
     log(f"chip_smoke: the RAFT phases 23-27 took {time.perf_counter() - t_raft:.1f} s")
     with torch.no_grad():
         gt_eval = phase_cli_gt(dev, sweep_warp, local_corr, raft_lookup)
+    # no path before slice 17 runs REGNet
+    check(sweep_corr.CORRELATION.launches == 0 and sweep_corr.CORRELATION_BACKWARD.launches == 0,
+          f"a path without REGNet launched K1 {sweep_corr.CORRELATION.launches} and K2 "
+          f"{sweep_corr.CORRELATION_BACKWARD.launches} times")
+    t_depth = time.perf_counter()
+    depth_counters = _depth_counters(sweep_warp, local_corr, raft_lookup, sweep_corr)
+    with torch.no_grad():
+        phase_small_depth_reference(dev, sweep_warp, sweep_corr)
+        panet_eval, _ = phase_cli_depth(dev, "PANET", depth_counters, sweep_corr)
+        regnet_eval, cap_k1 = phase_cli_depth(dev, "REGNET", depth_counters, sweep_corr)
+    regnet_train, cap_k1_train, cap_k2 = phase_cli_train_regnet(dev, depth_counters, sweep_corr)
+    with torch.no_grad():
+        corr_rows, corr_err = phase_sweep_corr(cap_k1[0], cap_k1_train, cap_k2, sweep_corr,
+                                               camera)
+    del cap_k1, cap_k1_train, cap_k2
+    log(f"chip_smoke: the PANet and REGNet phases 29-33 took {time.perf_counter() - t_depth:.1f} s")
     names = ("gather", "sweep", "backward", "pose_grad", "volume", "volume_backward", "warped",
-             "b2", "b2_backward", "warped_backward", "raft_lookup", "raft_lookup_backward")
+             "b2", "b2_backward", "warped_backward", "raft_lookup", "raft_lookup_backward",
+             "sweep_correlation", "sweep_correlation_backward")
 
     def path(v):
         return dict(zip(names, tuple(v) + (0,) * (len(names) - len(v))))
@@ -5189,7 +5663,11 @@ def main(argv=None) -> int:
                # correlation, its backward, R1, R2
                **{k: path(v[:6] + (v[8], v[6], v[7], v[9], v[10], v[11]))
                   for k, v in (("cli_eval_raft", raft_eval), ("cli_train_flow_raft", raft_flow),
-                               ("cli_eval_gt", gt_eval))}}
+                               ("cli_eval_gt", gt_eval))},
+               # `_depth_counters`' order: `_all_counters`' then K1, K2
+               **{k: path(v[:6] + (v[8], v[6], v[7], v[9], v[10], v[11], v[12], v[13]))
+                  for k, v in (("cli_eval_panet", panet_eval), ("cli_eval_regnet", regnet_eval),
+                               ("cli_train_regnet", regnet_train))}}
 
     def launches(kernel):
         counts = {k: v[kernel] for k, v in by_path.items()}
@@ -5277,7 +5755,20 @@ def main(argv=None) -> int:
     r2 = {"name": "raft_lookup_backward", "route": "cuda", "source": RAFT_SOURCE,
           "replaces": RAFT_REPLACES, "gradient_of": RAFT_REPLACES,
           **launches("raft_lookup_backward"), "max_abs_err": r2_err, **r2_call}
-    kernels = [b1, disp, sweep, b2, bwd, pg, dbwd, warped, b2_bwd, warped_bwd, r1, r2]
+    # one launch a REGNet eval pair (all 125 poses) and a training step, no
+    # TPU kernel of its own behind it (XLA's gather under plane_sweep_warp,
+    # then the mean); no one PyTorch call computes it: the composition it
+    # replaced is timed a pose at a time beside it
+    k1 = {"name": "sweep_correlation", "route": "cuda", "source": CORR_SOURCE,
+          "replaces": B1_REPLACES, "fuses": CORR_FUSES, **launches("sweep_correlation"),
+          "max_abs_err": corr_err["K1"], **corr_rows["K1"]}
+    # one launch a REGNet training step; it replaces the gradient XLA derives
+    # for the JAX correlation
+    k2 = {"name": "sweep_correlation_backward", "route": "cuda", "source": CORR_SOURCE,
+          "replaces": CORR_BWD_REPLACES, "gradient_of": CORR_FUSES,
+          **launches("sweep_correlation_backward"), "max_abs_err": corr_err["K2"],
+          **corr_rows["K2"]}
+    kernels = [b1, disp, sweep, b2, bwd, pg, dbwd, warped, b2_bwd, warped_bwd, r1, r2, k1, k2]
     check(b1["launches"] == 0, f"a main path launched the standalone gather {b1['launches']} "
           "times")
     check(all(k["launches"] > 0 for k in kernels if k is not b1), "a kernel was launched no "
@@ -5299,6 +5790,11 @@ def main(argv=None) -> int:
           and r2["launches_by_path"]["cli_train_flow_raft"] > 0,
           "RAFT's paths launched no R1 or no R2")
     check(sweep["launches_by_path"]["cli_eval_gt"] > 0, "the GT-pose path launched no sweep")
+    check(sweep["launches_by_path"]["cli_eval_panet"] > 0, "the PANet path launched no sweep")
+    check(k1["launches_by_path"]["cli_eval_regnet"] > 0
+          and k1["launches_by_path"]["cli_train_regnet"] > 0
+          and k2["launches_by_path"]["cli_train_regnet"] > 0,
+          "REGNet's paths launched no K1 or no K2")
     for k in kernels:
         lib = "none" if k["library_ms"] is None else f"{k['library_ms']:.4f} ms"
         dev = "not measured" if k["device_ms"] is None else f"{k['device_ms']:.4f} ms"

@@ -2,7 +2,8 @@
 
 DICL flow with entropy confidence, or PWC-DC or RAFT flow (no confidence,
 so the sampler takes its uniform path) -> correspondence sampling -> five-point
-RANSAC in float64 -> PSNet plane-sweep depth. Like
+RANSAC in float64 -> PSNet plane-sweep depth (or, with `depth.estimator`
+PANET or REGNET, `models/depth_alternates.py`'s nets). Like
 `SFMNet(cfg, dtype=jnp.bfloat16)` of the JAX package, `dtype=torch.bfloat16`
 runs flow, PoseNet and depth under `torch.autocast(..., torch.bfloat16)`;
 RANSAC runs outside autocast in float64 (the reference's
@@ -41,6 +42,7 @@ import torch
 from torch import nn
 
 from deep_sfm_revisited_tpu_torch.config import SfMConfig
+from deep_sfm_revisited_tpu_torch.models.depth_alternates import PANet, REGNet
 from deep_sfm_revisited_tpu_torch.models.dicl import DICLFlow, SmoothCost
 from deep_sfm_revisited_tpu_torch.models.posenet import PlainPose
 from deep_sfm_revisited_tpu_torch.models.psnet import PSNet
@@ -54,12 +56,13 @@ from deep_sfm_revisited_tpu_torch.utils.device import resolve_device
 
 
 FLOW_NETS = {"DICL": DICLFlow, "PWC": PWCDCNet, "RAFT": RAFT}
+DEPTH_NETS = ("PSNET", "PANET", "REGNET")
 
 
 def _check_supported(cfg: SfMConfig) -> None:
     unsupported = {
         "flow.estimator": cfg.flow.estimator not in FLOW_NETS,
-        "depth.estimator": cfg.depth.estimator != "PSNET",
+        "depth.estimator": cfg.depth.estimator not in DEPTH_NETS,
         "pose.estimator": cfg.pose.estimator not in ("RANSAC", "POSENET", "GT"),
         "pose.sampler": cfg.pose.sampler not in ("entropy", "texture", "uniform"),
         "pose.differentiable": cfg.pose.differentiable,
@@ -116,7 +119,11 @@ class SFMNet(nn.Module):
         self.device = resolve_device(device)
         norm_target = cfg.train.norm_target if cfg.train.rescale_depth else 0.0
         self.flow_estimator = FLOW_NETS[cfg.flow.estimator](cfg.flow)
-        self.depth_estimator = PSNet(cfg.depth, norm_target=norm_target)
+        if cfg.depth.estimator == "PSNET":
+            self.depth_estimator = PSNet(cfg.depth, norm_target=norm_target)
+        else:
+            self.depth_estimator = {"PANET": PANet, "REGNET": REGNet}[cfg.depth.estimator](
+                cfg.depth)
         if cfg.pose.estimator == "POSENET":
             self.posenet = PlainPose()
         init_weights(self, torch.Generator().manual_seed(seed))

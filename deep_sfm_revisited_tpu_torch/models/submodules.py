@@ -114,9 +114,11 @@ def convbn(cin: int, cout: int, kernel: int, stride: int, dilation: int) -> nn.S
     )
 
 
-def convbn_3d(cin: int, cout: int) -> nn.Sequential:
-    """Conv3d 3x3x3 (bias-free, SAME) + BatchNorm3d (ref `convbn_3d`)."""
-    return nn.Sequential(nn.Conv3d(cin, cout, 3, 1, 1, bias=False), BatchNorm3d(cout))
+def convbn_3d(cin: int, cout: int, kernel: int = 3) -> nn.Sequential:
+    """Conv3d kernel^3 (bias-free, SAME) + BatchNorm3d (ref `convbn_3d`);
+    PANet's residual blocks end in a 1x1x1 one."""
+    return nn.Sequential(nn.Conv3d(cin, cout, kernel, 1, kernel // 2, bias=False),
+                         BatchNorm3d(cout))
 
 
 class BasicBlock(nn.Module):

@@ -4,15 +4,19 @@ Layouts as in the JAX package: images/features (B, H, W, C), flow
 (B, H, W, 2) as (dx, dy), depth (B, H, W), intrinsics (B, 3, 3), pose
 (B, 3, 4) ref->target.
 
-Two ops here have hand-written kernels, both in kernel B1's source
+Two ops here have hand-written kernels in kernel B1's source
 (`csrc/sweep_warp.cu`, wrapper `ops/cuda/sweep_warp.py`): `bilinear_sample`
 (the generic gather) and `plane_sweep_volume` (PSNet's fused cost volume,
 whose gradients, `PlaneSweepVolumeFn`, are two more kernels of the same
 source: with respect to the features, and with respect to M = K R K^-1 and
-K t, the pose). On CUDA tensors each launches its kernel; on CPU tensors
-each runs its plain PyTorch version (`bilinear_sample_plain`,
+K t, the pose). A third, `sweep_correlation` (REGNet's correlation over
+plane depths and pose hypotheses), is kernel K1 with its backward K2
+(`csrc/sweep_corr.cu`, wrapper `ops/cuda/sweep_corr.py`,
+`SweepCorrelationFn`). On CUDA tensors each launches its kernel; on CPU
+tensors each runs its plain PyTorch version (`bilinear_sample_plain`,
 `plane_sweep_volume_plain`, `plane_sweep_volume_backward_plain`,
-`plane_sweep_volume_pose_grad_plain`). There is no fallback from one to the
+`plane_sweep_volume_pose_grad_plain`, `sweep_correlation_plain`,
+`sweep_correlation_backward_plain`). There is no fallback from one to the
 other.
 """
 
@@ -20,7 +24,7 @@ from __future__ import annotations
 
 import torch
 
-from deep_sfm_revisited_tpu_torch.ops.cuda import sweep_warp
+from deep_sfm_revisited_tpu_torch.ops.cuda import sweep_corr, sweep_warp
 
 
 def pixel_grid(h: int, w: int, dtype=torch.float32, device=None) -> torch.Tensor:
@@ -464,3 +468,164 @@ def plane_sweep_volume(ref, tgt, depths, pose, K, K_inv) -> torch.Tensor:
     if torch.is_grad_enabled() and any(t.requires_grad for t in (ref, tgt, depths, M, Kt)):
         return PlaneSweepVolumeFn.apply(ref, tgt, depths, M, Kt)
     return _sweep_volume(ref, tgt, depths, M, Kt)
+
+
+# elements of a plain sweep correlation's per-chunk temporaries (a few
+# float32 tensors of this size each): bounds the memory of a chunk of poses
+_PLAIN_CHUNK_ELEMENTS = 1 << 26
+
+
+def _pose_chunk(B: int, D: int, H: int, W: int, C: int) -> int:
+    return max(1, _PLAIN_CHUNK_ELEMENTS // max(B * D * H * W * C, 1))
+
+
+def _warp_poses(img, depths, M, Kt, s0: int, s1: int):
+    """tgt warped by poses s0..s1 of M (B, S, 3, 3), Kt (B, S, 3): (B, s1 - s0,
+    D, H, W, C) in img's dtype, by `sweep_pixel_coords` and
+    `bilinear_sample_plain` (the sweep kernel's rule)."""
+    B, H, W, C = img.shape
+    n = s1 - s0
+    x, y = sweep_pixel_coords(depths, M[:, s0:s1].reshape(-1, 3, 3),
+                              Kt[:, s0:s1].reshape(-1, 3), H, W)       # (B n, D, H, W)
+    warped = bilinear_sample_plain(img.repeat_interleave(n, dim=0), torch.stack([x, y], -1))
+    return warped.reshape(B, n, *warped.shape[1:]), x, y
+
+
+def sweep_correlation_plain(ref, tgt, depths, M, Kt) -> torch.Tensor:
+    """Kernel K1's plain PyTorch version: REGNet's correlation
+    mean(ref * warped, -1) over every pose hypothesis and plane depth (JAX
+    `models/depth_alternates.py:248-252` of `_scaled_sweep`, `:91-107`).
+
+    ref, tgt (B, H, W, C); depths (D,); M (B, S, 3, 3) = K R K^-1 and Kt
+    (B, S, 3) = K t of the S poses of each batch item. Returns (B, S, D, H, W)
+    in float32 (float64 for float64 features) with channels-last-3d strides
+    (memory order (B, D, H, W, S)). The features are warped in that type (a
+    bfloat16 map is read exactly, as the JAX module's float32 cast reads
+    it); the channel sum runs c = 0..C-1 in order, then one divide by C,
+    as the kernel's, so K1 agrees with this bit for bit. Poses go a chunk
+    at a time, so memory stays bounded.
+    """
+    B, H, W, C = tgt.shape
+    S, D = M.shape[1], depths.shape[0]
+    cdt = torch.promote_types(tgt.dtype, torch.float32)
+    img, refc = tgt.to(cdt), ref.to(cdt)[:, None, None]
+    out = torch.empty((B, S, D, H, W), dtype=cdt, device=tgt.device,
+                      memory_format=torch.channels_last_3d)
+    step = _pose_chunk(B, D, H, W, C)
+    for s0 in range(0, S, step):
+        s1 = min(S, s0 + step)
+        prod = refc * _warp_poses(img, depths, M, Kt, s0, s1)[0]     # (B, n, D, H, W, C)
+        acc = prod[..., 0]
+        for c in range(1, C):
+            acc = acc + prod[..., c]
+        out[:, s0:s1] = acc / C
+    return out
+
+
+def sweep_correlation_backward_plain(g, ref, tgt, depths, M, Kt):
+    """Kernel K2's plain PyTorch version: the VJP of `sweep_correlation_plain`
+    with respect to ref and tgt, as `jax.vjp` of the JAX composition gives
+    it. With gc = g / C: dref = sum over poses and planes of gc warped; dtgt
+    gathers, for every sample, gc ref times each tap's bilinear weight onto
+    the four taps the forward read (`index_add_`). A sample the forward
+    zeroed (out of the frame, or behind the camera) adds nothing.
+
+    g (B, S, D, H, W), the correlation's gradient; the rest as the forward
+    took them. Returns (dref, dtgt), each (B, H, W, C) in its map's dtype,
+    summed in float32 (float64 for float64 features). Poses go a chunk at a
+    time.
+    """
+    B, S, D, H, W = g.shape
+    C = ref.shape[-1]
+    cdt = torch.promote_types(tgt.dtype, torch.float32)
+    gc = g.to(cdt) / C
+    img, refc = tgt.to(cdt), ref.to(cdt)
+    dref = torch.zeros((B, H, W, C), dtype=cdt, device=g.device)
+    acc = torch.zeros((B * H * W, C), dtype=cdt, device=g.device)
+    base = (torch.arange(B, device=g.device) * (H * W))[:, None]
+    step = _pose_chunk(B, D, H, W, C)
+    for s0 in range(0, S, step):
+        s1 = min(S, s0 + step)
+        warped, x, y = _warp_poses(img, depths, M, Kt, s0, s1)
+        gs = gc[:, s0:s1, ..., None]                                  # (B, n, D, H, W, 1)
+        dref += (gs * warped).sum(dim=(1, 2))
+        # the forward's taps, from the float32 coordinates its gather reads
+        valid, (yi, xi, yi1, xi1), (wx, wy) = _taps(x.reshape(B, -1).float(),
+                                                    y.reshape(B, -1).float(), H, W)
+        gw = (gs * refc[:, None, None]).reshape(B, -1, C) * valid[..., None].to(cdt)
+        # 1 - w in float32, as the forward's blend rounds it; the products in cdt
+        ax, ay, wx, wy = ((1 - wx).to(cdt), (1 - wy).to(cdt), wx.to(cdt), wy.to(cdt))
+        for yy, xx, w in ((yi, xi, ay * ax), (yi, xi1, ay * wx),
+                          (yi1, xi, wy * ax), (yi1, xi1, wy * wx)):
+            acc.index_add_(0, (base + yy * W + xx).reshape(-1),
+                           (gw * w[..., None]).reshape(-1, C))
+    return dref.to(ref.dtype), acc.reshape(B, H, W, C).to(tgt.dtype)
+
+
+class SweepCorrelationFn(torch.autograd.Function):
+    """REGNet's sweep correlation with its gradient with respect to ref and
+    tgt: kernel K1 forward and K2 backward on CUDA tensors, the plain versions
+    on CPU tensors. The plane depths and the pose (M, K t) get no gradient:
+    the function raises if they require one (REGNet under
+    `pose.estimator=POSENET` in training; ROADMAP A.8d, K2's pose gradient).
+    """
+
+    @staticmethod
+    def forward(ctx, ref, tgt, depths, M, Kt):
+        if any(ctx.needs_input_grad[2:]):
+            raise NotImplementedError(
+                "the sweep correlation has no gradient with respect to its plane depths or "
+                "the pose (M, K t): K2's pose gradient is not ported (ROADMAP A.8d)")
+        ctx.save_for_backward(ref, tgt, depths, M, Kt)
+        return _sweep_correlation(ref, tgt, depths, M, Kt)
+
+    @staticmethod
+    def backward(ctx, g):
+        ref, tgt, depths, M, Kt = ctx.saved_tensors
+        kind = g.device.type
+        if kind == "cuda":
+            dref, dtgt = sweep_corr.sweep_correlation_backward_cuda(
+                g.contiguous(memory_format=torch.channels_last_3d), ref.contiguous(),
+                tgt.contiguous(), depths.contiguous(), M.reshape(-1, 3, 3).contiguous(),
+                Kt.reshape(-1, 3).contiguous())
+        elif kind == "cpu":
+            dref, dtgt = sweep_correlation_backward_plain(g, ref, tgt, depths, M, Kt)
+        else:
+            raise NotImplementedError(f"sweep_correlation backward on {kind}")
+        needs = ctx.needs_input_grad
+        return dref if needs[0] else None, dtgt if needs[1] else None, None, None, None
+
+
+def _sweep_correlation(ref, tgt, depths, M, Kt) -> torch.Tensor:
+    if tgt.device.type == "cuda":
+        return sweep_corr.sweep_correlation_cuda(
+            ref.contiguous(), tgt.contiguous(), depths.contiguous(),
+            M.reshape(-1, 3, 3).contiguous(), Kt.reshape(-1, 3).contiguous())
+    if tgt.device.type == "cpu":
+        return sweep_correlation_plain(ref, tgt, depths, M, Kt)
+    raise NotImplementedError(f"sweep_correlation on {tgt.device.type}")
+
+
+def sweep_correlation(ref, tgt, depths, poses, K, K_inv) -> torch.Tensor:
+    """REGNet's cost: corr[b, s, d] = mean over channels of ref times tgt
+    warped by pose s of batch item b onto the fronto-parallel plane at depth
+    d (JAX `mean(ref * _scaled_sweep(tgt, ...), -1)`, `models/
+    depth_alternates.py:248-252`).
+
+    ref, tgt (B, H, W, C) f32 or bf16 (float64 on the CPU only); depths (D,);
+    poses (B, S, 3, 4) ref->target; K, K_inv (B, 3, 3), the features' scale.
+    Returns (B, S, D, H, W) float32 (float64 for float64 features) with
+    channels-last-3d strides, the layout REGNet's first Conv3d reads. CUDA
+    features go through kernel K1, CPU features through
+    `sweep_correlation_plain`; where autograd tracks a feature map, through
+    `SweepCorrelationFn` (backward: K2, or its plain version on the CPU).
+    """
+    B, S = poses.shape[:2]
+    gdt = torch.promote_types(tgt.dtype, torch.float32)
+    M, Kt = sweep_matrices(poses.reshape(B * S, 3, 4).to(gdt),
+                           K.to(gdt).repeat_interleave(S, dim=0),
+                           K_inv.to(gdt).repeat_interleave(S, dim=0))
+    M, Kt, depths = M.reshape(B, S, 3, 3), Kt.reshape(B, S, 3), depths.to(gdt)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (ref, tgt, depths, M, Kt)):
+        return SweepCorrelationFn.apply(ref, tgt, depths, M, Kt)
+    return _sweep_correlation(ref, tgt, depths, M, Kt)

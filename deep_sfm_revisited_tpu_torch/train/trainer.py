@@ -72,6 +72,24 @@ def add_image_noise(batch: Dict[str, torch.Tensor], generator: Optional[torch.Ge
     return out
 
 
+# depth nets whose forward returns no `depth_init` (JAX `PANet` returns
+# (None, depth), `models/depth_alternates.py:219`)
+NO_DEPTH_INIT = ("PANET",)
+
+
+def refuse_depth_without_init(cfg: SfMConfig) -> None:
+    """Refuse, before a step, a depth net that returns no `depth_init`: the
+    JAX trainer hands `out["depth_init"]` to `depth_training_loss`
+    (`train/trainer.py:216-217`), whose `smooth_l1(None, gt)` fails
+    (`train/losses.py:24-27`), so JAX cannot train it, and the port adds no
+    loss that JAX lacks."""
+    if cfg.depth.estimator in NO_DEPTH_INIT:
+        raise NotImplementedError(
+            f"depth.estimator = {cfg.depth.estimator!r} returns no depth_init, which the depth "
+            "loss takes: the JAX trainer fails on it too (train/trainer.py:216-217 passes None "
+            "to depth_training_loss, train/losses.py:24-27), so it does not train")
+
+
 def loss_and_metrics(model, cfg: SfMConfig, batch: Dict[str, torch.Tensor],
                      generator: Optional[torch.Generator] = None,
                      draws: Optional[Dict[str, torch.Tensor]] = None):
@@ -120,6 +138,7 @@ class Trainer:
     `ChainedStep`)."""
 
     def __init__(self, model, cfg: SfMConfig, steps_per_epoch: int):
+        refuse_depth_without_init(cfg)
         self.model = model
         self.cfg = cfg
         self.optimizer = build_optimizer(model, cfg)

@@ -84,6 +84,17 @@ def spp_entries(t: str, f: str) -> List[Entry]:
     return e
 
 
+def context_entries(t: str, f: str, context_bn: bool = False) -> List[Entry]:
+    """The per-plane convtext stack `convs` (ref PSNet.py:64-72), a (1, k, k)
+    3D ContextNet in JAX (torch_port.py:268, `_context_2d_to_3d`)."""
+    e: List[Entry] = []
+    for i in range(7):
+        e += [("conv2d_to_3d", f"{t}.{i}.0", f"{f}/Conv3DMXU_{i}")]
+        if context_bn:
+            e += [("bn", f"{t}.{i}.1", f"{f}/BatchNorm_{i}")]
+    return e
+
+
 def psnet_entries(t: str = "depth_estimator", f: str = "depth_net",
                   context_bn: bool = False, dep_context: bool = True) -> List[Entry]:
     """PSNet (torch_port.py:232)."""
@@ -98,10 +109,7 @@ def psnet_entries(t: str = "depth_estimator", f: str = "depth_net",
         idx += 2
     e += _convbn3d(f"{t}.classify.0", f"{hg}/ConvBN3D_10")
     e += [("conv3d", f"{t}.classify.2", f"{hg}/Conv3DMXU_0")]
-    for i in range(7):
-        e += [("conv2d_to_3d", f"{t}.convs.{i}.0", f"{f}/ContextNet_0/Conv3DMXU_{i}")]
-        if context_bn:
-            e += [("bn", f"{t}.convs.{i}.1", f"{f}/ContextNet_0/BatchNorm_{i}")]
+    e += context_entries(f"{t}.convs", f"{f}/ContextNet_0", context_bn)
     if dep_context:
         for i in range(7):
             e += [("conv2d", f"{t}.dep_convs.{i}.0", f"{f}/DepthContextNet_0/Conv_{i}")]
@@ -267,6 +275,50 @@ def plainpose_entries(t: str = "posenet", f: str = "pose_net") -> List[Entry]:
 
 # ---- the reverse transforms ------------------------------------------------
 
+def panet_entries(t: str = "depth_estimator", f: str = "depth_net",
+                  context_bn: bool = False) -> List[Entry]:
+    """PANet (torch_port.py:286): SPP + dres00-03/classify0 + convs."""
+    e = spp_entries(f"{t}.feature_extraction", f"{f}/SPPFeatureExtractor_0")
+    hg = f"{f}/SmallHourglass3D_0"
+    e += _convbn3d(f"{t}.dres00.0", f"{hg}/ConvBN3D_0")
+    e += _convbn3d(f"{t}.dres00.2", f"{hg}/ConvBN3D_1")
+    idx = 2
+    for dres in ("dres01", "dres02", "dres03"):
+        e += _convbn3d(f"{t}.{dres}.0", f"{hg}/ConvBN3D_{idx}")
+        e += _convbn3d(f"{t}.{dres}.2", f"{hg}/ConvBN3D_{idx + 1}")
+        idx += 2
+    e += _convbn3d(f"{t}.classify0.0", f"{hg}/ConvBN3D_8")
+    e += [("conv3d", f"{t}.classify0.2", f"{hg}/Conv3DMXU_0")]
+    return e + context_entries(f"{t}.convs", f"{f}/ContextNet_0", context_bn)
+
+
+def regnet_entries(t: str = "depth_estimator", f: str = "depth_net",
+                   context_bn: bool = False) -> List[Entry]:
+    """REGNet (torch_port.py:304): SPP + posecnn0-4/predict + convs."""
+    e = spp_entries(f"{t}.feature_extraction", f"{f}/SPPFeatureExtractor_0")
+    e += _convbn3d(f"{t}.posecnn0.0", f"{f}/ConvBN3D_0")
+    e += _convbn3d(f"{t}.posecnn0.2", f"{f}/ConvBN3D_1")
+    idx = 2
+    for p in ("posecnn1", "posecnn2", "posecnn3", "posecnn4"):
+        e += _convbn3d(f"{t}.{p}.0", f"{f}/ConvBN3D_{idx}")
+        e += _convbn3d(f"{t}.{p}.2", f"{f}/ConvBN3D_{idx + 1}")
+        idx += 2
+    e += _convbn3d(f"{t}.predict.0", f"{f}/ConvBN3D_10")
+    e += [("conv3d", f"{t}.predict.2", f"{f}/Conv3DMXU_0")]
+    return e + context_entries(f"{t}.convs", f"{f}/ContextNet_0", context_bn)
+
+
+def depth_entries(depth: str, t: str = "depth_estimator", f: str = "depth_net",
+                  context_bn: bool = False, dep_context: bool = True) -> List[Entry]:
+    """The weight table of depth net `depth` (a key of DEPTH_ENTRIES);
+    `dep_context` is PSNet's alone."""
+    if depth not in DEPTH_ENTRIES:
+        raise KeyError(f"no weight table for depth estimator {depth}")
+    if depth == "PSNET":
+        return psnet_entries(t, f, context_bn=context_bn, dep_context=dep_context)
+    return DEPTH_ENTRIES[depth](t, f, context_bn=context_bn)
+
+
 def disp_transpose_perm(s2: int) -> np.ndarray:
     """The (u, v) <-> (v, u) displacement permutation (an involution)."""
     S = int(round(s2 ** 0.5))
@@ -344,16 +396,18 @@ def convert(variables: Dict[str, Any], entries: Sequence[Entry]) -> Dict[str, to
 
 
 FLOW_ENTRIES = {"DICL": dicl_entries, "PWC": pwc_entries, "RAFT": raft_entries}
+DEPTH_ENTRIES = {"PSNET": psnet_entries, "PANET": panet_entries, "REGNET": regnet_entries}
 
 
 def jax_params_to_torch(variables: Dict[str, Any], context_bn: bool = False,
-                        dep_context: bool = True,
-                        flow_estimator: str = "DICL") -> Dict[str, torch.Tensor]:
-    """State dict of the port's `SFMNet` (DICL, PWC-DC or RAFT flow + PSNet, and
-    PoseNet where the variables hold a `pose_net`, the POSENET route) from
-    the JAX `SFMNet` variables, under the reference's module names."""
-    entries = FLOW_ENTRIES[flow_estimator]() + psnet_entries(
-        context_bn=context_bn, dep_context=dep_context)
+                        dep_context: bool = True, flow_estimator: str = "DICL",
+                        depth_estimator: str = "PSNET") -> Dict[str, torch.Tensor]:
+    """State dict of the port's `SFMNet` (DICL, PWC-DC or RAFT flow + PSNet,
+    PANet or REGNet, and PoseNet where the variables hold a `pose_net`, the
+    POSENET route) from the JAX `SFMNet` variables, under the reference's
+    module names."""
+    entries = FLOW_ENTRIES[flow_estimator]() + depth_entries(
+        depth_estimator, context_bn=context_bn, dep_context=dep_context)
     if "pose_net" in variables["params"]:
         entries += plainpose_entries()
     return convert(variables, entries)
@@ -378,7 +432,7 @@ def load_reference_state(model: torch.nn.Module, sd: Dict[str, torch.Tensor],
                          pose: str | None = None) -> Dict[str, List[str]]:
     """Load into `model` the keys of the reference state dict `sd` that the
     weight tables of `flow` (a key of FLOW_ENTRIES, or None), `depth`
-    ("PSNET" or None) and `pose` ("POSENET" or None) cover; a network given
+    (a key of DEPTH_ENTRIES, or None) and `pose` ("POSENET" or None) cover; a network given
     as None is left untouched (the CLI passes no `pose`, as the JAX CLI's
     converter call does not, `cli.py:207-213`).
 
@@ -401,10 +455,8 @@ def load_reference_state(model: torch.nn.Module, sd: Dict[str, torch.Tensor],
         prefix = "flow_estimator" if any(k.startswith("flow_estimator.") for k in sd) else ""
         tables.append((FLOW_ENTRIES[flow](prefix, "flow_net"), prefix, "flow_estimator"))
     if depth is not None:
-        if depth != "PSNET":
-            raise KeyError(f"no weight table for depth estimator {depth}")
         prefix = "depth_estimator" if any(k.startswith("depth_estimator.") for k in sd) else ""
-        tables.append((psnet_entries(prefix, "depth_net", context_bn=context_bn,
+        tables.append((depth_entries(depth, prefix, "depth_net", context_bn=context_bn,
                                      dep_context=dep_context), prefix, "depth_estimator"))
     if pose is not None:
         if pose != "POSENET":

@@ -1610,3 +1610,143 @@ def test_raft_lookup_wrappers_refuse_what_the_kernels_do_not_take():
     with pytest.raises(ValueError, match="accumulator"):
         raft_lookup.raft_lookup_backward_cuda(coords, levels, dout, 4,
                                               [torch.zeros_like(lv).float() for lv in levels])
+
+
+# REGNet's sweep correlation (K1) and its backward (K2): (B, D, H, W, C, n)
+# with n^3 poses: an eval pair's shape (KITTI's 384x1280 at 1/4, 128 planes,
+# 125 poses), batch 2 with odd H and W and C = 8 (one 16-byte chunk in bf16),
+# a pose that puts the near planes behind the camera, one that pushes most
+# samples out of the frame
+CORR_CASES = [((1, 128, 96, 320, 32, 5), "forward"), ((2, 7, 13, 27, 8, 3), "forward"),
+              ((1, 16, 24, 40, 32, 3), "behind"), ((1, 16, 24, 40, 32, 3), "outward")]
+CORR_BWD_CASES = [((2, 32, 24, 48, 32, 5), "forward"), ((2, 7, 13, 27, 8, 3), "forward"),
+                  ((1, 16, 24, 40, 32, 3), "behind"), ((1, 16, 24, 40, 32, 3), "outward")]
+
+
+def _corr_inputs(shape, pose_kind, dtype, seed=0):
+    """ref, tgt, depths, M (B, S, 3, 3), Kt (B, S, 3) on the card: the sweep
+    inputs' features and pose, REGNet's pose grid around it."""
+    from deep_sfm_revisited_tpu_torch.models import depth_alternates as tda
+    from deep_sfm_revisited_tpu_torch.ops import rotations
+
+    B, D, H, W, C, n = shape
+    ref, tgt, depths, _, _ = _sweep_inputs((B, D, H, W, C), pose_kind, dtype, seed)
+    f = 718.856 / 4 * W / 320
+    K = torch.tensor([[f, 0, W / 2 - 0.4], [0, f, H / 2 + 0.3], [0, 0, 1]], device="cuda")
+    R = rotations.angle_to_matrix(torch.tensor([0.01, -0.02, 0.005], device="cuda"))
+    t = torch.tensor(SWEEP_T[pose_kind], device="cuda")[:, None]
+    poses = tda.sample_pose_grid(torch.cat([R, t], dim=1).expand(B, 3, 4), n, 0.12, 0.27)
+    S = poses.shape[1]
+    M, Kt = tcam.sweep_matrices(poses.reshape(B * S, 3, 4), K.expand(B * S, 3, 3),
+                                torch.linalg.inv(K).expand(B * S, 3, 3))
+    return ref, tgt, depths, M.reshape(B, S, 3, 3), Kt.reshape(B, S, 3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape,pose_kind", CORR_CASES)
+def test_sweep_correlation_matches_plain_on_card(shape, pose_kind, dtype):
+    """K1 against its plain version on the card, bit for bit (both sum a
+    sample's channels in order, op by op without FMA), with
+    channels-last-3d strides; one launch."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from deep_sfm_revisited_tpu_torch.ops.cuda import sweep_corr
+
+    ref, tgt, depths, M, Kt = _corr_inputs(shape, pose_kind, getattr(torch, dtype))
+    before = sweep_corr.CORRELATION.launches
+    got = sweep_corr.sweep_correlation_cuda(ref, tgt, depths, M.reshape(-1, 3, 3),
+                                            Kt.reshape(-1, 3))
+    torch.cuda.synchronize()
+    assert sweep_corr.CORRELATION.launches == before + 1
+    want = tcam.sweep_correlation_plain(ref, tgt, depths, M, Kt)
+    assert got.shape == want.shape and got.dtype == torch.float32
+    assert got.is_contiguous(memory_format=torch.channels_last_3d)
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+    if pose_kind != "forward":
+        assert (got == 0).any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape,pose_kind", CORR_BWD_CASES)
+def test_sweep_correlation_backward_matches_plain_on_card(shape, pose_kind, dtype):
+    """K2 against its plain version on the card: both gradients within 1e-5
+    of their largest element (the sums run in other orders, d tgt's with
+    atomics), plus one bf16 ulp of a bf16 gradient; d ref the same bits on
+    every launch."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from deep_sfm_revisited_tpu_torch.ops.cuda import sweep_corr
+
+    ref, tgt, depths, M, Kt = _corr_inputs(shape, pose_kind, getattr(torch, dtype))
+    B, D, H, W, C, n = shape
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    g = torch.randn(B, n ** 3, D, H, W, device="cuda", generator=gen).contiguous(
+        memory_format=torch.channels_last_3d)
+    before = sweep_corr.CORRELATION_BACKWARD.launches
+    args = (ref, tgt, depths, M.reshape(-1, 3, 3), Kt.reshape(-1, 3))
+    dref, dtgt = sweep_corr.sweep_correlation_backward_cuda(g, *args)
+    dref2, _ = sweep_corr.sweep_correlation_backward_cuda(g, *args)
+    torch.cuda.synchronize()
+    assert sweep_corr.CORRELATION_BACKWARD.launches == before + 2
+    assert torch.equal(dref, dref2)
+    want = tcam.sweep_correlation_backward_plain(g, ref, tgt, depths, M, Kt)
+    for got, ref_ in zip((dref, dtgt), want):
+        assert got.dtype == ref_.dtype and got.shape == ref_.shape
+        tol = _nchw_tolerance(ref_)
+        assert bool(((got.float() - ref_.float()).abs() <= tol).all())
+
+
+@pytest.mark.cuda
+def test_sweep_correlation_autograd_launches_both_kernels():
+    """`sweep_correlation` under autograd on the card: K1 forward, K2
+    backward, the gradients the wrappers give."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from deep_sfm_revisited_tpu_torch.models import depth_alternates as tda
+    from deep_sfm_revisited_tpu_torch.ops.cuda import sweep_corr
+
+    B, D, H, W, C = 1, 8, 12, 20, 32
+    ref, tgt, depths, _, _ = _sweep_inputs((B, D, H, W, C), "forward", torch.bfloat16)
+    K = torch.tensor([[20.0, 0, 9.6], [0, 20.0, 6.3], [0, 0, 1]], device="cuda")[None]
+    pose = torch.tensor([[1.0, 0, 0, 0.1], [0, 1, 0, 0], [0, 0, 1, 0.9]], device="cuda")[None]
+    poses = tda.sample_pose_grid(pose, 3, 0.12, 0.27)
+    r, t = ref.clone().requires_grad_(), tgt.clone().requires_grad_()
+    k1, k2 = sweep_corr.CORRELATION.launches, sweep_corr.CORRELATION_BACKWARD.launches
+    out = tcam.sweep_correlation(r, t, depths, poses, K, torch.linalg.inv(K))
+    g = torch.randn_like(out)
+    out.backward(g)
+    torch.cuda.synchronize()
+    assert (sweep_corr.CORRELATION.launches, sweep_corr.CORRELATION_BACKWARD.launches) == \
+        (k1 + 1, k2 + 1)
+    M, Kt = tcam.sweep_matrices(poses.reshape(-1, 3, 4), K.expand(27, 3, 3),
+                                torch.linalg.inv(K).expand(27, 3, 3))
+    dref, _ = sweep_corr.sweep_correlation_backward_cuda(
+        g.contiguous(memory_format=torch.channels_last_3d), ref, tgt, depths, M, Kt)
+    assert torch.equal(r.grad, dref) and t.grad.dtype == torch.bfloat16
+
+
+@pytest.mark.cuda
+def test_sweep_correlation_wrappers_refuse_what_the_kernels_do_not_take():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from deep_sfm_revisited_tpu_torch.ops.cuda import sweep_corr
+
+    # batch 2, so that 53 poses are no whole number a batch item
+    ref, tgt, depths, M, Kt = _corr_inputs((2, 4, 8, 12, 32, 3), "forward", torch.float32)
+    M, Kt = M.reshape(-1, 3, 3), Kt.reshape(-1, 3)
+    with pytest.raises(ValueError, match="CUDA"):
+        sweep_corr.sweep_correlation_cuda(ref.cpu(), tgt.cpu(), depths.cpu(), M.cpu(), Kt.cpu())
+    with pytest.raises(TypeError):
+        sweep_corr.sweep_correlation_cuda(ref.double(), tgt.double(), depths, M, Kt)
+    with pytest.raises(TypeError):
+        sweep_corr.sweep_correlation_cuda(ref, tgt.bfloat16(), depths, M, Kt)
+    with pytest.raises(ValueError, match="multiple of 16"):   # 6 float32: 24-byte rows
+        sweep_corr.sweep_correlation_cuda(ref[..., :6].contiguous(), tgt[..., :6].contiguous(),
+                                          depths, M, Kt)
+    with pytest.raises(ValueError, match="B S"):
+        sweep_corr.sweep_correlation_cuda(ref, tgt, depths, M[:-1], Kt[:-1])
+    g = torch.zeros(2, 27, 4, 8, 12, device="cuda")
+    with pytest.raises(ValueError, match="channels-last-3d"):
+        sweep_corr.sweep_correlation_backward_cuda(g, ref, tgt, depths, M, Kt)

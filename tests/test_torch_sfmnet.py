@@ -192,7 +192,7 @@ def test_pwc_route_is_supported():
     assert type(net.flow_estimator).__name__ == "PWCDCNet"
 
 
-@pytest.mark.parametrize("over", [{"depth.estimator": "REGNET"}, {"depth.estimator": "PANET"},
+@pytest.mark.parametrize("over", [{"depth.estimator": "REG2D"}, {"depth.estimator": "DISPNET"},
                                   {"pose.differentiable": True}])
 def test_routes_outside_the_slice_raise(over):
     with pytest.raises(NotImplementedError):

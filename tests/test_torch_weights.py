@@ -140,6 +140,41 @@ def test_reference_state_carries_the_pose_net_when_asked(posenet_variables, pose
                 assert torch.equal(v, sd[f"posenet.{k}"]), k
 
 
+@pytest.mark.parametrize("depth", ["PANET", "REGNET"])
+def test_depth_alternate_state_dict_loads_strictly_and_inverts(depth):
+    """PANet and REGNet (DICL flow): every flax leaf of the JAX SFMNet feeds
+    one tensor of the port's state dict, which loads strictly; the JAX
+    package's own tables (`torch_port.apply_entries`) rebuild the variables
+    from it; and
+    `load_reference_state` takes every key (`--pretrained-torch` stays
+    PSNet's only, as the JAX CLI's)."""
+    over = dict(OVER, **{"depth.estimator": depth})
+    net = JSFMNet(JConfig.kitti().override(**over))
+    x = jnp.zeros((1, 128, 128, 3), jnp.float32)
+    K = jnp.asarray([[[100.0, 0, 64], [0, 100.0, 64], [0, 0, 1]]], jnp.float32)
+    variables = random_variables(lambda r, t, k: net.init(
+        jax.random.PRNGKey(0), r, t, k, key=jax.random.PRNGKey(1)), x, x, K, seed=9)
+    sd = weights.jax_params_to_torch(variables, depth_estimator=depth)
+    load_strict(TSFMNet(TConfig.kitti().override(**over), device="cpu"), sd)
+    n_bn = sum(k.endswith("num_batches_tracked") for k in sd)
+    assert len(sd) - n_bn == len(jax.tree_util.tree_leaves(variables))
+    jtable = {"PANET": torch_port.panet_entries, "REGNET": torch_port.regnet_entries}[depth]
+    back, report = torch_port.apply_entries(
+        {k: v.numpy() for k, v in sd.items()}, variables,
+        torch_port.dicl_entries("flow_estimator", "flow_net")
+        + jtable("depth_estimator", "depth_net"))
+    assert not report["missing"]
+    for a, b in zip(jax.tree_util.tree_leaves(back), jax.tree_util.tree_leaves(variables)):
+        np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
+    fresh = TSFMNet(TConfig.kitti().override(**over), device="cpu", seed=4)
+    report = weights.load_reference_state(fresh, sd, "DICL", depth)
+    assert not report["missing"] and all(k.endswith("num_batches_tracked")
+                                         for k in report["unused"])
+    for k, v in fresh.state_dict().items():
+        if not k.endswith("num_batches_tracked"):
+            assert torch.equal(v, sd[k]), k
+
+
 def test_deconv_flip_matches_flax():
     """Flax ConvTranspose(k4, s2, SAME) == torch ConvTranspose2d(k4, s2, p1)
     with the bridge's channel swap and spatial flip."""
@@ -186,7 +221,8 @@ def test_port_imports_no_jax():
         "        'data.png', 'data.kitti', 'train.evaluate', 'train.metrics',\n"
         "        'models.posenet', 'train.odometry', 'train.pose_eval', 'data.velodyne',\n"
         "        'data.flow_io', 'data.flow_augment', 'data.flow_datasets',\n"
-        "        'train.flow_trainer', 'train.flow_eval']\n"
+        "        'train.flow_trainer', 'train.flow_eval', 'models.depth_alternates',\n"
+        "        'ops.cuda.sweep_corr']\n"
         "missing = [m for m in need if p.__name__ + '.' + m not in sys.modules]\n"
         "assert not missing, missing\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'flax',"
